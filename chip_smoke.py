@@ -8,26 +8,42 @@ Run from the repository root. Phases, each of which must pass:
 1. build the Hopper kernels from the ``.cu`` sources in
    ``forwardtacotron_torch/ops/hopper`` with nvcc (one process per source,
    all started together);
-2. hold each kernel against its plain-PyTorch twin on the card at the
-   shapes the main path gives it, and time both (CUDA events, median of
-   20 runs after warm-up);
-3. drive the main path at full width: ``configs/singlespeaker.yaml`` with
+2. float32: hold each slice-1 kernel against its plain-PyTorch twin on the
+   card at the shapes the float32 path gives it, and time both (CUDA
+   events, median of 20 runs after warm-up);
+3. the float32 path at full width: ``configs/singlespeaker.yaml`` with
    seeded random weights, 4 sentences of ``sentences.txt`` through
    ``TTSInference.generate_cropped`` and ``DSP.griffinlim``, with every
    kernel's launch count set to 0 just before and read just after, and the
    profiler showing which device kernels ran;
-4. check the output: finite values of the expected lengths, and agreement
-   with the plain path run on the CPU for one sentence.
+4. check its output: finite values of the expected lengths, and agreement
+   with the plain path run on the CPU for one sentence;
+5. bfloat16: hold every kernel of the serving and two-phase paths (and the
+   bf16 entries of the slice-1 kernels) against its twin in bf16 on the
+   card, at one serving call's shapes and at one request's, and time it
+   beside its twin and, for the recurrences, cuDNN's bidirectional
+   ``nn.LSTM`` / ``nn.GRU`` as a yardstick the port never calls;
+6. the bfloat16 serving path as ``bench.py`` shapes it: its 8 sentences
+   tiled to batch 4096, 3 frames per token, ``max_len`` 256, routed to
+   16-frame buckets, through ``TTSInference.generate_fused``: launch counts
+   per call, the profiler, audio-s/s over trials and the device idle share;
+7. the bfloat16 two-phase path: the 4 requests through ``generate_cropped``
+   and as one batch through ``generate_routed``, with launch counts;
+8. a bfloat16 reference: one small batch through ``generate_fused`` on the
+   card and on the CPU plain path.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
-build, one line per kernel comparison, the main-path stages, then a JSON
-line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+build, one line per kernel comparison, the paths' stages, then a JSON line
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without the last line, as does a machine without
 a CUDA device or a directory without the repository. The profiler's kernel
-table goes to ``chiprun_out/chip_smoke_profile.txt``.
+tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path) and
+``chiprun_out/chip_smoke_serving_profile.txt`` (serving path).
 """
 
+import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +73,35 @@ KERNEL_TOL = 1e-4
 SC_REL_TOL = 0.01
 # full model on card vs CPU plain path, mel max abs error
 E2E_MEL_ATOL = 1e-3
+# bf16 tensor-core peak (dense), for the bounds of the bf16 kernels
+PEAK_BF16_FLOPS = 989e12
+# bf16 kernel vs twin: both round at the same points, but a float32 sum in
+# another order can land on the neighbouring bf16 value (2^-8 relative) and
+# a recurrence carries it on: max abs error over max(1, max |twin|); inside
+# the JAX package's bf16 kernel tolerance of 5e-2
+BF16_TOL = 3e-2
+# bf16 full model on the card vs the CPU plain path (both bf16, other sum
+# orders in every kernel): mel max abs error over max(1, max |mel|)
+E2E_BF16_TOL = 5e-2
+# the serving path as bench.py shapes it (bench.py:20-30, 44-99)
+BENCH_SENTENCES = [
+    'ðə kwɪk bɹaʊn fɑks dʒʌmps oʊvɚ ðə leɪzi dɔɡ ænd ɹʌnz əweɪ ɪntʊ ðə fɔɹɪst.',
+    'ɪn ə taʊn wɛɹ ðə ɹɪvɚ bɛndz, ðə laɪts ʃaɪn leɪt ɪntʊ ðə naɪt wɪθ ə wɔɹm gloʊ.',
+    'sɪnθəsɪs ɑn ə tɛnsɚ pɹoʊsɛsɪŋ junɪt ɪz fæst wɛn ðə kɑmpaɪlɚ kæn taɪl ɛvɹi mætmʌl.',
+    'ʃi soʊld siʃɛlz baɪ ðə siʃɔɹ waɪl ðə weɪvz keɪm ɪn wʌn æftɚ ənʌðɚ wɪðaʊt ɛnd.',
+    'ə lɔŋ sɛntəns wɪθ mɛni fəʊnimz wɪl tɛst ðə lɛŋθ ɹɛgjəleɪtɚ ænd ðə dikoʊdɚ tugɛðɚ.',
+    'tumɔɹoʊ mɔɹnɪŋ ðə tɹeɪn livz æt sɛvən θɝti fɹʌm plætfɔɹm naɪn ænd ə hæf.',
+    'ɛvɹi gʊd bɔɪ dʌz faɪn ænd ɛvɹi gʊd gɝl dʌz bɛtɚ ðæn ɛvɚ bɪfɔɹ.',
+    'ðɪs ɪz ðə faɪnəl sɛntəns ʌv ðə bɛntʃmɑɹk sɛt, ʃɔɹt ænd tu ðə pɔɪnt.',
+]
+SERVING_BATCH = 4096
+# a first serving call longer than this drops the batch to 1024
+SERVING_CALL_LIMIT_S = 10.0
+SERVING_MAX_LEN = 256
+SERVING_BUCKET = 16
+# every sentence, padding tokens included, fits the 256-frame budget
+SERVING_FRAMES_PER_TOKEN = 3
+SERVING_ITERS, SERVING_TRIALS = 4, 3
 
 
 def fail(msg: str) -> None:
@@ -85,10 +130,10 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of operations over the float32 peak
-    and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """(bound_ms, bound_by): the larger of operations over the peak rate of
+    their type (float32 by default) and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes \
         else 'bytes'
 
@@ -161,9 +206,41 @@ def make_model(torch, config):
                 buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
             elif name.endswith('running_var'):
                 buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    return set_frames_per_token(torch, model, FRAMES_PER_TOKEN)
+
+
+def set_frames_per_token(torch, model, frames: int):
+    """Make the duration head predict ``frames`` for every token."""
+    with torch.no_grad():
         model.dur_pred.lin.weight.zero_()
-        model.dur_pred.lin.bias.fill_(float(FRAMES_PER_TOKEN))
+        model.dur_pred.lin.bias.fill_(float(frames))
     return model
+
+
+def reset_counts() -> None:
+    from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
+                                                  lr_bidir, rnn)
+    highway.launches = cbhg.launches = griffin_lim.launches = 0
+    lr_bidir.launches = 0
+    for key in rnn.launches:
+        rnn.launches[key] = 0
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count, one key per launch site."""
+    from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
+                                                  lr_bidir, rnn)
+    return {'pre_highway_stack': highway.launches, 'cbhg_front': cbhg.launches,
+            'griffin_lim_iter': griffin_lim.launches,
+            'lr_bidir': lr_bidir.launches, **rnn.launches}
+
+
+def expect_counts(label: str, launches: dict, **want) -> None:
+    """Fail unless the counts are ``want`` and every other count is 0."""
+    full = {k: want.get(k, 0) for k in launches}
+    log(f'{label} launches: {launches}')
+    if launches != full:
+        fail(f'{label}: launch counts {launches}, expected {full}')
 
 
 def kernel_phase(torch, model, config, n_tok, n_frames):
@@ -302,16 +379,45 @@ KERNEL_NAMES = {'pre_highway_stack': ['pre_highway_stack_kernel'],
                                      'gl_dft_update_kernel']}
 
 
+def device_profile(prof, label: str, table_file: str, kernel_names) -> float:
+    """Device busy ms of a profiled run; logs its largest device kernels,
+    writes the kernel table to chiprun_out/, and fails if the profiler
+    recorded device time but no device kernel matches one of the
+    ``kernel_names`` patterns (regular expressions)."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    kernels_run = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_names = [e.key for e in kernels_run]
+    busy_ms = sum(e.self_device_time_total for e in kernels_run) / 1e3
+    log(f'profiled {label}: device busy {busy_ms:.1f} ms in '
+        f'{sum(e.count for e in kernels_run)} device events')
+    for e in sorted(kernels_run, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f'  device {e.self_device_time_total / 1e3:9.3f} ms '
+            f'{e.count:6d} calls  {e.key[:70]}')
+    out_dir = REPO / 'chiprun_out'
+    out_dir.mkdir(exist_ok=True)
+    table = events.table(sort_by='device_time_total', row_limit=40)
+    (out_dir / table_file).write_text(table)
+    if device_names:
+        for names in kernel_names.values():
+            for n in names:
+                if not any(re.search(n, d) for d in device_names):
+                    fail(f'{label}: profiler shows no {n} on the device')
+        log(f'profiler: all {sum(map(len, kernel_names.values()))} kernel '
+            f'functions ran on the device ({len(device_names)} device '
+            'event names recorded)')
+    else:
+        log('profiler: recorded no device time; the launch counts above '
+            'are the evidence')
+    return busy_ms
+
+
 def main_path_phase(torch, model, config, tokens):
     """Text -> mel -> wav for every request, counts and profiler around it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from forwardtacotron_torch.dsp.dsp import DSP
     from forwardtacotron_torch.models.synthesis import TTSInference
-    from forwardtacotron_torch.ops.hopper import cbhg, griffin_lim, highway
-    mods = {'pre_highway_stack': highway, 'cbhg_front': cbhg,
-            'griffin_lim_iter': griffin_lim}
 
     inference = TTSInference(model, device='cuda')
     dsp = DSP.from_config(config, device='cuda')
@@ -326,13 +432,11 @@ def main_path_phase(torch, model, config, tokens):
         return out, wav, t1 - t0, time.perf_counter() - t1
 
     run(tokens[0][:8])                        # warm-up: library loads
-    for m in mods.values():
-        m.launches = 0
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         outs = [run(toks) for toks in tokens]
-    launches = {k: m.launches for k, m in mods.items()}
-    log(f'main path launches: {launches}')
+    launches = read_counts()
 
     # expected outputs: every token lasts FRAMES_PER_TOKEN frames
     hop = config['dsp']['hop_length']
@@ -347,36 +451,13 @@ def main_path_phase(torch, model, config, tokens):
         if not (np.isfinite(out['mel_post']).all()
                 and np.isfinite(wav).all()):
             fail(f'request {i}: non-finite output')
-    want = {'pre_highway_stack': 2 * len(tokens),
-            'cbhg_front': len(tokens), 'griffin_lim_iter': 32 * len(tokens)}
-    if launches != want:
-        fail(f'launch counts {launches}, expected {want}')
+    # float32 keeps the per-step recurrences: no recurrent kernel runs
+    expect_counts('float32 path', launches,
+                  pre_highway_stack=2 * len(tokens), cbhg_front=len(tokens),
+                  griffin_lim_iter=32 * len(tokens))
 
-    # the profiler's view of the same run
-    events = prof.key_averages()
-    kernels_run = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_names = [e.key for e in kernels_run]
-    busy_ms = sum(e.self_device_time_total for e in kernels_run) / 1e3
-    log(f'profiled main path: device busy {busy_ms:.1f} ms in '
-        f'{sum(e.count for e in kernels_run)} device events')
-    for e in sorted(kernels_run, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f'  device {e.self_device_time_total / 1e3:9.3f} ms '
-            f'{e.count:6d} calls  {e.key[:70]}')
-    out_dir = REPO / 'chiprun_out'
-    out_dir.mkdir(exist_ok=True)
-    table = events.table(sort_by='device_time_total', row_limit=40)
-    (out_dir / 'chip_smoke_profile.txt').write_text(table)
-    if device_names:
-        for names in KERNEL_NAMES.values():
-            for n in names:
-                if not any(n in d for d in device_names):
-                    fail(f'profiler shows no {n} on the device')
-        log(f'profiler: all {sum(map(len, KERNEL_NAMES.values()))} kernel '
-            f'functions ran on the device ({len(device_names)} device '
-            'event names recorded)')
-    else:
-        log('profiler: recorded no device time; the launch counts above '
-            'are the evidence')
+    busy_ms = device_profile(prof, 'main path', 'chip_smoke_profile.txt',
+                             KERNEL_NAMES)
 
     # per-stage times, a second run without the profiler
     log('main path stages (host clock, synchronized):')
@@ -397,8 +478,6 @@ def main_path_phase(torch, model, config, tokens):
 def reference_phase(torch, model, config, tokens, outs):
     """One request through the plain path on the CPU (twins, no kernels)
     against the card's result."""
-    import copy
-
     from forwardtacotron_torch.dsp.dsp import DSP
     from forwardtacotron_torch.models.synthesis import TTSInference
     i = min(range(len(tokens)), key=lambda j: len(tokens[j]))
@@ -429,6 +508,363 @@ def reference_phase(torch, model, config, tokens, outs):
         fail('griffinlim disagrees with the CPU plain path')
 
 
+# ------------------------------------------------------------- bfloat16
+
+# the recurrent kernel's template instances: rnn.cu Mode values
+RNN_MODES = {'gru': 0, 'lstm': 1, 'gru_xp': 2, 'lstm_mel': 3}
+SERVING_KERNEL_NAMES = {
+    'pre_highway_stack': ['pre_highway_stack_kernel'],
+    'cbhg_front': ['cbhg_front_kernel'],
+    'lr_bidir': ['lr_bidir_kernel'],
+    **{k: [rf'rnn_kernel<(\(int\))?{m}>'] for k, m in RNN_MODES.items()
+       if k != 'lstm'}}
+
+
+def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
+               library=None):
+    """Kernel vs twin on the same bf16 inputs, then CUDA-event times of the
+    kernel, the twin and (where one exists) one library call."""
+    err = compare(torch, name, kernel(*args).float(), plain(*args).float(),
+                  BF16_TOL)
+    k_ms = time_ms(torch, lambda: kernel(*args))
+    p_ms = time_ms(torch, lambda: plain(*args))
+    l_ms = None if library is None else time_ms(torch, library)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
+        f'{"-" if l_ms is None else f"{l_ms:.4f} ms"}, bound {b_ms:.4f} ms '
+        f'({b_by})')
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def cudnn_rnn(torch, cell: str, in_dim: int, hidden: int, x2):
+    """One call of cuDNN's bidirectional nn.LSTM / nn.GRU in bf16 on
+    direction 0 of x2 [T, 2, B, I]: the yardstick of the recurrent rows."""
+    cls = torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU
+    mod = cls(in_dim, hidden, bidirectional=True).to('cuda', torch.bfloat16)
+    mod.flatten_parameters()
+    x = x2[:, 0].contiguous()
+    return lambda: mod(x)
+
+
+def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
+                      two_phase):
+    """Every bf16 kernel against its twin at one shape set: ``batch``
+    items of ``n_tok`` tokens, ``frames`` valid frames each, a decode
+    budget of ``t_budget`` frames. ``two_phase`` adds the recurrences only
+    the two-phase path runs (prenet and pitch GRUs) and the LSTM body,
+    which serves ``BiLSTM.forward`` in bf16 where the fused trunk's gate
+    fails (no path of the full-width model reaches it)."""
+    from forwardtacotron_torch.models import layers
+    from forwardtacotron_torch.ops.hopper import cbhg, highway, lr_bidir, rnn
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    log(f'bf16 kernels, {label}: B={batch}, {n_tok} tokens, {frames} '
+        f'frames, budget {t_budget}')
+    res = {}
+    b, n, t = batch, n_tok, t_budget
+    t_run = -(-t // lr_bidir.T_TILE) * lr_bidir.T_TILE
+
+    # pre_highway_stack: prenet (N = tokens, 256 -> 256) and postnet
+    # (N = frames, 80 -> 256), the two launches of one call
+    parts = []
+    for mod, rows in ((model.prenet, b * n), (model.postnet, b * t)):
+        c_in, c = mod.pre_highway.weight.shape[1], mod.channels
+        log(f'  pre_highway_stack bf16 N={rows} C_in={c_in}')
+        layers_n = len(mod.highways)
+        flops = 2 * rows * c_in * c + layers_n * 2 * rows * c * 2 * c
+        nbytes = 2 * (2 * rows * c_in + c_in * c + layers_n * 2 * c * c
+                      + rows * c) + 4 * layers_n * 2 * c
+        parts.append(bf16_check(
+            torch, f'N={rows}', highway.pre_highway_stack,
+            highway.pre_highway_stack_plain,
+            mod.highway_args(randn(rows, c_in), randn(rows, c_in)),
+            flops, nbytes))
+    res['pre_highway_stack'] = {
+        k: (max(p[k] for p in parts) if k == 'max_abs_err'
+            else parts[0][k] if k == 'bound_by'
+            else None if k == 'library_ms' else sum(p[k] for p in parts))
+        for k in parts[0]}
+
+    # cbhg_front: the postnet front at the decode budget, tail masked
+    post = model.postnet
+    log(f'  cbhg_front bf16 B={b} T={t} (valid {frames})')
+    mask = (torch.arange(t, device=dev) < frames).float().expand(b, t)
+    x = randn(b, t, 80) * mask[:, :, None].to(bf)
+    k_max, c, p = post.K, post.channels, 256
+    sum_k = k_max * (k_max + 1) // 2
+    res['cbhg_front'] = bf16_check(
+        torch, f'B={b} T={t}', cbhg.bank_pool_proj, cbhg.bank_pool_proj_plain,
+        post.front_args(x, mask),
+        2 * b * t * (sum_k * 80 * c + 3 * k_max * c * p),
+        2 * (b * t * 80 + sum_k * 80 * c + 3 * k_max * c * p + b * t * p)
+        + 4 * (b * t + 2 * k_max * c + 2 * p))
+
+    # gru_from_xp: the four token GRUs as one block-diagonal H=512 GRU
+    rnns = [model.dur_pred.rnn, model.pitch_pred.rnn, model.energy_pred.rnn,
+            model.prenet.rnn]
+    wh, bh = layers.multi_gru_weights(rnns)
+    h = wh.shape[1]
+    log(f'  gru_from_xp T={n} B={b} H={h}')
+    res['gru_from_xp'] = bf16_check(
+        torch, f'T={n} B={b}', rnn.gru_xp, rnn.gru_xp_plain,
+        (randn(n, 2, b, 3 * h, scale=0.5), wh, bh),
+        n * 2 * b * 2 * h * 3 * h,
+        2 * (n * 2 * b * 3 * h + 2 * h * 3 * h + 2 * 3 * h + n * 2 * b * h))
+
+    # lr_bidir: tokens of C=512 -> [t_run, 2, B, 512], frames/n per token
+    c_tok = 2 * model.prenet.channels
+    reps = torch.full((b, n), frames // n, dtype=torch.int32, device=dev)
+    ends = torch.cumsum(reps, dim=1, dtype=torch.int32)
+    log(f'  lr_bidir B={b} N={n} C={c_tok} T_run={t_run}')
+    res['lr_bidir'] = bf16_check(
+        torch, f'T_run={t_run}', lr_bidir.length_regulator_bidir,
+        lr_bidir.length_regulator_bidir_plain,
+        (randn(b, n, c_tok), ends, t_run), 0,
+        2 * b * n * c_tok + 4 * b * n + 2 * t_run * 2 * b * c_tok)
+
+    # lstm_lr_mel: the bi-LSTM H=512 over t_run frames, mel stage M=80
+    wi, wh, bi, bh = model.lstm.stacked_params()
+    wm = layers.mel_weights(model.lstm, model.lin)
+    i_dim, h = wi.shape[1], wh.shape[1]
+    m = wm.shape[-1]
+    x2 = randn(t_run, 2, b, i_dim, scale=0.5)
+    log(f'  lstm_lr_mel T_run={t_run} B={b} I={i_dim} H={h} M={m} '
+        '(library: cuDNN bi-LSTM, without the mel stage)')
+    res['lstm_lr_mel'] = bf16_check(
+        torch, f'T_run={t_run} B={b}', rnn.lstm_mel, rnn.lstm_mel_plain,
+        (x2, wi, wh, bi + bh, wm),
+        t_run * 2 * b * 2 * ((i_dim + h) * 4 * h + h * m),
+        2 * (t_run * 2 * b * i_dim + 2 * (i_dim + h) * 4 * h + 2 * 4 * h
+             + 2 * h * m + t_run * 2 * b * m),
+        cudnn_rnn(torch, 'lstm', i_dim, h, x2))
+
+    # bidir_rnn, GRU body: the postnet GRU over the decode budget
+    def bidir(name, mod, steps, cell):
+        wi, wh, bi, bh = mod.stacked_params()
+        i_dim, h = wi.shape[1], wh.shape[1]
+        g = wi.shape[2]
+        x2 = randn(steps, 2, b, i_dim, scale=0.5)
+        log(f'  bidir_rnn {name} T={steps} B={b} I={i_dim} H={h} '
+            f'(library: cuDNN bi-{cell.upper()})')
+        if cell == 'gru':
+            kernel, plain, args = rnn.gru, rnn.gru_plain, (x2, wi, wh, bi, bh)
+        else:
+            kernel, plain, args = rnn.lstm, rnn.lstm_plain, (x2, wi, wh,
+                                                             bi + bh)
+        return bf16_check(
+            torch, f'{name} T={steps}', kernel, plain, args,
+            steps * 2 * b * 2 * (i_dim + h) * g,
+            2 * (steps * 2 * b * i_dim + 2 * (i_dim + h) * g + 4 * g
+                 + steps * 2 * b * h),
+            cudnn_rnn(torch, cell, i_dim, h, x2))
+
+    res['bidir_rnn'] = bidir('postnet GRU', model.postnet.rnn, t, 'gru')
+    if two_phase:
+        bidir('prenet GRU', model.prenet.rnn, n, 'gru')
+        bidir('pitch GRU', model.pitch_pred.rnn, n, 'gru')
+        bidir('LSTM body', model.lstm, t, 'lstm')
+    for r in res.values():
+        r['at'] = label
+    return res
+
+
+def serving_phase(torch, model, config):
+    """generate_fused as bench.py drives it: one profiling call at the full
+    budget, requests routed to 16-frame buckets, every group warmed, then
+    SERVING_TRIALS trials of SERVING_ITERS iterations over all groups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+
+    hop, sr = config['dsp']['hop_length'], config['dsp']['sample_rate']
+    token_lists = [Tokenizer()(s) for s in BENCH_SENTENCES]
+    n_tok = max(len(t) for t in token_lists)
+    inference = TTSInference(set_frames_per_token(
+        torch, model, SERVING_FRAMES_PER_TOKEN), dtype='bfloat16',
+        device='cuda')
+
+    def requests(batch):
+        x = np.zeros((batch, n_tok), np.int64)
+        for i in range(batch):
+            toks = token_lists[i % len(token_lists)]
+            x[i, :len(toks)] = toks
+        return torch.as_tensor(x, device='cuda')
+
+    def timed_call(xd, max_len):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inference.generate_fused(xd, max_len=max_len)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    batch = SERVING_BATCH
+    xd = requests(batch)
+    timed_call(xd[:8], SERVING_MAX_LEN)       # warm-up: library loads
+    out, first_s = timed_call(xd, SERVING_MAX_LEN)
+    log(f'serving: first generate_fused call, batch {batch}, max_len '
+        f'{SERVING_MAX_LEN}: {first_s:.3f} s')
+    if first_s > SERVING_CALL_LIMIT_S:
+        batch = 1024
+        log(f'serving: over {SERVING_CALL_LIMIT_S:g} s, batch dropped to '
+            f'{batch}')
+        xd = requests(batch)
+        out, first_s = timed_call(xd, SERVING_MAX_LEN)
+    mel_lens = np.minimum(out['mel_len'].cpu().numpy(), SERVING_MAX_LEN)
+    if not (mel_lens == SERVING_FRAMES_PER_TOKEN * n_tok).all():
+        fail(f'serving: mel_len {np.unique(mel_lens)}, expected '
+             f'{SERVING_FRAMES_PER_TOKEN * n_tok} for every request')
+    buckets = np.minimum(-(-np.maximum(mel_lens, 1) // SERVING_BUCKET)
+                         * SERVING_BUCKET, SERVING_MAX_LEN)
+    groups = []
+    for bucket in np.unique(buckets):
+        idx = np.nonzero(buckets == bucket)[0]
+        groups.append((xd[torch.as_tensor(idx, device='cuda')], int(bucket),
+                       int(np.minimum(mel_lens[idx], bucket).sum())))
+    frames_per_iter = sum(g[2] for g in groups)
+    log(f'serving: {len(groups)} bucket group(s) '
+        f'{[(len(g[0]), g[1]) for g in groups]} (batch, frames)')
+
+    def iteration():
+        return [inference.generate_fused(xg, max_len=bk)
+                for xg, bk, _ in groups]
+
+    iteration()
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = iteration()
+    torch.cuda.synchronize()
+    n_calls = len(groups)
+    # one call: the 4 token GRUs as one gru_xp, LR + LSTM-mel, the
+    # postnet GRU, both highway stacks, the postnet front
+    expect_counts('serving path', read_counts(), gru_xp=n_calls,
+                  lr_bidir=n_calls, lstm_mel=n_calls, gru=n_calls,
+                  pre_highway_stack=2 * n_calls, cbhg_front=n_calls)
+    launches = read_counts()
+    n_mels = config['dsp']['num_mels']
+    for (xg, bk, _), o in zip(groups, outs):
+        if o['mel_post'].shape != (len(xg), bk, n_mels) \
+                or not bool(torch.isfinite(o['mel_post']).all()):
+            fail(f'serving: bad mel_post {tuple(o["mel_post"].shape)}')
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        iteration()
+        torch.cuda.synchronize()
+    busy_ms = device_profile(prof, 'serving iteration',
+                             'chip_smoke_serving_profile.txt',
+                             SERVING_KERNEL_NAMES)
+
+    rates, walls = [], []
+    for _ in range(SERVING_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVING_ITERS):
+            iteration()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        walls.append(elapsed / SERVING_ITERS)
+        rates.append(SERVING_ITERS * frames_per_iter * hop / sr / elapsed)
+    wall_ms = statistics.median(walls) * 1e3
+    stats = dict(batch=batch, groups=[(len(g[0]), g[1]) for g in groups],
+                 audio_s_per_iter=frames_per_iter * hop / sr,
+                 audio_s_per_s=sorted(rates), iteration_ms=wall_ms,
+                 device_busy_ms=busy_ms, idle=1 - busy_ms / wall_ms)
+    log(f'serving: {frames_per_iter} frames = '
+        f'{stats["audio_s_per_iter"]:.1f} audio-s per iteration; '
+        f'{SERVING_TRIALS} trials x {SERVING_ITERS} iterations: audio-s/s '
+        f'min {min(rates):.1f} median {statistics.median(rates):.1f} max '
+        f'{max(rates):.1f}; iteration {wall_ms:.2f} ms wall (median), '
+        f'device busy {busy_ms:.2f} ms (profiled iteration): idle '
+        f'{100 * stats["idle"]:.1f}%')
+    return launches, stats
+
+
+def two_phase_bf16_phase(torch, model, tokens):
+    """The 4 requests, bf16, through generate_cropped one at a time and
+    through generate_routed as one batch."""
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    inference = TTSInference(set_frames_per_token(torch, model,
+                                                  FRAMES_PER_TOKEN),
+                             dtype='bfloat16', device='cuda')
+    inference.generate_cropped(tokens[0][:8])
+    torch.cuda.synchronize()
+    reset_counts()
+    for i, toks in enumerate(tokens):
+        t0 = time.perf_counter()
+        out = inference.generate_cropped(toks)
+        torch.cuda.synchronize()
+        frames = FRAMES_PER_TOKEN * len(toks)
+        if out['mel_post'].shape != (80, frames) \
+                or not np.isfinite(out['mel_post']).all():
+            fail(f'bf16 request {i}: mel_post {out["mel_post"].shape}')
+        log(f'  bf16 request {i}: {len(toks)} tokens -> {frames} frames: '
+            f'text->mel {(time.perf_counter() - t0) * 1e3:.1f} ms')
+    n = len(tokens)
+    # per request: prenet, postnet and pitch GRUs (the H=64 predictor GRUs
+    # stay loops), LR + LSTM-mel, both highway stacks, the postnet front
+    expect_counts('bf16 generate', read_counts(), gru=3 * n, lr_bidir=n,
+                  lstm_mel=n, pre_highway_stack=2 * n, cbhg_front=n)
+
+    x = np.zeros((n, max(map(len, tokens))), np.int64)
+    for i, toks in enumerate(tokens):
+        x[i, :len(toks)] = toks
+    reset_counts()
+    t0 = time.perf_counter()
+    out = inference.generate_routed(x, frame_bucket=SERVING_BUCKET)
+    torch.cuda.synchronize()
+    lens = out['mel_len'].cpu().numpy()
+    groups = len(np.unique(-(-lens // SERVING_BUCKET)))
+    log(f'  bf16 generate_routed, {n} requests: {groups} group(s), '
+        f'{(time.perf_counter() - t0) * 1e3:.1f} ms')
+    if not bool(torch.isfinite(out['mel_post']).all()):
+        fail('bf16 generate_routed: non-finite mel_post')
+    expect_counts('bf16 generate_routed', read_counts(), gru=1 + 2 * groups,
+                  lr_bidir=groups, lstm_mel=groups,
+                  pre_highway_stack=2 * groups, cbhg_front=groups)
+
+
+def bf16_reference_phase(torch, model):
+    """Two bench sentences through generate_fused on the card and on the
+    CPU plain path, both bf16 (the model's duration head as left by the
+    serving phase)."""
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+    toks = [Tokenizer()(s) for s in BENCH_SENTENCES[6:]]
+    x = np.zeros((len(toks), max(map(len, toks))), np.int64)
+    for i, t in enumerate(toks):
+        x[i, :len(t)] = t
+    gpu = TTSInference(model, dtype='bfloat16', device='cuda')
+    got = gpu.generate_fused(x, max_len=SERVING_MAX_LEN)
+    cpu = TTSInference(copy.deepcopy(model).cpu(), dtype='bfloat16',
+                       device='cpu')
+    ref = cpu.generate_fused(x, max_len=SERVING_MAX_LEN)
+    if not torch.equal(got['mel_len'].cpu(), ref['mel_len']):
+        fail('bf16 reference: mel_len differs between card and CPU')
+    err, scale = 0.0, 1.0
+    for key in ('mel', 'mel_post'):
+        for i, n in enumerate(ref['mel_len'].tolist()):
+            g = got[key][i, :n].float().cpu()
+            r = ref[key][i, :n].float()
+            err = max(err, float((g - r).abs().max()))
+            scale = max(scale, float(r.abs().max()))
+    ok = err <= E2E_BF16_TOL * scale
+    log(f'bf16 reference: generate_fused of {len(toks)} sentences on the '
+        f'card vs the CPU plain path, mel/mel_post max abs err {err:.3e}, '
+        f'scale {scale:.3e} (tol {E2E_BF16_TOL:g} x scale) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('bf16 serving path disagrees with the CPU plain path')
+    return err
+
+
 def main() -> None:
     try:
         import torch
@@ -444,6 +880,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from forwardtacotron_torch.ops.hopper import build
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
     from forwardtacotron_torch.utils.files import read_config
 
     card = nvidia_smi()
@@ -462,20 +899,58 @@ def main() -> None:
     launches, outs = main_path_phase(torch, model, config, tokens)
     reference_phase(torch, model, config, tokens, outs)
 
-    sources = {'pre_highway_stack': ('highway.cu', 'highway.py:113'),
-               'cbhg_front': ('cbhg_front.cu', 'cbhg.py:184'),
-               'griffin_lim_iter': ('griffin_lim.cu', 'griffin_lim.py:171')}
+    # bfloat16: a copy of the same weights, cast as TTSInference casts them
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    serving_tok = max(len(Tokenizer()(s)) for s in BENCH_SENTENCES)
+    serving_frames = SERVING_FRAMES_PER_TOKEN * serving_tok
+    with torch.inference_mode():
+        bf16_kernel_phase(torch, model16, 'one request', 1, n_tok, n_frames,
+                          -(-n_frames // 128) * 128, two_phase=True)
+    serving_launches, serving = serving_phase(torch, model16, config)
+    with torch.inference_mode():
+        results16 = bf16_kernel_phase(
+            torch, model16, f'one serving call, batch {serving["batch"]}',
+            serving['batch'], serving_tok, serving_frames,
+            serving['groups'][-1][1], two_phase=False)
+    log('bf16 two-phase path (host clock, synchronized):')
+    two_phase_bf16_phase(torch, model16, tokens)
+    with torch.inference_mode():
+        set_frames_per_token(torch, model16, SERVING_FRAMES_PER_TOKEN)
+    bf16_reference_phase(torch, model16)
+
+    rows = [  # (name, results, launches, source, TPU kernel body)
+        ('pre_highway_stack', results, launches['pre_highway_stack'],
+         'highway.cu', 'highway.py:113'),
+        ('cbhg_front', results, launches['cbhg_front'], 'cbhg_front.cu',
+         'cbhg.py:184'),
+        ('griffin_lim_iter', results, launches['griffin_lim_iter'],
+         'griffin_lim.cu', 'griffin_lim.py:171'),
+        ('pre_highway_stack_bf16', results16,
+         serving_launches['pre_highway_stack'], 'highway.cu',
+         'highway.py:113'),
+        ('cbhg_front_bf16', results16, serving_launches['cbhg_front'],
+         'cbhg_front.cu', 'cbhg.py:184'),
+        ('gru_from_xp', results16, serving_launches['gru_xp'], 'rnn.cu',
+         'rnn.py:218'),
+        ('lr_bidir', results16, serving_launches['lr_bidir'], 'lr_bidir.cu',
+         'length_regulator.py:131'),
+        ('lstm_lr_mel', results16, serving_launches['lstm_mel'], 'rnn.cu',
+         'rnn.py:149'),
+        ('bidir_rnn', results16,
+         serving_launches['gru'] + serving_launches['lstm'], 'rnn.cu',
+         'rnn.py:188')]
     kernels = []
-    for name, (src, tpu) in sources.items():
-        r = results[name]
+    for name, res, n_launches, src, tpu in rows:
+        r = res[name.replace('_bf16', '')]
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'forwardtacotron_torch/ops/hopper/{src}',
             'replaces': f'forwardtacotron_tpu/ops/pallas/{tpu}',
-            'launches': launches[name], 'max_abs_err': r['max_abs_err'],
+            'launches': n_launches, 'max_abs_err': r['max_abs_err'],
             'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
-            'library_ms': None, 'at': r['at']})
+            'library_ms': r.get('library_ms'), 'at': r['at']})
+    log(f'serving: {json.dumps(serving)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,13 @@
 """CLI: synthesize wavs from text with Griffin-Lim, on the GPU.
 
-Mirrors the default flow of the repository's root ``gen_forward.py`` (float32,
-one sentence at a time, Griffin-Lim) on the PyTorch port:
+Mirrors the Griffin-Lim flow of the repository's root ``gen_forward.py`` on
+the PyTorch port: float32 or bfloat16, one sentence at a time or, with
+``--batched``, all sentences as one length-routed batch:
 
     python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
         --input_text "Hello world."
+    python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
+        --dtype bfloat16 --batched
 
 ``--checkpoint`` is a reference-format ``.pt``. Text is cleaned with the
 checkpoint's cleaner; without an espeak phonemizer it is treated as
@@ -13,6 +16,8 @@ pre-phonemized.
 
 import argparse
 from pathlib import Path
+
+import numpy as np
 
 
 def main(argv=None):
@@ -26,6 +31,12 @@ def main(argv=None):
                         help='duration scale (speech speed)')
     parser.add_argument('--amp', type=float, default=1.0,
                         help='pitch amplification factor')
+    parser.add_argument('--batched', action='store_true',
+                        help='synthesize all sentences as one padded batch')
+    parser.add_argument('--dtype', default='float32',
+                        choices=['float32', 'bfloat16'],
+                        help='bfloat16 = the serving path with the '
+                             'recurrent kernels')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
@@ -39,7 +50,7 @@ def main(argv=None):
 
     model, checkpoint = init_tts_model_from_checkpoint(args.checkpoint)
     config = checkpoint['config']
-    inference = TTSInference(model, device=args.device)
+    inference = TTSInference(model, dtype=args.dtype, device=args.device)
     dsp = DSP.from_config(config, device=args.device)
 
     if args.input_text:
@@ -60,13 +71,24 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     step_k = int(checkpoint_step(checkpoint) / 1000)
 
-    for i, sentence in enumerate(sentences, 1):
-        x = tokenizer(cleaner(sentence))
-        out = inference.generate_cropped(
-            x, alpha=args.alpha, pitch_function=lambda p: p * args.amp)
-        wav = dsp.griffinlim(out['mel_post'])
+    kwargs = dict(alpha=args.alpha, pitch_function=lambda p: p * args.amp)
+    if args.batched and len(sentences) > 1:
+        token_lists = [tokenizer(cleaner(s)) for s in sentences]
+        x = np.zeros((len(token_lists), max(map(len, token_lists))), np.int64)
+        for i, toks in enumerate(token_lists):
+            x[i, :len(toks)] = toks
+        # routed: each sentence decodes at its own frame bucket
+        out = inference.generate_routed(x, **kwargs)
+        mels = [out['mel_post'][i, :int(out['mel_len'][i])].T.float().cpu()
+                .numpy() for i in range(len(sentences))]
+    else:
+        mels = [inference.generate_cropped(tokenizer(cleaner(s)),
+                                           **kwargs)['mel_post']
+                for s in sentences]
+    for i, mel in enumerate(mels, 1):
+        wav = dsp.griffinlim(mel)
         dsp.save_wav(wav, out_dir / f'{i}_forward_{step_k}k_alpha{args.alpha}.wav')
-    print(f'Wrote {len(sentences)} outputs to {out_dir}')
+    print(f'Wrote {len(mels)} outputs to {out_dir}')
 
 
 if __name__ == '__main__':

@@ -2,7 +2,8 @@
 
 Port of forwardtacotron_tpu/models/forward_tacotron.py: the series
 predictors, ``predict_series`` with the all-zero-duration guard,
-``generate`` and the generate-mode decode. Module names are the reference's,
+``generate``, the single-call ``generate_combined`` and the generate-mode
+decode. Module names are the reference's,
 so ``state_dict()`` has exactly the keys and shapes of the published
 checkpoints. Mel tensors are [B, T, n_mels].
 """
@@ -13,7 +14,8 @@ import torch
 from torch import nn
 
 from forwardtacotron_torch.models.layers import (CBHG, BatchNormConv, BiGRU,
-                                                 BiLSTM, conv1d, frame_trunk)
+                                                 BiLSTM, conv1d, frame_trunk,
+                                                 multi_bigru)
 from forwardtacotron_torch.ops.length_regulator import expanded_lengths
 from forwardtacotron_torch.text.symbols import phonemes
 
@@ -86,14 +88,18 @@ class ForwardTacotron(nn.Module):
         self.energy_proj = nn.Conv1d(1, 2 * prenet_dims, kernel_size=3,
                                      padding=1)
 
+    @staticmethod
+    def _guard_durations(dur: torch.Tensor) -> torch.Tensor:
+        """If the truncated durations of the whole batch sum to <= 0, every
+        duration becomes 2 frames (reference forward_tacotron.py:176-177)."""
+        total = torch.trunc(dur).to(torch.int64).sum()
+        return torch.where(total <= 0, torch.full_like(dur, 2.0), dur)
+
     def predict_series(self, x: torch.Tensor, alpha: float = 1.0
                        ) -> Dict[str, torch.Tensor]:
-        """Phase 1 of generation: durations, pitch and energy from tokens.
-        If the truncated durations of the whole batch sum to <= 0, every
-        duration becomes 2 frames (reference forward_tacotron.py:176-177)."""
-        dur = self.dur_pred(x, alpha=alpha)[..., 0]
-        total = torch.trunc(dur).to(torch.int64).sum()
-        dur = torch.where(total <= 0, torch.full_like(dur, 2.0), dur)
+        """Phase 1 of generation: durations, pitch and energy from
+        tokens."""
+        dur = self._guard_durations(self.dur_pred(x, alpha=alpha)[..., 0])
         return {'dur': dur,
                 'pitch': self.pitch_pred(x)[..., 0],
                 'energy': self.energy_pred(x)[..., 0]}
@@ -104,6 +110,26 @@ class ForwardTacotron(nn.Module):
         """Phase 2 of generation: mels from tokens and predicted series, at
         a static frame budget ``max_len``."""
         mel, mel_post = self._decode(x, dur, pitch, energy, max_len)
+        return {'mel': mel, 'mel_post': mel_post, 'dur': dur,
+                'pitch': pitch, 'energy': energy}
+
+    def generate_combined(self, x: torch.Tensor, max_len: int,
+                          alpha: float = 1.0) -> Dict[str, torch.Tensor]:
+        """Series prediction and decode in one call at the frame budget
+        ``max_len``, with the four token-level recurrences (the three
+        predictor GRUs and the prenet GRU) run as one block-diagonal
+        ``multi_bigru``. Equal to ``predict_series`` + ``generate`` up to
+        rounding."""
+        preds = (self.dur_pred, self.pitch_pred, self.energy_pred)
+        entries = [(p.features(x), None, p.rnn) for p in preds]
+        entries.append((self.prenet.pre_rnn(self.embedding(x)), None,
+                        self.prenet.rnn))
+        dur_rnn, pitch_rnn, energy_rnn, h = multi_bigru(entries)
+        dur = self._guard_durations(self.dur_pred.head(dur_rnn, alpha)[..., 0])
+        pitch = self.pitch_pred.head(pitch_rnn)[..., 0]
+        energy = self.energy_pred.head(energy_rnn)[..., 0]
+        mel, mel_post = self._decode_post_prenet(h, dur, pitch, energy,
+                                                 max_len)
         return {'mel': mel, 'mel_post': mel_post, 'dur': dur,
                 'pitch': pitch, 'energy': energy}
 

@@ -2,24 +2,32 @@
 
 Port of the inference subset of forwardtacotron_tpu/models/layers.py:
 BatchNormConv (ReLU before BN), HighwayNetwork, the bidirectional GRU/LSTM
-with exact-length semantics, the frame trunk and CBHG. Public functions keep
-the JAX package's batch-first channels-last [B, T, C] layout; parameter
-names are the reference's state_dict names, so reference checkpoints load
-with ``load_state_dict``.
+with exact-length semantics, ``multi_bigru``, the frame trunk and CBHG.
+Public functions keep the JAX package's batch-first channels-last [B, T, C]
+layout; parameter names are the reference's state_dict names, so reference
+checkpoints load with ``load_state_dict``.
 
-The slice is inference-only: BatchNorm always normalizes with its running
+In bfloat16 the recurrences take the ``rnn`` kernels and the frame trunk the
+``lr_bidir`` + ``rnn`` kernels wherever the JAX package's gates send them to
+its Pallas kernels (``rnn_kernel_eligible``); in float32 they stay per-step
+loops, as the JAX package's float32 path stays ``lax.scan``.
+
+The port is inference-only: BatchNorm always normalizes with its running
 statistics and dropout is the identity.
 """
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from forwardtacotron_torch.ops.hopper import lr_bidir
+from forwardtacotron_torch.ops.hopper import rnn as rnn_ops
 from forwardtacotron_torch.ops.hopper.cbhg import bank_pool_proj
 from forwardtacotron_torch.ops.hopper.highway import pre_highway_stack
-from forwardtacotron_torch.ops.length_regulator import length_regulator
+from forwardtacotron_torch.ops.length_regulator import (duration_spans,
+                                                        length_regulator)
 
 BN_EPS = 1e-5
 
@@ -52,10 +60,11 @@ class BatchNormConv(nn.Module):
                                         * bn.weight) + bn.bias
 
     def folded_bn(self):
-        """(scale', bias') with BN(y) = y * scale' + bias'."""
+        """(scale', bias') with BN(y) = y * scale' + bias', folded in
+        float32 from the statistics in whatever dtype they are kept."""
         bn = self.bnorm
-        s = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-        return s, bn.bias - bn.running_mean * s
+        s = torch.rsqrt(bn.running_var.float() + BN_EPS) * bn.weight.float()
+        return s, bn.bias.float() - bn.running_mean.float() * s
 
 
 class HighwayNetwork(nn.Module):
@@ -89,6 +98,29 @@ def flip_sequences(x: torch.Tensor,
     return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
 
 
+def rnn_kernel_eligible(dtype: torch.dtype, in_dim: int, hidden: int) -> bool:
+    """The JAX package's gate for its recurrent kernels
+    (ops/pallas/rnn.py ``eligible``), kept so both packages route alike:
+    bfloat16 only, H a multiple of 128, the input width of 16."""
+    return dtype == torch.bfloat16 and hidden % 128 == 0 and in_dim % 16 == 0
+
+
+def time_major(x: torch.Tensor,
+               lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, T, C] -> the recurrent kernels' [T, 2, B, C]: direction 0 as it
+    is, direction 1 flipped per item."""
+    return torch.stack([x, flip_sequences(x, lengths)]).permute(
+        2, 0, 1, 3).contiguous()
+
+
+def unstack(hs: torch.Tensor,
+            lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """[T, 2, B, H] -> [B, T, 2H] with the backward half flipped back."""
+    return torch.cat([hs[:, 0].transpose(0, 1),
+                      flip_sequences(hs[:, 1].transpose(0, 1), lengths)],
+                     dim=-1)
+
+
 def _gru_step(carry, xp_t, wh, bh):
     """carry (h [2, B, H],); xp_t [2, B, 3H]; wh [2, H, 3H]; bh [2, 1, 3H]."""
     (h,) = carry
@@ -112,26 +144,35 @@ def _lstm_step(carry, xp_t, wh, bh):
     return (h_new, c_new), h_new
 
 
-def _bidir_scan(x: torch.Tensor, lengths: Optional[torch.Tensor],
-                rnn: '_BiRNN', step_fn, n_carry: int) -> torch.Tensor:
-    """[B, T, I] -> [B, T, 2H]: both directions advance together as a batch
-    axis of one loop over time; with ``lengths`` the backward direction
-    starts at each item's true last frame."""
-    b, t, _ = x.shape
-    xp = torch.stack([
-        x @ rnn.weight_ih_l0.T + rnn.bias_ih_l0,
-        flip_sequences(x, lengths) @ rnn.weight_ih_l0_reverse.T
-        + rnn.bias_ih_l0_reverse])                      # [2, B, T, G]
-    wh = torch.stack([rnn.weight_hh_l0.T, rnn.weight_hh_l0_reverse.T])
-    bh = torch.stack([rnn.bias_hh_l0, rnn.bias_hh_l0_reverse])[:, None]
-    zeros = x.new_zeros(2, b, rnn.hidden)
+def _scan(xp2: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor, step_fn,
+          n_carry: int) -> torch.Tensor:
+    """Per-step loop over time-major input projections xp2 [T, 2, B, G]:
+    both directions advance together as a batch axis. Returns
+    [T, 2, B, H]."""
+    zeros = xp2.new_zeros(2, xp2.shape[2], wh.shape[1])
     carry = tuple(zeros for _ in range(n_carry))
     hs = []
-    for step in range(t):
-        carry, h = step_fn(carry, xp[:, :, step], wh, bh)
+    for step in range(xp2.shape[0]):
+        carry, h = step_fn(carry, xp2[step], wh, bh[:, None])
         hs.append(h)
-    hs = torch.stack(hs, dim=2)                         # [2, B, T, H]
-    return torch.cat([hs[0], flip_sequences(hs[1], lengths)], dim=-1)
+    return torch.stack(hs)
+
+
+def _bidir_scan(x: torch.Tensor, lengths: Optional[torch.Tensor],
+                rnn: '_BiRNN', step_fn, n_carry: int) -> torch.Tensor:
+    """[B, T, I] -> [B, T, 2H]; with ``lengths`` the backward direction
+    starts at each item's true last frame. One kernel launch for the whole
+    sequence where ``rnn_kernel_eligible``, else a per-step loop."""
+    wi, wh, bi, bh = rnn.stacked_params()
+    x2 = time_major(x, lengths)
+    if rnn_kernel_eligible(x.dtype, x.shape[-1], rnn.hidden):
+        if n_carry == 2:
+            hs = rnn_ops.lstm(x2, wi, wh, bi + bh)
+        else:
+            hs = rnn_ops.gru(x2, wi, wh, bi, bh)
+    else:
+        hs = _scan(x2 @ wi + bi[:, None], wh, bh, step_fn, n_carry)
+    return unstack(hs, lengths)
 
 
 class _BiRNN(nn.Module):
@@ -155,6 +196,21 @@ class _BiRNN(nn.Module):
         for p in self.parameters():
             nn.init.uniform_(p, -bound, bound)
 
+    def dir_params(self) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+        """(fwd, bwd), each (wi [I, G], wh [H, G], bi [G], bh [G]): the JAX
+        package's layout."""
+        return tuple((getattr(self, 'weight_ih' + s).T,
+                      getattr(self, 'weight_hh' + s).T,
+                      getattr(self, 'bias_ih' + s),
+                      getattr(self, 'bias_hh' + s))
+                     for s in ('_l0', '_l0_reverse'))
+
+    def stacked_params(self) -> Tuple[torch.Tensor, ...]:
+        """(wi [2, I, G], wh [2, H, G], bi [2, G], bh [2, G]): both
+        directions stacked, as the recurrent kernels take them."""
+        return tuple(torch.stack(p).contiguous()
+                     for p in zip(*self.dir_params()))
+
 
 class BiGRU(_BiRNN):
 
@@ -176,9 +232,99 @@ class BiLSTM(_BiRNN):
         return _bidir_scan(x, lengths, self, _lstm_step, 2)
 
 
+def multi_gru_weights(rnns: Sequence[BiGRU]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-diagonal recurrent weights [2, H, 3H] and biases [2, 3H] of
+    several BiGRUs, H the sum of their widths, gates grouped r | z | n."""
+    hiddens = [rnn.hidden for rnn in rnns]
+    total = sum(hiddens)
+    w0 = rnns[0].weight_hh_l0
+    wh = w0.new_zeros(2, total, 3 * total)
+    bh = w0.new_zeros(2, 3 * total)
+    lo = 0
+    for rnn, h in zip(rnns, hiddens):
+        for d, (_, w, _, bias) in enumerate(rnn.dir_params()):
+            for g in range(3):
+                cols = slice(g * total + lo, g * total + lo + h)
+                wh[d, lo:lo + h, cols] = w[:, g * h:(g + 1) * h]
+                bh[d, cols] = bias[g * h:(g + 1) * h]
+        lo += h
+    return wh, bh
+
+
+def multi_bigru(entries: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor],
+                                        BiGRU]]) -> List[torch.Tensor]:
+    """Several independent bidirectional GRUs as one recurrence (port of the
+    JAX ``multi_bigru``): hidden states concatenated, recurrent weights
+    block-diagonal, so zero off-block weights add exact zeros to each gate.
+
+    ``entries``: (x [B, T, I_i], lengths_i or None, BiGRU). Returns
+    [B, T, 2 H_i] per entry. The input projections run per GRU, rounded to
+    the input dtype, regrouped per gate; the recurrence is one
+    ``gru_xp`` launch where ``rnn_kernel_eligible`` holds for the summed H,
+    else a per-step loop."""
+    hiddens = [rnn.hidden for _, _, rnn in entries]
+    total = sum(hiddens)
+    offs = [sum(hiddens[:i]) for i in range(len(hiddens) + 1)]
+    x0 = entries[0][0]
+    xps = []
+    for x, lens, rnn in entries:
+        (wi_f, _, bi_f, _), (wi_b, _, bi_b, _) = rnn.dir_params()
+        xps.append((x @ wi_f + bi_f, flip_sequences(x, lens) @ wi_b + bi_b))
+
+    def regroup(d):  # concat per gate across GRUs -> [B, T, 3H]
+        return torch.cat([xps[i][d][..., g * h:(g + 1) * h]
+                          for g in range(3)
+                          for i, h in enumerate(hiddens)], dim=-1)
+
+    wh, bh = multi_gru_weights([rnn for _, _, rnn in entries])
+    xp2 = torch.stack([regroup(0), regroup(1)]).permute(
+        2, 0, 1, 3).contiguous()                         # [T, 2, B, 3H]
+    if rnn_kernel_eligible(x0.dtype, 16, total):
+        hs = rnn_ops.gru_xp(xp2, wh, bh)
+    else:
+        hs = _scan(xp2, wh, bh, _gru_step, 1)
+    return [unstack(hs[..., lo:lo + h], lens)
+            for (_, lens, _), h, lo in zip(entries, hiddens, offs)]
+
+
+def mel_weights(lstm: BiLSTM, lin: nn.Linear) -> torch.Tensor:
+    """The mel Linear's weight split per LSTM direction: [2, H, M]."""
+    w_mel = lin.weight.T                                # [2H, M]
+    return torch.stack([w_mel[:lstm.hidden], w_mel[lstm.hidden:]]
+                       ).contiguous()
+
+
+def lstm_lr_mel(h: torch.Tensor, dur: torch.Tensor, max_len: int,
+                lstm: BiLSTM, lin: nn.Linear) -> torch.Tensor:
+    """The fused frame trunk (port of the JAX ``lstm_lr_mel_pallas``):
+    [B, N, C] tokens -> [B, max_len, M] mels, as lin(lstm(LR(h))).
+
+    The bidirectional LR writes the LSTM's [T, 2, B, C] input directly;
+    the LSTM applies the mel projection in every step, so only the two
+    directions' [T, 2, B, M] mel halves leave it, combined here as
+    fwd + flip(bwd) + b_mel. The recurrence runs max_len rounded up to
+    ``lr_bidir.T_TILE`` frames, as the JAX package's does, which fixes
+    where an over-budget item's backward direction starts."""
+    _, ends = duration_spans(dur)
+    t_run = -(-max_len // lr_bidir.T_TILE) * lr_bidir.T_TILE
+    x2 = lr_bidir.length_regulator_bidir(h.contiguous(),
+                                         ends.to(torch.int32), t_run)
+    wi, wh, bi, bh = lstm.stacked_params()
+    parts = rnn_ops.lstm_mel(x2, wi, wh, bi + bh, mel_weights(lstm, lin))
+    fwd = parts[:, 0].transpose(0, 1)
+    bwd = flip_sequences(parts[:, 1].transpose(0, 1), ends[:, -1])
+    return (fwd + bwd + lin.bias)[:, :max_len]
+
+
 def frame_trunk(h: torch.Tensor, dur: torch.Tensor, lengths: torch.Tensor,
                 max_len: int, lstm: BiLSTM, lin: nn.Linear) -> torch.Tensor:
-    """Frame-rate trunk: length regulator -> bi-LSTM -> mel Linear."""
+    """Frame-rate trunk: length regulator -> bi-LSTM -> mel Linear; the
+    fused ``lstm_lr_mel`` where the JAX package fuses it (its RNN gate and
+    an input width that is a multiple of 128)."""
+    in_dim = h.shape[-1]
+    if rnn_kernel_eligible(h.dtype, in_dim, lstm.hidden) and in_dim % 128 == 0:
+        return lstm_lr_mel(h, dur, max_len, lstm, lin)
     h = length_regulator(h, dur, max_len)
     h = lstm(h, lengths=lengths)
     return lin(h)
@@ -236,7 +382,8 @@ class CBHG(nn.Module):
 
     def front_args(self, x: torch.Tensor, mask: torch.Tensor):
         """Arguments of ``bank_pool_proj`` (and its twin) for this front:
-        conv weights as [k, C_in, C] / [3, K*C, P], BatchNorms folded."""
+        conv weights as [k, C_in, C] / [3, K*C, P] in the model's dtype,
+        the folded BatchNorms in float32 (``mask`` must be float32)."""
         folded = [m.folded_bn() for m in self.conv1d_bank]
         p_s, p_b = self.conv_project1.folded_bn()
         return (x.contiguous(), mask.contiguous(),
@@ -249,12 +396,13 @@ class CBHG(nn.Module):
 
     def highway_args(self, a: torch.Tensor, residual: torch.Tensor):
         """Arguments of ``pre_highway_stack`` (and its twin) for [B, T, C_in]
-        inputs: rows flattened, W1 | W2 packed as [L, C, 2C]."""
+        inputs: rows flattened, W1 | W2 packed as [L, C, 2C], biases in
+        float32."""
         c_in = a.shape[-1]
         w = torch.stack([torch.cat([hw.W1.weight.T, hw.W2.weight.T], dim=1)
                          for hw in self.highways])
         bias = torch.stack([torch.cat([hw.W1.bias, hw.W2.bias])
-                            for hw in self.highways])
+                            for hw in self.highways]).float()
         return (a.reshape(-1, c_in).contiguous(),
                 residual.reshape(-1, c_in).contiguous(),
                 self.pre_highway.weight.T.contiguous(), w, bias)
@@ -269,8 +417,8 @@ class CBHG(nn.Module):
             x = x.masked_fill(tail, 0.0)
         residual = x
         if self.front_fusable:
-            mask = (torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
-                    if tail is None else (~tail[:, :, 0]).to(x.dtype))
+            mask = (torch.ones(x.shape[:2], device=x.device)
+                    if tail is None else (~tail[:, :, 0]).float())
             x = bank_pool_proj(*self.front_args(x, mask))
         else:
             x = torch.cat([conv(x) for conv in self.conv1d_bank], dim=-1)

@@ -1,10 +1,11 @@
-"""Two-phase synthesis orchestrator (port of
-forwardtacotron_tpu/models/synthesis.py, float32 ``generate`` path).
+"""Synthesis orchestrator (port of forwardtacotron_tpu/models/synthesis.py
+for ForwardTacotron): the two-phase ``generate``, the single-call
+``generate_fused`` and the length-routed ``generate_routed``, in float32 or
+bfloat16.
 
-Phase 1 predicts durations, pitch and energy; the host reads the expanded
-frame counts; phase 2 decodes at the frame count rounded up to a
-128-frame bucket, so one request's decode sees the same padded length as
-in the JAX package.
+Two-phase: phase 1 predicts durations, pitch and energy; the host reads the
+expanded frame counts; phase 2 decodes at the frame count rounded up to a
+bucket, so each decode sees the same padded length as in the JAX package.
 """
 
 import math
@@ -16,58 +17,138 @@ import torch
 from forwardtacotron_torch.ops.length_regulator import expanded_lengths
 from forwardtacotron_torch.utils.device import resolve_device
 
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
 
 def bucket_frames(n: int, bucket: int = 128, max_frames: int = 16384) -> int:
     """Round a frame count up to a bucket boundary."""
     return min(max_frames, int(math.ceil(max(n, 1) / bucket)) * bucket)
 
 
-class TTSInference:
-    """Wraps a ForwardTacotron with the two-phase generate flow.
+def bucket_group_size(n: int, cap: int) -> int:
+    """Round a routed decode group's batch size up to a power of two
+    (capped at the request batch size), so a changing request mix reuses
+    O(log2(B) x #frame-buckets) decode shapes."""
+    return min(cap, 1 << max(0, (int(n) - 1).bit_length()))
 
-    ``device`` defaults to CUDA and raises when no GPU is present; pass
-    ``device='cpu'`` to run on the CPU. Only ``dtype='float32'`` is
-    ported."""
+
+class TTSInference:
+    """Wraps a ForwardTacotron with the synthesis entry points.
+
+    ``dtype='bfloat16'`` casts every floating parameter and BatchNorm
+    statistic to bfloat16, as the JAX package casts its variables; the
+    recurrences and the frame trunk then take the recurrent kernels. The
+    model is moved (and cast) in place, as ``Module.to`` does. ``device``
+    defaults to CUDA and raises when no GPU is present; pass
+    ``device='cpu'`` to run on the CPU."""
 
     def __init__(self, model: torch.nn.Module, dtype: str = 'float32',
                  device: Optional[Union[str, torch.device]] = None):
-        if dtype == 'bfloat16':
-            raise NotImplementedError(
-                'bfloat16 serving comes with the fused serving path (slice 2, '
-                'ROADMAP.md); use dtype="float32"')
-        if dtype != 'float32':
-            raise ValueError(f"dtype must be 'float32', got {dtype!r}")
+        if dtype not in DTYPES:
+            raise ValueError(
+                f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = model.to(self.device, DTYPES[dtype]).eval()
+
+    def _tokens(self, x) -> torch.Tensor:
+        """Token ids (a sequence, numpy array or tensor) as a [B, N] long
+        tensor on the device."""
+        x = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                            dtype=torch.long, device=self.device)
+        return x[None, :] if x.dim() == 1 else x
+
+    def _series(self, x: torch.Tensor, alpha: float,
+                pitch_function: Callable, energy_function: Callable):
+        series = self.model.predict_series(x, alpha)
+        pitch = torch.as_tensor(pitch_function(series['pitch']),
+                                device=self.device)
+        energy = torch.as_tensor(energy_function(series['energy']),
+                                 device=self.device)
+        return series['dur'], pitch, energy
 
     @torch.inference_mode()
     def generate(self, x, alpha: float = 1.0,
                  pitch_function: Callable = lambda p: p,
                  energy_function: Callable = lambda e: e
                  ) -> Dict[str, torch.Tensor]:
-        x = torch.as_tensor(np.asarray(x), dtype=torch.long,
-                            device=self.device)
-        if x.dim() == 1:
-            x = x[None, :]
-        series = self.model.predict_series(x, alpha)
-        dur = series['dur']
-        pitch = torch.as_tensor(pitch_function(series['pitch']),
-                                device=self.device)
-        energy = torch.as_tensor(energy_function(series['energy']),
-                                 device=self.device)
+        """Two-phase synthesis of a batch at the bucket of its longest
+        item."""
+        x = self._tokens(x)
+        dur, pitch, energy = self._series(x, alpha, pitch_function,
+                                          energy_function)
         mel_lens = expanded_lengths(dur)
         max_len = bucket_frames(int(mel_lens.max()))
         out = self.model.generate(x, dur, pitch, energy, max_len)
         out['mel_len'] = mel_lens
         return out
 
+    @torch.inference_mode()
+    def generate_fused(self, x, max_len: int,
+                       alpha: float = 1.0) -> Dict[str, torch.Tensor]:
+        """Serving-mode synthesis at a fixed frame budget ``max_len``:
+        series prediction and decode in one call
+        (``ForwardTacotron.generate_combined``), no host read in between.
+        Durations that would exceed the budget are cropped; ``mel_len`` is
+        the uncropped expanded length."""
+        out = self.model.generate_combined(self._tokens(x), max_len, alpha)
+        out['mel_len'] = expanded_lengths(out['dur'])
+        return out
+
+    @torch.inference_mode()
+    def generate_routed(self, x, alpha: float = 1.0,
+                        frame_bucket: int = 128,
+                        pitch_function: Callable = lambda p: p,
+                        energy_function: Callable = lambda e: e
+                        ) -> Dict[str, torch.Tensor]:
+        """Length-routed batch synthesis: series prediction once for the
+        batch, then one decode per group of requests that share a
+        ``frame_bucket``-rounded length, at that group's budget, so short
+        requests do not pay the longest one's. Group sizes are padded up to
+        a power of two (``bucket_group_size``, repeating the group's first
+        request; the padding is cropped). Outputs come back in request
+        order, mels padded to the largest bucket, with ``mel_len`` capped at
+        each request's bucket."""
+        x = self._tokens(x)
+        dur, pitch, energy = self._series(x, alpha, pitch_function,
+                                          energy_function)
+        mel_lens = expanded_lengths(dur).cpu().numpy()
+        buckets = np.array([bucket_frames(int(n), frame_bucket)
+                            for n in mel_lens])
+        parts, order = [], []
+        for bucket in np.unique(buckets):
+            idx = np.nonzero(buckets == bucket)[0]
+            n_pad = bucket_group_size(len(idx), x.shape[0])
+            gi = torch.as_tensor(np.concatenate(
+                [idx, np.full(n_pad - len(idx), idx[0])]), device=self.device)
+            out = self.model.generate(x[gi], dur[gi], pitch[gi], energy[gi],
+                                      int(bucket))
+            parts.append({k: v[:len(idx)] for k, v in out.items()})
+            order.append(idx)
+        # request order with one gather per key over the concatenated
+        # groups, mels padded in time to the largest bucket
+        inv = torch.as_tensor(np.argsort(np.concatenate(order)),
+                              device=self.device)
+        width = int(buckets.max())
+        merged = {}
+        for key in parts[0]:
+            cat = [torch.nn.functional.pad(
+                       p[key], (0, 0, 0, width - p[key].shape[1]))
+                   if key in ('mel', 'mel_post') else p[key] for p in parts]
+            merged[key] = torch.cat(cat)[inv]
+        merged['mel_len'] = torch.as_tensor(np.minimum(mel_lens, buckets),
+                                            device=self.device)
+        return merged
+
     def generate_cropped(self, x, **kwargs) -> Dict[str, np.ndarray]:
-        """Single utterance: outputs cropped to the true length, mels as
-        [n_mels, T] numpy arrays (the reference's layout)."""
+        """Single utterance: outputs cropped to the true length, as float32
+        numpy arrays, mels as [n_mels, T] (the reference's layout)."""
         out = self.generate(x, **kwargs)
         length = int(out['mel_len'][0])
-        return {'mel': out['mel'][0, :length].T.cpu().numpy(),
-                'mel_post': out['mel_post'][0, :length].T.cpu().numpy(),
-                'dur': out['dur'][0].cpu().numpy(),
-                'pitch': out['pitch'][0].cpu().numpy(),
-                'energy': out['energy'][0].cpu().numpy()}
+
+        def host(t):
+            return t.float().cpu().numpy()
+        return {'mel': host(out['mel'][0, :length].T),
+                'mel_post': host(out['mel_post'][0, :length].T),
+                'dur': host(out['dur'][0]),
+                'pitch': host(out['pitch'][0]),
+                'energy': host(out['energy'][0])}

@@ -1,5 +1,5 @@
 """The CBHG front (bank -> pool -> mask -> proj1): the ``cbhg_front.cu``
-kernel and its plain twin.
+kernel and its plain twin, in float32 or bfloat16.
 
 Port of forwardtacotron_tpu/ops/pallas/cbhg.py::bank_pool_proj_pallas.
 ``bank_pool_proj`` launches the CUDA kernel for CUDA tensors and runs the
@@ -19,6 +19,8 @@ launches = 0
 # the kernel keeps one output column per thread
 MAX_P = 256
 
+_ENTRY = {torch.float32: 'cbhg_front_f32', torch.bfloat16: 'cbhg_front_bf16'}
+
 
 def bank_pool_proj_plain(x: torch.Tensor, mask: torch.Tensor,
                          bank_w: Sequence[torch.Tensor],
@@ -27,31 +29,36 @@ def bank_pool_proj_plain(x: torch.Tensor, mask: torch.Tensor,
                          proj_bias: torch.Tensor) -> torch.Tensor:
     """Whole CBHG front with both eval BatchNorms folded.
 
-    x [B, T, C_in] (zero beyond each item's length); mask [B, T], 1.0 at
-    valid frames, applied after the pool; bank_w[i] [k, C_in, C] for
-    k = i + 1; bn_scale/bn_bias [K, C] (scale' = scale*rsqrt(var+eps),
-    bias' = bias - mean*scale'); proj_w [3, K*C, P]; proj_scale/proj_bias
-    [P]. Returns [B, T, P], conv_project1's output after ReLU and BN."""
+    x [B, T, C_in] (zero beyond each item's length), bank_w[i] [k, C_in, C]
+    for k = i + 1 and proj_w [3, K*C, P] share one dtype; mask [B, T]
+    (1.0 at valid frames, applied after the pool), bn_scale/bn_bias [K, C]
+    (scale' = scale*rsqrt(var+eps), bias' = bias - mean*scale') and
+    proj_scale/proj_bias [P] are float32. Returns [B, T, P] in x's dtype,
+    conv_project1's output after ReLU and BN. The bank, its ReLU/BN and the
+    pool run in float32; each pooled branch is rounded to x's dtype before
+    the projection, as in the TPU kernel."""
+    dt = x.dtype
+    xf = x.float()
     b, t, _ = x.shape
     c = bank_w[0].shape[-1]
-    acc = torch.zeros(b, t, proj_w.shape[-1], dtype=x.dtype, device=x.device)
-    neg = torch.full((b, 1, c), float('-inf'), dtype=x.dtype, device=x.device)
+    acc = torch.zeros(b, t, proj_w.shape[-1], device=x.device)
+    neg = torch.full((b, 1, c), float('-inf'), device=x.device)
     for bi, w in enumerate(bank_w):
         k = w.shape[0]
-        xp = torch.nn.functional.pad(x, (0, 0, k // 2, k - 1 - k // 2))
+        xp = torch.nn.functional.pad(xf, (0, 0, k // 2, k - 1 - k // 2))
         cols = torch.cat([xp[:, j:j + t] for j in range(k)], dim=-1)
-        y = cols @ w.reshape(-1, c)
+        y = cols @ w.reshape(-1, c).float()
         y = torch.relu(y) * bn_scale[bi] + bn_bias[bi]
         y = torch.maximum(torch.cat([neg, y[:, :-1]], dim=1), y)
-        y = y * mask[:, :, None]
+        y = (y * mask[:, :, None]).to(dt).float()
         yp = torch.nn.functional.pad(y, (0, 0, 1, 1))
         for d in range(3):
-            acc = acc + yp[:, d:d + t] @ proj_w[d, bi * c:(bi + 1) * c]
-    return torch.relu(acc) * proj_scale + proj_bias
+            acc = acc + yp[:, d:d + t] @ proj_w[d, bi * c:(bi + 1) * c].float()
+    return (torch.relu(acc) * proj_scale + proj_bias).to(dt)
 
 
-def _kernel():
-    fn = build.library('cbhg_front').cbhg_front_f32
+def _kernel(dtype):
+    fn = getattr(build.library('cbhg_front'), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -84,18 +91,24 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
             or c_in % 4 or c % 4 or p > MAX_P):
         raise ValueError('bank_pool_proj: bad shapes (C_in and C must be '
                          f'multiples of 4, P at most {MAX_P})')
+    dt = x.dtype
     bank = torch.cat([w.reshape(-1) for w in bank_w])
     args = (x, mask, bank, bn_scale, bn_bias, proj_w, proj_scale, proj_bias)
-    if any(a.dtype != torch.float32 or not a.is_contiguous()
-           or a.device != x.device for a in args):
-        raise ValueError('bank_pool_proj: every input must be a contiguous '
-                         'float32 tensor on the same device')
-    out = torch.empty(b, t, p, dtype=torch.float32, device=x.device)
+    if (dt not in _ENTRY or bank.dtype != dt or proj_w.dtype != dt
+            or any(a.dtype != torch.float32
+                   for a in (mask, bn_scale, bn_bias, proj_scale, proj_bias))
+            or any(not a.is_contiguous() or a.device != x.device
+                   for a in args)):
+        raise ValueError('bank_pool_proj: x and the conv weights must be '
+                         'contiguous float32 or bfloat16 tensors of one '
+                         'dtype, mask and the folded BatchNorms contiguous '
+                         'float32, all on one device')
+    out = torch.empty(b, t, p, dtype=dt, device=x.device)
     if b == 0 or t == 0:
         return out
-    status = _kernel()(*(build.ptr(a) for a in args), build.ptr(out),
-                       b, t, c_in, c, p, k_max, x.get_device(),
-                       build.stream_of(x))
+    status = _kernel(dt)(*(build.ptr(a) for a in args), build.ptr(out),
+                         b, t, c_in, c, p, k_max, x.get_device(),
+                         build.stream_of(x))
     build.check(status, 'cbhg_front')
     global launches
     launches += 1

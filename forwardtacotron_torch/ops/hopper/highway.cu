@@ -1,4 +1,5 @@
-// Residual add + pre_highway Dense (no bias) + the CBHG highway stack, f32.
+// Residual add + pre_highway Dense (no bias) + the CBHG highway stack, in
+// f32 or bf16.
 //
 // Replaces forwardtacotron_tpu/ops/pallas/highway.py::pre_highway_stack_pallas
 // (kernel body _pre_highway_kernel). Per row:
@@ -16,21 +17,47 @@
 // ROWS rows: each weight element it loads from L2 feeds ROWS FMAs, and each
 // float4 of activations is a shared-memory broadcast to the whole warp.
 // A simple FMA design; wgmma/TMA are later work.
+//
+// bf16 entry: inputs, weights and output are bf16, the bias f32, and the
+// shared-memory activations hold f32 values rounded to bf16 where the TPU
+// kernel rounds: a + res, the pre-projection's output and each layer's
+// output (_pre_highway_kernel casts x to the input dtype at those points);
+// products accumulate in f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+// the value a store into T would keep
+__device__ __forceinline__ float rnd_as(float v, const float*) { return v; }
+__device__ __forceinline__ float rnd_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  return rnd_as(v, static_cast<const T*>(nullptr));
+}
+
 constexpr int ROWS = 32;
 constexpr int THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-pre_highway_stack_kernel(const float* __restrict__ a,
-                         const float* __restrict__ res,
-                         const float* __restrict__ pre_w,  // [c_in, c]
-                         const float* __restrict__ w,      // [L, c, 2c]
+pre_highway_stack_kernel(const T* __restrict__ a,
+                         const T* __restrict__ res,
+                         const T* __restrict__ pre_w,      // [c_in, c]
+                         const T* __restrict__ w,          // [L, c, 2c]
                          const float* __restrict__ b,      // [L, 2c]
-                         float* __restrict__ out,          // [n, c]
+                         T* __restrict__ out,              // [n, c]
                          int n, int c_in, int c, int n_layers) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -44,7 +71,7 @@ pre_highway_stack_kernel(const float* __restrict__ a,
   for (int i = tid; i < ROWS * c_in; i += THREADS) {
     const int r = i / c_in, k = i - r * c_in;
     const long g = (long)(row0 + r) * c_in + k;
-    src[r * width + k] = (row0 + r < n) ? a[g] + res[g] : 0.f;
+    src[r * width + k] = (row0 + r < n) ? rnd<T>(ld(a + g) + ld(res + g)) : 0.f;
   }
   __syncthreads();
 
@@ -54,10 +81,10 @@ pre_highway_stack_kernel(const float* __restrict__ a,
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
     for (int k = 0; k < c_in; k += 4) {
-      const float w0 = pre_w[(long)(k + 0) * c + j];
-      const float w1 = pre_w[(long)(k + 1) * c + j];
-      const float w2 = pre_w[(long)(k + 2) * c + j];
-      const float w3 = pre_w[(long)(k + 3) * c + j];
+      const float w0 = ld(pre_w + (long)(k + 0) * c + j);
+      const float w1 = ld(pre_w + (long)(k + 1) * c + j);
+      const float w2 = ld(pre_w + (long)(k + 2) * c + j);
+      const float w3 = ld(pre_w + (long)(k + 3) * c + j);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float4 x = *reinterpret_cast<const float4*>(&src[r * width + k]);
@@ -68,24 +95,25 @@ pre_highway_stack_kernel(const float* __restrict__ a,
       }
     }
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) dst[r * width + j] = acc[r];
+    for (int r = 0; r < ROWS; ++r) dst[r * width + j] = rnd<T>(acc[r]);
   }
   __syncthreads();
   { float* t = src; src = dst; dst = t; }
 
   const int c2 = 2 * c;
   for (int l = 0; l < n_layers; ++l) {
-    const float* wl = w + (long)l * c * c2;
+    const T* wl = w + (long)l * c * c2;
     const float* bl = b + (long)l * c2;
     for (int j = tid; j < c; j += THREADS) {
       float h[ROWS], g[ROWS];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) { h[r] = 0.f; g[r] = 0.f; }
       for (int k = 0; k < c; k += 4) {
-        const float* wk = wl + (long)k * c2 + j;
-        const float h0 = wk[0], h1 = wk[c2], h2 = wk[2 * c2], h3 = wk[3 * c2];
-        const float g0 = wk[c], g1 = wk[c2 + c], g2 = wk[2 * c2 + c],
-                    g3 = wk[3 * c2 + c];
+        const T* wk = wl + (long)k * c2 + j;
+        const float h0 = ld(wk), h1 = ld(wk + c2), h2 = ld(wk + 2 * c2),
+                    h3 = ld(wk + 3 * c2);
+        const float g0 = ld(wk + c), g1 = ld(wk + c2 + c),
+                    g2 = ld(wk + 2 * c2 + c), g3 = ld(wk + 3 * c2 + c);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const float4 x = *reinterpret_cast<const float4*>(&src[r * width + k]);
@@ -105,7 +133,7 @@ pre_highway_stack_kernel(const float* __restrict__ a,
         const float hv = fmaxf(h[r] + bh, 0.f);
         const float gv = 1.f / (1.f + expf(-(g[r] + bg)));
         const float xv = src[r * width + j];
-        dst[r * width + j] = xv + gv * (hv - xv);
+        dst[r * width + j] = rnd<T>(xv + gv * (hv - xv));
       }
     }
     __syncthreads();
@@ -114,8 +142,25 @@ pre_highway_stack_kernel(const float* __restrict__ a,
 
   for (int i = tid; i < ROWS * c; i += THREADS) {
     const int r = i / c, j = i - r * c;
-    if (row0 + r < n) out[(long)(row0 + r) * c + j] = src[r * width + j];
+    if (row0 + r < n) st(out + (long)(row0 + r) * c + j, src[r * width + j]);
   }
+}
+
+template <typename T>
+int launch(const T* a, const T* res, const T* pre_w, const T* w, const float* b, T* out,
+           int n, int c_in, int c, int n_layers, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int width = c_in > c ? c_in : c;
+  const size_t smem = 2 * ROWS * width * sizeof(float);
+  err = cudaFuncSetAttribute(pre_highway_stack_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n + ROWS - 1) / ROWS;
+  pre_highway_stack_kernel<T><<<grid, THREADS, smem, stream>>>(
+      a, res, pre_w, w, b, out, n, c_in, c, n_layers);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -125,16 +170,15 @@ extern "C" int pre_highway_stack_f32(const float* a, const float* res,
                                      const float* b, float* out, int n,
                                      int c_in, int c, int n_layers,
                                      int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int width = c_in > c ? c_in : c;
-  const size_t smem = 2 * ROWS * width * sizeof(float);
-  err = cudaFuncSetAttribute(pre_highway_stack_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + ROWS - 1) / ROWS;
-  pre_highway_stack_kernel<<<grid, THREADS, smem, stream>>>(
-      a, res, pre_w, w, b, out, n, c_in, c, n_layers);
-  return (int)cudaGetLastError();
+  return launch(a, res, pre_w, w, b, out, n, c_in, c, n_layers, device, stream);
+}
+
+extern "C" int pre_highway_stack_bf16(const void* a, const void* res,
+                                      const void* pre_w, const void* w,
+                                      const float* b, void* out, int n,
+                                      int c_in, int c, int n_layers,
+                                      int device, cudaStream_t stream) {
+  typedef __nv_bfloat16 bf;
+  return launch((const bf*)a, (const bf*)res, (const bf*)pre_w, (const bf*)w, b,
+                (bf*)out, n, c_in, c, n_layers, device, stream);
 }

@@ -1,5 +1,5 @@
 """Residual add + pre_highway + highway stack: the ``highway.cu`` kernel and
-its plain twin.
+its plain twin, in float32 or bfloat16.
 
 Port of forwardtacotron_tpu/ops/pallas/highway.py::pre_highway_stack_pallas.
 ``pre_highway_stack`` launches the CUDA kernel for CUDA tensors and runs the
@@ -15,6 +15,9 @@ from forwardtacotron_torch.ops.hopper import build
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
+_ENTRY = {torch.float32: 'pre_highway_stack_f32',
+          torch.bfloat16: 'pre_highway_stack_bf16'}
+
 
 def pre_highway_stack_plain(a: torch.Tensor, res: torch.Tensor,
                             pre_w: torch.Tensor, w: torch.Tensor,
@@ -22,20 +25,28 @@ def pre_highway_stack_plain(a: torch.Tensor, res: torch.Tensor,
     """(a + res) @ pre_w, then per layer x + sigmoid(g) * (relu(h) - x)
     with [h | g] = x @ w[l] + b[l].
 
-    a, res [N, C_in]; pre_w [C_in, C]; w [L, C, 2C] (W1 | W2 packed);
-    b [L, 2C]. Returns [N, C]."""
-    x = (a + res) @ pre_w
+    a, res [N, C_in]; pre_w [C_in, C]; w [L, C, 2C] (W1 | W2 packed), all
+    of one dtype; b [L, 2C] float32. Returns [N, C] in a's dtype. Products
+    accumulate in float32; x is rounded to a's dtype after the residual
+    add, after the pre-projection and after each layer, as the TPU kernel
+    rounds it."""
+    dt = a.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    x = rnd(rnd(a.float() + res.float()) @ pre_w.float())
     c = pre_w.shape[1]
     for layer in range(w.shape[0]):
-        hg = x @ w[layer] + b[layer]
+        hg = x @ w[layer].float() + b[layer].float()
         h = torch.relu(hg[:, :c])
         g = torch.sigmoid(hg[:, c:])
-        x = x + g * (h - x)
-    return x
+        x = rnd(x + g * (h - x))
+    return x.to(dt)
 
 
-def _kernel():
-    fn = build.library('highway').pre_highway_stack_f32
+def _kernel(dtype):
+    fn = getattr(build.library('highway'), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -55,22 +66,27 @@ def pre_highway_stack(a: torch.Tensor, res: torch.Tensor,
     c = pre_w.shape[1]
     n_layers = w.shape[0]
     args = (a, res, pre_w, w, b)
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           or t.device != a.device for t in args):
-        raise ValueError('pre_highway_stack: every input must be a '
-                         'contiguous float32 tensor on the same device')
+    dt = a.dtype
+    if (dt not in _ENTRY
+            or any(t.dtype != dt for t in (res, pre_w, w))
+            or b.dtype != torch.float32
+            or any(not t.is_contiguous() or t.device != a.device
+                   for t in args)):
+        raise ValueError('pre_highway_stack: a, res, pre_w and w must be '
+                         'contiguous float32 or bfloat16 tensors of one '
+                         'dtype, b contiguous float32, all on one device')
     if (res.shape != a.shape or pre_w.shape[0] != c_in
             or w.shape != (n_layers, c, 2 * c) or b.shape != (n_layers, 2 * c)
             or c_in % 4 or c % 4):
         raise ValueError('pre_highway_stack: bad shapes '
                          f'{[tuple(t.shape) for t in args]} (C_in and C must '
                          'be multiples of 4)')
-    out = torch.empty(n, c, dtype=torch.float32, device=a.device)
+    out = torch.empty(n, c, dtype=dt, device=a.device)
     if n == 0:
         return out
-    status = _kernel()(*(build.ptr(t) for t in args), build.ptr(out),
-                       n, c_in, c, n_layers, a.get_device(),
-                       build.stream_of(a))
+    status = _kernel(dt)(*(build.ptr(t) for t in args), build.ptr(out),
+                         n, c_in, c, n_layers, a.get_device(),
+                         build.stream_of(a))
     build.check(status, 'pre_highway_stack')
     global launches
     launches += 1

@@ -1,0 +1,206 @@
+"""Bidirectional recurrences of the bf16 serving path: the ``rnn.cu`` kernels
+and their plain twins.
+
+Port of forwardtacotron_tpu/ops/pallas/rnn.py (inference kernels):
+
+  ``gru_xp``   <- gru_from_xp_pallas (body _gru_xp_kernel)
+  ``gru``      <- bidir_rnn_pallas, GRU body (_gru_kernel)
+  ``lstm``     <- bidir_rnn_pallas, LSTM body (_lstm_kernel)
+  ``lstm_mel`` <- lstm_lr_mel_pallas's recurrence (_lstm_mel_kernel)
+
+Every function takes the kernels' time-major layout: inputs [T, 2, B, *]
+with direction 1 already flipped by the caller, weights stacked per
+direction as [2, K, G] in torch gate order (GRU r, z, n; LSTM i, f, g, o).
+Each wrapper launches one CUDA kernel, which runs the whole sequence, for
+CUDA tensors (bfloat16 only, as the TPU kernels are), and the plain twin for
+CPU tensors; nothing else selects between them.
+
+Numerics of the TPU kernels, which the twins repeat: products accumulate in
+float32, gates run in float32, the carried h and c are rounded to the input
+dtype every step, the GRU adds bi and bh apart in float32, the LSTM takes
+one bias (bi + bh, summed by the caller in the input dtype), and the mel
+stage multiplies the rounded h by W_mel and rounds the result.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from forwardtacotron_torch.ops.hopper import build
+
+# launches of each CUDA kernel since the counts were last set to 0
+launches = {'gru_xp': 0, 'gru': 0, 'lstm': 0, 'lstm_mel': 0}
+
+
+def _steps(x2: torch.Tensor, wi: Optional[torch.Tensor], wh: torch.Tensor,
+           bi: Optional[torch.Tensor], bh: Optional[torch.Tensor],
+           wm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The recurrences of all four kernels, one step at a time in float32
+    (the input projection too, so memory stays at one step's size).
+
+    GRU: bh given (bi and bh added apart), 3 gates; with wi None, x2 holds
+    the precomputed input projections. LSTM: bh None, bi is the summed
+    bias, 4 gates, and wm [2, H, M] turns each step's output into
+    h_t @ wm."""
+    dt = x2.dtype
+    t_len, _, batch, _ = x2.shape
+    hidden = wh.shape[1]
+    whf = wh.float()
+    wif = None if wi is None else wi.float()
+    bif = None if bi is None else bi.float()[:, None]
+    bhf = None if bh is None else bh.float()[:, None]
+    h = x2.new_zeros(2, batch, hidden, dtype=torch.float32)
+    c = torch.zeros_like(h)
+    width = hidden if wm is None else wm.shape[-1]
+    out = x2.new_empty(t_len, 2, batch, width)
+    for t in range(t_len):
+        gx = x2[t].float()
+        if wif is not None:
+            gx = torch.baddbmm(bif, gx, wif)
+        if bhf is not None:                             # GRU
+            xr, xz, xn = gx.chunk(3, dim=-1)
+            hr, hz, hn = torch.baddbmm(bhf, h, whf).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = ((1.0 - z) * n + z * h).to(dt).float()
+        else:                                           # LSTM
+            i, f, g, o = (gx + torch.bmm(h, whf)).chunk(4, dim=-1)
+            c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = (torch.sigmoid(o) * torch.tanh(c_new)).to(dt).float()
+            c = c_new.to(dt).float()
+        out[t] = h if wm is None else torch.bmm(h, wm.float())
+    return out
+
+
+def gru_xp_plain(xp2: torch.Tensor, wh: torch.Tensor,
+                 bh: torch.Tensor) -> torch.Tensor:
+    """GRU from precomputed input projections: xp2 [T, 2, B, 3H] (x @ wi +
+    bi), wh [2, H, 3H], bh [2, 3H]; h starts at 0. Returns [T, 2, B, H] in
+    xp2's dtype."""
+    return _steps(xp2, None, wh, None, bh)
+
+
+def gru_plain(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+              bi: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+    """GRU with the input projection: x2 [T, 2, B, I], wi [2, I, 3H], wh
+    [2, H, 3H], bi/bh [2, 3H]. Returns [T, 2, B, H] in x2's dtype."""
+    return _steps(x2, wi, wh, bi, bh)
+
+
+def lstm_plain(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """LSTM with the input projection: x2 [T, 2, B, I], wi [2, I, 4H], wh
+    [2, H, 4H], b [2, 4H] (bi + bh). Returns [T, 2, B, H] in x2's dtype."""
+    return _steps(x2, wi, wh, b, None)
+
+
+def lstm_mel_plain(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+                   b: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
+    """``lstm_plain`` whose every step ends in h_t @ wm[d]: wm [2, H, M].
+    Returns [T, 2, B, M] in x2's dtype (the hidden states never leave)."""
+    return _steps(x2, wi, wh, b, None, wm)
+
+
+def _kernel(entry: str, n_ptrs: int, n_ints: int):
+    fn = getattr(build.library('rnn'), entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, x2: torch.Tensor, tensors, shapes) -> None:
+    """Raise unless every tensor is a contiguous bfloat16 CUDA tensor on
+    x2's device with the expected shape, and the widths are multiples of
+    16 (the kernel's unit block and tensor-core depth)."""
+    if x2.device.type != 'cuda':
+        raise ValueError(f'rnn.{name}: unsupported device {x2.device}')
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
+           or t.device != x2.device for t in tensors):
+        raise ValueError(f'rnn.{name}: the kernel takes contiguous bfloat16 '
+                         'tensors on one CUDA device')
+    got = [tuple(t.shape) for t in tensors]
+    if got != [tuple(s) for s in shapes] or any(
+            d % 16 for d in (x2.shape[-1], tensors[-1].shape[-2])):
+        raise ValueError(f'rnn.{name}: bad shapes {got}, expected {shapes} '
+                         'with the input width and H multiples of 16')
+
+
+def _launch(name: str, entry: str, ptrs, ints, x2: torch.Tensor,
+            out: torch.Tensor, hidden: int) -> torch.Tensor:
+    t_len, _, b = x2.shape[:3]
+    if t_len == 0 or b == 0:
+        return out
+    # h ping-pong buffer shared by the CTAs of a direction (written before
+    # it is read, so left uninitialized) and their barrier counters
+    hbuf = torch.empty(2, 2, b, hidden, dtype=torch.bfloat16,
+                       device=x2.device)
+    bar = torch.zeros(2 * b, dtype=torch.int32, device=x2.device)
+    fn = _kernel(entry, len(ptrs) + 3, len(ints) + 1)
+    status = fn(*(build.ptr(t) for t in ptrs), build.ptr(out),
+                build.ptr(hbuf), build.ptr(bar), *ints, x2.get_device(),
+                build.stream_of(x2))
+    build.check(status, f'rnn.{name}')
+    launches[name] += 1
+    return out
+
+
+def gru_xp(xp2: torch.Tensor, wh: torch.Tensor,
+           bh: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`gru_xp_plain`; one launch on the GPU."""
+    if xp2.device.type == 'cpu':
+        return gru_xp_plain(xp2, wh, bh)
+    t_len, _, b, g = xp2.shape
+    h = g // 3
+    _check('gru_xp', xp2, (xp2, bh, wh),
+           ((t_len, 2, b, 3 * h), (2, 3 * h), (2, h, 3 * h)))
+    out = xp2.new_empty(t_len, 2, b, h)
+    return _launch('gru_xp', 'rnn_gru_xp_bf16', (xp2, wh, bh),
+                   (t_len, b, h), xp2, out, h)
+
+
+def gru(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+        bi: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`gru_plain`; one launch on the GPU."""
+    if x2.device.type == 'cpu':
+        return gru_plain(x2, wi, wh, bi, bh)
+    t_len, _, b, i = x2.shape
+    h = wh.shape[1]
+    _check('gru', x2, (x2, wi, bi, bh, wh),
+           ((t_len, 2, b, i), (2, i, 3 * h), (2, 3 * h), (2, 3 * h),
+            (2, h, 3 * h)))
+    out = x2.new_empty(t_len, 2, b, h)
+    return _launch('gru', 'rnn_gru_x_bf16', (x2, wi, wh, bi, bh),
+                   (t_len, b, i, h), x2, out, h)
+
+
+def lstm(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+         b: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`lstm_plain`; one launch on the GPU."""
+    if x2.device.type == 'cpu':
+        return lstm_plain(x2, wi, wh, b)
+    t_len, _, batch, i = x2.shape
+    h = wh.shape[1]
+    _check('lstm', x2, (x2, wi, b, wh),
+           ((t_len, 2, batch, i), (2, i, 4 * h), (2, 4 * h), (2, h, 4 * h)))
+    out = x2.new_empty(t_len, 2, batch, h)
+    return _launch('lstm', 'rnn_lstm_x_bf16', (x2, wi, wh, b),
+                   (t_len, batch, i, h), x2, out, h)
+
+
+def lstm_mel(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+             b: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`lstm_mel_plain`; one launch on the GPU."""
+    if x2.device.type == 'cpu':
+        return lstm_mel_plain(x2, wi, wh, b, wm)
+    t_len, _, batch, i = x2.shape
+    h = wh.shape[1]
+    m = wm.shape[-1]
+    _check('lstm_mel', x2, (x2, wi, b, wm, wh),
+           ((t_len, 2, batch, i), (2, i, 4 * h), (2, 4 * h), (2, h, m),
+            (2, h, 4 * h)))
+    out = x2.new_empty(t_len, 2, batch, m)
+    return _launch('lstm_mel', 'rnn_lstm_mel_bf16', (x2, wi, wh, b, wm),
+                   (t_len, batch, i, h, m), x2, out, h)

@@ -8,16 +8,22 @@ This file imports no JAX, so it also runs where JAX is not installed:
 Tolerance: float32 with different summation orders, max abs error at most
 1e-4 of the output's scale (max(1, max |twin|)); 1e-3 for Griffin-Lim's
 phase-normalized spectrum, where dividing by |up| amplifies rounding in
-bins whose momentum update nearly cancels.
+bins whose momentum update nearly cancels. bfloat16 kernels and twins round
+at the same points, but a float32 sum taken in another order can land on
+the neighbouring bfloat16 value (2^-8 relative) and a recurrence carries
+such a step on: 3e-2 of the scale, inside the JAX package's own bf16
+kernel tolerance of 5e-2. The length regulator copies rows: exact.
 """
 
 import pytest
 import torch
 
-from forwardtacotron_torch.ops.hopper import cbhg, griffin_lim, highway
+from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
+                                              lr_bidir, rnn)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
+BF16_TOL = 3e-2
 
 
 @pytest.fixture()
@@ -89,3 +95,205 @@ def test_griffin_lim_iter_kernel_matches_twin(dev, n_fft, hop, f):
     want = griffin_lim.griffin_lim_iter_plain(*args)
     _close(got[2:], want[2:])                 # rebuilt spectrum
     _close(got[:2], want[:2], tol=10 * TOL)   # phase-normalized spectrum
+
+
+def _rand(g, shape, scale, dev, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+
+
+@pytest.mark.parametrize('n,c_in,c', [(77, 80, 256), (33, 256, 256)])
+def test_pre_highway_bf16_kernel_matches_twin(dev, n, c_in, c):
+    g = torch.Generator().manual_seed(n)
+    layers = 4
+    args = [_rand(g, (n, c_in), 1.0, dev), _rand(g, (n, c_in), 1.0, dev),
+            _rand(g, (c_in, c), c_in ** -0.5, dev),
+            _rand(g, (layers, c, 2 * c), c ** -0.5, dev),
+            _rand(g, (layers, 2 * c), 0.1, dev, torch.float32)]
+    got = highway.pre_highway_stack(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _close([got.float()], [highway.pre_highway_stack_plain(*args).float()],
+           BF16_TOL)
+
+
+@pytest.mark.parametrize('b,t', [(2, 70), (3, 9)])
+def test_cbhg_front_bf16_kernel_matches_twin(dev, b, t):
+    g = torch.Generator().manual_seed(t)
+    c_in, c, p, k_max = 80, 256, 256, 8
+    mask = torch.ones(b, t)
+    mask[-1, t // 2:] = 0.0
+    x = (torch.randn(b, t, c_in, generator=g) * mask[:, :, None]).to(
+        dev, torch.bfloat16)
+    bank = [_rand(g, (k, c_in, c), (k * c_in) ** -0.5, dev)
+            for k in range(1, k_max + 1)]
+    f32 = dict(device=dev, dtype=torch.float32)
+    args = [x, mask.to(dev), bank,
+            (torch.rand(k_max, c, generator=g) + 0.5).to(**f32),
+            _rand(g, (k_max, c), 0.1, dev, torch.float32),
+            _rand(g, (3, k_max * c, p), (3 * k_max * c) ** -0.5, dev),
+            (torch.rand(p, generator=g) + 0.5).to(**f32),
+            _rand(g, (p,), 0.1, dev, torch.float32)]
+    got = cbhg.bank_pool_proj(*args)
+    torch.cuda.synchronize()
+    _close([got.float()], [cbhg.bank_pool_proj_plain(*args).float()],
+           BF16_TOL)
+
+
+def _durations(g, b, n, t_run):
+    """Rounded durations with an empty item, zero durations and, for b > 1,
+    one item longer than t_run."""
+    reps = torch.randint(0, 4, (b, n), generator=g)
+    reps[0, ::3] = 0
+    if b > 1:
+        reps[1] = t_run // n + 2
+        reps[-1] = 0
+    return torch.cumsum(reps, dim=1)
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+@pytest.mark.parametrize('t_run', [1, 63, 65])
+@pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 512),
+                                     (torch.float32, 12)])
+def test_lr_bidir_kernel_matches_twin(dev, b, t_run, dtype, c):
+    g = torch.Generator().manual_seed(b * 100 + t_run)
+    n = 7
+    ends = _durations(g, b, n, t_run)
+    x = _rand(g, (b, n, c), 1.0, dev, dtype)
+    ends32 = ends.to(dev, torch.int32)
+    before = lr_bidir.launches
+    got = lr_bidir.length_regulator_bidir(x, ends32, t_run)
+    torch.cuda.synchronize()
+    assert lr_bidir.launches == before + 1
+    assert torch.equal(got, lr_bidir.length_regulator_bidir_plain(
+        x, ends.to(dev), t_run))
+
+
+def _rnn_weights(g, i, h, n_gates, dev):
+    return (_rand(g, (2, i, n_gates * h), i ** -0.5, dev),
+            _rand(g, (2, h, n_gates * h), h ** -0.5, dev),
+            _rand(g, (2, n_gates * h), 0.1, dev),
+            _rand(g, (2, n_gates * h), 0.1, dev))
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+@pytest.mark.parametrize('t', [1, 63, 65])
+def test_gru_xp_kernel_matches_twin(dev, b, t):
+    g = torch.Generator().manual_seed(b * 100 + t)
+    h = 256
+    _, wh, _, bh = _rnn_weights(g, 16, h, 3, dev)
+    xp2 = _rand(g, (t, 2, b, 3 * h), 1.0, dev)
+    before = rnn.launches['gru_xp']
+    got = rnn.gru_xp(xp2, wh, bh)
+    torch.cuda.synchronize()
+    assert rnn.launches['gru_xp'] == before + 1
+    _close([got.float()], [rnn.gru_xp_plain(xp2, wh, bh).float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+@pytest.mark.parametrize('t', [1, 65])
+@pytest.mark.parametrize('cell,i,h', [('gru', 80, 128), ('gru', 256, 256),
+                                      ('lstm', 64, 128)])
+def test_bidir_rnn_kernel_matches_twin(dev, b, t, cell, i, h):
+    g = torch.Generator().manual_seed(b * 100 + t + i)
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 3 if cell == 'gru' else 4, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    if cell == 'gru':
+        got, want = rnn.gru(x2, wi, wh, bi, bh), rnn.gru_plain(
+            x2, wi, wh, bi, bh)
+    else:
+        got, want = rnn.lstm(x2, wi, wh, bi + bh), rnn.lstm_plain(
+            x2, wi, wh, bi + bh)
+    torch.cuda.synchronize()
+    _close([got.float()], [want.float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+@pytest.mark.parametrize('t', [1, 63, 65])
+def test_lstm_mel_kernel_matches_twin(dev, b, t):
+    g = torch.Generator().manual_seed(b * 100 + t)
+    i, h, m = 256, 128, 80
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
+    wm = _rand(g, (2, h, m), h ** -0.5, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    before = rnn.launches['lstm_mel']
+    got = rnn.lstm_mel(x2, wi, wh, bi + bh, wm)
+    torch.cuda.synchronize()
+    assert rnn.launches['lstm_mel'] == before + 1
+    _close([got.float()],
+           [rnn.lstm_mel_plain(x2, wi, wh, bi + bh, wm).float()], BF16_TOL)
+
+
+def test_unsupported_shapes_raise_on_the_card(dev):
+    """A CUDA input the kernels do not take raises; it never runs the
+    twin instead."""
+    g = torch.Generator().manual_seed(0)
+    wi, wh, bi, bh = _rnn_weights(g, 64, 100, 3, dev)     # H % 16 != 0
+    x2 = _rand(g, (5, 2, 3, 64), 1.0, dev)
+    before = dict(rnn.launches)
+    with pytest.raises(ValueError, match='multiples of 16'):
+        rnn.gru(x2, wi, wh, bi, bh)
+    wi, wh, bi, bh = _rnn_weights(g, 64, 128, 3, dev)
+    with pytest.raises(ValueError, match='bfloat16'):
+        rnn.gru(x2.float(), wi, wh, bi, bh)
+    with pytest.raises(ValueError, match='bad shapes'):
+        rnn.gru_xp(_rand(g, (5, 2, 3, 3 * 128), 1.0, dev),
+                   wh[:, :64].contiguous(), bh)
+    assert rnn.launches == before
+    with pytest.raises(ValueError, match='multiple of 16'):
+        lr_bidir.length_regulator_bidir(
+            _rand(g, (3, 4, 12), 1.0, dev),           # 24-byte rows
+            torch.ones(3, 4, dtype=torch.int32, device=dev), 8)
+
+
+@pytest.mark.parametrize('ragged', [False, True])
+@pytest.mark.parametrize('b', [1, 3, 17])
+def test_bigru_layer_on_card_matches_cpu_twins(dev, ragged, b):
+    """A bf16 BiGRU on the card (kernel route, with the per-item flips of
+    ``lengths``) against the same module on the CPU (twin route)."""
+    import copy
+
+    from forwardtacotron_torch.models.layers import BiGRU
+
+    g = torch.Generator().manual_seed(b)
+    t = 65
+    module = BiGRU(256, 256).to(torch.bfloat16)
+    x = torch.randn(b, t, 256, generator=g).to(torch.bfloat16)
+    lens = (torch.randint(1, t + 1, (b,), generator=g) if ragged else None)
+    with torch.no_grad():
+        want = module(x, lens)
+        before = rnn.launches['gru']
+        got = copy.deepcopy(module).to(dev)(
+            x.to(dev), None if lens is None else lens.to(dev))
+        torch.cuda.synchronize()
+    assert rnn.launches['gru'] == before + 1
+    _close([got.float().cpu()], [want.float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+def test_lstm_lr_mel_layer_on_card_matches_cpu_twins(dev, b):
+    """The fused frame trunk on the card against the CPU twins: zero
+    durations, an empty item and an item over a 100-frame budget (not a
+    multiple of the 64-frame run tile)."""
+    import copy
+
+    from forwardtacotron_torch.models.layers import BiLSTM, lstm_lr_mel
+
+    g = torch.Generator().manual_seed(b)
+    n, c, h, m, max_len = 7, 256, 128, 80, 100
+    lstm = BiLSTM(c, h).to(torch.bfloat16)
+    lin = torch.nn.Linear(2 * h, m).to(torch.bfloat16)
+    x = torch.randn(b, n, c, generator=g).to(torch.bfloat16)
+    dur = 3 * torch.rand(b, n, generator=g)
+    dur[0, ::2] = 0.0
+    if b > 1:
+        dur[1] = 30.0
+        dur[-1] = 0.0
+    dur = dur.to(torch.bfloat16)
+    with torch.no_grad():
+        want = lstm_lr_mel(x, dur, max_len, lstm, lin)
+        got = lstm_lr_mel(x.to(dev), dur.to(dev), max_len,
+                          copy.deepcopy(lstm).to(dev),
+                          copy.deepcopy(lin).to(dev))
+        torch.cuda.synchronize()
+    assert got.shape == (b, max_len, m)
+    _close([got.float().cpu()], [want.float()], BF16_TOL)

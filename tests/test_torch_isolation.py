@@ -65,5 +65,9 @@ def test_bfloat16_and_other_families_raise():
     config['tts_model'] = 'fast_pitch'
     with pytest.raises(NotImplementedError, match='fast_pitch'):
         init_tts_model(config)
-    with pytest.raises(NotImplementedError, match='bfloat16'):
-        TTSInference(torch.nn.Linear(1, 1), dtype='bfloat16', device='cpu')
+    # bfloat16 is served since the fused serving path was ported; any other
+    # dtype raises, naming the two that are served
+    with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
+        TTSInference(torch.nn.Linear(1, 1), dtype='float16', device='cpu')
+    assert TTSInference(torch.nn.Linear(1, 1), dtype='bfloat16',
+                        device='cpu').model.weight.dtype == torch.bfloat16
