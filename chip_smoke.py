@@ -30,15 +30,33 @@ Run from the repository root. Phases, each of which must pass:
 7. the bfloat16 two-phase path: the 4 requests through ``generate_cropped``
    and as one batch through ``generate_routed``, with launch counts;
 8. a bfloat16 reference: one small batch through ``generate_fused`` on the
-   card and on the CPU plain path.
+   card and on the CPU plain path;
+9. training kernels: the length regulator (float32 and bf16), the bi-LSTM
+   forward that keeps its cell states, the three trainable GRUs' forward
+   and the GRU / LSTM backward sweeps (incoming gradient at unit scale,
+   each gate block held to its twin's in relative L2), each against its
+   twin at full-width training shapes (batch 32, 160 tokens, 1024 frames),
+   timed beside the twin and cuDNN's bidirectional ``nn.LSTM`` /
+   ``nn.GRU`` (forward, or backward alone);
+10. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
+    at full width and batch 32 on 64 synthetic items written to a
+    temporary directory: exact launch counts per step, the profiler,
+    steps/s, mel frames/s and the idle share over steps on one repeated
+    batch (whose loss must fall), then ``ForwardTrainer.train`` to a
+    checkpoint that ``gen_forward`` loads;
+11. the float32 train step (the config's default), with the length
+    regulator as its only kernel, and the eval step's kernels;
+12. one train step on the card and on the CPU plain path (dropout off):
+    loss and global gradient norm, float32 and bf16.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
 build, one line per kernel comparison, the paths' stages, then a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without the last line, as does a machine without
 a CUDA device or a directory without the repository. The profiler's kernel
-tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path) and
-``chiprun_out/chip_smoke_serving_profile.txt`` (serving path).
+tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path),
+``chiprun_out/chip_smoke_serving_profile.txt`` (serving path) and
+``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train step).
 """
 
 import copy
@@ -47,6 +65,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -83,6 +102,14 @@ BF16_TOL = 3e-2
 # bf16 full model on the card vs the CPU plain path (both bf16, other sum
 # orders in every kernel): mel max abs error over max(1, max |mel|)
 E2E_BF16_TOL = 5e-2
+# the trainable recurrences vs their twins, forward and backward sweeps, with
+# the incoming gradient at unit scale: the relative L2 error of each gate
+# block (||kernel - twin|| / ||twin|| over its columns). Rounding every
+# dgate to bf16 moves the twin by 1.7e-3 of that against a float32 sweep; a
+# sweep that drops the carried dgates @ Wh^T term, uses c_t for c_{t-1}, or
+# leaves bh out of the GRU's dr is off by 0.19 or more
+# (tests/test_torch_rnn_train.py::test_sweep_check_fails_faulty_sweeps)
+SWEEP_TOL = 1e-2
 # the serving path as bench.py shapes it (bench.py:20-30, 44-99)
 BENCH_SENTENCES = [
     'ðə kwɪk bɹaʊn fɑks dʒʌmps oʊvɚ ðə leɪzi dɔɡ ænd ɹʌnz əweɪ ɪntʊ ðə fɔɹɪst.',
@@ -148,6 +175,37 @@ def compare(torch, name, got, want, tol=KERNEL_TOL):
         and err <= tol * scale
     log(f'  {name}: max_abs_err {err:.3e}, scale {scale:.3e}, '
         f'rel {err / scale:.3e} (tol {tol:g}) {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'{name}: kernel disagrees with its twin')
+    return err
+
+
+def sweep_error(got, want, blocks: int):
+    """(the largest relative L2 error of any gate block, the max abs error)
+    of kernel outputs ``got`` against twin outputs ``want``, each split into
+    ``blocks`` equal column blocks."""
+    rel, err = 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = max(err, float((g - w).abs().max()))
+        for gk, wk in zip(g.chunk(blocks, -1), w.chunk(blocks, -1)):
+            rel = max(rel, float((gk - wk).norm()
+                                 / wk.norm().clamp_min(1e-30)))
+    return rel, err
+
+
+def compare_sweep(torch, name, got, want, blocks: int) -> float:
+    """A trainable recurrence's kernel vs its twin: fails unless every
+    output is finite, each gate block within SWEEP_TOL (relative L2) and the
+    max abs error within BF16_TOL of max |twin| (no floor). Returns the max
+    abs error."""
+    rel, err = sweep_error(got, want, blocks)
+    scale = max(float(w.float().abs().max()) for w in want)
+    ok = (all(bool(torch.isfinite(g).all()) for g in got)
+          and rel <= SWEEP_TOL and err <= BF16_TOL * scale)
+    log(f'  {name}: gate-block rel L2 {rel:.3e} (tol {SWEEP_TOL:g}), '
+        f'max_abs_err {err:.3e}, max |twin| {scale:.3e} (tol {BF16_TOL:g} '
+        f'x max |twin|) {"ok" if ok else "FAIL"}')
     if not ok:
         fail(f'{name}: kernel disagrees with its twin')
     return err
@@ -219,20 +277,24 @@ def set_frames_per_token(torch, model, frames: int):
 
 def reset_counts() -> None:
     from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
-                                                  lr_bidir, rnn)
+                                                  lr, lr_bidir, rnn,
+                                                  rnn_train)
     highway.launches = cbhg.launches = griffin_lim.launches = 0
-    lr_bidir.launches = 0
-    for key in rnn.launches:
-        rnn.launches[key] = 0
+    lr_bidir.launches = lr.launches = 0
+    for counts in (rnn.launches, rnn_train.launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, one key per launch site."""
     from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
-                                                  lr_bidir, rnn)
+                                                  lr, lr_bidir, rnn,
+                                                  rnn_train)
     return {'pre_highway_stack': highway.launches, 'cbhg_front': cbhg.launches,
             'griffin_lim_iter': griffin_lim.launches,
-            'lr_bidir': lr_bidir.launches, **rnn.launches}
+            'lr_bidir': lr_bidir.launches, 'lr': lr.launches, **rnn.launches,
+            **rnn_train.launches}
 
 
 def expect_counts(label: str, launches: dict, **want) -> None:
@@ -376,7 +438,8 @@ def kernel_phase(torch, model, config, n_tok, n_frames):
 KERNEL_NAMES = {'pre_highway_stack': ['pre_highway_stack_kernel'],
                 'cbhg_front': ['cbhg_front_kernel'],
                 'griffin_lim_iter': ['gl_idft_kernel',
-                                     'gl_dft_update_kernel']}
+                                     'gl_dft_update_kernel'],
+                'lr': ['lr_kernel']}
 
 
 def device_profile(prof, label: str, table_file: str, kernel_names) -> float:
@@ -451,10 +514,11 @@ def main_path_phase(torch, model, config, tokens):
         if not (np.isfinite(out['mel_post']).all()
                 and np.isfinite(wav).all()):
             fail(f'request {i}: non-finite output')
-    # float32 keeps the per-step recurrences: no recurrent kernel runs
+    # float32 keeps the per-step recurrences: no recurrent kernel runs;
+    # the frame trunk's length regulator is the lr kernel
     expect_counts('float32 path', launches,
                   pre_highway_stack=2 * len(tokens), cbhg_front=len(tokens),
-                  griffin_lim_iter=32 * len(tokens))
+                  griffin_lim_iter=32 * len(tokens), lr=len(tokens))
 
     busy_ms = device_profile(prof, 'main path', 'chip_smoke_profile.txt',
                              KERNEL_NAMES)
@@ -541,8 +605,9 @@ def cudnn_rnn(torch, cell: str, in_dim: int, hidden: int, x2):
     """One call of cuDNN's bidirectional nn.LSTM / nn.GRU in bf16 on
     direction 0 of x2 [T, 2, B, I]: the yardstick of the recurrent rows."""
     cls = torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU
-    mod = cls(in_dim, hidden, bidirectional=True).to('cuda', torch.bfloat16)
-    mod.flatten_parameters()
+    # built on the card in bf16, so its weights are one flat cuDNN buffer
+    mod = cls(in_dim, hidden, bidirectional=True, device='cuda',
+              dtype=torch.bfloat16)
     x = x2[:, 0].contiguous()
     return lambda: mod(x)
 
@@ -865,6 +930,461 @@ def bf16_reference_phase(torch, model):
     return err
 
 
+# ------------------------------------------------------------- training
+
+# full-width training shapes of the kernel phase: batch, tokens, frames
+TRAIN_KERNEL_SHAPE = (32, 160, 1024)
+# the synthetic dataset: items, of which the last few are validation ones,
+# tokens per item and frames per token
+TRAIN_ITEMS, TRAIN_VAL_ITEMS = 64, 8
+TRAIN_TOKENS = (80, 160)
+TRAIN_FRAMES = (2, 9)
+TRAIN_BATCH = 32
+TRAIN_LR = 1e-3
+# bf16 steps on one repeated batch: warm-up, counted, profiled, then timed;
+# the loss must fall over all of them
+TRAIN_TIMED_STEPS = 10
+F32_TRAIN_STEPS = 2
+# card vs CPU: one step at a small batch, loss and global gradient norm
+CHECK_BATCH = 4
+E2E_TRAIN_TOL = {'float32': 1e-3, 'bfloat16': 5e-2}
+# LR kernel vs twin: a copy, so exact
+LR_TOL = 0.0
+TRAIN_KERNEL_NAMES = {'lr': ['lr_kernel'], 'gru': [r'rnn_kernel<(\(int\))?0>'],
+                      'lstm_train': [r'rnn_kernel<(\(int\))?4>'],
+                      'gru_bwd': [r'rnn_bwd_kernel<false>'],
+                      'lstm_bwd': [r'rnn_bwd_kernel<true>']}
+
+
+def train_config(config, root, precision, max_step, dropout=True):
+    """configs/singlespeaker.yaml at full width with the data under
+    ``root``, a schedule of ``max_step`` steps at TRAIN_BATCH and no
+    checkpoints between epochs; without ``dropout`` every dropout rate is
+    0 (for comparisons across devices)."""
+    cfg = copy.deepcopy(config)
+    cfg['data_path'] = str(root / 'data')
+    cfg['checkpoint_path'] = str(root / 'ckpt')
+    train = cfg['forward_tacotron']['training']
+    train.update(precision=precision, checkpoint_every=10 ** 9,
+                 schedule=[f'{TRAIN_LR}, {max_step}, {TRAIN_BATCH}'])
+    if not dropout:
+        model = cfg['forward_tacotron']['model']
+        for key in model:
+            if key.endswith('_dropout'):
+                model[key] = 0.0
+    return cfg
+
+
+def write_train_data(cfg):
+    """TRAIN_ITEMS synthetic items made from SEED with numpy: 80-160
+    phonemes, 2-9 frames each, random log-mel-like spectrograms, pitch
+    and energy, duration statistics that pass the config's filter."""
+    from forwardtacotron_torch.data.dataset import DurationStats
+    from forwardtacotron_torch.text.symbols import phonemes
+    from forwardtacotron_torch.utils.files import pickle_binary
+    from forwardtacotron_torch.utils.paths import Paths
+
+    paths = Paths.from_config(cfg)
+    rs = np.random.RandomState(SEED)
+    n_mels = cfg['dsp']['num_mels']
+    symbols = phonemes[20:60]
+    text, stats, items = {}, {}, []
+    for i in range(TRAIN_ITEMS):
+        item_id = f'item{i:03d}'
+        n_tok = rs.randint(TRAIN_TOKENS[0], TRAIN_TOKENS[1] + 1)
+        text[item_id] = ''.join(rs.choice(list(symbols), n_tok))
+        dur = rs.randint(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1,
+                         n_tok).astype(np.float32)
+        frames = int(dur.sum())
+        np.save(paths.mel / f'{item_id}.npy',
+                (rs.randn(n_mels, frames) - 5.0).astype(np.float32))
+        np.save(paths.alg / f'{item_id}.npy', dur)
+        np.save(paths.phon_pitch / f'{item_id}.npy',
+                rs.randn(n_tok).astype(np.float32))
+        np.save(paths.phon_energy / f'{item_id}.npy',
+                rs.rand(n_tok).astype(np.float32))
+        np.save(paths.speaker_emb / f'{item_id}.npy',
+                np.zeros(256, np.float32))
+        stats[item_id] = DurationStats(0.9, 0.99, 2, int(dur.max()))
+        items.append((item_id, frames))
+    split = TRAIN_ITEMS - TRAIN_VAL_ITEMS
+    for obj, path in ((text, paths.text_dict), (stats, paths.duration_stats),
+                      ({k: 'speaker' for k in text}, paths.speaker_dict),
+                      (items[:split], paths.train_dataset),
+                      (items[split:], paths.val_dataset)):
+        pickle_binary(obj, path)
+    return paths
+
+
+def with_targets(batch):
+    batch = dict(batch)
+    batch['pitch_target'] = batch['pitch'].copy()
+    batch['energy_target'] = batch['energy'].copy()
+    return batch
+
+
+def cudnn_train(torch, cell, in_dim, hidden, x2, backward):
+    """cuDNN's bidirectional nn.LSTM / nn.GRU in bf16 on direction 0 of x2
+    [T, 2, B, I]: the forward with autograd on, or (``backward``) the
+    backward alone of one forward kept for it. A yardstick the port never
+    calls."""
+    cls = torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU
+    mod = cls(in_dim, hidden, bidirectional=True, device='cuda',
+              dtype=torch.bfloat16)
+    x = x2[:, 0].contiguous().requires_grad_()
+    if not backward:
+        return lambda: mod(x)
+    out, _ = mod(x)
+    g = torch.randn_like(out)
+    inputs = [x, *mod.parameters()]
+    return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
+
+
+def train_kernel_phase(torch, model16):
+    """Every kernel of the training step against its twin at full-width
+    training shapes, bf16 (the LR in float32 too), timed beside its twin
+    and cuDNN's recurrences."""
+    from forwardtacotron_torch.ops.hopper import lr, rnn, rnn_train
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bf = torch.bfloat16
+    b, n, t = TRAIN_KERNEL_SHAPE
+    at = f'training B={b} N={n} T={t}'
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    log(f'training kernels, {at}')
+    res = {}
+
+    # lr: tokens of C=512 (the prenet's 2 x 256) -> frames, float32 and bf16
+    c = 2 * model16.prenet.channels
+    reps = torch.randint(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1, (b, n),
+                         generator=gen, device=dev)
+    ends = torch.cumsum(reps, dim=1).to(torch.int32)
+    over = int((ends[:, -1] > t).sum())
+    parts = []
+    for dtype in (torch.float32, bf):
+        x = randn(b, n, c, dtype=dtype)
+        size = x.element_size()
+        log(f'  lr {str(dtype)[6:]} B={b} N={n} C={c} T={t} ({over} items '
+            f'over the budget; library: none, no single PyTorch call '
+            f'expands by per-item durations)')
+        err = compare(torch, f'lr {str(dtype)[6:]}',
+                      lr.length_regulator_expand(x, ends, t).float(),
+                      lr.length_regulator_plain(x, ends, t).float(), LR_TOL)
+        k_ms = time_ms(torch, lambda: lr.length_regulator_expand(x, ends, t))
+        p_ms = time_ms(torch, lambda: lr.length_regulator_plain(x, ends, t))
+        b_ms, b_by = bound(0, size * (b * n * c + b * t * c) + 4 * b * n)
+        log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound '
+            f'{b_ms:.4f} ms ({b_by})')
+        parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          at=f'{at} {str(dtype)[6:]}'))
+    res['lr_f32'], res['lr'] = parts
+
+    # lstm_train: the bi-LSTM forward that keeps its cell states (weights
+    # detached: the twins run outside autograd, as the kernels do)
+    with torch.no_grad():
+        wi, wh, bi, bh = model16.lstm.stacked_params()
+    i_dim, h = wi.shape[1], wh.shape[1]
+    x2 = randn(t, 2, b, i_dim, scale=0.5)
+    log(f'  lstm_train T={t} B={b} I={i_dim} H={h} (library: cuDNN bi-LSTM '
+        'forward with autograd)')
+    err = compare_sweep(torch, 'lstm_train hs, cs',
+                        rnn.lstm_train(x2, wi, wh, bi + bh),
+                        rnn.lstm_train_plain(x2, wi, wh, bi + bh), 1)
+    k_ms = time_ms(torch, lambda: rnn.lstm_train(x2, wi, wh, bi + bh))
+    p_ms = time_ms(torch, lambda: rnn.lstm_train_plain(x2, wi, wh, bi + bh))
+    l_ms = time_ms(torch, cudnn_train(torch, 'lstm', i_dim, h, x2, False))
+    b_ms, b_by = bound(t * 2 * b * 2 * (i_dim + h) * 4 * h,
+                       2 * (t * 2 * b * (i_dim + 2 * h)
+                            + 2 * (i_dim + h) * 4 * h + 2 * 4 * h),
+                       PEAK_BF16_FLOPS)
+    log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
+        f'{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+    res['lstm_train'] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                             at=at)
+
+    # lstm_bwd: its reverse-time sweep, from the kernel's saved states,
+    # with an incoming gradient at unit scale
+    hs, cs = rnn.lstm_train(x2, wi, wh, bi + bh)
+    args = (randn(t, 2, b, h), hs, cs, x2, wi, wh, bi + bh)
+    log(f'  lstm_bwd T={t} B={b} I={i_dim} H={h} (library: cuDNN bi-LSTM '
+        'backward)')
+    err = compare_sweep(torch, 'lstm_bwd dgates', [rnn_train.lstm_bwd(*args)],
+                        [rnn_train.lstm_bwd_plain(*args)], 4)
+    k_ms = time_ms(torch, lambda: rnn_train.lstm_bwd(*args))
+    p_ms = time_ms(torch, lambda: rnn_train.lstm_bwd_plain(*args))
+    l_ms = time_ms(torch, cudnn_train(torch, 'lstm', i_dim, h, x2, True))
+    g = 4 * h
+    b_ms, b_by = bound(t * 2 * b * 2 * ((i_dim + h) * g + g * h),
+                       2 * (t * 2 * b * (3 * h + i_dim + g)
+                            + 2 * (i_dim + h) * g + 2 * g), PEAK_BF16_FLOPS)
+    log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
+        f'{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+    res['lstm_bwd'] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                           library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                           at=at)
+
+    # the three trainable GRUs of one step (pitch and prenet over the
+    # tokens, postnet over the frames): their forward (row 7's kernel) and
+    # gru_bwd, whose numbers are summed
+    parts, fwd = [], {}
+    for name, mod, steps in (('pitch', model16.pitch_pred.rnn, n),
+                             ('prenet', model16.prenet.rnn, n),
+                             ('postnet', model16.postnet.rnn, t)):
+        with torch.no_grad():
+            wi, wh, bi, bh = mod.stacked_params()
+        i_dim, h = wi.shape[1], wh.shape[1]
+        g = 3 * h
+        x2 = randn(steps, 2, b, i_dim, scale=0.5)
+        hs = rnn.gru(x2, wi, wh, bi, bh)
+        log(f'  gru {name} forward T={steps} B={b} I={i_dim} H={h}')
+        f_err = compare_sweep(torch, f'gru {name} hs', [hs],
+                              [rnn.gru_plain(x2, wi, wh, bi, bh)], 1)
+        f_ms = time_ms(torch, lambda: rnn.gru(x2, wi, wh, bi, bh))
+        f_plain = time_ms(torch, lambda: rnn.gru_plain(x2, wi, wh, bi, bh))
+        log(f'    kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms')
+        fwd[name] = dict(max_abs_err=f_err, ms=f_ms, plain_ms=f_plain)
+        args = (randn(steps, 2, b, h), hs, x2, wi, wh, bi, bh)
+        log(f'  gru_bwd {name} T={steps} B={b} I={i_dim} H={h} (library: '
+            'cuDNN bi-GRU backward)')
+        err = compare_sweep(torch, f'gru_bwd {name} dgx, dgh',
+                            rnn_train.gru_bwd(*args),
+                            rnn_train.gru_bwd_plain(*args), 3)
+        k_ms = time_ms(torch, lambda: rnn_train.gru_bwd(*args))
+        p_ms = time_ms(torch, lambda: rnn_train.gru_bwd_plain(*args))
+        l_ms = time_ms(torch, cudnn_train(torch, 'gru', i_dim, h, x2, True))
+        b_ms, b_by = bound(steps * 2 * b * 2 * ((i_dim + h) * g + g * h),
+                           2 * (steps * 2 * b * (2 * h + i_dim + 2 * g)
+                                + 2 * (i_dim + h) * g + 4 * g),
+                           PEAK_BF16_FLOPS)
+        log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
+            f'{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+        parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+    res['gru_bwd'] = {k: (max(p[k] for p in parts) if k == 'max_abs_err'
+                          else parts[-1][k] if k == 'bound_by'
+                          else sum(p[k] for p in parts)) for k in parts[0]}
+    res['gru_bwd']['at'] = (f'{at}: pitch (T={n}, H=128) + prenet (T={n}) + '
+                            f'postnet (T={t}) GRUs, summed')
+    res['gru_train_fwd'] = fwd
+    return res
+
+
+def train_bf16_phase(torch, config, root):
+    """The bf16 mixed-precision train step at full width on the synthetic
+    data: exact launch counts, the profiler over one step, steps/s and mel
+    frames/s over TRAIN_TIMED_STEPS steps on one repeated batch (whose loss
+    must fall), then ForwardTrainer.train (with its eval) to a checkpoint
+    that the port's gen_forward loads and speaks from."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch import gen_forward
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.train.state import create_train_state
+    from forwardtacotron_torch.utils.checkpoints import (checkpoint_step,
+                                                         restore_checkpoint)
+
+    n_steps = 3 + TRAIN_TIMED_STEPS
+    cfg = train_config(config, root, 'bfloat16', n_steps + 2)
+    paths = write_train_data(cfg)
+    torch.manual_seed(SEED)
+    model = init_tts_model(cfg).cuda()
+    trainer = ForwardTrainer(paths, None, cfg, device='cuda')
+    state = create_train_state(model, trainer.tx)
+    train_cfg = cfg['forward_tacotron']['training']
+    train_set, _ = get_forward_dataloaders(
+        paths, TRAIN_BATCH, bucket_multiple=train_cfg['bucket_multiple'],
+        seed=SEED, **train_cfg['filter'])
+    host = with_targets(next(iter(train_set)))
+    batch = trainer.device_batch(host)
+    frames = int(host['mel_len'].sum())
+    log(f'bf16 train step: batch {len(host["x_len"])}, tokens padded to '
+        f'{host["x"].shape[1]}, frames padded to {host["mel"].shape[1]} '
+        f'({frames} valid mel frames)')
+
+    losses = []
+
+    def step():
+        m = trainer.train_step(state, batch)
+        losses.append(m['loss'])
+        return m
+
+    step()                                     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    step()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # one step: the LR, the pitch / prenet / postnet GRUs forward and
+    # backward, the bi-LSTM forward (with cells) and backward
+    expect_counts('bf16 train step', launches, lr=1, gru=3, lstm_train=1,
+                  gru_bwd=3, lstm_bwd=1)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy_ms = device_profile(prof, 'bf16 train step',
+                             'chip_smoke_train_profile.txt',
+                             TRAIN_KERNEL_NAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS * 1e3
+    losses = [float(v) for v in losses]
+    stats = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                 mel_frames_per_s=frames * 1e3 / step_ms,
+                 device_busy_ms=busy_ms, idle=1 - busy_ms / step_ms,
+                 peak_memory_gb=peak_gb, losses=losses)
+    log(f'bf16 train step: {step_ms:.1f} ms per step over '
+        f'{TRAIN_TIMED_STEPS} steps: {stats["steps_per_s"]:.3f} steps/s, '
+        f'{stats["mel_frames_per_s"]:.0f} mel frames/s; device busy '
+        f'{busy_ms:.1f} ms (profiled step): idle {100 * stats["idle"]:.1f}%; '
+        f'peak memory {peak_gb:.2f} GiB')
+    log(f'bf16 train losses on one repeated batch: '
+        f'{", ".join(f"{v:.4f}" for v in losses)}')
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        fail('bf16 train step: the loss is not finite or does not fall')
+
+    # ForwardTrainer.train: two more steps, eval, latest_model.pt
+    t0 = time.perf_counter()
+    state = trainer.train(model, state=state, seed=SEED)
+    log(f'ForwardTrainer.train to step {state.step}, eval and checkpoint: '
+        f'{time.perf_counter() - t0:.1f} s')
+    ckpt = restore_checkpoint(paths.forward_checkpoints)
+    if ckpt is None or checkpoint_step(ckpt) != state.step:
+        fail('bf16 training: no latest_model.pt at the final step')
+    out = root / 'wavs'
+    gen_forward.main(['--checkpoint',
+                      str(paths.forward_checkpoints / 'latest_model.pt'),
+                      '--input_text', 'ðə kwɪk bɹaʊn fɑks.',
+                      '--output', str(out), '--device', 'cuda'])
+    wavs = sorted(out.glob('*.wav'))
+    if len(wavs) != 1 or wavs[0].stat().st_size < 1000:
+        fail(f'gen_forward from the trained checkpoint wrote {wavs}')
+    log(f'gen_forward loaded the step-{state.step} checkpoint and wrote '
+        f'{wavs[0].name} ({wavs[0].stat().st_size} bytes)')
+    return launches, stats
+
+
+def train_f32_phase(torch, config, root):
+    """The float32 train step (the config's default): F32_TRAIN_STEPS steps
+    with the lr kernel as the only kernel (the recurrences are per-step
+    loops), then the eval step's kernels."""
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.train.state import create_train_state
+    from forwardtacotron_torch.utils.paths import Paths
+
+    cfg = train_config(config, root, 'float32', F32_TRAIN_STEPS)
+    paths = Paths.from_config(cfg)
+    torch.manual_seed(SEED)
+    model = init_tts_model(cfg).cuda()
+    trainer = ForwardTrainer(paths, None, cfg, device='cuda')
+    state = create_train_state(model, trainer.tx)
+    train_cfg = cfg['forward_tacotron']['training']
+    train_set, _ = get_forward_dataloaders(
+        paths, TRAIN_BATCH, bucket_multiple=train_cfg['bucket_multiple'],
+        seed=SEED, **train_cfg['filter'])
+    batch = trainer.device_batch(with_targets(next(iter(train_set))))
+    torch.cuda.synchronize()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(F32_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(state, batch)['loss']))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    expect_counts('float32 train steps', read_counts(), lr=F32_TRAIN_STEPS)
+    log(f'float32 train steps: {", ".join(f"{v:.0f}" for v in times)} ms, '
+        f'losses {", ".join(f"{v:.4f}" for v in losses)}')
+    if not np.isfinite(losses).all():
+        fail('float32 train step: non-finite loss')
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.eval_step(model, batch)
+    torch.cuda.synchronize()
+    expect_counts('float32 eval step', read_counts(), pre_highway_stack=2,
+                  cbhg_front=1, lr=1)
+    log(f'float32 eval step: {(time.perf_counter() - t0) * 1e3:.0f} ms, '
+        f'{ {k: round(float(v), 4) for k, v in metrics.items()} }')
+    return times
+
+
+def check_batch(n_mels):
+    """CHECK_BATCH collated items of 30-50 phonemes, 2-5 frames each (at
+    most 250 frames), made from SEED with numpy."""
+    rs = np.random.RandomState(SEED + 4)
+    x_len = rs.randint(30, 51, CHECK_BATCH)
+    n = int(x_len.max())
+    x = np.zeros((CHECK_BATCH, n), np.int64)
+    dur, pitch, energy = (np.zeros((CHECK_BATCH, n), np.float32)
+                          for _ in range(3))
+    for i, ln in enumerate(x_len):
+        x[i, :ln] = rs.randint(20, 60, ln)
+        dur[i, :ln] = rs.randint(2, 6, ln)
+        pitch[i, :ln] = rs.randn(ln)
+        energy[i, :ln] = rs.rand(ln)
+    mel_len = dur.sum(1).astype(np.int64)
+    mel = np.full((CHECK_BATCH, int(mel_len.max()) + 1, n_mels), -11.5129,
+                  np.float32)
+    for i, ln in enumerate(mel_len):
+        mel[i, :ln] = rs.randn(ln, n_mels) - 5.0
+    return with_targets({'x': x, 'dur': dur, 'mel_len': mel_len,
+                         'x_len': x_len, 'pitch': pitch, 'energy': energy,
+                         'mel': mel})
+
+
+def train_reference_phase(torch, config, root):
+    """One train step on the card and on the CPU plain path (twins, no
+    kernels), dropout off, same weights and batch: the loss and the global
+    gradient norm, float32 and bf16."""
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.train.state import create_train_state
+    from forwardtacotron_torch.utils.paths import Paths
+
+    errs = {}
+    host = check_batch(config['dsp']['num_mels'])
+    for precision, tol in E2E_TRAIN_TOL.items():
+        cfg = train_config(config, root, precision, 1, dropout=False)
+        paths = Paths.from_config(cfg)
+        torch.manual_seed(SEED)
+        model = init_tts_model(cfg)
+        got = {}
+        for device in ('cpu', 'cuda'):
+            trainer = ForwardTrainer(paths, None, cfg, device=device)
+            copy_ = copy.deepcopy(model).to(device)
+            m = trainer.train_step(create_train_state(copy_, trainer.tx),
+                                   trainer.device_batch(host))
+            got[device] = (float(m['loss']), float(m['grad_norm']))
+            if m['loss'].device.type != device:
+                fail(f'train reference: the step ran on {m["loss"].device}')
+        rel = max(abs(g - c) / abs(c) for g, c in zip(got['cuda'], got['cpu']))
+        ok = rel <= tol
+        log(f'train reference {precision}: B={CHECK_BATCH}, '
+            f'{host["mel"].shape[1]} frames: loss / grad norm card '
+            f'{got["cuda"][0]:.6f} / {got["cuda"][1]:.6f}, CPU '
+            f'{got["cpu"][0]:.6f} / {got["cpu"][1]:.6f}: rel {rel:.3e} '
+            f'(tol {tol:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'{precision} train step disagrees with the CPU plain path')
+        errs[precision] = rel
+    return errs
+
+
 def main() -> None:
     try:
         import torch
@@ -918,6 +1438,18 @@ def main() -> None:
         set_frames_per_token(torch, model16, SERVING_FRAMES_PER_TOKEN)
     bf16_reference_phase(torch, model16)
 
+    # training: the kernels at full-width training shapes (with autograd on,
+    # for cuDNN's yardstick), the bf16 and float32 train steps on synthetic
+    # data in a temporary directory, and one step on card vs CPU
+    results_train = train_kernel_phase(torch, model16)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as tmp:
+        train_launches, training = train_bf16_phase(torch, config, Path(tmp))
+        training['f32_step_ms'] = train_f32_phase(torch, config, Path(tmp))
+        training['card_vs_cpu_rel'] = train_reference_phase(torch, config,
+                                                            Path(tmp))
+    training['lr_f32'] = results_train['lr_f32']
+    training['gru_train_fwd'] = results_train['gru_train_fwd']
+
     rows = [  # (name, results, launches, source, TPU kernel body)
         ('pre_highway_stack', results, launches['pre_highway_stack'],
          'highway.cu', 'highway.py:113'),
@@ -938,7 +1470,15 @@ def main() -> None:
          'rnn.py:149'),
         ('bidir_rnn', results16,
          serving_launches['gru'] + serving_launches['lstm'], 'rnn.cu',
-         'rnn.py:188')]
+         'rnn.py:188'),
+        ('lr', results_train, train_launches['lr'], 'lr.cu',
+         'length_regulator.py:29'),
+        ('lstm_train', results_train, train_launches['lstm_train'], 'rnn.cu',
+         'rnn_train.py:55'),
+        ('gru_bwd', results_train, train_launches['gru_bwd'], 'rnn_bwd.cu',
+         'rnn_train.py:92'),
+        ('lstm_bwd', results_train, train_launches['lstm_bwd'],
+         'rnn_bwd.cu', 'rnn_train.py:149')]
     kernels = []
     for name, res, n_launches, src, tpu in rows:
         r = res[name.replace('_bf16', '')]
@@ -951,6 +1491,7 @@ def main() -> None:
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r.get('library_ms'), 'at': r['at']})
     log(f'serving: {json.dumps(serving)}')
+    log(f'training: {json.dumps(training)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

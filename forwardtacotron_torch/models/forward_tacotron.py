@@ -1,44 +1,52 @@
-"""ForwardTacotron, serving path (generate mode).
+"""ForwardTacotron: the teacher-forced training forward and the serving
+path (generate mode).
 
 Port of forwardtacotron_tpu/models/forward_tacotron.py: the series
-predictors, ``predict_series`` with the all-zero-duration guard,
-``generate``, the single-call ``generate_combined`` and the generate-mode
-decode. Module names are the reference's,
-so ``state_dict()`` has exactly the keys and shapes of the published
-checkpoints. Mel tensors are [B, T, n_mels].
+predictors, the training ``forward(batch)`` with its pack_padded decode,
+``predict_series`` with the all-zero-duration guard, ``generate``, the
+single-call ``generate_combined`` and the generate-mode decode. Module
+names are the reference's, so ``state_dict()`` has exactly the keys and
+shapes of the published checkpoints (dropout has no parameters). Mel
+tensors are [B, T, n_mels].
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from forwardtacotron_torch.models.layers import (CBHG, BatchNormConv, BiGRU,
-                                                 BiLSTM, conv1d, frame_trunk,
+                                                 BiLSTM, Conv, Dense, conv1d,
+                                                 frame_trunk, make_len_mask,
                                                  multi_bigru)
-from forwardtacotron_torch.ops.length_regulator import expanded_lengths
+from forwardtacotron_torch.ops.length_regulator import (expanded_lengths,
+                                                        length_regulator)
 from forwardtacotron_torch.text.symbols import phonemes
+
+PAD_VALUE = -11.5129
 
 
 class SeriesPredictor(nn.Module):
-    """Duration/pitch/energy predictor: embed -> 3x(conv+BN) -> biGRU ->
-    linear (reference forward_tacotron.py:14-39)."""
+    """Duration/pitch/energy predictor: embed -> 3x(conv+BN+dropout) ->
+    biGRU -> linear (reference forward_tacotron.py:14-39)."""
 
     def __init__(self, num_chars: int, emb_dim: int = 64,
-                 conv_dims: int = 256, rnn_dims: int = 64):
+                 conv_dims: int = 256, rnn_dims: int = 64,
+                 dropout: float = 0.5):
         super().__init__()
+        self.drop = nn.Dropout(dropout)
         self.embedding = nn.Embedding(num_chars, emb_dim)
         self.convs = nn.ModuleList([
             BatchNormConv(emb_dim if i == 0 else conv_dims, conv_dims, 5)
             for i in range(3)])
         self.rnn = BiGRU(conv_dims, rnn_dims)
-        self.lin = nn.Linear(2 * rnn_dims, 1)
+        self.lin = Dense(2 * rnn_dims, 1)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Embedding and conv stack (the part before the GRU)."""
         x = self.embedding(x)
         for conv in self.convs:
-            x = conv(x)
+            x = self.drop(conv(x))
         return x
 
     def head(self, rnn_out: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
@@ -53,40 +61,64 @@ class ForwardTacotron(nn.Module):
     def __init__(self, embed_dims: int = 256, series_embed_dims: int = 64,
                  num_chars: int = len(phonemes),
                  durpred_conv_dims: int = 256, durpred_rnn_dims: int = 64,
+                 durpred_dropout: float = 0.5,
                  pitch_conv_dims: int = 256, pitch_rnn_dims: int = 128,
-                 pitch_strength: float = 1.0,
+                 pitch_dropout: float = 0.5, pitch_strength: float = 1.0,
                  energy_conv_dims: int = 256, energy_rnn_dims: int = 64,
-                 energy_strength: float = 1.0,
+                 energy_dropout: float = 0.5, energy_strength: float = 1.0,
                  rnn_dims: int = 512, prenet_dims: int = 256,
                  prenet_k: int = 16, prenet_num_highways: int = 4,
+                 prenet_dropout: float = 0.5,
                  postnet_dims: int = 256, postnet_k: int = 8,
-                 postnet_num_highways: int = 4, n_mels: int = 80):
+                 postnet_num_highways: int = 4, postnet_dropout: float = 0.0,
+                 n_mels: int = 80, padding_value: float = PAD_VALUE):
         super().__init__()
         self.pitch_strength = pitch_strength
         self.energy_strength = energy_strength
+        self.padding_value = padding_value
         self.embedding = nn.Embedding(num_chars, embed_dims)
         self.dur_pred = SeriesPredictor(num_chars, series_embed_dims,
-                                        durpred_conv_dims, durpred_rnn_dims)
+                                        durpred_conv_dims, durpred_rnn_dims,
+                                        durpred_dropout)
         self.pitch_pred = SeriesPredictor(num_chars, series_embed_dims,
-                                          pitch_conv_dims, pitch_rnn_dims)
+                                          pitch_conv_dims, pitch_rnn_dims,
+                                          pitch_dropout)
         self.energy_pred = SeriesPredictor(num_chars, series_embed_dims,
-                                           energy_conv_dims, energy_rnn_dims)
+                                           energy_conv_dims, energy_rnn_dims,
+                                           energy_dropout)
         self.prenet = CBHG(K=prenet_k, in_channels=embed_dims,
                            channels=prenet_dims,
                            proj_channels=[prenet_dims, embed_dims],
-                           num_highways=prenet_num_highways)
+                           num_highways=prenet_num_highways,
+                           dropout=prenet_dropout)
         self.lstm = BiLSTM(2 * prenet_dims, rnn_dims)
-        self.lin = nn.Linear(2 * rnn_dims, n_mels)
+        self.lin = Dense(2 * rnn_dims, n_mels)
         self.register_buffer('step', torch.zeros(1, dtype=torch.long))
         self.postnet = CBHG(K=postnet_k, in_channels=n_mels,
                             channels=postnet_dims,
                             proj_channels=[postnet_dims, n_mels],
-                            num_highways=postnet_num_highways)
+                            num_highways=postnet_num_highways,
+                            dropout=postnet_dropout)
         self.post_proj = nn.Linear(2 * postnet_dims, n_mels, bias=False)
-        self.pitch_proj = nn.Conv1d(1, 2 * prenet_dims, kernel_size=3,
-                                    padding=1)
-        self.energy_proj = nn.Conv1d(1, 2 * prenet_dims, kernel_size=3,
-                                     padding=1)
+        self.pitch_proj = Conv(1, 2 * prenet_dims, kernel_size=3, padding=1)
+        self.energy_proj = Conv(1, 2 * prenet_dims, kernel_size=3, padding=1)
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward (the JAX ``__call__``, reference
+        forward_tacotron.py:118-165): batch holds x [B, N] tokens, dur, pitch
+        and energy [B, N], mel_len [B] and mel [B, T, n_mels], of which only
+        the length T is used. Training mode (``train()``) uses batch
+        statistics and dropout, eval mode neither."""
+        x = batch['x']
+        dur_hat = self.dur_pred(x)[..., 0]
+        pitch_hat = self.pitch_pred(x)[..., 0]
+        energy_hat = self.energy_pred(x)[..., 0]
+        mel, mel_post = self._decode(x, batch['dur'], batch['pitch'],
+                                     batch['energy'], batch['mel'].shape[1],
+                                     batch['mel_len'])
+        return {'mel': mel, 'mel_post': mel_post, 'dur': dur_hat,
+                'pitch': pitch_hat, 'energy': energy_hat}
 
     @staticmethod
     def _guard_durations(dur: torch.Tensor) -> torch.Tensor:
@@ -134,23 +166,45 @@ class ForwardTacotron(nn.Module):
                 'pitch': pitch, 'energy': energy}
 
     def _decode(self, x: torch.Tensor, dur: torch.Tensor,
-                pitch: torch.Tensor, energy: torch.Tensor, max_len: int):
+                pitch: torch.Tensor, energy: torch.Tensor, max_len: int,
+                mel_lens: Optional[torch.Tensor] = None):
         h = self.prenet(self.embedding(x))
-        return self._decode_post_prenet(h, dur, pitch, energy, max_len)
+        return self._decode_post_prenet(h, dur, pitch, energy, max_len,
+                                        mel_lens)
 
     def _decode_post_prenet(self, h: torch.Tensor, dur: torch.Tensor,
                             pitch: torch.Tensor, energy: torch.Tensor,
-                            max_len: int):
-        """Generate mode: per-item expanded lengths steer the LSTM and
-        postnet-GRU flips, and frames past them are zeroed so convolution
-        boundaries match the reference's exact-length zero padding."""
+                            max_len: int,
+                            mel_lens: Optional[torch.Tensor] = None):
+        """Teacher-forced mode (``mel_lens`` given) reproduces the
+        reference's pack_padded decode: the LSTM's backward pass starts at
+        each item's true last frame and its padded frames carry
+        ``padding_value`` into the mel Linear; the postnet sees the batch's
+        longest ``mel_lens`` frames, those beyond it zero, and they come out
+        as ``padding_value``. Generate mode: per-item expanded lengths steer
+        the LSTM and postnet-GRU flips, and frames past them are zeroed so
+        convolution boundaries match the reference's exact-length zero
+        padding."""
         h = h + conv1d(pitch[:, :, None], self.pitch_proj) * self.pitch_strength
         h = h + conv1d(energy[:, :, None], self.energy_proj) \
             * self.energy_strength
+        if mel_lens is not None:
+            h = self.lstm(length_regulator(h, dur, max_len), lengths=mel_lens)
+            h = h.masked_fill(make_len_mask(mel_lens, max_len)[:, :, None],
+                              self.padding_value)
+            raw = self.lin(h)
+            batch_max = mel_lens.max()
+            beyond = (torch.arange(max_len, device=h.device)
+                      >= batch_max)[None, :, None]
+            post = self.postnet(raw.masked_fill(beyond, 0.0),
+                                lengths=batch_max.expand(h.shape[0]))
+            mel = raw.masked_fill(beyond, self.padding_value)
+            mel_post = self.post_proj(post).masked_fill(beyond,
+                                                        self.padding_value)
+            return mel, mel_post
         lengths = expanded_lengths(dur)
         raw = frame_trunk(h, dur, lengths, max_len, self.lstm, self.lin)
-        tail = (torch.arange(max_len, device=h.device)[None, :]
-                >= lengths[:, None])[:, :, None]
+        tail = make_len_mask(lengths, max_len)[:, :, None]
         mel = raw.masked_fill(tail, 0.0)
         post = self.postnet(mel, lengths=lengths)
         mel_post = self.post_proj(post).masked_fill(tail, 0.0)
@@ -158,10 +212,7 @@ class ForwardTacotron(nn.Module):
 
     @classmethod
     def from_config(cls, config: Dict[str, Any]) -> 'ForwardTacotron':
-        # dropout is the identity at inference
-        model_config = {k: v for k, v
-                        in config['forward_tacotron']['model'].items()
-                        if not k.endswith('_dropout')}
+        model_config = dict(config['forward_tacotron']['model'])
         model_config['num_chars'] = len(phonemes)
         model_config['n_mels'] = config['dsp']['num_mels']
         return cls(**model_config).eval()

@@ -1,19 +1,23 @@
-"""Core blocks of the serving path, as PyTorch modules.
+"""Core blocks of the ForwardTacotron models, as PyTorch modules.
 
-Port of the inference subset of forwardtacotron_tpu/models/layers.py:
-BatchNormConv (ReLU before BN), HighwayNetwork, the bidirectional GRU/LSTM
-with exact-length semantics, ``multi_bigru``, the frame trunk and CBHG.
-Public functions keep the JAX package's batch-first channels-last [B, T, C]
-layout; parameter names are the reference's state_dict names, so reference
-checkpoints load with ``load_state_dict``.
+Port of forwardtacotron_tpu/models/layers.py for the serving and training
+paths: BatchNormConv (ReLU before BN), HighwayNetwork, the bidirectional
+GRU/LSTM with exact-length semantics, ``multi_bigru``, the frame trunk, CBHG
+and ``make_len_mask``. Public functions keep the JAX package's batch-first
+channels-last [B, T, C] layout; parameter names are the reference's
+state_dict names, so reference checkpoints load with ``load_state_dict``.
 
 In bfloat16 the recurrences take the ``rnn`` kernels and the frame trunk the
 ``lr_bidir`` + ``rnn`` kernels wherever the JAX package's gates send them to
 its Pallas kernels (``rnn_kernel_eligible``); in float32 they stay per-step
-loops, as the JAX package's float32 path stays ``lax.scan``.
+loops, as the JAX package's float32 path stays ``lax.scan``. The frame
+trunk's length regulator takes the ``lr`` kernel in both.
 
-The port is inference-only: BatchNorm always normalizes with its running
-statistics and dropout is the identity.
+A module in training mode (``nn.Module.train()``) normalizes with batch
+statistics and updates the running ones as flax's BatchNorm does, drops
+where the JAX modules drop, and keeps the CBHG on plain operations; the
+trainer sets ``rnn_train.rnn_mode('train')`` so that the eligible
+recurrences take the differentiable kernels of ``ops/hopper/rnn_train.py``.
 """
 
 import math
@@ -24,12 +28,35 @@ from torch import nn
 
 from forwardtacotron_torch.ops.hopper import lr_bidir
 from forwardtacotron_torch.ops.hopper import rnn as rnn_ops
+from forwardtacotron_torch.ops.hopper import rnn_train
 from forwardtacotron_torch.ops.hopper.cbhg import bank_pool_proj
 from forwardtacotron_torch.ops.hopper.highway import pre_highway_stack
 from forwardtacotron_torch.ops.length_regulator import (duration_spans,
                                                         length_regulator)
 
 BN_EPS = 1e-5
+# flax's BatchNorm momentum: running = 0.9 * running + 0.1 * batch
+BN_MOMENTUM = 0.9
+
+
+class Dense(nn.Linear):
+    """nn.Linear that adds its bias as an operation of its own, as flax's
+    ``nn.Dense`` does (``y = x @ W; y += b``): in bfloat16 the product is
+    rounded before the bias is added (nn.Linear rounds once). The same
+    parameters and state_dict names as nn.Linear."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = nn.functional.linear(x, self.weight)
+        return y if self.bias is None else y + self.bias
+
+
+class Conv(nn.Conv1d):
+    """nn.Conv1d that adds its bias as an operation of its own, as flax's
+    ``nn.Conv`` does (see :class:`Dense`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._conv_forward(x, self.weight, None)
+        return y if self.bias is None else y + self.bias[:, None]
 
 
 def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
@@ -39,9 +66,30 @@ def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
     return conv(x.transpose(1, 2))[:, :, :t].transpose(1, 2)
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """flax's BatchNorm in training on [B, T, C]: statistics over every
+    frame (padding included) in float32, the biased variance
+    E[x^2] - E[x]^2 clipped at 0, the output in x's dtype; the running
+    statistics move by momentum 0.9 with that biased variance (torch's
+    BatchNorm1d uses 0.1 and the unbiased one)."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 1))
+    var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight.float()) \
+        + bn.bias.float()
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1.0 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1.0 - BN_MOMENTUM) * var)
+        bn.num_batches_tracked += 1
+    return y.to(x.dtype)
+
+
 class BatchNormConv(nn.Module):
-    """Conv (no bias) -> optional ReLU -> eval BatchNorm. The ReLU runs
-    BEFORE the norm, as in the reference."""
+    """Conv (no bias) -> optional ReLU -> BatchNorm. The ReLU runs BEFORE
+    the norm, as in the reference. Training mode normalizes with batch
+    statistics (``batch_norm_train``), eval mode with the running ones."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  relu: bool = True):
@@ -56,6 +104,8 @@ class BatchNormConv(nn.Module):
         if self.relu:
             x = torch.relu(x)
         bn = self.bnorm
+        if self.training:
+            return batch_norm_train(x, bn)
         return (x - bn.running_mean) * (torch.rsqrt(bn.running_var + BN_EPS)
                                         * bn.weight) + bn.bias
 
@@ -72,8 +122,8 @@ class HighwayNetwork(nn.Module):
 
     def __init__(self, size: int):
         super().__init__()
-        self.W1 = nn.Linear(size, size)
-        self.W2 = nn.Linear(size, size)
+        self.W1 = Dense(size, size)
+        self.W2 = Dense(size, size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = torch.sigmoid(self.W2(x))
@@ -101,8 +151,10 @@ def flip_sequences(x: torch.Tensor,
 def rnn_kernel_eligible(dtype: torch.dtype, in_dim: int, hidden: int) -> bool:
     """The JAX package's gate for its recurrent kernels
     (ops/pallas/rnn.py ``eligible``), kept so both packages route alike:
-    bfloat16 only, H a multiple of 128, the input width of 16."""
-    return dtype == torch.bfloat16 and hidden % 128 == 0 and in_dim % 16 == 0
+    bfloat16 only, H a multiple of 128, the input width of 16, and the
+    kernels not switched off (``rnn_train.rnn_mode('off')``)."""
+    return (rnn_train.current_mode() != 'off' and dtype == torch.bfloat16
+            and hidden % 128 == 0 and in_dim % 16 == 0)
 
 
 def time_major(x: torch.Tensor,
@@ -158,12 +210,40 @@ def _scan(xp2: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor, step_fn,
     return torch.stack(hs)
 
 
+def bidir_rnn_trainable(x: torch.Tensor, lengths: Optional[torch.Tensor],
+                        wi: torch.Tensor, wh: torch.Tensor, bi: torch.Tensor,
+                        bh: torch.Tensor, cell: str) -> torch.Tensor:
+    """Differentiable bidirectional GRU/LSTM, [B, T, I] -> [B, T, 2H], on
+    the stacked weights (wi [2, I, G], wh [2, H, G], bi/bh [2, G]), through
+    ``rnn_train.GruCore`` / ``LstmCore``. As the JAX function does, the
+    batch is padded to a multiple of 16 (padded items of length 1), the
+    backward direction is flipped per item and stacked time-major for the
+    core, and the glue stays differentiable PyTorch."""
+    b = x.shape[0]
+    pad = -b % 16
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad, *x.shape[1:])])
+        if lengths is not None:
+            lengths = torch.cat([lengths, lengths.new_ones(pad)])
+    x2 = time_major(x, lengths)
+    if cell == 'lstm':
+        hs = rnn_train.LstmCore.apply(x2, wi, wh, bi + bh)
+    else:
+        hs = rnn_train.GruCore.apply(x2, wi, wh, bi, bh)
+    return unstack(hs, lengths)[:b]
+
+
 def _bidir_scan(x: torch.Tensor, lengths: Optional[torch.Tensor],
                 rnn: '_BiRNN', step_fn, n_carry: int) -> torch.Tensor:
     """[B, T, I] -> [B, T, 2H]; with ``lengths`` the backward direction
     starts at each item's true last frame. One kernel launch for the whole
-    sequence where ``rnn_kernel_eligible``, else a per-step loop."""
+    sequence where ``rnn_kernel_eligible`` (the differentiable cores of
+    ``rnn_train`` under ``rnn_mode('train')``), else a per-step loop."""
     wi, wh, bi, bh = rnn.stacked_params()
+    if (rnn_train.current_mode() == 'train'
+            and rnn_kernel_eligible(x.dtype, x.shape[-1], rnn.hidden)):
+        return bidir_rnn_trainable(x, lengths, wi, wh, bi, bh,
+                                   'lstm' if n_carry == 2 else 'gru')
     x2 = time_major(x, lengths)
     if rnn_kernel_eligible(x.dtype, x.shape[-1], rnn.hidden):
         if n_carry == 2:
@@ -320,10 +400,12 @@ def lstm_lr_mel(h: torch.Tensor, dur: torch.Tensor, max_len: int,
 def frame_trunk(h: torch.Tensor, dur: torch.Tensor, lengths: torch.Tensor,
                 max_len: int, lstm: BiLSTM, lin: nn.Linear) -> torch.Tensor:
     """Frame-rate trunk: length regulator -> bi-LSTM -> mel Linear; the
-    fused ``lstm_lr_mel`` where the JAX package fuses it (its RNN gate and
-    an input width that is a multiple of 128)."""
+    fused ``lstm_lr_mel`` where the JAX package fuses it (its RNN gate
+    outside training and an input width that is a multiple of 128), else
+    the ``lr`` kernel and the bi-LSTM."""
     in_dim = h.shape[-1]
-    if rnn_kernel_eligible(h.dtype, in_dim, lstm.hidden) and in_dim % 128 == 0:
+    if (rnn_train.current_mode() == 'on' and in_dim % 128 == 0
+            and rnn_kernel_eligible(h.dtype, in_dim, lstm.hidden)):
         return lstm_lr_mel(h, dur, max_len, lstm, lin)
     h = length_regulator(h, dur, max_len)
     h = lstm(h, lengths=lengths)
@@ -335,9 +417,12 @@ def frame_trunk(h: torch.Tensor, dur: torch.Tensor, lengths: torch.Tensor,
 
 def maxpool_time(x: torch.Tensor) -> torch.Tensor:
     """MaxPool1d(kernel=2, stride=1, padding=1) over time truncated to T:
-    out[t] = max(x[t-1], x[t]) with a -inf left pad."""
-    neg = x.new_full((x.shape[0], 1, x.shape[2]), float('-inf'))
-    return torch.maximum(torch.cat([neg, x[:, :-1]], dim=1), x)
+    out[t] = max(x[t-1], x[t]) with a -inf left pad. On a tie the gradient
+    goes to x[t-1], as it does through the JAX package's reduce_window max
+    (ties are common: ReLU zeros become equal values after BatchNorm)."""
+    t = x.shape[1]
+    return nn.functional.max_pool1d(x.transpose(1, 2), 2, 1,
+                                    padding=1)[:, :, :t].transpose(1, 2)
 
 
 # The JAX package sends a CBHG front to its fused kernel only when the bank
@@ -359,12 +444,16 @@ class CBHG(nn.Module):
 
     Inference routes the front (bank .. proj1) to the ``cbhg_front`` kernel
     and residual + pre_highway + highways to the ``pre_highway_stack``
-    kernel where the JAX package's gates send them to Pallas."""
+    kernel where the JAX package's gates send them to Pallas. Training
+    takes the plain operations, with dropout after the pool/mask and after
+    proj1, as the JAX module's training branch does."""
 
     def __init__(self, K: int, in_channels: int, channels: int,
-                 proj_channels: Sequence[int], num_highways: int):
+                 proj_channels: Sequence[int], num_highways: int,
+                 dropout: float = 0.5):
         super().__init__()
         self.K = K
+        self.drop = nn.Dropout(dropout)
         self.channels = channels
         self.conv1d_bank = nn.ModuleList(
             [BatchNormConv(in_channels, channels, k) for k in range(1, K + 1)])
@@ -416,7 +505,7 @@ class CBHG(nn.Module):
                     >= lengths[:, None])[:, :, None]
             x = x.masked_fill(tail, 0.0)
         residual = x
-        if self.front_fusable:
+        if self.front_fusable and not self.training:
             mask = (torch.ones(x.shape[:2], device=x.device)
                     if tail is None else (~tail[:, :, 0]).float())
             x = bank_pool_proj(*self.front_args(x, mask))
@@ -425,11 +514,11 @@ class CBHG(nn.Module):
             x = maxpool_time(x)
             if tail is not None:
                 x = x.masked_fill(tail, 0.0)
-            x = self.conv_project1(x)
+            x = self.conv_project1(self.drop(x))
         if tail is not None:
             x = x.masked_fill(tail, 0.0)
-        x = self.conv_project2(x)
-        if self.highways_fusable:
+        x = self.conv_project2(self.drop(x))
+        if self.highways_fusable and not self.training:
             y = pre_highway_stack(*self.highway_args(x, residual))
             return y.reshape(*x.shape[:2], self.channels)
         x = self.pre_highway(x + residual)
@@ -444,3 +533,9 @@ class CBHG(nn.Module):
         item's length and the GRU's backward pass starts at the true last
         frame."""
         return self.rnn(self.pre_rnn(x, lengths), lengths)
+
+
+def make_len_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] lengths -> [B, max_len] bool, True at positions >= length."""
+    return (torch.arange(max_len, device=lengths.device)[None, :]
+            >= lengths[:, None])

@@ -8,6 +8,11 @@
 //   bidir_rnn_pallas    (bodies _gru_kernel,
 //                        _lstm_kernel)           -> MODE_GRU_X, MODE_LSTM_X
 //   lstm_lr_mel_pallas  (body _lstm_mel_kernel)  -> MODE_LSTM_MEL
+// and forwardtacotron_tpu/ops/pallas/rnn_train.py:
+//   _lstm_fwd_call      (body _lstm_kernel_train) -> MODE_LSTM_TRAIN, the
+//                        LSTM that also stores every step's bf16 cell state
+//                        for the backward sweep (rnn_bwd.cu)
+//   _gru_fwd_call       (body _gru_kernel)        -> MODE_GRU_X
 //
 // Numerics as in the TPU kernels: products of bf16 values accumulate in f32
 // on the tensor cores, nonlinearities run in f32, the carried h and c are
@@ -55,7 +60,13 @@ constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int U = 16;  // hidden units per CTA: one wmma column block per gate
 
-enum Mode { MODE_GRU_X = 0, MODE_LSTM_X = 1, MODE_GRU_XP = 2, MODE_LSTM_MEL = 3 };
+enum Mode {
+  MODE_GRU_X = 0,
+  MODE_LSTM_X = 1,
+  MODE_GRU_XP = 2,
+  MODE_LSTM_MEL = 3,
+  MODE_LSTM_TRAIN = 4
+};
 
 struct Params {
   const bf16* x;    // [T, 2, B, I], or gx [T, 2, B, 3H] for MODE_GRU_XP
@@ -65,13 +76,14 @@ struct Params {
   const bf16* bh;   // [2, G]: GRU bh (null for the LSTM)
   const bf16* wm;   // [2, H, M] (MODE_LSTM_MEL)
   bf16* out;        // [T, 2, B, H], or [T, 2, B, M] for MODE_LSTM_MEL
+  bf16* cout;       // [T, 2, B, H] cell states (MODE_LSTM_TRAIN)
   bf16* hbuf;       // [2 (parity), 2 (direction), B, H]
   unsigned int* bar;  // [2, R] barrier counters, zero at launch
   int T, B, I, H, M, BB, R;
 };
 
 __host__ __device__ constexpr int n_gates(int mode) {
-  return (mode == MODE_LSTM_X || mode == MODE_LSTM_MEL) ? 4 : 3;
+  return (mode == MODE_LSTM_X || mode == MODE_LSTM_MEL || mode == MODE_LSTM_TRAIN) ? 4 : 3;
 }
 
 __host__ __device__ inline size_t align128(size_t n) {
@@ -257,7 +269,7 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
       for (int i = tid; i < BB * U; i += THREADS) {
         const int row = i / U, u = i - row * U, b = b0 + row, unit = s * U + u;
         const float* ah = acc_h + row * NC;
-        float h_new;
+        float h_new, c_new = 0.f;
         if (NG == 3) {
           float xr, xz, xn;
           if (MODE == MODE_GRU_XP) {
@@ -284,15 +296,17 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
           const float gf = sigmoidf(ah[U + u] + bxs[U + u]);
           const float gg = tanhf(ah[2 * U + u] + bxs[2 * U + u]);
           const float go = sigmoidf(ah[3 * U + u] + bxs[3 * U + u]);
-          const float c = gf * cs[i] + gi * gg;
-          cs[i] = round_bf16(c);  // the carried c is stored as bf16
-          h_new = go * tanhf(c);
+          c_new = gf * cs[i] + gi * gg;
+          cs[i] = round_bf16(c_new);  // the carried c is stored as bf16
+          h_new = go * tanhf(c_new);
         }
         if (b >= B) continue;
         const bf16 hb = __float2bfloat16(h_new);
         hout[(size_t)b * H + unit] = hb;
         if (MODE != MODE_LSTM_MEL)
           p.out[(((size_t)t * 2 + d) * B + b) * H + unit] = hb;
+        if (MODE == MODE_LSTM_TRAIN)
+          p.cout[(((size_t)t * 2 + d) * B + b) * H + unit] = __float2bfloat16(c_new);
       }
       ++n_bar;
       group_sync(bar, n_bar * S);
@@ -356,7 +370,7 @@ extern "C" int rnn_gru_x_bf16(const void* x, const void* wi, const void* wh, con
                               const void* bh, void* out, void* hbuf, unsigned int* bar, int T,
                               int B, int I, int H, int device, cudaStream_t stream) {
   Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)bi, (const bf16*)bh,
-           nullptr, (bf16*)out, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
+           nullptr, (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
   return launch<MODE_GRU_X>(p, device, stream);
 }
 
@@ -364,7 +378,7 @@ extern "C" int rnn_lstm_x_bf16(const void* x, const void* wi, const void* wh, co
                                void* out, void* hbuf, unsigned int* bar, int T, int B, int I,
                                int H, int device, cudaStream_t stream) {
   Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr, nullptr,
-           (bf16*)out, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
+           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
   return launch<MODE_LSTM_X>(p, device, stream);
 }
 
@@ -372,7 +386,7 @@ extern "C" int rnn_gru_xp_bf16(const void* xp, const void* wh, const void* bh, v
                                void* hbuf, unsigned int* bar, int T, int B, int H, int device,
                                cudaStream_t stream) {
   Params p{(const bf16*)xp, nullptr, (const bf16*)wh, nullptr, (const bf16*)bh, nullptr,
-           (bf16*)out, (bf16*)hbuf, bar, T, B, 0, H, 0, 0, 0};
+           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, 0, H, 0, 0, 0};
   return launch<MODE_GRU_XP>(p, device, stream);
 }
 
@@ -380,6 +394,15 @@ extern "C" int rnn_lstm_mel_bf16(const void* x, const void* wi, const void* wh, 
                                  const void* wm, void* out, void* hbuf, unsigned int* bar, int T,
                                  int B, int I, int H, int M, int device, cudaStream_t stream) {
   Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr,
-           (const bf16*)wm, (bf16*)out, (bf16*)hbuf, bar, T, B, I, H, M, 0, 0};
+           (const bf16*)wm, (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, M, 0, 0};
   return launch<MODE_LSTM_MEL>(p, device, stream);
+}
+
+// MODE_LSTM_X that also writes the cell states cout [T, 2, B, H].
+extern "C" int rnn_lstm_train_bf16(const void* x, const void* wi, const void* wh, const void* b,
+                                   void* out, void* cout, void* hbuf, unsigned int* bar, int T,
+                                   int B, int I, int H, int device, cudaStream_t stream) {
+  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr, nullptr,
+           (bf16*)out, (bf16*)cout, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
+  return launch<MODE_LSTM_TRAIN>(p, device, stream);
 }

@@ -8,6 +8,12 @@ Port of forwardtacotron_tpu/ops/pallas/rnn.py (inference kernels):
   ``lstm``     <- bidir_rnn_pallas, LSTM body (_lstm_kernel)
   ``lstm_mel`` <- lstm_lr_mel_pallas's recurrence (_lstm_mel_kernel)
 
+and of the forward kernels of forwardtacotron_tpu/ops/pallas/rnn_train.py
+(the training path): its GRU forward (_gru_fwd_call) is ``gru``, and
+
+  ``lstm_train`` <- _lstm_fwd_call with cells (_lstm_kernel_train): the LSTM
+                    that also returns every step's cell state
+
 Every function takes the kernels' time-major layout: inputs [T, 2, B, *]
 with direction 1 already flipped by the caller, weights stacked per
 direction as [2, K, G] in torch gate order (GRU r, z, n; LSTM i, f, g, o).
@@ -30,19 +36,20 @@ import torch
 from forwardtacotron_torch.ops.hopper import build
 
 # launches of each CUDA kernel since the counts were last set to 0
-launches = {'gru_xp': 0, 'gru': 0, 'lstm': 0, 'lstm_mel': 0}
+launches = {'gru_xp': 0, 'gru': 0, 'lstm': 0, 'lstm_mel': 0, 'lstm_train': 0}
 
 
 def _steps(x2: torch.Tensor, wi: Optional[torch.Tensor], wh: torch.Tensor,
            bi: Optional[torch.Tensor], bh: Optional[torch.Tensor],
-           wm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The recurrences of all four kernels, one step at a time in float32
+           wm: Optional[torch.Tensor] = None, cells: bool = False):
+    """The recurrences of all the kernels, one step at a time in float32
     (the input projection too, so memory stays at one step's size).
 
     GRU: bh given (bi and bh added apart), 3 gates; with wi None, x2 holds
     the precomputed input projections. LSTM: bh None, bi is the summed
     bias, 4 gates, and wm [2, H, M] turns each step's output into
-    h_t @ wm."""
+    h_t @ wm; with ``cells`` it returns (hs, cs), cs the rounded cell
+    states."""
     dt = x2.dtype
     t_len, _, batch, _ = x2.shape
     hidden = wh.shape[1]
@@ -54,6 +61,7 @@ def _steps(x2: torch.Tensor, wi: Optional[torch.Tensor], wh: torch.Tensor,
     c = torch.zeros_like(h)
     width = hidden if wm is None else wm.shape[-1]
     out = x2.new_empty(t_len, 2, batch, width)
+    cs = x2.new_empty(t_len, 2, batch, hidden) if cells else None
     for t in range(t_len):
         gx = x2[t].float()
         if wif is not None:
@@ -70,8 +78,10 @@ def _steps(x2: torch.Tensor, wi: Optional[torch.Tensor], wh: torch.Tensor,
             c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = (torch.sigmoid(o) * torch.tanh(c_new)).to(dt).float()
             c = c_new.to(dt).float()
+            if cells:
+                cs[t] = c
         out[t] = h if wm is None else torch.bmm(h, wm.float())
-    return out
+    return (out, cs) if cells else out
 
 
 def gru_xp_plain(xp2: torch.Tensor, wh: torch.Tensor,
@@ -103,6 +113,13 @@ def lstm_mel_plain(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
     return _steps(x2, wi, wh, b, None, wm)
 
 
+def lstm_train_plain(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+                     b: torch.Tensor):
+    """``lstm_plain`` that also returns the cell states: (hs, cs), both
+    [T, 2, B, H] in x2's dtype, cs[t] = c_t as the next step reads it."""
+    return _steps(x2, wi, wh, b, None, cells=True)
+
+
 def _kernel(entry: str, n_ptrs: int, n_ints: int):
     fn = getattr(build.library('rnn'), entry)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
@@ -129,7 +146,7 @@ def _check(name: str, x2: torch.Tensor, tensors, shapes) -> None:
 
 
 def _launch(name: str, entry: str, ptrs, ints, x2: torch.Tensor,
-            out: torch.Tensor, hidden: int) -> torch.Tensor:
+            out, hidden: int):
     t_len, _, b = x2.shape[:3]
     if t_len == 0 or b == 0:
         return out
@@ -138,10 +155,10 @@ def _launch(name: str, entry: str, ptrs, ints, x2: torch.Tensor,
     hbuf = torch.empty(2, 2, b, hidden, dtype=torch.bfloat16,
                        device=x2.device)
     bar = torch.zeros(2 * b, dtype=torch.int32, device=x2.device)
-    fn = _kernel(entry, len(ptrs) + 3, len(ints) + 1)
-    status = fn(*(build.ptr(t) for t in ptrs), build.ptr(out),
-                build.ptr(hbuf), build.ptr(bar), *ints, x2.get_device(),
-                build.stream_of(x2))
+    outs = out if isinstance(out, tuple) else (out,)
+    fn = _kernel(entry, len(ptrs) + len(outs) + 2, len(ints) + 1)
+    status = fn(*(build.ptr(t) for t in ptrs + outs), build.ptr(hbuf),
+                build.ptr(bar), *ints, x2.get_device(), build.stream_of(x2))
     build.check(status, f'rnn.{name}')
     launches[name] += 1
     return out
@@ -204,3 +221,17 @@ def lstm_mel(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
     out = x2.new_empty(t_len, 2, batch, m)
     return _launch('lstm_mel', 'rnn_lstm_mel_bf16', (x2, wi, wh, b, wm),
                    (t_len, batch, i, h, m), x2, out, h)
+
+
+def lstm_train(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
+               b: torch.Tensor):
+    """Same contract as :func:`lstm_train_plain`; one launch on the GPU."""
+    if x2.device.type == 'cpu':
+        return lstm_train_plain(x2, wi, wh, b)
+    t_len, _, batch, i = x2.shape
+    h = wh.shape[1]
+    _check('lstm_train', x2, (x2, wi, b, wh),
+           ((t_len, 2, batch, i), (2, i, 4 * h), (2, 4 * h), (2, h, 4 * h)))
+    out = (x2.new_empty(t_len, 2, batch, h), x2.new_empty(t_len, 2, batch, h))
+    return _launch('lstm_train', 'rnn_lstm_train_bf16', (x2, wi, wh, b),
+                   (t_len, batch, i, h), x2, out, h)

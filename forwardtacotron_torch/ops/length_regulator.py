@@ -1,12 +1,17 @@
-"""Length regulation (duration-based token expansion), gather form.
+"""Length regulation (duration-based token expansion).
 
 Port of forwardtacotron_tpu/ops/length_regulator.py. The JAX package builds a
-one-hot selection matrix for the MXU; on a GPU the same expansion is a
-gather: frame t of item b copies the token whose span [start, end) holds t,
-and frames at or past the expanded length are zero.
+one-hot selection matrix for the MXU, and on the TPU ``length_regulator_auto``
+sends every call to its Pallas kernel; here ``length_regulator`` sends every
+call to the ``lr`` kernel wrapper (ops/hopper/lr.py), which launches the CUDA
+gather for CUDA tensors and runs its plain twin for CPU tensors: frame t of
+item b copies the token whose span [start, end) holds t, and frames at or
+past the expanded length are zero.
 """
 
 import torch
+
+from forwardtacotron_torch.ops.hopper import lr
 
 
 def round_durations(dur: torch.Tensor) -> torch.Tensor:
@@ -29,13 +34,8 @@ def expanded_lengths(dur: torch.Tensor) -> torch.Tensor:
 
 def length_regulator(x: torch.Tensor, dur: torch.Tensor,
                      max_len: int) -> torch.Tensor:
-    """Expand [B, N, C] token features to [B, max_len, C] frames."""
+    """Expand [B, N, C] token features to [B, max_len, C] frames; one ``lr``
+    kernel launch on the GPU. Differentiable in x (the gradient of a token
+    sums its frames'), constant in the rounded durations."""
     _, ends = duration_spans(dur)
-    t = torch.arange(max_len, device=x.device)
-    # token owning frame t = number of span ends <= t
-    idx = torch.searchsorted(ends, t.expand(x.shape[0], max_len).contiguous(),
-                             right=True)
-    idx = idx.clamp(max=x.shape[1] - 1)
-    out = torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
-    valid = t[None, :] < ends[:, -1:]
-    return out * valid[:, :, None].to(x.dtype)
+    return lr.length_regulator(x.contiguous(), ends.to(torch.int32), max_len)

@@ -1,0 +1,271 @@
+"""Forward-model trainer: schedule sessions, the train step, eval and
+checkpoints.
+
+Port of forwardtacotron_tpu/train/forward_trainer.py (``ForwardTrainer``;
+reference trainer/forward_trainer.py:35-231) for one device. The train step
+mirrors the JAX package's: with ``precision: bfloat16`` the float32 master
+parameters and the batch's floats are cast to bf16 (``cast_floats``), the
+model runs on the cast parameters through ``torch.func.functional_call``,
+its outputs are cast back and the losses reduced in float32; the gradients
+arrive in float32 through the cast, BatchNorm statistics stay float32, and
+``rnn_mode('train')`` sends the eligible recurrences to the differentiable
+kernels (``train.pallas_rnn: false`` keeps the per-step loops). There is no
+``torch.autocast``: its per-op choices are not the JAX package's. Metrics
+are read with a one-step lag, so the host reads step N-1's scalars while
+step N runs.
+
+Not ported yet: ``MultiForwardTrainer``, the plots and audio of
+``generate_plots``, and data parallelism; the writer is the CSV fallback of
+the JAX package's ``make_writer``.
+"""
+
+import sys
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+from forwardtacotron_torch.ops.hopper.rnn_train import rnn_mode
+from forwardtacotron_torch.train.common import (Averager, StepTimer,
+                                                TTSSession, cast_floats,
+                                                masked_l1)
+from forwardtacotron_torch.train.state import (TrainState, create_train_state,
+                                               make_optimizer,
+                                               set_learning_rate)
+from forwardtacotron_torch.utils.checkpoints import save_checkpoint
+from forwardtacotron_torch.utils.device import resolve_device
+from forwardtacotron_torch.utils.files import parse_schedule
+from forwardtacotron_torch.utils.paths import Paths
+
+# what the forward model and its losses read of a collated batch
+BATCH_KEYS = ('x', 'mel', 'dur', 'mel_len', 'x_len', 'pitch', 'energy',
+              'pitch_target', 'energy_target')
+
+
+class CsvWriter:
+    """Scalars appended to ``metrics.csv`` as ``step,tag,value`` lines."""
+
+    def __init__(self, log_dir) -> None:
+        self._path = log_dir / 'metrics.csv'
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        with open(self._path, 'a') as f:
+            f.write(f'{step},{tag},{float(value)}\n')
+
+
+class ForwardTrainer:
+
+    def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
+                 device: Optional[Union[str, torch.device]] = None) -> None:
+        self.paths = paths
+        self.dsp = dsp
+        self.config = config
+        self.device = resolve_device(device)
+        self.train_cfg = config['forward_tacotron']['training']
+        self.writer = CsvWriter(paths.forward_log)
+        first_lr = parse_schedule(self.train_cfg['schedule'])[0][0]
+        self.tx = make_optimizer(first_lr,
+                                 self.train_cfg.get('clip_grad_norm', 1.0))
+        self.loss_fn, self.train_step = self._build_train_step()
+
+    # --------------------------------------------------------------- training
+
+    def train(self, model: torch.nn.Module,
+              state: Optional[TrainState] = None,
+              seed: int = 0) -> TrainState:
+        """Run every schedule row the state has not finished; ``model``
+        moves to the trainer's device."""
+        model.to(self.device)
+        if state is None:
+            state = create_train_state(model, self.tx, step=0)
+        for i, (lr, max_step, bs) in enumerate(
+                parse_schedule(self.train_cfg['schedule']), 1):
+            if state.step >= max_step:
+                continue
+            train_set, val_set = get_forward_dataloaders(
+                paths=self.paths, batch_size=bs,
+                bucket_multiple=self.train_cfg.get('bucket_multiple', 32),
+                **self.train_cfg['filter'])
+            session = TTSSession(index=i, r=1, lr=lr, max_step=max_step,
+                                 bs=bs, train_set=train_set, val_set=val_set)
+            state = self.train_session(state, session, seed)
+        return state
+
+    def device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(batch[k], device=self.device)
+                for k in BATCH_KEYS if k in batch}
+
+    def train_session(self, state: TrainState, session: TTSSession,
+                      seed: int = 0) -> TrainState:
+        current_step = state.step
+        training_steps = session.max_step - current_step
+        total_iters = len(session.train_set)
+        epochs = training_steps // max(total_iters, 1) + 1
+        print(f'| Steps: {training_steps // 1000}k | Batch Size: {session.bs} '
+              f'| Learning Rate: {session.lr} | Device: {self.device} |')
+        state = set_learning_rate(state, session.lr)
+        # dropout draws from torch's generator (the JAX package's
+        # jax.random bits cannot be reproduced)
+        torch.manual_seed(seed + current_step)
+        m_loss_avg, dur_loss_avg, pitch_loss_avg = (Averager(), Averager(),
+                                                    Averager())
+        timer = StepTimer()
+        rs = np.random.RandomState(seed)
+        pitch_zoneout = self.train_cfg.get('pitch_zoneout', 0.0)
+        energy_zoneout = self.train_cfg.get('energy_zoneout', 0.0)
+
+        # metrics are read with a one-step lag: reading step N's scalars
+        # waits for the step, so step N-1's are read while N runs
+        step = current_step
+        pending = None
+
+        def flush(p):
+            p_step, m, p_e, p_i = p
+            m = {k: float(v) for k, v in m.items()}
+            m_loss_avg.add(m['m1_loss'] + m['m2_loss'])
+            dur_loss_avg.add(m['dur_loss'])
+            pitch_loss_avg.add(m['pitch_loss'])
+            sys.stdout.write(
+                f'\r| Epoch: {p_e}/{epochs} ({p_i}/{total_iters}) '
+                f'| Mel Loss: {m_loss_avg.get():#.4} '
+                f'| Dur Loss: {dur_loss_avg.get():#.4} '
+                f'| Pitch Loss: {pitch_loss_avg.get():#.4} '
+                f'| {timer.steps_per_second():#.2} steps/s '
+                f'| Step: {p_step // 1000}k | ')
+            sys.stdout.flush()
+            for tag, val in (('Mel_Loss/train', m_loss_avg.get()),
+                             ('Pitch_Loss/train', m['pitch_loss']),
+                             ('Energy_Loss/train', m['energy_loss']),
+                             ('Duration_Loss/train', m['dur_loss']),
+                             ('Params/batch_size', session.bs),
+                             ('Params/learning_rate', session.lr)):
+                self.writer.add_scalar(tag, val, p_step)
+
+        for e in range(1, epochs + 1):
+            for i, batch in enumerate(session.train_set, 1):
+                batch = dict(batch)
+                # zoneout: mask the conditioning inputs, keep clean loss
+                # targets (reference trainer/forward_trainer.py:73-79)
+                batch['pitch_target'] = batch['pitch'].copy()
+                batch['energy_target'] = batch['energy'].copy()
+                if pitch_zoneout > 0:
+                    mask = rs.rand(*batch['pitch'].shape) > pitch_zoneout
+                    batch['pitch'] = batch['pitch'] * mask
+                if energy_zoneout > 0:
+                    mask = rs.rand(*batch['energy'].shape) > energy_zoneout
+                    batch['energy'] = batch['energy'] * mask
+
+                metrics = self.train_step(state, self.device_batch(batch))
+                step += 1
+                if pending is not None:
+                    flush(pending)
+                pending = (step, metrics, e, i)
+                timer.tick()
+
+                if step % self.train_cfg['checkpoint_every'] == 0:
+                    self._save(state, f'forward_step{step // 1000}k.pt')
+                if step >= session.max_step:
+                    break
+
+            if pending is not None:
+                flush(pending)
+                pending = None
+            for tag, val in self.evaluate(state.model,
+                                          session.val_set).items():
+                self.writer.add_scalar(f'{tag}/val', val, state.step)
+            self._save(state, 'latest_model.pt')
+            m_loss_avg.reset()
+            pitch_loss_avg.reset()
+            timer.reset()
+            print(' ')
+            if state.step >= session.max_step:
+                break
+        return state
+
+    # ------------------------------------------------------------------ steps
+
+    def _build_train_step(self):
+        """(loss_fn, train_step): loss_fn(model, params, batch) -> (loss,
+        metrics, outputs) runs the model on ``params`` (cast to bf16 in
+        mixed precision); train_step(state, batch) takes one optimizer
+        step, updates ``state`` in place and returns the step's metrics as
+        device scalars."""
+        dur_w = self.train_cfg['dur_loss_factor']
+        pitch_w = self.train_cfg['pitch_loss_factor']
+        energy_w = self.train_cfg['energy_loss_factor']
+        mp = self.train_cfg.get('precision', 'float32') == 'bfloat16'
+        mode = 'train' if mp and self.train_cfg.get('pallas_rnn', True) \
+            else 'off'
+        tx = self.tx
+
+        def loss_fn(model, params, batch):
+            apply_params = cast_floats(params, torch.bfloat16) if mp \
+                else params
+            apply_batch = cast_floats(batch, torch.bfloat16) if mp else batch
+            with rnn_mode(mode):
+                out = torch.func.functional_call(model, apply_params,
+                                                 (apply_batch,))
+            if mp:  # losses and their targets reduce in float32
+                out = cast_floats(out, torch.float32)
+            m1 = masked_l1(out['mel'], batch['mel'], batch['mel_len'])
+            m2 = masked_l1(out['mel_post'], batch['mel'], batch['mel_len'])
+            dur_loss = masked_l1(out['dur'], batch['dur'], batch['x_len'])
+            pitch_loss = masked_l1(out['pitch'], batch['pitch_target'],
+                                   batch['x_len'])
+            energy_loss = masked_l1(out['energy'], batch['energy_target'],
+                                    batch['x_len'])
+            loss = (m1 + m2 + dur_w * dur_loss + pitch_w * pitch_loss
+                    + energy_w * energy_loss)
+            metrics = {'m1_loss': m1, 'm2_loss': m2, 'dur_loss': dur_loss,
+                       'pitch_loss': pitch_loss, 'energy_loss': energy_loss,
+                       'loss': loss}
+            return loss, metrics, out
+
+        def train_step(state: TrainState,
+                       batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+            params = state.params()
+            loss, metrics, _ = loss_fn(state.model.train(), params, batch)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics['grad_norm'] = tx.step(params, dict(zip(params, grads)),
+                                           state.opt_state)
+            state.step += 1
+            return metrics
+
+        return loss_fn, train_step
+
+    @torch.no_grad()
+    def eval_step(self, model: torch.nn.Module,
+                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out = model.eval()(batch)
+        return {
+            'Mel_Loss': masked_l1(out['mel'], batch['mel'], batch['mel_len'])
+            + masked_l1(out['mel_post'], batch['mel'], batch['mel_len']),
+            'Duration_Loss': masked_l1(out['dur'], batch['dur'],
+                                       batch['x_len']),
+            'Pitch_Loss': masked_l1(out['pitch'], batch['pitch'],
+                                    batch['x_len']),
+            'Energy_Loss': masked_l1(out['energy'], batch['energy'],
+                                     batch['x_len'])}
+
+    def evaluate(self, model: torch.nn.Module, val_set) -> Dict[str, float]:
+        sums: Dict[str, float] = {}
+        n = 0
+        for batch in val_set:
+            batch = dict(batch)
+            batch['pitch_target'] = batch['pitch']
+            batch['energy_target'] = batch['energy']
+            for k, v in self.eval_step(model,
+                                       self.device_batch(batch)).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+        return {k: v / max(n, 1) for k, v in sums.items()}
+
+    # ------------------------------------------------------------- artifacts
+
+    def _save(self, state: TrainState, name: str) -> None:
+        save_checkpoint(self.paths.forward_checkpoints / name, state.model,
+                        self.config, step=state.step,
+                        opt_state=state.opt_state)

@@ -1,0 +1,58 @@
+"""CLI: train ForwardTacotron on the GPU.
+
+Mirrors the repository's root ``train_forward.py`` on the PyTorch port, for
+one device:
+
+    python -m forwardtacotron_torch.train_forward \\
+        --config configs/singlespeaker.yaml [--device cpu]
+
+It resumes from ``latest_model.pt`` in the config's forward checkpoint
+directory when one is there (weights, BatchNorm statistics, optimizer state
+and step), else starts from seeded random weights, and runs the config's
+schedule. Checkpoints are reference-format ``.pt`` files that
+``python -m forwardtacotron_torch.gen_forward`` loads. ``--force_gta`` (GTA
+mel export) and the multispeaker models are not ported yet.
+"""
+
+import argparse
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description='Train forward TTS model')
+    parser.add_argument('--config', default='configs/singlespeaker.yaml')
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (default) or 'cpu'")
+    parser.add_argument('--seed', type=int, default=0,
+                        help='seeds the initial weights and the dropout')
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.train.state import (create_train_state,
+                                                   state_from_checkpoint)
+    from forwardtacotron_torch.utils.checkpoints import restore_checkpoint
+    from forwardtacotron_torch.utils.files import read_config
+    from forwardtacotron_torch.utils.paths import Paths
+
+    config = read_config(args.config)
+    paths = Paths.from_config(config)
+    assert any(paths.alg.glob('*.npy')), \
+        f'No alignment files found in {paths.alg}. Run train_tacotron.py first!'
+
+    torch.manual_seed(args.seed)
+    model = init_tts_model(config)
+    trainer = ForwardTrainer(paths, None, config, device=args.device)
+    model.to(trainer.device)
+    ckpt = restore_checkpoint(paths.forward_checkpoints)
+    if ckpt is not None:
+        state = state_from_checkpoint(model, trainer.tx, ckpt)
+        print(f'Restored checkpoint at step {state.step}')
+    else:
+        state = create_train_state(model, trainer.tx)
+    trainer.train(model, state=state, seed=args.seed)
+
+
+if __name__ == '__main__':
+    main()

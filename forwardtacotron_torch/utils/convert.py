@@ -1,6 +1,9 @@
-"""JAX variables -> PyTorch state_dict: the inverse of the JAX package's
-``convert_state_dict`` (forwardtacotron_tpu/utils/convert.py) for the
-modules the port has.
+"""Weights and BatchNorm statistics between the two packages' layouts, both
+ways: ``from_jax_variables`` (JAX variables -> PyTorch state_dict, the
+inverse of the JAX package's ``convert_state_dict``,
+forwardtacotron_tpu/utils/convert.py) and ``to_jax_variables`` (its
+inverse), for the modules the port has, so that a train step can start from
+the same variables in both packages.
 
   flax                                 torch
   ----                                 -----
@@ -24,6 +27,7 @@ import torch
 _RNN = {'wi': 'weight_ih', 'wh': 'weight_hh', 'bi': 'bias_ih',
         'bh': 'bias_hh'}
 _LIST_ITEM = re.compile(r'^(.*)_(\d+)$')
+_RNN_LEAF = re.compile(r'^(weight_ih|weight_hh|bias_ih|bias_hh)_l0(_reverse)?$')
 
 
 def _flatten(tree: Dict[str, Any], prefix=()):
@@ -70,3 +74,50 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             arr, dtype=torch.float32)
         sd[_key(path[:-1], 'num_batches_tracked')] = torch.tensor(0)
     return sd
+
+
+def _set_path(tree: Dict[str, Any], path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def to_jax_variables(state_dict: Dict[str, torch.Tensor]
+                     ) -> Dict[str, Dict[str, Any]]:
+    """The port's state_dict -> {'params': ..., 'batch_stats': ...} as
+    nested dicts of float32 numpy arrays (``num_batches_tracked`` and the
+    ``step`` buffer have no JAX counterpart)."""
+    variables: Dict[str, Dict[str, Any]] = {'params': {}, 'batch_stats': {}}
+    inverse = {v: k for k, v in _RNN.items()}
+    for key, tensor in state_dict.items():
+        parts = []
+        for p in key.split('.'):
+            if p.isdigit():
+                parts[-1] += f'_{p}'
+            else:
+                parts.append(p)
+        *mods, leaf = parts
+        if leaf in ('step', 'num_batches_tracked'):
+            continue
+        arr = tensor.detach().cpu().float().numpy()
+        rnn = _RNN_LEAF.match(leaf)
+        if rnn:
+            name = inverse[rnn.group(1)]
+            path = mods + ['bwd' if rnn.group(2) else 'fwd', name]
+            _set_path(variables['params'], path,
+                      arr.T if name in ('wi', 'wh') else arr)
+        elif leaf in ('running_mean', 'running_var'):
+            _set_path(variables['batch_stats'], mods + [leaf[len('running_'):]],
+                      arr)
+        elif leaf == 'weight' and mods[-1] == 'bnorm':
+            _set_path(variables['params'], mods + ['scale'], arr)
+        elif leaf == 'weight' and mods[-1] == 'embedding':
+            _set_path(variables['params'], mods + ['embedding'], arr)
+        elif leaf == 'weight':
+            _set_path(variables['params'], mods + ['kernel'],
+                      arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T)
+        elif leaf == 'bias':
+            _set_path(variables['params'], mods + ['bias'], arr)
+        else:
+            raise ValueError(f'Unrecognized state_dict entry: {key}')
+    return variables

@@ -1,7 +1,9 @@
-"""YAML config reading (the ``read_config`` of forwardtacotron_tpu/utils/files.py)."""
+"""File helpers: YAML configs, pickles and schedule parsing (the port's copy
+of forwardtacotron_tpu/utils/files.py)."""
 
+import pickle
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import yaml
 
@@ -9,3 +11,36 @@ import yaml
 def read_config(path: Union[str, Path]) -> Dict[str, Any]:
     with open(str(path), 'r', encoding='utf-8') as f:
         return yaml.load(f, Loader=yaml.FullLoader)
+
+
+def pickle_binary(data: Any, file: Union[str, Path]) -> None:
+    with open(str(file), 'wb') as f:
+        pickle.dump(data, f)
+
+
+def unpickle_binary(file: Union[str, Path]) -> Any:
+    with open(str(file), 'rb') as f:
+        return pickle.load(f)
+
+
+def parse_schedule(schedule: List[str]) -> List[Tuple]:
+    """Parse CSV schedule rows: Tacotron rows are ``r, lr, max_step,
+    batch_size``, forward rows ``lr, max_step, batch_size`` (reference
+    utils/files.py:33-43). Values may use underscores (``10_000``) and
+    scientific notation."""
+    parsed = []
+    for row in schedule:
+        if isinstance(row, str):
+            parts = [p.strip().replace('_', '') for p in row.split(',')]
+        else:
+            parts = list(row)
+        nums = [float(p) for p in parts]
+        if len(nums) == 4:
+            r, lr, step, bs = nums
+            parsed.append((int(r), lr, int(step), int(bs)))
+        elif len(nums) == 3:
+            lr, step, bs = nums
+            parsed.append((lr, int(step), int(bs)))
+        else:
+            raise ValueError(f'Cannot parse schedule row: {row!r}')
+    return parsed

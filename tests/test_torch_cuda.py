@@ -12,14 +12,15 @@ bins whose momentum update nearly cancels. bfloat16 kernels and twins round
 at the same points, but a float32 sum taken in another order can land on
 the neighbouring bfloat16 value (2^-8 relative) and a recurrence carries
 such a step on: 3e-2 of the scale, inside the JAX package's own bf16
-kernel tolerance of 5e-2. The length regulator copies rows: exact.
+kernel tolerance of 5e-2; the backward sweeps' outputs, which carry dh
+through T steps, the same. The length regulators copy rows: exact.
 """
 
 import pytest
 import torch
 
-from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
-                                              lr_bidir, rnn)
+from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway, lr,
+                                              lr_bidir, rnn, rnn_train)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -297,3 +298,157 @@ def test_lstm_lr_mel_layer_on_card_matches_cpu_twins(dev, b):
         torch.cuda.synchronize()
     assert got.shape == (b, max_len, m)
     _close([got.float().cpu()], [want.float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+@pytest.mark.parametrize('t', [1, 63, 1280])
+@pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 512),
+                                     (torch.float32, 512),
+                                     (torch.float32, 4),      # one word
+                                     (torch.bfloat16, 24)])   # three words
+def test_lr_kernel_matches_twin(dev, b, t, dtype, c):
+    """Zero durations, an empty item and an item over the budget; exact."""
+    g = torch.Generator().manual_seed(b * 100 + t + c)
+    n = 9
+    ends = _durations(g, b, n, t)
+    x = _rand(g, (b, n, c), 1.0, dev, dtype)
+    ends32 = ends.to(dev, torch.int32)
+    before = lr.launches
+    got = lr.length_regulator_expand(x, ends32, t)
+    torch.cuda.synchronize()
+    assert lr.launches == before + 1
+    assert torch.equal(got, lr.length_regulator_plain(x, ends.to(dev), t))
+
+
+@pytest.mark.parametrize('b', [1, 17])
+def test_lr_gradient_on_card_matches_cpu(dev, b):
+    """The autograd route on the card (kernel forward, float32 running-sum
+    backward) against the CPU; gradients of multiples of 1/4, whose sums
+    are exact in any order, so the comparison is exact."""
+    g = torch.Generator().manual_seed(b)
+    n, c, t = 7, 512, 100
+    ends = _durations(g, b, n, t).to(torch.int32)
+    x = torch.randn(b, n, c, generator=g).to(torch.bfloat16)
+    w = (torch.randint(-4, 5, (b, t, c), generator=g) / 4).to(torch.bfloat16)
+    grads = []
+    for device in ('cpu', dev):
+        xd = x.detach().to(device).requires_grad_()
+        out = lr.length_regulator(xd, ends.to(device), t)
+        (out.float() * w.to(device).float()).sum().backward()
+        grads.append(xd.grad.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+@pytest.mark.parametrize('t', [1, 65])
+@pytest.mark.parametrize('i,h', [(64, 128), (512, 512)])
+def test_lstm_train_kernel_matches_twin(dev, b, t, i, h):
+    g = torch.Generator().manual_seed(b * 100 + t + i)
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    before = rnn.launches['lstm_train']
+    hs, cs = rnn.lstm_train(x2, wi, wh, bi + bh)
+    torch.cuda.synchronize()
+    assert rnn.launches['lstm_train'] == before + 1
+    want = rnn.lstm_train_plain(x2, wi, wh, bi + bh)
+    _close([hs.float(), cs.float()], [w.float() for w in want], BF16_TOL)
+
+
+def _bwd_inputs(g, cell, t, b, i, h, dev):
+    """Weights, x2, the forward's saved states (from the twin) and an
+    incoming gradient dhs."""
+    n_gates = 4 if cell == 'lstm' else 3
+    wi, wh, bi, bh = _rnn_weights(g, i, h, n_gates, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    dhs = _rand(g, (t, 2, b, h), 1.0, dev)
+    if cell == 'lstm':
+        hs, cs = rnn.lstm_train_plain(x2, wi, wh, bi + bh)
+        return dhs, hs, cs, x2, wi, wh, bi + bh
+    return dhs, rnn.gru_plain(x2, wi, wh, bi, bh), x2, wi, wh, bi, bh
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+@pytest.mark.parametrize('t', [1, 65])
+@pytest.mark.parametrize('cell,i,h', [('gru', 256, 128), ('gru', 256, 256),
+                                      ('lstm', 64, 128), ('lstm', 512, 512)])
+def test_bwd_kernels_match_twins(dev, b, t, cell, i, h):
+    """The reverse-time sweeps: dgx and dgh (GRU) or dgates (LSTM)."""
+    g = torch.Generator().manual_seed(b * 100 + t + i + h)
+    args = _bwd_inputs(g, cell, t, b, i, h, dev)
+    name = f'{cell}_bwd'
+    kernel = rnn_train.gru_bwd if cell == 'gru' else rnn_train.lstm_bwd
+    plain = (rnn_train.gru_bwd_plain if cell == 'gru'
+             else rnn_train.lstm_bwd_plain)
+    before = rnn_train.launches[name]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert rnn_train.launches[name] == before + 1
+    want = plain(*args)
+    if cell == 'lstm':
+        got, want = [got], [want]
+    _close([x.float() for x in got], [x.float() for x in want], BF16_TOL)
+
+
+@pytest.mark.parametrize('cell', ['gru', 'lstm'])
+@pytest.mark.parametrize('ragged', [False, True])
+def test_trainable_rnn_on_card_matches_cpu(dev, cell, ragged):
+    """``bidir_rnn_trainable`` (batch padding, flips, the cores' forward
+    and backward kernels, the weight-gradient products) on the card
+    against the CPU twins: output and every gradient."""
+    from forwardtacotron_torch.models.layers import bidir_rnn_trainable
+    g = torch.Generator().manual_seed(7)
+    b, t, i, h = 5, 33, 256, 128
+    n_gates = 4 if cell == 'lstm' else 3
+    params = [torch.randn(s, generator=g).mul(sc).to(torch.bfloat16)
+              for s, sc in (((2, i, n_gates * h), i ** -0.5),
+                            ((2, h, n_gates * h), h ** -0.5),
+                            ((2, n_gates * h), 0.1), ((2, n_gates * h), 0.1))]
+    x = torch.randn(b, t, i, generator=g).to(torch.bfloat16)
+    lens = torch.tensor([33, 4, 17, 1, 30]) if ragged else None
+    w = torch.randn(b, t, 2 * h, generator=g)
+    results = []
+    for device in ('cpu', dev):
+        leaves = [p.detach().to(device).requires_grad_()
+                  for p in [x] + params]
+        out = bidir_rnn_trainable(
+            leaves[0], None if lens is None else lens.to(device),
+            *leaves[1:], cell)
+        (out.float() * w.to(device)).sum().backward()
+        results.append([out.detach().float().cpu()]
+                       + [v.grad.float().cpu() for v in leaves])
+    torch.cuda.synchronize()
+    _close(results[1], results[0], BF16_TOL)
+
+
+def test_training_kernels_raise_on_unsupported_shapes(dev):
+    """Shapes the training kernels cannot take raise instead of running the
+    twins: a float32 input, a width that is not a multiple of 16, weights
+    too large for a CTA's shared memory, and length-regulator rows that are
+    not whole, aligned 16-byte words."""
+    g = torch.Generator().manual_seed(1)
+    before = (dict(rnn.launches), dict(rnn_train.launches), lr.launches)
+    dhs, hs, x2, wi, wh, bi, bh = _bwd_inputs(g, 'gru', 5, 3, 64, 128, dev)
+    with pytest.raises(ValueError, match='bfloat16'):
+        rnn_train.gru_bwd(dhs.float(), hs, x2, wi, wh, bi, bh)
+    with pytest.raises(ValueError, match='bad shapes'):
+        rnn_train.gru_bwd(dhs, hs, x2[..., :40].contiguous(),
+                          wi[:, :40].contiguous(), wh, bi, bh)
+    args = _bwd_inputs(g, 'lstm', 3, 2, 1024, 1024, dev)
+    with pytest.raises(RuntimeError, match='rnn_train.lstm_bwd'):
+        rnn_train.lstm_bwd(*args)
+    with pytest.raises(ValueError, match='int32'):
+        lr.length_regulator_expand(_rand(g, (3, 4, 16), 1.0, dev),
+                                   torch.ones(3, 4, dtype=torch.long,
+                                              device=dev), 8)
+    ends = torch.ones(3, 4, dtype=torch.int32, device=dev)
+    for c, dtype in ((6, torch.float32), (5, torch.bfloat16)):
+        with pytest.raises(ValueError, match='16-byte'):
+            lr.length_regulator_expand(_rand(g, (3, 4, c), 1.0, dev, dtype),
+                                       ends, 8)
+    with pytest.raises(ValueError, match='16-byte'):     # misaligned rows
+        lr.length_regulator_expand(_rand(g, (3 * 4 * 8 + 2,), 1.0, dev,
+                                         torch.bfloat16)[2:].view(3, 4, 8),
+                                   ends, 8)
+    assert (dict(rnn.launches), dict(rnn_train.launches),
+            lr.launches) == before

@@ -71,3 +71,31 @@ def test_bfloat16_and_other_families_raise():
         TTSInference(torch.nn.Linear(1, 1), dtype='float16', device='cpu')
     assert TTSInference(torch.nn.Linear(1, 1), dtype='bfloat16',
                         device='cpu').model.weight.dtype == torch.bfloat16
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """ForwardTrainer and ``python -m forwardtacotron_torch.train_forward``
+    run on CUDA unless told ``device='cpu'``; without a card they raise."""
+    import numpy as np
+    import yaml
+
+    from forwardtacotron_torch import train_forward
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.utils.files import read_config
+    from forwardtacotron_torch.utils.paths import Paths
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    config = read_config(REPO / 'tests' / 'resources' / 'test_config.yaml')
+    config['data_path'] = str(tmp_path / 'data')
+    config['checkpoint_path'] = str(tmp_path / 'ckpt')
+    paths = Paths.from_config(config)
+    np.save(paths.alg / 'item.npy', np.ones(3, np.float32))
+    config_path = tmp_path / 'config.yaml'
+    config_path.write_text(yaml.dump(config))
+
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        ForwardTrainer(paths, None, config)
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        train_forward.main(['--config', str(config_path)])
+    assert ForwardTrainer(paths, None, config,
+                          device='cpu').device.type == 'cpu'
