@@ -31,22 +31,32 @@ Run from the repository root. Phases, each of which must pass:
    and as one batch through ``generate_routed``, with launch counts;
 8. a bfloat16 reference: one small batch through ``generate_fused`` on the
    card and on the CPU plain path;
-9. training kernels: the length regulator (float32 and bf16), the bi-LSTM
-   forward that keeps its cell states, the three trainable GRUs' forward
-   and the GRU / LSTM backward sweeps (incoming gradient at unit scale,
-   each gate block held to its twin's in relative L2), each against its
-   twin at full-width training shapes (batch 32, 160 tokens, 1024 frames),
-   timed beside the twin and cuDNN's bidirectional ``nn.LSTM`` /
-   ``nn.GRU`` (forward, or backward alone);
-10. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
+9. the fused HiFi-GAN MRF level (``mrf.cu``) against its twin at v1's
+   levels 2 and 3 (C=64, 32): float32 at one request, bf16 at bench.py's
+   vocoder shape (batch 128 x 256 frames), timed beside the twin and the
+   same level as 18 cuDNN convolutions;
+10. the vocoder path: a seeded HiFi-GAN v1 checkpoint in jik876 format
+    loaded by ``Vocoder.from_checkpoint`` with ``fuse_mrf_max_ch=64``, the
+    4 requests through bf16 ``generate_routed(vocoder=)`` (2 ``mrf``
+    launches per routed group), one float32 request on the card against
+    the CPU plain path, vocoder audio-s/s at batch 128 x 256 frames with
+    the fused levels on and off, the profiler and the idle share;
+11. training kernels: the length regulator (float32 and bf16), the bi-LSTM
+    forward that keeps its cell states, the three trainable GRUs' forward
+    and the GRU / LSTM backward sweeps (incoming gradient at unit scale,
+    each gate block held to its twin's in relative L2), each against its
+    twin at full-width training shapes (batch 32, 160 tokens, 1024 frames),
+    timed beside the twin and cuDNN's bidirectional ``nn.LSTM`` /
+    ``nn.GRU`` (forward, or backward alone);
+12. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
     at full width and batch 32 on 64 synthetic items written to a
     temporary directory: exact launch counts per step, the profiler,
     steps/s, mel frames/s and the idle share over steps on one repeated
     batch (whose loss must fall), then ``ForwardTrainer.train`` to a
     checkpoint that ``gen_forward`` loads;
-11. the float32 train step (the config's default), with the length
+13. the float32 train step (the config's default), with the length
     regulator as its only kernel, and the eval step's kernels;
-12. one train step on the card and on the CPU plain path (dropout off):
+14. one train step on the card and on the CPU plain path (dropout off):
     loss and global gradient norm, float32 and bf16.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
@@ -55,7 +65,8 @@ build, one line per kernel comparison, the paths' stages, then a JSON line
 Any failure exits non-zero without the last line, as does a machine without
 a CUDA device or a directory without the repository. The profiler's kernel
 tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path),
-``chiprun_out/chip_smoke_serving_profile.txt`` (serving path) and
+``chiprun_out/chip_smoke_serving_profile.txt`` (serving path),
+``chiprun_out/chip_smoke_vocoder_profile.txt`` (bf16 vocoder call) and
 ``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train step).
 """
 
@@ -277,10 +288,10 @@ def set_frames_per_token(torch, model, frames: int):
 
 def reset_counts() -> None:
     from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
-                                                  lr, lr_bidir, rnn,
+                                                  lr, lr_bidir, mrf, rnn,
                                                   rnn_train)
     highway.launches = cbhg.launches = griffin_lim.launches = 0
-    lr_bidir.launches = lr.launches = 0
+    lr_bidir.launches = lr.launches = mrf.launches = 0
     for counts in (rnn.launches, rnn_train.launches):
         for key in counts:
             counts[key] = 0
@@ -289,12 +300,12 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, one key per launch site."""
     from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
-                                                  lr, lr_bidir, rnn,
+                                                  lr, lr_bidir, mrf, rnn,
                                                   rnn_train)
     return {'pre_highway_stack': highway.launches, 'cbhg_front': cbhg.launches,
             'griffin_lim_iter': griffin_lim.launches,
-            'lr_bidir': lr_bidir.launches, 'lr': lr.launches, **rnn.launches,
-            **rnn_train.launches}
+            'lr_bidir': lr_bidir.launches, 'lr': lr.launches,
+            'mrf': mrf.launches, **rnn.launches, **rnn_train.launches}
 
 
 def expect_counts(label: str, launches: dict, **want) -> None:
@@ -930,6 +941,220 @@ def bf16_reference_phase(torch, model):
     return err
 
 
+# ------------------------------------------------------------- vocoder
+
+# HiFi-GAN v1 at full width (the generator's defaults: 512 initial
+# channels, levels of 256, 128, 64 and 32 channels, kernel sizes 3/7/11,
+# dilations 1/3/5) with seeded weights; levels of at most this many channels
+# (2 and 3) take the fused MRF kernel
+VOCODER_FUSE_MAX_CH = 64
+VOCODER_LEVELS = (2, 3)
+# bench.py's vocoder shape (bench.py:127-150): batch x frames of random
+# normal mels, bf16
+VOCODER_BATCH, VOCODER_FRAMES = 128, 256
+VOCODER_CALLS, VOCODER_TRIALS = 4, 3
+# one f32 request vocoded on the card (fused levels, f32 kernel) vs the CPU
+# plain path (per-convolution): max abs error over max(1e-3, max |wav|)
+E2E_WAV_TOL = 1e-3
+VOCODER_KERNEL_NAMES = {'mrf': [r'mrf_kernel<(__nv_bfloat16|float)>']}
+
+
+def seeded_hifigan(torch):
+    """A HiFi-GAN v1 generator with weights drawn from SEED (PyTorch's
+    default initializers), on the CPU."""
+    from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
+    torch.manual_seed(SEED)
+    return HiFiGANGenerator()
+
+
+def write_hifigan_checkpoint(torch, path: Path):
+    """The seeded v1 generator saved as jik876/hifigan saves it: every conv
+    weight-normed (weight_g / weight_v), the state dict under
+    'generator'."""
+    gen = seeded_hifigan(torch)
+    for m in gen.modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+            torch.nn.utils.weight_norm(m)
+    torch.save({'generator': gen.state_dict()}, str(path))
+
+
+def vocoder_kernel_phase(torch, n_frames):
+    """The fused MRF level against its twin on the card at v1's levels 2
+    (C=64) and 3 (C=32): float32 at one request of ``n_frames`` frames,
+    bf16 at bench.py's vocoder batch; timed beside the twin and beside the
+    same level as the generator's per-convolution path (18 cuDNN
+    convolutions, the route the JAX package's default takes), a yardstick
+    the fused path does not call. The twin's comparison and timing run with
+    cudnn.benchmark on: without it cuDNN picks a float32 algorithm for the
+    C=32 dilated convolutions that takes seconds per level."""
+    from forwardtacotron_torch.ops.hopper import mrf
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    model = seeded_hifigan(torch).to(dev)
+    krs = model.resblock_kernel_sizes
+    dils = model.resblock_dilation_sizes[0]
+    hop_at = {2: 128, 3: 256}               # samples per frame at the level
+    res = {}
+    for dtype, batch, frames in ((torch.float32, 1, n_frames),
+                                 (torch.bfloat16, VOCODER_BATCH,
+                                  VOCODER_FRAMES)):
+        name = 'mrf' if dtype == torch.float32 else 'mrf_bf16'
+        tol = KERNEL_TOL if dtype == torch.float32 else BF16_TOL
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        model.to(dtype)
+        parts = []
+        for level in VOCODER_LEVELS:
+            c = model.ups[level].out_channels
+            t = frames * hop_at[level]
+            x = torch.randn(batch, c, t, generator=gen, device=dev).to(dtype)
+            weights = model.mrf_weights(level, dtype)
+            args = (x, weights, krs, dils)
+            log(f'  {name} level {level}: B={batch} C={c} T={t}')
+            got = mrf.mrf(*args)
+            torch.backends.cudnn.benchmark = True
+            err = compare(torch, f'level {level}', got.float(),
+                          mrf.mrf_plain(*args).float(), tol)
+            p_ms = time_ms(torch, lambda: mrf.mrf_plain(*args), reps=3)
+            torch.backends.cudnn.benchmark = False
+            k_ms = time_ms(torch, lambda: mrf.mrf(*args))
+            blocks = model.resblocks[3 * level:3 * level + 3]
+            y_ms = time_ms(torch, lambda: (blocks[0](x) + blocks[1](x)
+                                           + blocks[2](x)) / 3)
+            elt = x.element_size()
+            flops = 2 * c * c * 2 * len(dils) * sum(krs) * t * batch
+            nbytes = elt * (2 * batch * c * t
+                            + sum(w.numel() for w in weights))
+            b_ms, b_by = bound(flops, nbytes, peak)
+            log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, 18 cuDNN '
+                f'convolutions {y_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); '
+                f'{flops / k_ms / 1e9:.1f} TFLOP/s')
+            parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                              cudnn_level_ms=y_ms, bound_ms=b_ms,
+                              bound_by=b_by))
+        res[name] = {k: (max(p[k] for p in parts) if k == 'max_abs_err'
+                         else parts[0][k] if k == 'bound_by'
+                         else sum(p[k] for p in parts)) for k in parts[0]}
+        res[name].update(library_ms=None, at=(
+            f'HiFi-GAN v1 levels 2 + 3 (C=64, 32), B={batch}, {frames} '
+            'frames, summed'))
+    return res
+
+
+def vocoder_path_phase(torch, model16, config, tokens, root: Path):
+    """The vocoder path through its entry points: a jik876-format v1
+    checkpoint loaded by ``Vocoder.from_checkpoint`` with the fused levels
+    on, bf16 ``generate_routed(vocoder=)`` on the 4 requests (2 mrf launches
+    per routed group), one f32 request on the card vs the CPU plain path,
+    then vocoder throughput at bench.py's shape with the fused levels on
+    and off, the profiler and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
+
+    path = root / 'g_02500000'
+    write_hifigan_checkpoint(torch, path)
+    hop, sr = 256, config['dsp']['sample_rate']
+    voc = Vocoder.from_checkpoint(str(path), dtype='bfloat16', device='cuda')
+    voc.model.fuse_mrf_max_ch = VOCODER_FUSE_MAX_CH
+    inference = TTSInference(set_frames_per_token(torch, model16,
+                                                  FRAMES_PER_TOKEN),
+                             dtype='bfloat16', device='cuda')
+    n = len(tokens)
+    x = np.zeros((n, max(map(len, tokens))), np.int64)
+    for i, toks in enumerate(tokens):
+        x[i, :len(toks)] = toks
+    inference.generate_routed(x[:1, :8], vocoder=voc)     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = inference.generate_routed(x, vocoder=voc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    lens = out['mel_len'].cpu().numpy()
+    groups = len(np.unique(-(-lens // 128)))
+    expect_counts('bf16 generate_routed + vocoder', launches,
+                  gru=1 + 2 * groups, lr_bidir=groups, lstm_mel=groups,
+                  pre_highway_stack=2 * groups, cbhg_front=groups,
+                  mrf=2 * groups)
+    wav, wav_len = out['wav'], out['wav_len'].cpu().numpy()
+    if not (np.array_equal(wav_len, lens * hop)
+            and wav.shape[1] == -(-int(lens.max()) // 128) * 128 * hop
+            and bool(torch.isfinite(wav).all())):
+        fail(f'vocoder path: wav {tuple(wav.shape)}, wav_len {wav_len}, '
+             f'mel_len {lens}')
+    log(f'vocoder path: {n} requests, {groups} routed group(s), text -> wav '
+        f'{wall * 1e3:.1f} ms, {int(wav_len.sum()) / sr:.2f} s of audio')
+
+    # one f32 request: card (fused levels, f32 kernel) vs CPU plain path
+    i = int(np.argmin(lens))
+    mel = out['mel_post'][i:i + 1, :int(lens[i])].float()
+    voc32 = Vocoder.from_checkpoint(str(path), dtype='float32',
+                                    device='cuda')
+    voc32.model.fuse_mrf_max_ch = VOCODER_FUSE_MAX_CH
+    reset_counts()
+    got = voc32(mel)
+    torch.cuda.synchronize()
+    launches32 = read_counts()
+    expect_counts('f32 vocoder request', launches32, mrf=2)
+    ref = Vocoder.from_checkpoint(str(path), dtype='float32',
+                                  device='cpu')(mel.cpu())
+    err = float((got.cpu() - ref).abs().max())
+    scale = max(1e-3, float(ref.abs().max()))
+    ok = err <= E2E_WAV_TOL * scale and got.shape == (1, int(lens[i]) * hop)
+    log(f'vocoder reference: f32 request {i} ({int(lens[i])} frames) on the '
+        f'card vs the CPU plain path, max abs err {err:.3e}, peak '
+        f'{scale:.3e} (tol {E2E_WAV_TOL:g} x peak) {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('f32 vocoder disagrees with the CPU plain path')
+
+    # throughput at bench.py's shape, fused levels on and off in turns
+    mel = torch.randn(VOCODER_BATCH, VOCODER_FRAMES, config['dsp']['num_mels'],
+                      generator=torch.Generator().manual_seed(SEED)).cuda()
+    audio_s = VOCODER_BATCH * VOCODER_FRAMES * hop / sr
+    rates = {VOCODER_FUSE_MAX_CH: [], 0: []}
+    for fuse in rates:
+        voc.model.fuse_mrf_max_ch = fuse
+        voc(mel)
+    torch.cuda.synchronize()
+    for _ in range(VOCODER_TRIALS):
+        for fuse in rates:
+            voc.model.fuse_mrf_max_ch = fuse
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(VOCODER_CALLS):
+                voc(mel)
+                torch.cuda.synchronize()
+            rates[fuse].append(VOCODER_CALLS * audio_s
+                               / (time.perf_counter() - t0))
+    voc.model.fuse_mrf_max_ch = VOCODER_FUSE_MAX_CH
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        voc(mel)
+        torch.cuda.synchronize()
+    busy_ms = device_profile(prof, 'bf16 vocoder call',
+                             'chip_smoke_vocoder_profile.txt',
+                             VOCODER_KERNEL_NAMES)
+    call_ms = audio_s / statistics.median(rates[VOCODER_FUSE_MAX_CH]) * 1e3
+    stats = {'batch': VOCODER_BATCH, 'frames': VOCODER_FRAMES,
+             'audio_s_per_call': audio_s,
+             'audio_s_per_s_fused': sorted(rates[VOCODER_FUSE_MAX_CH]),
+             'audio_s_per_s_per_conv': sorted(rates[0]),
+             'call_ms_fused': call_ms, 'device_busy_ms': busy_ms,
+             'idle': 1 - busy_ms / call_ms, 'card_vs_cpu_err': err}
+    for fuse, label in ((VOCODER_FUSE_MAX_CH, 'fused levels 2-3'),
+                        (0, 'per-convolution')):
+        r = rates[fuse]
+        log(f'vocoder {label}: batch {VOCODER_BATCH} x {VOCODER_FRAMES} '
+            f'frames bf16, {VOCODER_TRIALS} trials x {VOCODER_CALLS} calls: '
+            f'audio-s/s min {min(r):.1f} median {statistics.median(r):.1f} '
+            f'max {max(r):.1f}')
+    log(f'vocoder fused: {call_ms:.2f} ms per call (median), device busy '
+        f'{busy_ms:.2f} ms (profiled call): idle {100 * stats["idle"]:.1f}%')
+    return launches['mrf'], launches32['mrf'], stats
+
+
 # ------------------------------------------------------------- training
 
 # full-width training shapes of the kernel phase: batch, tokens, frames
@@ -1147,8 +1372,16 @@ def train_kernel_phase(torch, model16):
                               [rnn.gru_plain(x2, wi, wh, bi, bh)], 1)
         f_ms = time_ms(torch, lambda: rnn.gru(x2, wi, wh, bi, bh))
         f_plain = time_ms(torch, lambda: rnn.gru_plain(x2, wi, wh, bi, bh))
-        log(f'    kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms')
-        fwd[name] = dict(max_abs_err=f_err, ms=f_ms, plain_ms=f_plain)
+        f_lib = time_ms(torch, cudnn_train(torch, 'gru', i_dim, h, x2, False))
+        f_bound, f_by = bound(steps * 2 * b * 2 * (i_dim + h) * g,
+                              2 * (steps * 2 * b * (i_dim + h)
+                                   + 2 * (i_dim + h) * g + 4 * g),
+                              PEAK_BF16_FLOPS)
+        log(f'    kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, library '
+            f'{f_lib:.4f} ms (cuDNN bi-GRU forward with autograd), bound '
+            f'{f_bound:.4f} ms ({f_by})')
+        fwd[name] = dict(max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                         library_ms=f_lib, bound_ms=f_bound, bound_by=f_by)
         args = (randn(steps, 2, b, h), hs, x2, wi, wh, bi, bh)
         log(f'  gru_bwd {name} T={steps} B={b} I={i_dim} H={h} (library: '
             'cuDNN bi-GRU backward)')
@@ -1438,6 +1671,14 @@ def main() -> None:
         set_frames_per_token(torch, model16, SERVING_FRAMES_PER_TOKEN)
     bf16_reference_phase(torch, model16)
 
+    # the vocoder: the fused MRF level against its twin at v1's shapes, then
+    # the bf16 text -> wav path, a f32 request and throughput
+    with torch.inference_mode():
+        results_voc = vocoder_kernel_phase(torch, n_frames)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_vocoder_') as tmp:
+        voc16_launches, voc32_launches, vocoder = vocoder_path_phase(
+            torch, model16, config, tokens, Path(tmp))
+
     # training: the kernels at full-width training shapes (with autograd on,
     # for cuDNN's yardstick), the bf16 and float32 train steps on synthetic
     # data in a temporary directory, and one step on card vs CPU
@@ -1478,10 +1719,12 @@ def main() -> None:
         ('gru_bwd', results_train, train_launches['gru_bwd'], 'rnn_bwd.cu',
          'rnn_train.py:92'),
         ('lstm_bwd', results_train, train_launches['lstm_bwd'],
-         'rnn_bwd.cu', 'rnn_train.py:149')]
+         'rnn_bwd.cu', 'rnn_train.py:149'),
+        ('mrf', results_voc, voc32_launches, 'mrf.cu', 'mrf.py:52'),
+        ('mrf_bf16', results_voc, voc16_launches, 'mrf.cu', 'mrf.py:52')]
     kernels = []
     for name, res, n_launches, src, tpu in rows:
-        r = res[name.replace('_bf16', '')]
+        r = res[name] if name in res else res[name.replace('_bf16', '')]
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'forwardtacotron_torch/ops/hopper/{src}',
@@ -1489,8 +1732,11 @@ def main() -> None:
             'launches': n_launches, 'max_abs_err': r['max_abs_err'],
             'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
-            'library_ms': r.get('library_ms'), 'at': r['at']})
+            'library_ms': r.get('library_ms'), 'at': r['at'],
+            **({'cudnn_level_ms': r['cudnn_level_ms']}
+               if 'cudnn_level_ms' in r else {})})
     log(f'serving: {json.dumps(serving)}')
+    log(f'vocoder: {json.dumps(vocoder)}')
     log(f'training: {json.dumps(training)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))

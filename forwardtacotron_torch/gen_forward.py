@@ -1,13 +1,19 @@
-"""CLI: synthesize wavs from text with Griffin-Lim, on the GPU.
+"""CLI: synthesize wavs from text, on the GPU.
 
-Mirrors the Griffin-Lim flow of the repository's root ``gen_forward.py`` on
-the PyTorch port: float32 or bfloat16, one sentence at a time or, with
-``--batched``, all sentences as one length-routed batch:
+Mirrors the repository's root ``gen_forward.py`` on the PyTorch port:
+float32 or bfloat16, one sentence at a time or, with ``--batched``, all
+sentences as one length-routed batch; vocoded with Griffin-Lim, or with a
+HiFi-GAN generator checkpoint on the device (``hifigan
+--vocoder_checkpoint``), or, without a checkpoint, exported as the
+reference exports mels for an external vocoder (``.mel`` for melgan,
+``.npy`` for hifigan):
 
     python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
         --input_text "Hello world."
     python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
         --dtype bfloat16 --batched
+    python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
+        --vocoder_checkpoint g_02500000 --vocoder_config config.json hifigan
 
 ``--checkpoint`` is a reference-format ``.pt``. Text is cleaned with the
 checkpoint's cleaner; without an espeak phonemizer it is treated as
@@ -15,9 +21,11 @@ pre-phonemized.
 """
 
 import argparse
+import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 
 def main(argv=None):
@@ -39,10 +47,20 @@ def main(argv=None):
                              'recurrent kernels')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
+    parser.add_argument('vocoder', nargs='?', default='griffinlim',
+                        choices=['griffinlim', 'melgan', 'hifigan'])
+    parser.add_argument('--vocoder_checkpoint', default=None,
+                        help='published HiFi-GAN generator weights; when '
+                             'given, vocoding runs on the device at --dtype '
+                             'and .wav files are written instead of mel '
+                             'exports')
+    parser.add_argument('--vocoder_config', default=None,
+                        help='HiFi-GAN config.json for --vocoder_checkpoint '
+                             '(v1 defaults if omitted)')
     args = parser.parse_args(argv)
 
     from forwardtacotron_torch.dsp.dsp import DSP
-    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
     from forwardtacotron_torch.text.cleaners import Cleaner
     from forwardtacotron_torch.text.tokenizer import Tokenizer
     from forwardtacotron_torch.utils.checkpoints import (
@@ -71,23 +89,46 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     step_k = int(checkpoint_step(checkpoint) / 1000)
 
+    vocoder = None
+    if args.vocoder_checkpoint and args.vocoder != 'griffinlim':
+        voc_config = None
+        if args.vocoder_config:
+            voc_config = json.loads(Path(args.vocoder_config).read_text())
+        vocoder = Vocoder.from_checkpoint(
+            args.vocoder_checkpoint, vocoder_type=args.vocoder,
+            config=voc_config, dtype=args.dtype, device=args.device)
+
     kwargs = dict(alpha=args.alpha, pitch_function=lambda p: p * args.amp)
+    wavs = None
     if args.batched and len(sentences) > 1:
         token_lists = [tokenizer(cleaner(s)) for s in sentences]
         x = np.zeros((len(token_lists), max(map(len, token_lists))), np.int64)
         for i, toks in enumerate(token_lists):
             x[i, :len(toks)] = toks
-        # routed: each sentence decodes at its own frame bucket
-        out = inference.generate_routed(x, **kwargs)
+        # routed: each sentence decodes (and neural-vocodes) at its own
+        # frame bucket
+        out = inference.generate_routed(x, vocoder=vocoder, **kwargs)
         mels = [out['mel_post'][i, :int(out['mel_len'][i])].T.float().cpu()
                 .numpy() for i in range(len(sentences))]
+        if vocoder is not None:
+            wavs = [out['wav'][i, :int(out['wav_len'][i])].float().cpu()
+                    .numpy() for i in range(len(sentences))]
     else:
         mels = [inference.generate_cropped(tokenizer(cleaner(s)),
                                            **kwargs)['mel_post']
                 for s in sentences]
     for i, mel in enumerate(mels, 1):
-        wav = dsp.griffinlim(mel)
-        dsp.save_wav(wav, out_dir / f'{i}_forward_{step_k}k_alpha{args.alpha}.wav')
+        name = f'{i}_forward_{step_k}k_alpha{args.alpha}'
+        if args.vocoder == 'griffinlim':
+            dsp.save_wav(dsp.griffinlim(mel), out_dir / f'{name}.wav')
+        elif vocoder is not None:
+            wav = wavs[i - 1] if wavs is not None \
+                else vocoder(mel.T[None])[0].float().cpu().numpy()
+            dsp.save_wav(wav, out_dir / f'{name}.wav')
+        elif args.vocoder == 'melgan':
+            torch.save(torch.tensor(mel)[None, :, :], out_dir / f'{name}.mel')
+        else:  # hifigan
+            np.save(str(out_dir / f'{name}.npy'), mel, allow_pickle=False)
     print(f'Wrote {len(mels)} outputs to {out_dir}')
 
 

@@ -1,7 +1,7 @@
 """Synthesis orchestrator (port of forwardtacotron_tpu/models/synthesis.py
 for ForwardTacotron): the two-phase ``generate``, the single-call
-``generate_fused`` and the length-routed ``generate_routed``, in float32 or
-bfloat16.
+``generate_fused`` and the length-routed ``generate_routed`` (optionally
+vocoding each group with a ``Vocoder``), in float32 or bfloat16.
 
 Two-phase: phase 1 predicts durations, pitch and energy; the host reads the
 expanded frame counts; phase 2 decodes at the frame count rounded up to a
@@ -16,6 +16,7 @@ import torch
 
 from forwardtacotron_torch.ops.length_regulator import expanded_lengths
 from forwardtacotron_torch.utils.device import resolve_device
+from forwardtacotron_torch.utils.vocoder_checkpoints import load_hifigan
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -30,6 +31,46 @@ def bucket_group_size(n: int, cap: int) -> int:
     (capped at the request batch size), so a changing request mix reuses
     O(log2(B) x #frame-buckets) decode shapes."""
     return min(cap, 1 << max(0, (int(n) - 1).bit_length()))
+
+
+class Vocoder:
+    """Batched neural vocoding, mel [B, T, n_mels] -> wav [B, T * hop], for
+    the serving path: the counterpart of the JAX package's ``JittedVocoder``
+    (PyTorch runs eagerly, so there is nothing to jit). ``dtype='bfloat16'``
+    casts the generator's parameters, as ``JittedVocoder`` casts its
+    variables. The generator is moved (and cast) in place, as ``Module.to``
+    does; ``device`` defaults to CUDA and raises when no GPU is present.
+    Pass as ``vocoder=`` to :meth:`TTSInference.generate_routed`."""
+
+    def __init__(self, model: torch.nn.Module, dtype: str = 'bfloat16',
+                 device: Optional[Union[str, torch.device]] = None):
+        if dtype not in DTYPES:
+            raise ValueError(
+                f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device, DTYPES[dtype]).eval()
+        self.hop_length = int(model.hop_length)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, vocoder_type: str = 'hifigan',
+                        config: Optional[dict] = None,
+                        dtype: str = 'bfloat16',
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> 'Vocoder':
+        """A published generator checkpoint (jik876 HiFi-GAN format,
+        ``config`` its config.json dict). MelGAN is not ported yet."""
+        if vocoder_type == 'hifigan':
+            return cls(load_hifigan(path, config=config, device=device),
+                       dtype=dtype, device=device)
+        if vocoder_type == 'melgan':
+            raise NotImplementedError(
+                'MelGAN is not ported yet (ROADMAP.md Queue 1 item 6)')
+        raise ValueError(f'unknown vocoder_type: {vocoder_type}')
+
+    @torch.inference_mode()
+    def __call__(self, mel) -> torch.Tensor:
+        mel = torch.as_tensor(mel if torch.is_tensor(mel) else np.asarray(mel))
+        return self.model(mel.to(self.device, torch.float32))
 
 
 class TTSInference:
@@ -98,7 +139,8 @@ class TTSInference:
     def generate_routed(self, x, alpha: float = 1.0,
                         frame_bucket: int = 128,
                         pitch_function: Callable = lambda p: p,
-                        energy_function: Callable = lambda e: e
+                        energy_function: Callable = lambda e: e,
+                        vocoder: Optional[Callable] = None
                         ) -> Dict[str, torch.Tensor]:
         """Length-routed batch synthesis: series prediction once for the
         batch, then one decode per group of requests that share a
@@ -107,7 +149,13 @@ class TTSInference:
         a power of two (``bucket_group_size``, repeating the group's first
         request; the padding is cropped). Outputs come back in request
         order, mels padded to the largest bucket, with ``mel_len`` capped at
-        each request's bucket."""
+        each request's bucket.
+
+        ``vocoder``: an optional batched [B, T, n_mels] -> [B, T * hop]
+        callable (a :class:`Vocoder`). It runs inside the per-bucket loop,
+        so each group is vocoded at its own frame budget; the outputs gain
+        ``'wav'`` (padded to the largest bucket) and ``'wav_len'`` =
+        ``mel_len`` * hop."""
         x = self._tokens(x)
         dur, pitch, energy = self._series(x, alpha, pitch_function,
                                           energy_function)
@@ -122,21 +170,29 @@ class TTSInference:
                 [idx, np.full(n_pad - len(idx), idx[0])]), device=self.device)
             out = self.model.generate(x[gi], dur[gi], pitch[gi], energy[gi],
                                       int(bucket))
+            if vocoder is not None:
+                out['wav'] = vocoder(out['mel_post'])
             parts.append({k: v[:len(idx)] for k, v in out.items()})
             order.append(idx)
         # request order with one gather per key over the concatenated
-        # groups, mels padded in time to the largest bucket
+        # groups, mels and wavs padded in time to the largest bucket's
         inv = torch.as_tensor(np.argsort(np.concatenate(order)),
                               device=self.device)
         width = int(buckets.max())
         merged = {}
         for key in parts[0]:
-            cat = [torch.nn.functional.pad(
-                       p[key], (0, 0, 0, width - p[key].shape[1]))
-                   if key in ('mel', 'mel_post') else p[key] for p in parts]
+            cat = [p[key] for p in parts]
+            if key in ('mel', 'mel_post', 'wav'):
+                n = max(t.shape[1] for t in cat)
+                cat = [torch.nn.functional.pad(
+                    t, (0, 0) * (t.dim() - 2) + (0, n - t.shape[1]))
+                    for t in cat]
             merged[key] = torch.cat(cat)[inv]
         merged['mel_len'] = torch.as_tensor(np.minimum(mel_lens, buckets),
                                             device=self.device)
+        if vocoder is not None:
+            merged['wav_len'] = merged['mel_len'] * (merged['wav'].shape[1]
+                                                     // width)
         return merged
 
     def generate_cropped(self, x, **kwargs) -> Dict[str, np.ndarray]:

@@ -1,0 +1,229 @@
+"""The HiFi-GAN generator (inference), as a PyTorch module.
+
+Port of the HiFi-GAN part of forwardtacotron_tpu/models/vocoder.py: the
+jik876/hifigan ``Generator`` (conv_pre(k=7) -> [leaky -> ConvTranspose1d
+upsample -> mean of the dilated ResBlocks of every kernel size]* -> leaky
+(slope 0.01) -> conv_post(k=7) -> tanh), with ``ResBlock1`` (two-conv
+residual units) and ``ResBlock2`` (one-conv units), in the reference's op
+order. Parameter names are the published state_dict's
+(``conv_pre.weight`` [C_out, C_in, K], ``ups.{i}.weight`` [C_in, C_out, K],
+``resblocks.{r}.convs1.{j}.weight``, ...), so a checkpoint whose weight norm
+is folded loads with ``load_state_dict`` (utils/vocoder_checkpoints.py).
+
+Inside, activations are torch's channels-major [B, C, T], which is also the
+layout of the fused MRF kernel (``ops/hopper/mrf.py``): a level whose
+channel count is at most ``fuse_mrf_max_ch`` runs its three ``ResBlock1``
+branches and their mean (18 convolutions) as one kernel launch, without a
+transpose. The public call keeps the JAX contract: mel [B, T, n_mels] ->
+wav [B, T * hop].
+
+Every convolution adds its bias as an operation of its own (as flax does):
+in bfloat16 the product is rounded before the bias is added. Leaky ReLU is
+max(x, s * x) with s in the activation's dtype, as in the JAX package.
+"""
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from forwardtacotron_torch.models.layers import Conv
+from forwardtacotron_torch.ops.hopper import mrf as mrf_ops
+
+
+def _same_pad(kernel_size: int, dilation: int = 1) -> int:
+    return (kernel_size * dilation - dilation) // 2
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """where(x >= 0, x, s * x) with the slope s rounded to x's dtype, as
+    JAX's weakly typed constant is (for 0 < s < 1, max(x, s * x))."""
+    return torch.maximum(x, x * torch.tensor(slope, dtype=x.dtype))
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+class TransposedConv1d(nn.ConvTranspose1d):
+    """torch ``ConvTranspose1d`` with its bias added as an operation of its
+    own (the JAX package's ``TransposedConv1d``: one input-dilated
+    convolution, then ``+ bias``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose1d(x, self.weight, None, self.stride,
+                               self.padding)
+        return y + self.bias[:, None]
+
+
+class ResBlock1(nn.Module):
+    """HiFi-GAN MRF unit, ``resblock: '1'``: per dilation d, a
+    (leaky -> dilated conv -> leaky -> conv) residual pair."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3, 5)):
+        super().__init__()
+        self.convs1 = nn.ModuleList([
+            Conv(channels, channels, kernel_size, dilation=d,
+                 padding=_same_pad(kernel_size, d)) for d in dilation])
+        self.convs2 = nn.ModuleList([
+            Conv(channels, channels, kernel_size,
+                 padding=_same_pad(kernel_size)) for _ in dilation])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for c1, c2 in zip(self.convs1, self.convs2):
+            x = x + c2(leaky_relu(c1(leaky_relu(x, 0.1)), 0.1))
+        return x
+
+
+class ResBlock2(nn.Module):
+    """HiFi-GAN MRF unit, ``resblock: '2'``: per dilation d, a single
+    (leaky -> dilated conv) residual."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            Conv(channels, channels, kernel_size, dilation=d,
+                 padding=_same_pad(kernel_size, d)) for d in dilation])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for c in self.convs:
+            x = x + c(leaky_relu(x, 0.1))
+        return x
+
+
+class HiFiGANGenerator(nn.Module):
+    """jik876/hifigan Generator (v1/v2/v3 through the arguments).
+
+    ``fuse_mrf_max_ch`` (default 0, as in the JAX package): a level with at
+    most this many channels, ``resblock '1'``, one dilation tuple for every
+    kernel size and a span within the kernel's halo runs as one ``mrf``
+    kernel launch when its activation lies on a CUDA device.
+    ``fuse_tail_max_ch`` and ``fuse_ups_tail_max_ch`` (the JAX package's
+    channels-major and phase-stacked tails) are not ported yet: any value
+    above 0 raises ``NotImplementedError``."""
+
+    def __init__(self, resblock: str = '1',
+                 upsample_rates: Sequence[int] = (8, 8, 2, 2),
+                 upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
+                 upsample_initial_channel: int = 512,
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = (
+                     (1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                 num_mels: int = 80,
+                 fuse_mrf_max_ch: int = 0,
+                 fuse_tail_max_ch: int = 0,
+                 fuse_ups_tail_max_ch: int = 0):
+        super().__init__()
+        for name, value in (('fuse_tail_max_ch', fuse_tail_max_ch),
+                            ('fuse_ups_tail_max_ch', fuse_ups_tail_max_ch)):
+            if value > 0:
+                raise NotImplementedError(
+                    f'{name}={value}: the channels-major and phase-stacked '
+                    'vocoder tails are not ported yet (ROADMAP.md Queue 1)')
+        self.resblock = str(resblock)
+        self.upsample_rates = tuple(upsample_rates)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
+        self.upsample_initial_channel = int(upsample_initial_channel)
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilation_sizes = tuple(
+            tuple(d) for d in resblock_dilation_sizes)
+        self.num_mels = int(num_mels)
+        self.fuse_mrf_max_ch = int(fuse_mrf_max_ch)
+        self.fuse_tail_max_ch = int(fuse_tail_max_ch)
+        self.fuse_ups_tail_max_ch = int(fuse_ups_tail_max_ch)
+
+        ch = self.upsample_initial_channel
+        self.conv_pre = Conv(self.num_mels, ch, 7, padding=3)
+        block = ResBlock1 if self.resblock == '1' else ResBlock2
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        for u, k in zip(self.upsample_rates, self.upsample_kernel_sizes):
+            self.ups.append(TransposedConv1d(ch, ch // 2, k, u,
+                                             padding=(k - u) // 2))
+            ch //= 2
+            for kr, dr in zip(self.resblock_kernel_sizes,
+                              self.resblock_dilation_sizes):
+                self.resblocks.append(block(ch, kr, dr))
+        self.conv_post = Conv(ch, 1, 7, padding=3)
+
+    @property
+    def hop_length(self) -> int:
+        out = 1
+        for r in self.upsample_rates:
+            out *= r
+        return out
+
+    def _mrf_fusable(self, ch: int, x: torch.Tensor) -> bool:
+        """The JAX package's gate (models/vocoder.py ``_mrf_fusable``), with
+        "the activation is on a CUDA device" for its TPU-backend clause."""
+        if self.resblock != '1' or not 0 < ch <= self.fuse_mrf_max_ch:
+            return False
+        dils = self.resblock_dilation_sizes
+        if any(d != dils[0] for d in dils):
+            return False
+        kr = max(self.resblock_kernel_sizes)
+        if mrf_ops.branch_span(kr, dils[0]) > mrf_ops.HALO:
+            return False
+        return _on_cuda(x)
+
+    def mrf_weights(self, level: int, dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, ...]:
+        """The level's ResBlock1 weights packed for ``mrf``: per kernel
+        size (w1, b1, w2, b2), weights [U, C, kr*C], biases [U, C, 1]."""
+        num_kernels = len(self.resblock_kernel_sizes)
+        weights = []
+        for j in range(num_kernels):
+            rb = self.resblocks[level * num_kernels + j]
+            for convs in (rb.convs1, rb.convs2):
+                weights.append(torch.stack(
+                    [mrf_ops.pack_conv_weight(c.weight) for c in convs]
+                ).to(dtype).contiguous())
+                weights.append(torch.stack(
+                    [c.bias for c in convs])[:, :, None].to(dtype)
+                    .contiguous())
+        return tuple(weights)
+
+    def _mrf_fused(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        """The level's ResBlock1 branches and their mean as one ``mrf``
+        call on channels-major x [B, C, T]."""
+        return mrf_ops.mrf(x.contiguous(), self.mrf_weights(level, x.dtype),
+                           self.resblock_kernel_sizes,
+                           self.resblock_dilation_sizes[0])
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel [B, T, n_mels] -> wav [B, T * hop_length]."""
+        num_kernels = len(self.resblock_kernel_sizes)
+        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype).transpose(1, 2))
+        for i, up in enumerate(self.ups):
+            x = up(leaky_relu(x, 0.1))
+            if self._mrf_fusable(x.shape[1], x):
+                x = self._mrf_fused(x, i)
+            else:
+                xs = self.resblocks[i * num_kernels](x)
+                for j in range(1, num_kernels):
+                    xs = xs + self.resblocks[i * num_kernels + j](x)
+                x = xs / num_kernels
+        x = torch.tanh(self.conv_post(leaky_relu(x, 0.01)))
+        return x[:, 0]
+
+    @classmethod
+    def from_config(cls, config: dict, **kwargs) -> 'HiFiGANGenerator':
+        """Accepts the official hifigan config.json key names; ``kwargs``
+        (e.g. ``fuse_mrf_max_ch``) pass on to the constructor."""
+        return cls(
+            resblock=str(config.get('resblock', '1')),
+            upsample_rates=tuple(config.get('upsample_rates', (8, 8, 2, 2))),
+            upsample_kernel_sizes=tuple(
+                config.get('upsample_kernel_sizes', (16, 16, 4, 4))),
+            upsample_initial_channel=int(
+                config.get('upsample_initial_channel', 512)),
+            resblock_kernel_sizes=tuple(
+                config.get('resblock_kernel_sizes', (3, 7, 11))),
+            resblock_dilation_sizes=tuple(
+                tuple(d) for d in config.get(
+                    'resblock_dilation_sizes',
+                    ((1, 3, 5), (1, 3, 5), (1, 3, 5)))),
+            num_mels=int(config.get('num_mels', 80)), **kwargs)

@@ -16,6 +16,9 @@ the same variables in both packages.
   params/a/rnn/{fwd,bwd}/{wi,wh}     -> a.rnn.weight_{ih,hh}_l0[_reverse], T
   params/a/rnn/{fwd,bwd}/{bi,bh}     -> a.rnn.bias_{ih,hh}_l0[_reverse]
   list entries 'xs_0'                -> 'xs.0'
+
+``hifigan_from_jax_params`` carries the JAX HiFi-GAN generator's params into
+the port's ``HiFiGANGenerator`` (models/vocoder.py).
 """
 
 import re
@@ -121,3 +124,31 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]
         else:
             raise ValueError(f'Unrecognized state_dict entry: {key}')
     return variables
+
+
+def hifigan_from_jax_params(params: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX package's HiFi-GAN params tree -> the port's
+    ``HiFiGANGenerator`` state_dict: the inverse of its
+    ``convert_hifigan_state_dict`` (after weight-norm folding).
+
+      conv_pre/conv/kernel [K, C_in, C_out] -> conv_pre.weight
+                                               [C_out, C_in, K]
+      ups_i/kernel [K, C_in, C_out], flipped -> ups.i.weight [C_in, C_out, K]
+      resblocks_r/convs1_j/conv/{kernel,bias}
+                                 -> resblocks.r.convs1.j.{weight,bias}
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        leaf, parent = path[-1], [p for p in path[:-1] if p != 'conv']
+        if leaf == 'kernel' and parent[0].startswith('ups_'):
+            val = arr[::-1].transpose(1, 2, 0)
+        elif leaf == 'kernel':
+            val = arr.transpose(2, 1, 0)
+        elif leaf == 'bias':
+            val = arr
+        else:
+            raise ValueError(f'Unrecognized parameter: {"/".join(path)}')
+        sd[_key(parent, 'weight' if leaf == 'kernel' else 'bias')] = \
+            torch.tensor(np.ascontiguousarray(val), dtype=torch.float32)
+    return sd

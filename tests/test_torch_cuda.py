@@ -13,14 +13,15 @@ at the same points, but a float32 sum taken in another order can land on
 the neighbouring bfloat16 value (2^-8 relative) and a recurrence carries
 such a step on: 3e-2 of the scale, inside the JAX package's own bf16
 kernel tolerance of 5e-2; the backward sweeps' outputs, which carry dh
-through T steps, the same. The length regulators copy rows: exact.
+through T steps, the same, and the MRF level, whose residual chains carry
+one bf16 step through 6 convolutions. The length regulators copy rows: exact.
 """
 
 import pytest
 import torch
 
 from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway, lr,
-                                              lr_bidir, rnn, rnn_train)
+                                              lr_bidir, mrf, rnn, rnn_train)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -452,3 +453,63 @@ def test_training_kernels_raise_on_unsupported_shapes(dev):
                                    ends, 8)
     assert (dict(rnn.launches), dict(rnn_train.launches),
             lr.launches) == before
+
+
+def _mrf_inputs(g, b, c, t, dev, dtype, krs=(3, 7, 11), units=3):
+    x = _rand(g, (b, c, t), 1.0, dev, dtype)
+    weights = []
+    for kr in krs:
+        for _ in range(2):
+            weights += [_rand(g, (units, c, kr * c), (kr * c) ** -0.5, dev,
+                              dtype),
+                        _rand(g, (units, c, 1), 0.1, dev, dtype)]
+    return x, tuple(weights)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,c,t', [(2, 64, 1000), (1, 32, 2113), (3, 16, 77),
+                                   (1, 24, 300), (2, 64, 1)])
+def test_mrf_kernel_matches_twin(dev, dtype, b, c, t):
+    """One MRF level (kr 3/7/11, d 1/3/5): ragged last tiles, a level
+    shorter than one tile and its halo, C=24 padded to 32 channels."""
+    g = torch.Generator().manual_seed(c + t)
+    x, weights = _mrf_inputs(g, b, c, t, dev, dtype)
+    before = mrf.launches
+    got = mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
+    torch.cuda.synchronize()
+    assert mrf.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    _close([got.float()],
+           [mrf.mrf_plain(x, weights, (3, 7, 11), (1, 3, 5)).float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
+def test_mrf_kernel_other_branches(dev):
+    """Two branches of two units (kr 5/9, d 2/1), bf16 and f32."""
+    g = torch.Generator().manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, weights = _mrf_inputs(g, 2, 48, 700, dev, dtype, krs=(5, 9),
+                                 units=2)
+        got = mrf.mrf(x, weights, (5, 9), (2, 1))
+        torch.cuda.synchronize()
+        _close([got.float()], [mrf.mrf_plain(x, weights, (5, 9),
+                                             (2, 1)).float()],
+               TOL if dtype == torch.float32 else BF16_TOL)
+
+
+def test_mrf_kernel_raises_on_unsupported_shapes(dev):
+    g = torch.Generator().manual_seed(3)
+    before = mrf.launches
+    x, weights = _mrf_inputs(g, 1, 128, 50, dev, torch.bfloat16)
+    with pytest.raises(ValueError, match='shared memory'):
+        mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
+    x, weights = _mrf_inputs(g, 1, 12, 50, dev, torch.bfloat16)
+    with pytest.raises(ValueError, match='shared memory'):
+        mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
+    x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16, krs=(13,))
+    with pytest.raises(ValueError, match='halo'):
+        mrf.mrf(x, weights, (13,), (1, 3, 5))
+    x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.float16)
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
+    assert mrf.launches == before

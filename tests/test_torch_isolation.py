@@ -34,8 +34,10 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from forwardtacotron_torch.dsp.dsp import DSP
     from forwardtacotron_torch.models.forward_tacotron import ForwardTacotron
-    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
+    from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
     from forwardtacotron_torch.utils.device import resolve_device
+    from forwardtacotron_torch.utils.vocoder_checkpoints import load_hifigan
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     model = ForwardTacotron(embed_dims=8, series_embed_dims=4,
@@ -54,6 +56,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         resolve_device('cuda')
     assert TTSInference(model, device='cpu').device.type == 'cpu'
     assert DSP(**dsp_args, device='cpu').device.type == 'cpu'
+    # the vocoder: the device is resolved before the checkpoint is read
+    generator = HiFiGANGenerator(upsample_initial_channel=16, num_mels=8)
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        Vocoder(generator)
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        Vocoder.from_checkpoint('g_00000000')
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        load_hifigan('g_00000000')
+    assert Vocoder(generator, device='cpu').device.type == 'cpu'
 
 
 def test_bfloat16_and_other_families_raise():
