@@ -34,13 +34,20 @@ Run from the repository root. Phases, each of which must pass:
 9. the fused HiFi-GAN MRF level (``mrf.cu``) against its twin at v1's
    levels 2 and 3 (C=64, 32): float32 at one request, bf16 at bench.py's
    vocoder shape (batch 128 x 256 frames), timed beside the twin and the
-   same level as 18 cuDNN convolutions;
+   same level as 18 cuDNN convolutions; then the phase-stacked tail's level
+   (``ups_mrf``: leaky, upsample and MRF in one launch of ``mrf.cu``)
+   against its twin at the same levels and shapes, timed beside the twin,
+   beside the level as the fused-level route computes it (cuDNN's
+   transposed convolution, bias, leaky, ``mrf.cu``) and beside the level
+   per convolution;
 10. the vocoder path: a seeded HiFi-GAN v1 checkpoint in jik876 format
     loaded by ``Vocoder.from_checkpoint`` with ``fuse_mrf_max_ch=64``, the
     4 requests through bf16 ``generate_routed(vocoder=)`` (2 ``mrf``
-    launches per routed group), one float32 request on the card against
-    the CPU plain path, vocoder audio-s/s at batch 128 x 256 frames with
-    the fused levels on and off, the profiler and the idle share;
+    launches per routed group), then again with ``fuse_ups_tail_max_ch=64``
+    (2 ``ups_mrf`` launches per routed group, no ``mrf``), one float32
+    request on the card against the CPU plain path with either option,
+    vocoder audio-s/s at batch 128 x 256 frames in turns with the tail,
+    the fused levels and per convolution, the profiler and the idle share;
 11. training kernels: the length regulator (float32 and bf16), the bi-LSTM
     forward that keeps its cell states, the three trainable GRUs' forward
     and the GRU / LSTM backward sweeps (incoming gradient at unit scale,
@@ -66,8 +73,10 @@ Any failure exits non-zero without the last line, as does a machine without
 a CUDA device or a directory without the repository. The profiler's kernel
 tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path),
 ``chiprun_out/chip_smoke_serving_profile.txt`` (serving path),
-``chiprun_out/chip_smoke_vocoder_profile.txt`` (bf16 vocoder call) and
-``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train step).
+``chiprun_out/chip_smoke_vocoder_profile.txt`` (bf16 vocoder call, fused
+levels), ``chiprun_out/chip_smoke_vocoder_tail_profile.txt`` (the same with
+the tail) and ``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train
+step).
 """
 
 import copy
@@ -289,9 +298,9 @@ def set_frames_per_token(torch, model, frames: int):
 def reset_counts() -> None:
     from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
                                                   lr, lr_bidir, mrf, rnn,
-                                                  rnn_train)
+                                                  rnn_train, ups_mrf)
     highway.launches = cbhg.launches = griffin_lim.launches = 0
-    lr_bidir.launches = lr.launches = mrf.launches = 0
+    lr_bidir.launches = lr.launches = mrf.launches = ups_mrf.launches = 0
     for counts in (rnn.launches, rnn_train.launches):
         for key in counts:
             counts[key] = 0
@@ -301,11 +310,12 @@ def read_counts() -> dict:
     """Every kernel wrapper's launch count, one key per launch site."""
     from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway,
                                                   lr, lr_bidir, mrf, rnn,
-                                                  rnn_train)
+                                                  rnn_train, ups_mrf)
     return {'pre_highway_stack': highway.launches, 'cbhg_front': cbhg.launches,
             'griffin_lim_iter': griffin_lim.launches,
             'lr_bidir': lr_bidir.launches, 'lr': lr.launches,
-            'mrf': mrf.launches, **rnn.launches, **rnn_train.launches}
+            'mrf': mrf.launches, 'ups_mrf': ups_mrf.launches,
+            **rnn.launches, **rnn_train.launches}
 
 
 def expect_counts(label: str, launches: dict, **want) -> None:
@@ -957,6 +967,15 @@ VOCODER_CALLS, VOCODER_TRIALS = 4, 3
 # plain path (per-convolution): max abs error over max(1e-3, max |wav|)
 E2E_WAV_TOL = 1e-3
 VOCODER_KERNEL_NAMES = {'mrf': [r'mrf_kernel<(__nv_bfloat16|float)>']}
+# the phase-stacked tail: from the first level of at most this many output
+# channels (level 2 of v1), each level is one ups_mrf launch
+VOCODER_TAIL_MAX_CH = 64
+VOCODER_TAIL_KERNEL_NAMES = {
+    'ups_mrf': [r'ups_mrf_kernel<(__nv_bfloat16|float)>']}
+# the vocoder's routes, timed in turns: (fuse_ups_tail_max_ch,
+# fuse_mrf_max_ch)
+VOCODER_ROUTES = {'tail': (VOCODER_TAIL_MAX_CH, VOCODER_FUSE_MAX_CH),
+                  'fused': (0, VOCODER_FUSE_MAX_CH), 'per_conv': (0, 0)}
 
 
 def seeded_hifigan(torch):
@@ -1032,22 +1051,115 @@ def vocoder_kernel_phase(torch, n_frames):
             parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                               cudnn_level_ms=y_ms, bound_ms=b_ms,
                               bound_by=b_by))
-        res[name] = {k: (max(p[k] for p in parts) if k == 'max_abs_err'
-                         else parts[0][k] if k == 'bound_by'
-                         else sum(p[k] for p in parts)) for k in parts[0]}
+        res[name] = sum_levels(parts)
         res[name].update(library_ms=None, at=(
             f'HiFi-GAN v1 levels 2 + 3 (C=64, 32), B={batch}, {frames} '
             'frames, summed'))
     return res
 
 
+def sum_levels(parts):
+    """Per-level results summed over the levels: the largest error, the
+    first level's bound_by, every time summed."""
+    return {k: (max(p[k] for p in parts) if k == 'max_abs_err'
+                else parts[0][k] if k == 'bound_by'
+                else sum(p[k] for p in parts)) for k in parts[0]}
+
+
+def ups_kernel_phase(torch, n_frames):
+    """The phase-stacked tail's level (``ups_mrf``: leaky, upsample by 2,
+    MRF) against its twin on the card at v1's levels 2 (s_in 1, C_in 128 ->
+    C 64) and 3 (s_in 2, C_in 64 -> C 32): float32 at one request of
+    ``n_frames`` frames, bf16 at bench.py's vocoder batch; timed beside the
+    twin (with cudnn.benchmark, as above), beside the same level on the
+    fused-level route (cuDNN's transposed convolution and bias, leaky,
+    ``mrf.cu``: the yardstick) and beside the level per convolution, both
+    from the sample-ordered input."""
+    from forwardtacotron_torch.models.vocoder import leaky_relu
+    from forwardtacotron_torch.ops.hopper import mrf, ups_mrf
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    model = seeded_hifigan(torch).to(dev)
+    krs = model.resblock_kernel_sizes
+    dils = model.resblock_dilation_sizes[0]
+    res = {}
+    for dtype, batch, frames in ((torch.float32, 1, n_frames),
+                                 (torch.bfloat16, VOCODER_BATCH,
+                                  VOCODER_FRAMES)):
+        name = 'ups_mrf' if dtype == torch.float32 else 'ups_mrf_bf16'
+        tol = KERNEL_TOL if dtype == torch.float32 else BF16_TOL
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        model.to(dtype)
+        t_ps = frames * 64            # lanes: samples per frame at level 2
+        parts, s_in = [], 1
+        for level in VOCODER_LEVELS:
+            up = model.ups[level]
+            c_in, c, k_up = up.in_channels, up.out_channels, up.kernel_size[0]
+            s_up = model.upsample_rates[level]
+            x = torch.randn(batch, s_in * c_in, t_ps, generator=gen,
+                            device=dev).to(dtype)
+            up_w, up_b, *weights = model.ups_mrf_weights(level, dtype)
+            args = (x, up_w, up_b, tuple(weights), s_in, s_up, krs, dils,
+                    t_ps)
+            log(f'  {name} level {level}: B={batch} s_in={s_in} C_in={c_in} '
+                f'C={c} T_ps={t_ps}')
+            got = ups_mrf.ups_mrf(*args)
+            torch.backends.cudnn.benchmark = True
+            err = compare(torch, f'level {level}', got.float(),
+                          ups_mrf.ups_mrf_plain(*args).float(), tol)
+            p_ms = time_ms(torch, lambda: ups_mrf.ups_mrf_plain(*args),
+                           reps=3)
+            torch.backends.cudnn.benchmark = False
+            k_ms = time_ms(torch, lambda: ups_mrf.ups_mrf(*args))
+            x_nat = ups_mrf.phase_unstack(x, s_in).contiguous()
+            mrf_w = model.mrf_weights(level, dtype)
+            blocks = model.resblocks[3 * level:3 * level + 3]
+
+            def fused_level():
+                return mrf.mrf(up(leaky_relu(x_nat, 0.1)), mrf_w, krs, dils)
+
+            def per_conv_level():
+                u = up(leaky_relu(x_nat, 0.1))
+                return (blocks[0](u) + blocks[1](u) + blocks[2](u)) / 3
+
+            f_ms = time_ms(torch, fused_level)
+            y_ms = time_ms(torch, per_conv_level)
+            t_out = s_in * s_up * t_ps
+            flops = batch * t_out * (2 * c * c * 2 * len(dils) * sum(krs)
+                                     + 2 * c_in * c * k_up // s_up)
+            nbytes = (x.element_size() * (
+                batch * (s_in * c_in + s_in * s_up * c) * t_ps
+                + up_w.numel() + sum(w.numel() for w in weights[0::2]))
+                + 4 * (up_b.numel() + sum(w.numel() for w in weights[1::2])))
+            b_ms, b_by = bound(flops, nbytes, peak)
+            log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, fused-level '
+                f'route {f_ms:.4f} ms, per convolution {y_ms:.4f} ms, bound '
+                f'{b_ms:.4f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s')
+            parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                              fused_level_ms=f_ms, cudnn_level_ms=y_ms,
+                              bound_ms=b_ms, bound_by=b_by))
+            s_in *= s_up
+        res[name] = sum_levels(parts)
+        res[name].update(library_ms=None, at=(
+            f'HiFi-GAN v1 levels 2 + 3 (C_in 128 -> C 64, s_in 1; C_in 64 -> '
+            f'C 32, s_in 2), B={batch}, {frames} frames, summed'))
+    return res
+
+
+def set_route(model, route: str) -> None:
+    model.fuse_ups_tail_max_ch, model.fuse_mrf_max_ch = VOCODER_ROUTES[route]
+
+
 def vocoder_path_phase(torch, model16, config, tokens, root: Path):
     """The vocoder path through its entry points: a jik876-format v1
-    checkpoint loaded by ``Vocoder.from_checkpoint`` with the fused levels
-    on, bf16 ``generate_routed(vocoder=)`` on the 4 requests (2 mrf launches
-    per routed group), one f32 request on the card vs the CPU plain path,
-    then vocoder throughput at bench.py's shape with the fused levels on
-    and off, the profiler and the idle share."""
+    checkpoint loaded by ``Vocoder.from_checkpoint``, bf16
+    ``generate_routed(vocoder=)`` on the 4 requests with the fused levels (2
+    mrf launches per routed group) and then with the tail (2 ups_mrf
+    launches per group, no mrf), one f32 request on the card vs the CPU
+    plain path with either, then vocoder throughput at bench.py's shape
+    with the tail, the fused levels and per convolution in turns, the
+    profiler and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
@@ -1056,7 +1168,6 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
     write_hifigan_checkpoint(torch, path)
     hop, sr = 256, config['dsp']['sample_rate']
     voc = Vocoder.from_checkpoint(str(path), dtype='bfloat16', device='cuda')
-    voc.model.fuse_mrf_max_ch = VOCODER_FUSE_MAX_CH
     inference = TTSInference(set_frames_per_token(torch, model16,
                                                   FRAMES_PER_TOKEN),
                              dtype='bfloat16', device='cuda')
@@ -1064,95 +1175,116 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
     x = np.zeros((n, max(map(len, tokens))), np.int64)
     for i, toks in enumerate(tokens):
         x[i, :len(toks)] = toks
-    inference.generate_routed(x[:1, :8], vocoder=voc)     # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    out = inference.generate_routed(x, vocoder=voc)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    lens = out['mel_len'].cpu().numpy()
-    groups = len(np.unique(-(-lens // 128)))
-    expect_counts('bf16 generate_routed + vocoder', launches,
-                  gru=1 + 2 * groups, lr_bidir=groups, lstm_mel=groups,
-                  pre_highway_stack=2 * groups, cbhg_front=groups,
-                  mrf=2 * groups)
-    wav, wav_len = out['wav'], out['wav_len'].cpu().numpy()
-    if not (np.array_equal(wav_len, lens * hop)
-            and wav.shape[1] == -(-int(lens.max()) // 128) * 128 * hop
-            and bool(torch.isfinite(wav).all())):
-        fail(f'vocoder path: wav {tuple(wav.shape)}, wav_len {wav_len}, '
-             f'mel_len {lens}')
-    log(f'vocoder path: {n} requests, {groups} routed group(s), text -> wav '
-        f'{wall * 1e3:.1f} ms, {int(wav_len.sum()) / sr:.2f} s of audio')
+    routed, wavs = {}, {}
+    for route, kernel in (('fused', 'mrf'), ('tail', 'ups_mrf')):
+        set_route(voc.model, route)
+        inference.generate_routed(x, vocoder=voc)     # warm-up, same shapes
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = inference.generate_routed(x, vocoder=voc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        lens = out['mel_len'].cpu().numpy()
+        groups = len(np.unique(-(-lens // 128)))
+        expect_counts(f'bf16 generate_routed + vocoder ({route})', launches,
+                      gru=1 + 2 * groups, lr_bidir=groups, lstm_mel=groups,
+                      pre_highway_stack=2 * groups, cbhg_front=groups,
+                      **{kernel: 2 * groups})
+        wav, wav_len = out['wav'], out['wav_len'].cpu().numpy()
+        if not (np.array_equal(wav_len, lens * hop)
+                and wav.shape[1] == -(-int(lens.max()) // 128) * 128 * hop
+                and bool(torch.isfinite(wav).all())):
+            fail(f'vocoder path ({route}): wav {tuple(wav.shape)}, wav_len '
+                 f'{wav_len}, mel_len {lens}')
+        log(f'vocoder path ({route}): {n} requests, {groups} routed '
+            f'group(s), text -> wav {wall * 1e3:.1f} ms, '
+            f'{int(wav_len.sum()) / sr:.2f} s of audio')
+        routed[route], wavs[route] = launches[kernel], wav.float()
+    log('vocoder path: bf16 wav, tail vs fused levels, max abs diff '
+        f'{float((wavs["tail"] - wavs["fused"]).abs().max()):.3e}')
 
-    # one f32 request: card (fused levels, f32 kernel) vs CPU plain path
+    # one f32 request: card (fused levels or tail, f32 kernels) vs the CPU
+    # plain path (per convolution)
     i = int(np.argmin(lens))
     mel = out['mel_post'][i:i + 1, :int(lens[i])].float()
-    voc32 = Vocoder.from_checkpoint(str(path), dtype='float32',
-                                    device='cuda')
-    voc32.model.fuse_mrf_max_ch = VOCODER_FUSE_MAX_CH
-    reset_counts()
-    got = voc32(mel)
-    torch.cuda.synchronize()
-    launches32 = read_counts()
-    expect_counts('f32 vocoder request', launches32, mrf=2)
     ref = Vocoder.from_checkpoint(str(path), dtype='float32',
                                   device='cpu')(mel.cpu())
-    err = float((got.cpu() - ref).abs().max())
     scale = max(1e-3, float(ref.abs().max()))
-    ok = err <= E2E_WAV_TOL * scale and got.shape == (1, int(lens[i]) * hop)
-    log(f'vocoder reference: f32 request {i} ({int(lens[i])} frames) on the '
-        f'card vs the CPU plain path, max abs err {err:.3e}, peak '
-        f'{scale:.3e} (tol {E2E_WAV_TOL:g} x peak) {"ok" if ok else "FAIL"}')
-    if not ok:
-        fail('f32 vocoder disagrees with the CPU plain path')
+    voc32 = Vocoder.from_checkpoint(str(path), dtype='float32',
+                                    device='cuda')
+    request, errs = {}, {}
+    for route, kernel in (('fused', 'mrf'), ('tail', 'ups_mrf')):
+        set_route(voc32.model, route)
+        reset_counts()
+        got = voc32(mel)
+        torch.cuda.synchronize()
+        launches32 = read_counts()
+        expect_counts(f'f32 vocoder request ({route})', launches32,
+                      **{kernel: 2})
+        err = float((got.cpu() - ref).abs().max())
+        ok = err <= E2E_WAV_TOL * scale and got.shape == (1,
+                                                          int(lens[i]) * hop)
+        log(f'vocoder reference ({route}): f32 request {i} ({int(lens[i])} '
+            f'frames) on the card vs the CPU plain path, max abs err '
+            f'{err:.3e}, peak {scale:.3e} (tol {E2E_WAV_TOL:g} x peak) '
+            f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'f32 vocoder ({route}) disagrees with the CPU plain path')
+        request[route], errs[route] = launches32[kernel], err
 
-    # throughput at bench.py's shape, fused levels on and off in turns
+    # throughput at bench.py's shape, the routes in turns
     mel = torch.randn(VOCODER_BATCH, VOCODER_FRAMES, config['dsp']['num_mels'],
                       generator=torch.Generator().manual_seed(SEED)).cuda()
     audio_s = VOCODER_BATCH * VOCODER_FRAMES * hop / sr
-    rates = {VOCODER_FUSE_MAX_CH: [], 0: []}
-    for fuse in rates:
-        voc.model.fuse_mrf_max_ch = fuse
+    rates = {route: [] for route in VOCODER_ROUTES}
+    for route in rates:
+        set_route(voc.model, route)
         voc(mel)
     torch.cuda.synchronize()
     for _ in range(VOCODER_TRIALS):
-        for fuse in rates:
-            voc.model.fuse_mrf_max_ch = fuse
+        for route in rates:
+            set_route(voc.model, route)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(VOCODER_CALLS):
                 voc(mel)
                 torch.cuda.synchronize()
-            rates[fuse].append(VOCODER_CALLS * audio_s
-                               / (time.perf_counter() - t0))
-    voc.model.fuse_mrf_max_ch = VOCODER_FUSE_MAX_CH
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        voc(mel)
-        torch.cuda.synchronize()
-    busy_ms = device_profile(prof, 'bf16 vocoder call',
-                             'chip_smoke_vocoder_profile.txt',
-                             VOCODER_KERNEL_NAMES)
-    call_ms = audio_s / statistics.median(rates[VOCODER_FUSE_MAX_CH]) * 1e3
+            rates[route].append(VOCODER_CALLS * audio_s
+                                / (time.perf_counter() - t0))
     stats = {'batch': VOCODER_BATCH, 'frames': VOCODER_FRAMES,
-             'audio_s_per_call': audio_s,
-             'audio_s_per_s_fused': sorted(rates[VOCODER_FUSE_MAX_CH]),
-             'audio_s_per_s_per_conv': sorted(rates[0]),
-             'call_ms_fused': call_ms, 'device_busy_ms': busy_ms,
-             'idle': 1 - busy_ms / call_ms, 'card_vs_cpu_err': err}
-    for fuse, label in ((VOCODER_FUSE_MAX_CH, 'fused levels 2-3'),
-                        (0, 'per-convolution')):
-        r = rates[fuse]
+             'audio_s_per_call': audio_s}
+    for route, table, names in (
+            ('fused', 'chip_smoke_vocoder_profile.txt', VOCODER_KERNEL_NAMES),
+            ('tail', 'chip_smoke_vocoder_tail_profile.txt',
+             VOCODER_TAIL_KERNEL_NAMES)):
+        set_route(voc.model, route)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            voc(mel)
+            torch.cuda.synchronize()
+        busy_ms = device_profile(prof, f'bf16 vocoder call ({route})', table,
+                                 names)
+        call_ms = audio_s / statistics.median(rates[route]) * 1e3
+        stats.update({f'call_ms_{route}': call_ms,
+                      f'device_busy_ms_{route}': busy_ms,
+                      f'idle_{route}': 1 - busy_ms / call_ms})
+        log(f'vocoder {route}: {call_ms:.2f} ms per call (median), device '
+            f'busy {busy_ms:.2f} ms (profiled call): idle '
+            f'{100 * (1 - busy_ms / call_ms):.1f}%')
+    for route, label in (('tail', 'phase-stacked tail, levels 2-3'),
+                         ('fused', 'fused levels 2-3'),
+                         ('per_conv', 'per-convolution')):
+        r = rates[route]
+        stats[f'audio_s_per_s_{route}'] = sorted(r)
         log(f'vocoder {label}: batch {VOCODER_BATCH} x {VOCODER_FRAMES} '
             f'frames bf16, {VOCODER_TRIALS} trials x {VOCODER_CALLS} calls: '
             f'audio-s/s min {min(r):.1f} median {statistics.median(r):.1f} '
             f'max {max(r):.1f}')
-    log(f'vocoder fused: {call_ms:.2f} ms per call (median), device busy '
-        f'{busy_ms:.2f} ms (profiled call): idle {100 * stats["idle"]:.1f}%')
-    return launches['mrf'], launches32['mrf'], stats
+    stats.update(card_vs_cpu_err_fused=errs['fused'],
+                 card_vs_cpu_err_tail=errs['tail'])
+    return routed, request, stats
 
 
 # ------------------------------------------------------------- training
@@ -1671,12 +1803,14 @@ def main() -> None:
         set_frames_per_token(torch, model16, SERVING_FRAMES_PER_TOKEN)
     bf16_reference_phase(torch, model16)
 
-    # the vocoder: the fused MRF level against its twin at v1's shapes, then
-    # the bf16 text -> wav path, a f32 request and throughput
+    # the vocoder: the fused MRF level and the tail's level against their
+    # twins at v1's shapes, then the bf16 text -> wav path, a f32 request
+    # and throughput, with either
     with torch.inference_mode():
         results_voc = vocoder_kernel_phase(torch, n_frames)
+        results_voc.update(ups_kernel_phase(torch, n_frames))
     with tempfile.TemporaryDirectory(prefix='chip_smoke_vocoder_') as tmp:
-        voc16_launches, voc32_launches, vocoder = vocoder_path_phase(
+        voc_routed, voc_request, vocoder = vocoder_path_phase(
             torch, model16, config, tokens, Path(tmp))
 
     # training: the kernels at full-width training shapes (with autograd on,
@@ -1720,8 +1854,13 @@ def main() -> None:
          'rnn_train.py:92'),
         ('lstm_bwd', results_train, train_launches['lstm_bwd'],
          'rnn_bwd.cu', 'rnn_train.py:149'),
-        ('mrf', results_voc, voc32_launches, 'mrf.cu', 'mrf.py:52'),
-        ('mrf_bf16', results_voc, voc16_launches, 'mrf.cu', 'mrf.py:52')]
+        ('mrf', results_voc, voc_request['fused'], 'mrf.cu', 'mrf.py:52'),
+        ('mrf_bf16', results_voc, voc_routed['fused'], 'mrf.cu',
+         'mrf.py:52'),
+        ('ups_mrf', results_voc, voc_request['tail'], 'mrf.cu',
+         'mrf.py:189'),
+        ('ups_mrf_bf16', results_voc, voc_routed['tail'], 'mrf.cu',
+         'mrf.py:189')]
     kernels = []
     for name, res, n_launches, src, tpu in rows:
         r = res[name] if name in res else res[name.replace('_bf16', '')]
@@ -1733,8 +1872,8 @@ def main() -> None:
             'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r.get('library_ms'), 'at': r['at'],
-            **({'cudnn_level_ms': r['cudnn_level_ms']}
-               if 'cudnn_level_ms' in r else {})})
+            **{k: r[k] for k in ('fused_level_ms', 'cudnn_level_ms')
+               if k in r}})
     log(f'serving: {json.dumps(serving)}')
     log(f'vocoder: {json.dumps(vocoder)}')
     log(f'training: {json.dumps(training)}')

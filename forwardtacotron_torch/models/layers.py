@@ -29,8 +29,8 @@ from torch import nn
 from forwardtacotron_torch.ops.hopper import lr_bidir
 from forwardtacotron_torch.ops.hopper import rnn as rnn_ops
 from forwardtacotron_torch.ops.hopper import rnn_train
-from forwardtacotron_torch.ops.hopper.cbhg import bank_pool_proj
-from forwardtacotron_torch.ops.hopper.highway import pre_highway_stack
+from forwardtacotron_torch.ops.hopper import cbhg as cbhg_ops
+from forwardtacotron_torch.ops.hopper import highway as highway_ops
 from forwardtacotron_torch.ops.length_regulator import (duration_spans,
                                                         length_regulator)
 
@@ -464,10 +464,16 @@ class CBHG(nn.Module):
         self.highways = nn.ModuleList(
             [HighwayNetwork(channels) for _ in range(num_highways)])
         self.rnn = BiGRU(channels, channels)
+        # the JAX gates (the weight budget, the lane-alignment test), kept
+        # so both packages route alike, and the kernels' shape checks, so a
+        # front or stack the kernel cannot take stays on plain operations
         self.front_fusable = _front_fits_one_dispatch(
-            K, in_channels, channels, proj_channels[0])
-        # the JAX gate's lane-alignment test, kept so both route alike
-        self.highways_fusable = bool(num_highways) and channels % 128 == 0
+            K, in_channels, channels, proj_channels[0]) \
+            and cbhg_ops.shape_error(K, in_channels, channels,
+                                     proj_channels[0]) is None
+        self.highways_fusable = bool(num_highways) \
+            and channels % 128 == 0 \
+            and highway_ops.shape_error(proj_channels[-1], channels) is None
 
     def front_args(self, x: torch.Tensor, mask: torch.Tensor):
         """Arguments of ``bank_pool_proj`` (and its twin) for this front:
@@ -508,7 +514,7 @@ class CBHG(nn.Module):
         if self.front_fusable and not self.training:
             mask = (torch.ones(x.shape[:2], device=x.device)
                     if tail is None else (~tail[:, :, 0]).float())
-            x = bank_pool_proj(*self.front_args(x, mask))
+            x = cbhg_ops.bank_pool_proj(*self.front_args(x, mask))
         else:
             x = torch.cat([conv(x) for conv in self.conv1d_bank], dim=-1)
             x = maxpool_time(x)
@@ -519,7 +525,8 @@ class CBHG(nn.Module):
             x = x.masked_fill(tail, 0.0)
         x = self.conv_project2(self.drop(x))
         if self.highways_fusable and not self.training:
-            y = pre_highway_stack(*self.highway_args(x, residual))
+            y = highway_ops.pre_highway_stack(
+                *self.highway_args(x, residual))
             return y.reshape(*x.shape[:2], self.channels)
         x = self.pre_highway(x + residual)
         for hw in self.highways:

@@ -14,15 +14,20 @@ Inside, activations are torch's channels-major [B, C, T], which is also the
 layout of the fused MRF kernel (``ops/hopper/mrf.py``): a level whose
 channel count is at most ``fuse_mrf_max_ch`` runs its three ``ResBlock1``
 branches and their mean (18 convolutions) as one kernel launch, without a
-transpose. The public call keeps the JAX contract: mel [B, T, n_mels] ->
-wav [B, T * hop].
+transpose. With ``fuse_ups_tail_max_ch``, the levels from the first whose
+output has at most that many channels run as the JAX package's
+phase-stacked tail: each level (leaky, upsample, MRF) is one ``ups_mrf``
+launch on [B, s*C, T] activations (``ops/hopper/ups_mrf.py``), and the
+samples are interleaved once, before ``conv_post``. The public call keeps
+the JAX contract: mel [B, T, n_mels] -> wav [B, T * hop].
 
 Every convolution adds its bias as an operation of its own (as flax does):
 in bfloat16 the product is rounded before the bias is added. Leaky ReLU is
 max(x, s * x) with s in the activation's dtype, as in the JAX package.
 """
 
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +35,7 @@ from torch import nn
 
 from forwardtacotron_torch.models.layers import Conv
 from forwardtacotron_torch.ops.hopper import mrf as mrf_ops
+from forwardtacotron_torch.ops.hopper import ups_mrf as ups_ops
 
 
 def _same_pad(kernel_size: int, dilation: int = 1) -> int:
@@ -99,11 +105,15 @@ class HiFiGANGenerator(nn.Module):
 
     ``fuse_mrf_max_ch`` (default 0, as in the JAX package): a level with at
     most this many channels, ``resblock '1'``, one dilation tuple for every
-    kernel size and a span within the kernel's halo runs as one ``mrf``
-    kernel launch when its activation lies on a CUDA device.
-    ``fuse_tail_max_ch`` and ``fuse_ups_tail_max_ch`` (the JAX package's
-    channels-major and phase-stacked tails) are not ported yet: any value
-    above 0 raises ``NotImplementedError``."""
+    kernel size and a shape the ``mrf`` kernel takes runs as one ``mrf``
+    launch when its activation lies on a CUDA device.
+    ``fuse_ups_tail_max_ch`` (default 0, as in the JAX package): from the
+    first level whose output has at most this many channels, each level runs
+    as one ``ups_mrf`` launch on phase-stacked activations, where the JAX
+    package's gate admits the tail (``_ups_tail_fusable``), the kernel takes
+    every level of it and the activation lies on a CUDA device.
+    ``fuse_tail_max_ch`` (the JAX package's channels-major tail) is not
+    ported yet: a value above 0 raises ``NotImplementedError``."""
 
     def __init__(self, resblock: str = '1',
                  upsample_rates: Sequence[int] = (8, 8, 2, 2),
@@ -117,12 +127,10 @@ class HiFiGANGenerator(nn.Module):
                  fuse_tail_max_ch: int = 0,
                  fuse_ups_tail_max_ch: int = 0):
         super().__init__()
-        for name, value in (('fuse_tail_max_ch', fuse_tail_max_ch),
-                            ('fuse_ups_tail_max_ch', fuse_ups_tail_max_ch)):
-            if value > 0:
-                raise NotImplementedError(
-                    f'{name}={value}: the channels-major and phase-stacked '
-                    'vocoder tails are not ported yet (ROADMAP.md Queue 1)')
+        if fuse_tail_max_ch > 0:
+            raise NotImplementedError(
+                f'fuse_tail_max_ch={fuse_tail_max_ch}: the channels-major '
+                'vocoder tail is not ported yet (ROADMAP.md Queue 1 item 6b)')
         self.resblock = str(resblock)
         self.upsample_rates = tuple(upsample_rates)
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
@@ -158,21 +166,54 @@ class HiFiGANGenerator(nn.Module):
 
     def _mrf_fusable(self, ch: int, x: torch.Tensor) -> bool:
         """The JAX package's gate (models/vocoder.py ``_mrf_fusable``), with
-        "the activation is on a CUDA device" for its TPU-backend clause."""
+        "the activation is on a CUDA device" for its TPU-backend clause and
+        the kernel's shape check for its halo clause: it admits exactly what
+        ``mrf`` takes on a card."""
         if self.resblock != '1' or not 0 < ch <= self.fuse_mrf_max_ch:
             return False
         dils = self.resblock_dilation_sizes
         if any(d != dils[0] for d in dils):
             return False
-        kr = max(self.resblock_kernel_sizes)
-        if mrf_ops.branch_span(kr, dils[0]) > mrf_ops.HALO:
+        if mrf_ops.shape_error(ch, self.resblock_kernel_sizes, dils[0]):
             return False
         return _on_cuda(x)
 
-    def mrf_weights(self, level: int, dtype: torch.dtype
+    def _ups_tail_fusable(self, ch_out: int, level: int,
+                          x: torch.Tensor) -> bool:
+        """The JAX package's gate (models/vocoder.py ``_ups_tail_fusable``)
+        for a tail entered at ``level`` with activation x [B, C, T] (T is
+        JAX's ``t_in``), with "the activation is on a CUDA device" for its
+        TPU-backend clause and the kernel's shape check on every level of
+        the tail: it admits exactly what ``ups_mrf`` takes on a card."""
+        if not 0 < ch_out <= self.fuse_ups_tail_max_ch \
+                or self.resblock != '1':
+            return False
+        dils = self.resblock_dilation_sizes
+        if any(d != dils[0] for d in dils):
+            return False
+        rates = self.upsample_rates[level:]
+        sizes = self.upsample_kernel_sizes[level:]
+        if any(s <= 1 or (k - s) % 2 for k, s in zip(sizes, rates)):
+            return False
+        # at most 4 phases, and a length the phases divide
+        s_total = math.prod(rates)
+        if s_total > 4 or x.shape[-1] % s_total:
+            return False
+        s_in = 1
+        for up, s in zip(self.ups[level:], rates):
+            if ups_ops.shape_error(s_in, s, up.in_channels, up.out_channels,
+                                   up.kernel_size[0],
+                                   self.resblock_kernel_sizes, dils[0]):
+                return False
+            s_in *= s
+        return _on_cuda(x)
+
+    def mrf_weights(self, level: int, dtype: torch.dtype,
+                    bias_dtype: Optional[torch.dtype] = None
                     ) -> Tuple[torch.Tensor, ...]:
         """The level's ResBlock1 weights packed for ``mrf``: per kernel
-        size (w1, b1, w2, b2), weights [U, C, kr*C], biases [U, C, 1]."""
+        size (w1, b1, w2, b2), weights [U, C, kr*C] in ``dtype``, biases
+        [U, C, 1] in ``bias_dtype`` (``dtype`` unless given)."""
         num_kernels = len(self.resblock_kernel_sizes)
         weights = []
         for j in range(num_kernels):
@@ -182,9 +223,20 @@ class HiFiGANGenerator(nn.Module):
                     [mrf_ops.pack_conv_weight(c.weight) for c in convs]
                 ).to(dtype).contiguous())
                 weights.append(torch.stack(
-                    [c.bias for c in convs])[:, :, None].to(dtype)
-                    .contiguous())
+                    [c.bias for c in convs])[:, :, None]
+                    .to(bias_dtype or dtype).contiguous())
         return tuple(weights)
+
+    def ups_mrf_weights(self, level: int, dtype: torch.dtype
+                        ) -> Tuple[torch.Tensor, ...]:
+        """The level's weights for ``ups_mrf``: the upsampler's [k, C_in, C]
+        (pre-flipped) in ``dtype`` and its bias [C] in float32, then the
+        MRF's as :meth:`mrf_weights` packs them, with float32 biases (as the
+        JAX package's ``_ups_mrf_level`` stacks them)."""
+        up = self.ups[level]
+        return (ups_ops.pack_up_weight(up.weight).to(dtype).contiguous(),
+                up.bias.float().contiguous(),
+                *self.mrf_weights(level, dtype, torch.float32))
 
     def _mrf_fused(self, x: torch.Tensor, level: int) -> torch.Tensor:
         """The level's ResBlock1 branches and their mean as one ``mrf``
@@ -193,11 +245,28 @@ class HiFiGANGenerator(nn.Module):
                            self.resblock_kernel_sizes,
                            self.resblock_dilation_sizes[0])
 
+    def _ups_mrf_level(self, x: torch.Tensor, level: int,
+                       s_in: int) -> torch.Tensor:
+        """One level of the phase-stacked tail (leaky, upsample, MRF) as one
+        ``ups_mrf`` call: [B, s_in*C_in, T] -> [B, s_in*s*C, T]."""
+        up_w, up_b, *weights = self.ups_mrf_weights(level, x.dtype)
+        return ups_ops.ups_mrf(
+            x.contiguous(), up_w, up_b, tuple(weights), s_in,
+            self.upsample_rates[level], self.resblock_kernel_sizes,
+            self.resblock_dilation_sizes[0], x.shape[-1])
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, T, n_mels] -> wav [B, T * hop_length]."""
         num_kernels = len(self.resblock_kernel_sizes)
         x = self.conv_pre(mel.to(self.conv_pre.weight.dtype).transpose(1, 2))
+        tail, s_in = False, 1     # the phase-stacked tail, its phases
         for i, up in enumerate(self.ups):
+            if not tail and self._ups_tail_fusable(up.out_channels, i, x):
+                tail = True       # x [B, C, T] is its input with 1 phase
+            if tail:
+                x = self._ups_mrf_level(x, i, s_in)
+                s_in *= self.upsample_rates[i]
+                continue
             x = up(leaky_relu(x, 0.1))
             if self._mrf_fusable(x.shape[1], x):
                 x = self._mrf_fused(x, i)
@@ -206,13 +275,16 @@ class HiFiGANGenerator(nn.Module):
                 for j in range(1, num_kernels):
                     xs = xs + self.resblocks[i * num_kernels + j](x)
                 x = xs / num_kernels
+        if tail:
+            x = ups_ops.phase_unstack(x, s_in)    # interleave once
         x = torch.tanh(self.conv_post(leaky_relu(x, 0.01)))
         return x[:, 0]
 
     @classmethod
     def from_config(cls, config: dict, **kwargs) -> 'HiFiGANGenerator':
         """Accepts the official hifigan config.json key names; ``kwargs``
-        (e.g. ``fuse_mrf_max_ch``) pass on to the constructor."""
+        (e.g. ``fuse_mrf_max_ch``, ``fuse_ups_tail_max_ch``) pass on to the
+        constructor."""
         return cls(
             resblock=str(config.get('resblock', '1')),
             upsample_rates=tuple(config.get('upsample_rates', (8, 8, 2, 2))),

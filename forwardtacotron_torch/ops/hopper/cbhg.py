@@ -7,9 +7,10 @@ plain twin for CPU tensors; nothing else selects between them.
 """
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from forwardtacotron_torch.ops.hopper import build
 
@@ -18,6 +19,10 @@ launches = 0
 
 # the kernel keeps one output column per thread
 MAX_P = 256
+# frames per CTA, and the shared memory it holds them in: a float32 input
+# halo [TT + K + 2, C_in] and the pooled rows of one branch [TT + 2, C]
+TT = 32
+SMEM_BYTES = 232448
 
 _ENTRY = {torch.float32: 'cbhg_front_f32', torch.bfloat16: 'cbhg_front_bf16'}
 
@@ -57,6 +62,42 @@ def bank_pool_proj_plain(x: torch.Tensor, mask: torch.Tensor,
     return (torch.relu(acc) * proj_scale + proj_bias).to(dt)
 
 
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def shape_error(k_max: int, c_in: int, c: int, p: int) -> Optional[str]:
+    """Why the kernel cannot take a front of ``k_max`` bank convolutions
+    C_in -> C and a projection to P, or None when it can (C_in and C are
+    padded to multiples of 4 first). Needs no card: the wrapper raises with
+    it, and the CBHG's gate consults it."""
+    if not 0 < p <= MAX_P:
+        return (f'P={p}: the kernel keeps one output column per thread, '
+                f'P <= {MAX_P}')
+    smem = 4 * ((TT + k_max + 2) * _pad4(c_in) + (TT + 2) * _pad4(c))
+    if min(k_max, c_in, c) <= 0 or smem > SMEM_BYTES:
+        return (f'K={k_max}, C_in={c_in}, C={c}: the input halo and the '
+                f'pooled rows take {smem} bytes of shared memory, more than '
+                f'{SMEM_BYTES}')
+    return None
+
+
+def pad_channels(x, bank_w, bn_scale, bn_bias, proj_w, c_in_pad, c_pad):
+    """The front with zero input channels up to ``c_in_pad`` and zero bank
+    channels up to ``c_pad``: a zero bank channel has zero weights and a
+    zero folded BatchNorm, so it pools to 0 and meets zero projection rows;
+    the output is unchanged."""
+    c_in, c = bank_w[0].shape[1:]
+    k_max, p = len(bank_w), proj_w.shape[-1]
+    pi, pc = c_in_pad - c_in, c_pad - c
+    proj_w = F.pad(proj_w.reshape(3, k_max, c, p), (0, 0, 0, pc))
+    return (F.pad(x, (0, pi)).contiguous(),
+            [F.pad(w, (0, pc, 0, pi)).contiguous() for w in bank_w],
+            F.pad(bn_scale, (0, pc)).contiguous(),
+            F.pad(bn_bias, (0, pc)).contiguous(),
+            proj_w.reshape(3, k_max * c_pad, p).contiguous())
+
+
 def _kernel(dtype):
     fn = getattr(build.library('cbhg_front'), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
@@ -71,7 +112,9 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
                    proj_w: torch.Tensor, proj_scale: torch.Tensor,
                    proj_bias: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`bank_pool_proj_plain`, one kernel launch on
-    the GPU."""
+    the GPU. The kernel takes C_in and C in multiples of 4; others are
+    padded with zero channels here, which is exact. What
+    :func:`shape_error` refuses raises ``ValueError``."""
     if x.device.type == 'cpu':
         return bank_pool_proj_plain(x, mask, bank_w, bn_scale, bn_bias,
                                     proj_w, proj_scale, proj_bias)
@@ -87,10 +130,15 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
     if (mask.shape != (b, t) or bn_scale.shape != (k_max, c)
             or bn_bias.shape != (k_max, c)
             or proj_w.shape != (3, k_max * c, p)
-            or proj_scale.shape != (p,) or proj_bias.shape != (p,)
-            or c_in % 4 or c % 4 or p > MAX_P):
-        raise ValueError('bank_pool_proj: bad shapes (C_in and C must be '
-                         f'multiples of 4, P at most {MAX_P})')
+            or proj_scale.shape != (p,) or proj_bias.shape != (p,)):
+        raise ValueError('bank_pool_proj: bad shapes')
+    err = shape_error(k_max, c_in, c, p)
+    if err:
+        raise ValueError(f'bank_pool_proj: {err}')
+    if c_in % 4 or c % 4:
+        c_in, c = _pad4(c_in), _pad4(c)
+        x, bank_w, bn_scale, bn_bias, proj_w = pad_channels(
+            x, bank_w, bn_scale, bn_bias, proj_w, c_in, c)
     dt = x.dtype
     bank = torch.cat([w.reshape(-1) for w in bank_w])
     args = (x, mask, bank, bn_scale, bn_bias, proj_w, proj_scale, proj_bias)

@@ -7,10 +7,16 @@ plain twin for CPU tensors; nothing else selects between them.
 """
 
 import ctypes
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from forwardtacotron_torch.ops.hopper import build
+
+# the kernel keeps two float32 [32, max(C_in, C)] row tiles in a block's
+# 232,448 bytes of shared memory
+MAX_WIDTH = 232448 // (2 * 32 * 4)
 
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -45,6 +51,28 @@ def pre_highway_stack_plain(a: torch.Tensor, res: torch.Tensor,
     return x.to(dt)
 
 
+def shape_error(c_in: int, c: int) -> Optional[str]:
+    """Why the kernel cannot take rows of width ``c_in`` projected to ``c``
+    channels, or None when it can (``c_in`` is padded to a multiple of 4
+    first). Needs no card: the wrapper raises with it, and the CBHG's gate
+    consults it."""
+    if c <= 0 or c % 4:
+        return f'C={c} must be a positive multiple of 4'
+    if c_in <= 0 or max(-(-c_in // 4) * 4, c) > MAX_WIDTH:
+        return (f'C_in={c_in}, C={c}: the kernel holds rows of at most '
+                f'{MAX_WIDTH} channels in shared memory')
+    return None
+
+
+def pad_input_width(a: torch.Tensor, res: torch.Tensor, pre_w: torch.Tensor,
+                    c_in_pad: int):
+    """a, res and pre_w with zero input columns (rows of pre_w) up to
+    ``c_in_pad``: (a + res) @ pre_w gains only zero terms."""
+    pc = c_in_pad - a.shape[1]
+    return (F.pad(a, (0, pc)).contiguous(), F.pad(res, (0, pc)).contiguous(),
+            F.pad(pre_w, (0, 0, 0, pc)).contiguous())
+
+
 def _kernel(dtype):
     fn = getattr(build.library('highway'), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
@@ -57,7 +85,9 @@ def pre_highway_stack(a: torch.Tensor, res: torch.Tensor,
                       pre_w: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`pre_highway_stack_plain`, one kernel launch
-    on the GPU."""
+    on the GPU. The kernel takes C_in in multiples of 4; others are padded
+    with zero columns here, which is exact. What :func:`shape_error`
+    refuses raises ``ValueError``."""
     if a.device.type == 'cpu':
         return pre_highway_stack_plain(a, res, pre_w, w, b)
     if a.device.type != 'cuda':
@@ -76,15 +106,20 @@ def pre_highway_stack(a: torch.Tensor, res: torch.Tensor,
                          'contiguous float32 or bfloat16 tensors of one '
                          'dtype, b contiguous float32, all on one device')
     if (res.shape != a.shape or pre_w.shape[0] != c_in
-            or w.shape != (n_layers, c, 2 * c) or b.shape != (n_layers, 2 * c)
-            or c_in % 4 or c % 4):
+            or w.shape != (n_layers, c, 2 * c) or b.shape != (n_layers, 2 * c)):
         raise ValueError('pre_highway_stack: bad shapes '
-                         f'{[tuple(t.shape) for t in args]} (C_in and C must '
-                         'be multiples of 4)')
+                         f'{[tuple(t.shape) for t in args]}')
+    err = shape_error(c_in, c)
+    if err:
+        raise ValueError(f'pre_highway_stack: {err}')
+    if c_in % 4:
+        c_in = -(-c_in // 4) * 4
+        a, res, pre_w = pad_input_width(a, res, pre_w, c_in)
     out = torch.empty(n, c, dtype=dt, device=a.device)
     if n == 0:
         return out
-    status = _kernel(dt)(*(build.ptr(t) for t in args), build.ptr(out),
+    status = _kernel(dt)(*(build.ptr(t) for t in (a, res, pre_w, w, b)),
+                         build.ptr(out),
                          n, c_in, c, n_layers, a.get_device(),
                          build.stream_of(a))
     build.check(status, 'pre_highway_stack')

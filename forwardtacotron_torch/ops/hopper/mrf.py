@@ -10,7 +10,7 @@ gradient: the vocoder only serves, and the TPU kernel has no VJP either.
 """
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,19 +56,22 @@ def mrf_plain(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
               krs: Sequence[int], dils: Sequence[int]) -> torch.Tensor:
     """x [B, C, T] -> [B, C, T]. ``weights``: per kr in order (w1 [U, C,
     kr*C], b1 [U, C, 1], w2 [U, C, kr*C], b2 [U, C, 1]), packed as
-    :func:`pack_conv_weight`, all in x's dtype.
+    :func:`pack_conv_weight`, in x's dtype (the biases may be float32).
 
     Rounding points, in x's dtype: the leaky; each convolution's float32
-    product, then its bias added; the residual add. The branch sum is taken
-    in float32, divided by ``len(krs)`` and rounded. Positions outside
-    [0, T) are zero before every convolution (the convolutions' zero
-    padding)."""
+    product, then its bias added (a float32 bias is added to the float32
+    product and the sum rounded once, as the phase-stacked tail's kernel
+    does); the residual add. The branch sum is taken in float32, divided by
+    ``len(krs)`` and rounded. Positions outside [0, T) are zero before
+    every convolution (the convolutions' zero padding)."""
     dt = x.dtype
     c = x.shape[1]
 
     def conv(a, w, b, kr, d):
         k = w.reshape(c, kr, c).permute(0, 2, 1)          # [C_out, C_in, kr]
         y = F.conv1d(a.float(), k.float(), padding=(kr // 2) * d, dilation=d)
+        if b.dtype == torch.float32:
+            return (y + b).to(dt)
         return y.to(dt) + b
 
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -91,12 +94,11 @@ def _kernel(dtype):
     return fn
 
 
-def _pad_channels(x, weights, krs, c_pad):
-    """Zero channels up to ``c_pad``: a zero channel stays zero through
-    every unit (zero weights in and out, zero bias), so the first C output
-    channels are unchanged."""
-    pc = c_pad - x.shape[1]
-    c = x.shape[1]
+def pad_weights(weights, krs, c, c_pad):
+    """The level's weights with zero channels up to ``c_pad``: a zero
+    channel stays zero through every unit (zero weights in and out, zero
+    bias), so the first C output channels are unchanged."""
+    pc = c_pad - c
     out = []
     for i, kr in enumerate(krs):
         for w, b in (weights[4 * i:4 * i + 2], weights[4 * i + 2:4 * i + 4]):
@@ -104,16 +106,36 @@ def _pad_channels(x, weights, krs, c_pad):
             w4 = F.pad(w.reshape(u, c, kr, c), (0, pc, 0, 0, 0, pc))
             out += [w4.reshape(u, c_pad, kr * c_pad).contiguous(),
                     F.pad(b, (0, 0, 0, pc)).contiguous()]
-    return F.pad(x, (0, 0, 0, pc)).contiguous(), tuple(out)
+    return tuple(out)
+
+
+def shape_error(c: int, krs: Sequence[int],
+                dils: Sequence[int]) -> Optional[str]:
+    """Why the kernel cannot take a level of ``c`` channels with these
+    kernel sizes and dilations, or None when it can. Needs no card: the
+    wrapper raises with it, and the generator's gate consults it."""
+    if not 0 < c <= MAX_CHANNELS:
+        return (f'C={c} is not supported: the kernel keeps a window of '
+                f'[t_tile + {2 * HALO}, C] activations twice and a float32 '
+                f'[C, t_tile] sum in one block\'s shared memory, which holds '
+                f'C <= {MAX_CHANNELS}')
+    if not (0 < len(krs) <= MAX_BRANCHES and 0 < len(dils) <= MAX_UNITS):
+        return (f'at most {MAX_BRANCHES} kernel sizes and {MAX_UNITS} '
+                f'dilations, got {tuple(krs)}, {tuple(dils)}')
+    if any(k % 2 == 0 for k in krs) \
+            or max(branch_span(k, dils) for k in krs) > HALO:
+        return (f'odd kernel sizes whose span fits the {HALO}-sample halo '
+                f'only, got {tuple(krs)}, {tuple(dils)}')
+    return None
 
 
 def mrf(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
         krs: Sequence[int], dils: Sequence[int]) -> torch.Tensor:
     """Same contract as :func:`mrf_plain`, one kernel launch on the GPU.
 
-    The kernel takes C <= 64 in multiples of 16; C that is a multiple of 8
-    is padded with zero channels here. Larger C raises ``ValueError``: the
-    window of activations would not fit a block's shared memory."""
+    The kernel takes C <= 64 in multiples of 16; other C are padded with
+    zero channels here, which is exact. What :func:`shape_error` refuses
+    raises ``ValueError``."""
     if x.device.type == 'cpu':
         return mrf_plain(x, weights, krs, dils)
     if x.device.type != 'cuda':
@@ -124,19 +146,9 @@ def mrf(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
         raise ValueError('mrf: x must be a contiguous float32 or bfloat16 '
                          f'[B, C, T] tensor, got {dt} {tuple(x.shape)}')
     b, c, t = x.shape
-    if c % 8 or not 0 < c <= MAX_CHANNELS:
-        raise ValueError(
-            f'mrf: C={c} is not supported: the kernel keeps a window of '
-            f'[t_tile + {2 * HALO}, C] activations twice and a float32 '
-            f'[C, t_tile] sum in one block\'s shared memory, which holds '
-            f'C <= {MAX_CHANNELS} (a multiple of 8)')
-    if not (0 < len(krs) <= MAX_BRANCHES and 0 < len(dils) <= MAX_UNITS):
-        raise ValueError(f'mrf: at most {MAX_BRANCHES} kernel sizes and '
-                         f'{MAX_UNITS} dilations, got {krs}, {dils}')
-    if any(k % 2 == 0 for k in krs) \
-            or max(branch_span(k, dils) for k in krs) > HALO:
-        raise ValueError(f'mrf: odd kernel sizes whose span fits the '
-                         f'{HALO}-sample halo only, got {krs}, {dils}')
+    err = shape_error(c, krs, dils)
+    if err:
+        raise ValueError(f'mrf: {err}')
     if len(weights) != 4 * len(krs):
         raise ValueError(f'mrf: {len(weights)} weight tensors for '
                          f'{len(krs)} kernel sizes (4 each)')
@@ -153,7 +165,8 @@ def mrf(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
                     f'{w.dtype} {tuple(w.shape)} on {w.device}')
     c_pad = -(-c // 16) * 16
     if c_pad != c:
-        x, weights = _pad_channels(x, weights, krs, c_pad)
+        x = F.pad(x, (0, 0, 0, c_pad - c)).contiguous()
+        weights = pad_weights(weights, krs, c, c_pad)
     out = torch.empty_like(x)
     if b == 0 or t == 0:
         return out[:, :c]

@@ -13,15 +13,17 @@ at the same points, but a float32 sum taken in another order can land on
 the neighbouring bfloat16 value (2^-8 relative) and a recurrence carries
 such a step on: 3e-2 of the scale, inside the JAX package's own bf16
 kernel tolerance of 5e-2; the backward sweeps' outputs, which carry dh
-through T steps, the same, and the MRF level, whose residual chains carry
-one bf16 step through 6 convolutions. The length regulators copy rows: exact.
+through T steps, the same, and the MRF level (alone or behind its upsample),
+whose residual chains carry one bf16 step through 6 convolutions. The
+length regulators copy rows: exact.
 """
 
 import pytest
 import torch
 
 from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway, lr,
-                                              lr_bidir, mrf, rnn, rnn_train)
+                                              lr_bidir, mrf, rnn, rnn_train,
+                                              ups_mrf)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -45,8 +47,9 @@ def _close(got, want, tol=TOL):
 
 
 @pytest.mark.parametrize('n,c_in,c', [(77, 80, 256), (33, 256, 256),
-                                      (5, 12, 64)])
+                                      (5, 12, 64), (41, 6, 128)])
 def test_pre_highway_kernel_matches_twin(dev, n, c_in, c):
+    """An input width of 6 is padded to 8 by the wrapper."""
     g = torch.Generator().manual_seed(n)
     layers = 4
     args = [torch.randn(s, generator=g) * sc for s, sc in (
@@ -61,8 +64,10 @@ def test_pre_highway_kernel_matches_twin(dev, n, c_in, c):
 
 
 @pytest.mark.parametrize('b,t,c_in,c,p,k_max', [(2, 70, 80, 256, 256, 8),
-                                                (1, 9, 8, 16, 12, 3)])
+                                                (1, 9, 8, 16, 12, 3),
+                                                (2, 40, 6, 10, 12, 3)])
 def test_cbhg_front_kernel_matches_twin(dev, b, t, c_in, c, p, k_max):
+    """C_in 6 and C 10 are padded to 8 and 12 by the wrapper."""
     g = torch.Generator().manual_seed(t)
     x = torch.randn(b, t, c_in, generator=g)
     mask = torch.ones(b, t)
@@ -103,7 +108,8 @@ def _rand(g, shape, scale, dev, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
 
 
-@pytest.mark.parametrize('n,c_in,c', [(77, 80, 256), (33, 256, 256)])
+@pytest.mark.parametrize('n,c_in,c', [(77, 80, 256), (33, 256, 256),
+                                      (41, 6, 128)])
 def test_pre_highway_bf16_kernel_matches_twin(dev, n, c_in, c):
     g = torch.Generator().manual_seed(n)
     layers = 4
@@ -468,10 +474,11 @@ def _mrf_inputs(g, b, c, t, dev, dtype, krs=(3, 7, 11), units=3):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,c,t', [(2, 64, 1000), (1, 32, 2113), (3, 16, 77),
-                                   (1, 24, 300), (2, 64, 1)])
+                                   (1, 24, 300), (2, 64, 1), (2, 12, 500)])
 def test_mrf_kernel_matches_twin(dev, dtype, b, c, t):
     """One MRF level (kr 3/7/11, d 1/3/5): ragged last tiles, a level
-    shorter than one tile and its halo, C=24 padded to 32 channels."""
+    shorter than one tile and its halo, C=24 and C=12 padded to 32 and 16
+    channels."""
     g = torch.Generator().manual_seed(c + t)
     x, weights = _mrf_inputs(g, b, c, t, dev, dtype)
     before = mrf.launches
@@ -503,7 +510,7 @@ def test_mrf_kernel_raises_on_unsupported_shapes(dev):
     x, weights = _mrf_inputs(g, 1, 128, 50, dev, torch.bfloat16)
     with pytest.raises(ValueError, match='shared memory'):
         mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
-    x, weights = _mrf_inputs(g, 1, 12, 50, dev, torch.bfloat16)
+    x, weights = _mrf_inputs(g, 1, 80, 50, dev, torch.bfloat16)
     with pytest.raises(ValueError, match='shared memory'):
         mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
     x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16, krs=(13,))
@@ -513,3 +520,86 @@ def test_mrf_kernel_raises_on_unsupported_shapes(dev):
     with pytest.raises(ValueError, match='float32 or bfloat16'):
         mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
     assert mrf.launches == before
+
+
+def _ups_inputs(g, b, s_in, s_up, k, c_in, c, t_ps, dev, dtype):
+    """A phase-stacked level's x, upsampler, bias (float32) and MRF weights
+    (float32 biases) on the card."""
+    x = _rand(g, (b, s_in * c_in, t_ps), 1.0, dev, dtype)
+    up_w = _rand(g, (k, c_in, c), (k * c_in / s_up) ** -0.5, dev, dtype)
+    up_b = _rand(g, (c,), 0.1, dev, torch.float32)
+    weights = []
+    for kr in (3, 7, 11):
+        for _ in range(2):
+            weights += [_rand(g, (3, c, kr * c), (kr * c) ** -0.5, dev, dtype),
+                        _rand(g, (3, c, 1), 0.1, dev, torch.float32)]
+    return x, up_w, up_b, tuple(weights)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,s_in,s_up,k,c_in,c,t_ps,t_valid', [
+    (2, 1, 2, 4, 128, 64, 700, 700),    # HiFi-GAN v1 level 2
+    (1, 2, 2, 4, 64, 32, 1031, 1031),   # v1 level 3
+    (3, 1, 2, 4, 64, 32, 37, 30),       # shorter than a tile, padding lanes
+    (2, 1, 4, 8, 32, 16, 300, 297),     # rate 4
+    (1, 2, 2, 4, 24, 12, 200, 200)])    # C_in 24, C 12: padded to 32, 16
+def test_ups_mrf_kernel_matches_twin(dev, dtype, b, s_in, s_up, k, c_in, c,
+                                     t_ps, t_valid):
+    """One level of the phase-stacked tail (leaky, upsample, kr 3/7/11 and
+    d 1/3/5 MRF): ragged last tiles and lanes past t_valid."""
+    g = torch.Generator().manual_seed(c_in + t_ps)
+    args = (*_ups_inputs(g, b, s_in, s_up, k, c_in, c, t_ps, dev, dtype),
+            s_in, s_up, (3, 7, 11), (1, 3, 5), t_valid)
+    before = ups_mrf.launches
+    got = ups_mrf.ups_mrf(*args)
+    torch.cuda.synchronize()
+    assert ups_mrf.launches == before + 1
+    assert got.shape == (b, s_in * s_up * c, t_ps) and got.dtype == dtype
+    want = ups_mrf.ups_mrf_plain(*args)
+    assert not got[..., t_valid:].any()
+    _close([got.float()], [want.float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
+def test_ups_mrf_kernel_raises_on_unsupported_shapes(dev):
+    """Levels the kernel cannot take raise on the card: more than 64 output
+    channels, more than 128 input channels, a rate of 8, a float16 input."""
+    g = torch.Generator().manual_seed(4)
+    before = ups_mrf.launches
+    for (s_in, s_up, k, c_in, c), match in (
+            ((1, 2, 4, 128, 128), 'shared memory'),
+            ((1, 2, 4, 256, 64), 'C_in'),
+            ((1, 8, 16, 64, 32), 'rate')):
+        args = _ups_inputs(g, 1, s_in, s_up, k, c_in, c, 40, dev,
+                           torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            ups_mrf.ups_mrf(*args, s_in, s_up, (3, 7, 11), (1, 3, 5), 40)
+    args = _ups_inputs(g, 1, 1, 2, 4, 64, 32, 40, dev, torch.float16)
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        ups_mrf.ups_mrf(*args, 1, 2, (3, 7, 11), (1, 3, 5), 40)
+    assert ups_mrf.launches == before
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_ups_tail_generator_on_card_matches_cpu(dev, dtype, monkeypatch):
+    """A narrow generator whose last two levels take the tail on the card
+    (two launches) against the same generator on the CPU, its device clause
+    patched so that the tail's levels run the twin there."""
+    import copy
+
+    from forwardtacotron_torch.models import vocoder as vocoder_mod
+    from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
+
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    torch.manual_seed(0)
+    gen = HiFiGANGenerator(upsample_initial_channel=128, num_mels=20,
+                           fuse_ups_tail_max_ch=16).eval().to(dtype)
+    mel = torch.randn(2, 33, 20, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = gen(mel.to(dtype))
+        before = ups_mrf.launches
+        got = copy.deepcopy(gen).to(dev)(mel.to(dev, dtype))
+        torch.cuda.synchronize()
+    assert ups_mrf.launches == before + 2
+    _close([got.float().cpu()], [want.float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
