@@ -108,6 +108,33 @@ def _rand(g, shape, scale, dev, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
 
 
+def test_front_and_highway_raise_on_unsupported_shapes(dev):
+    """Shapes the highway and CBHG-front kernels cannot take raise on the
+    card, with the message of their ``shape_error``: a highway width that
+    is not a multiple of 4 or too wide for shared memory, a projection
+    wider than 256 columns."""
+    g = torch.Generator().manual_seed(5)
+    before = (highway.launches, cbhg.launches)
+    for c_in, c, match in ((80, 130, 'multiple of 4'),
+                           (80, 1024, 'shared memory')):
+        args = [torch.randn(s, generator=g).to(dev) for s in (
+            (9, c_in), (9, c_in), (c_in, c), (1, c, 2 * c), (1, 2 * c))]
+        with pytest.raises(ValueError, match=match):
+            highway.pre_highway_stack(*args)
+    k_max, c_in, c, p = 2, 8, 16, 320
+    args = [torch.randn(1, 9, c_in, generator=g).to(dev),
+            torch.ones(1, 9, device=dev),
+            [torch.randn(k, c_in, c, generator=g).to(dev)
+             for k in range(1, k_max + 1)],
+            torch.ones(k_max, c, device=dev),
+            torch.zeros(k_max, c, device=dev),
+            torch.randn(3, k_max * c, p, generator=g).to(dev),
+            torch.ones(p, device=dev), torch.zeros(p, device=dev)]
+    with pytest.raises(ValueError, match='P=320'):
+        cbhg.bank_pool_proj(*args)
+    assert (highway.launches, cbhg.launches) == before
+
+
 @pytest.mark.parametrize('n,c_in,c', [(77, 80, 256), (33, 256, 256),
                                       (41, 6, 128)])
 def test_pre_highway_bf16_kernel_matches_twin(dev, n, c_in, c):
