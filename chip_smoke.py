@@ -1267,9 +1267,11 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
         busy_ms = device_profile(prof, f'bf16 vocoder call ({route})', table,
                                  names)
         call_ms = audio_s / statistics.median(rates[route]) * 1e3
+        # the fused route keeps the key names of the earlier readings
+        sfx = '' if route == 'fused' else f'_{route}'
         stats.update({f'call_ms_{route}': call_ms,
-                      f'device_busy_ms_{route}': busy_ms,
-                      f'idle_{route}': 1 - busy_ms / call_ms})
+                      f'device_busy_ms{sfx}': busy_ms,
+                      f'idle{sfx}': 1 - busy_ms / call_ms})
         log(f'vocoder {route}: {call_ms:.2f} ms per call (median), device '
             f'busy {busy_ms:.2f} ms (profiled call): idle '
             f'{100 * (1 - busy_ms / call_ms):.1f}%')
@@ -1282,7 +1284,7 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
             f'frames bf16, {VOCODER_TRIALS} trials x {VOCODER_CALLS} calls: '
             f'audio-s/s min {min(r):.1f} median {statistics.median(r):.1f} '
             f'max {max(r):.1f}')
-    stats.update(card_vs_cpu_err_fused=errs['fused'],
+    stats.update(card_vs_cpu_err=errs['fused'],
                  card_vs_cpu_err_tail=errs['tail'])
     return routed, request, stats
 

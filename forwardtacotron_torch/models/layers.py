@@ -39,6 +39,20 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 
 
+def _on_cuda(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def kernel_gap(what: str, err: str) -> NotImplementedError:
+    """The error a gate raises for a CUDA tensor where the JAX package's gate
+    sends the work to its Pallas kernel but the CUDA kernel does not take
+    the shape: the port does not give way to plain operations on the card."""
+    return NotImplementedError(
+        f'{what}: the JAX package runs its Pallas kernel here, but the CUDA '
+        f'kernel does not take this shape yet ({err}); see ROADMAP.md '
+        'Queue 3, "kernel shapes not covered"')
+
+
 class Dense(nn.Linear):
     """nn.Linear that adds its bias as an operation of its own, as flax's
     ``nn.Dense`` does (``y = x @ W; y += b``): in bfloat16 the product is
@@ -444,7 +458,8 @@ class CBHG(nn.Module):
 
     Inference routes the front (bank .. proj1) to the ``cbhg_front`` kernel
     and residual + pre_highway + highways to the ``pre_highway_stack``
-    kernel where the JAX package's gates send them to Pallas. Training
+    kernel where the JAX package's gates send them to Pallas (on a card, a
+    part whose shape its kernel does not take raises). Training
     takes the plain operations, with dropout after the pool/mask and after
     proj1, as the JAX module's training branch does."""
 
@@ -465,15 +480,26 @@ class CBHG(nn.Module):
             [HighwayNetwork(channels) for _ in range(num_highways)])
         self.rnn = BiGRU(channels, channels)
         # the JAX gates (the weight budget, the lane-alignment test), kept
-        # so both packages route alike, and the kernels' shape checks, so a
-        # front or stack the kernel cannot take stays on plain operations
+        # so both packages route alike, and why each kernel cannot take its
+        # part (None where it can): such a part raises on a card
         self.front_fusable = _front_fits_one_dispatch(
-            K, in_channels, channels, proj_channels[0]) \
-            and cbhg_ops.shape_error(K, in_channels, channels,
-                                     proj_channels[0]) is None
-        self.highways_fusable = bool(num_highways) \
-            and channels % 128 == 0 \
-            and highway_ops.shape_error(proj_channels[-1], channels) is None
+            K, in_channels, channels, proj_channels[0])
+        self.highways_fusable = bool(num_highways) and channels % 128 == 0
+        self.front_error = cbhg_ops.shape_error(K, in_channels, channels,
+                                                proj_channels[0])
+        self.highways_error = highway_ops.shape_error(proj_channels[-1],
+                                                      channels)
+
+    def _takes_kernel(self, fusable: bool, err: Optional[str], what: str,
+                      x: torch.Tensor) -> bool:
+        """Whether inference sends a part to its kernel: where the JAX gate
+        ``fusable`` does. On a card the kernel must take the part's shape;
+        where ``err`` says it does not, this raises."""
+        if not fusable or self.training:
+            return False
+        if err and _on_cuda(x):
+            raise kernel_gap(what, err)
+        return True
 
     def front_args(self, x: torch.Tensor, mask: torch.Tensor):
         """Arguments of ``bank_pool_proj`` (and its twin) for this front:
@@ -511,7 +537,8 @@ class CBHG(nn.Module):
                     >= lengths[:, None])[:, :, None]
             x = x.masked_fill(tail, 0.0)
         residual = x
-        if self.front_fusable and not self.training:
+        if self._takes_kernel(self.front_fusable, self.front_error,
+                              'CBHG front (cbhg_front.cu)', x):
             mask = (torch.ones(x.shape[:2], device=x.device)
                     if tail is None else (~tail[:, :, 0]).float())
             x = cbhg_ops.bank_pool_proj(*self.front_args(x, mask))
@@ -524,7 +551,8 @@ class CBHG(nn.Module):
         if tail is not None:
             x = x.masked_fill(tail, 0.0)
         x = self.conv_project2(self.drop(x))
-        if self.highways_fusable and not self.training:
+        if self._takes_kernel(self.highways_fusable, self.highways_error,
+                              'CBHG highway stack (highway.cu)', x):
             y = highway_ops.pre_highway_stack(
                 *self.highway_args(x, residual))
             return y.reshape(*x.shape[:2], self.channels)

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from forwardtacotron_torch.models.layers import Conv
+from forwardtacotron_torch.models.layers import Conv, kernel_gap
 from forwardtacotron_torch.ops.hopper import mrf as mrf_ops
 from forwardtacotron_torch.ops.hopper import ups_mrf as ups_ops
 
@@ -105,13 +105,15 @@ class HiFiGANGenerator(nn.Module):
 
     ``fuse_mrf_max_ch`` (default 0, as in the JAX package): a level with at
     most this many channels, ``resblock '1'``, one dilation tuple for every
-    kernel size and a shape the ``mrf`` kernel takes runs as one ``mrf``
-    launch when its activation lies on a CUDA device.
+    kernel size and a span that fits the halo runs as one ``mrf`` launch
+    when its activation lies on a CUDA device.
     ``fuse_ups_tail_max_ch`` (default 0, as in the JAX package): from the
     first level whose output has at most this many channels, each level runs
     as one ``ups_mrf`` launch on phase-stacked activations, where the JAX
-    package's gate admits the tail (``_ups_tail_fusable``), the kernel takes
-    every level of it and the activation lies on a CUDA device.
+    package's gate admits the tail (``_ups_tail_fusable``) and the
+    activation lies on a CUDA device. Where either gate admits a level that
+    its kernel does not take, the forward raises ``NotImplementedError``
+    rather than run it on plain operations.
     ``fuse_tail_max_ch`` (the JAX package's channels-major tail) is not
     ported yet: a value above 0 raises ``NotImplementedError``."""
 
@@ -166,25 +168,30 @@ class HiFiGANGenerator(nn.Module):
 
     def _mrf_fusable(self, ch: int, x: torch.Tensor) -> bool:
         """The JAX package's gate (models/vocoder.py ``_mrf_fusable``), with
-        "the activation is on a CUDA device" for its TPU-backend clause and
-        the kernel's shape check for its halo clause: it admits exactly what
-        ``mrf`` takes on a card."""
+        "the activation is on a CUDA device" for its TPU-backend clause. A
+        level it admits that the ``mrf`` kernel does not take raises."""
         if self.resblock != '1' or not 0 < ch <= self.fuse_mrf_max_ch:
             return False
-        dils = self.resblock_dilation_sizes
+        krs, dils = self.resblock_kernel_sizes, self.resblock_dilation_sizes
         if any(d != dils[0] for d in dils):
             return False
-        if mrf_ops.shape_error(ch, self.resblock_kernel_sizes, dils[0]):
+        if mrf_ops.branch_span(max(krs), dils[0]) > mrf_ops.HALO:
             return False
-        return _on_cuda(x)
+        if not _on_cuda(x):
+            return False
+        err = mrf_ops.shape_error(ch, krs, dils[0])
+        if err:
+            raise kernel_gap(f'HiFi-GAN MRF level of {ch} channels (mrf.cu)',
+                             err)
+        return True
 
     def _ups_tail_fusable(self, ch_out: int, level: int,
                           x: torch.Tensor) -> bool:
         """The JAX package's gate (models/vocoder.py ``_ups_tail_fusable``)
         for a tail entered at ``level`` with activation x [B, C, T] (T is
         JAX's ``t_in``), with "the activation is on a CUDA device" for its
-        TPU-backend clause and the kernel's shape check on every level of
-        the tail: it admits exactly what ``ups_mrf`` takes on a card."""
+        TPU-backend clause. A tail it admits with a level that the
+        ``ups_mrf`` kernel does not take raises."""
         if not 0 < ch_out <= self.fuse_ups_tail_max_ch \
                 or self.resblock != '1':
             return False
@@ -199,14 +206,18 @@ class HiFiGANGenerator(nn.Module):
         s_total = math.prod(rates)
         if s_total > 4 or x.shape[-1] % s_total:
             return False
+        if not _on_cuda(x):
+            return False
         s_in = 1
-        for up, s in zip(self.ups[level:], rates):
-            if ups_ops.shape_error(s_in, s, up.in_channels, up.out_channels,
-                                   up.kernel_size[0],
-                                   self.resblock_kernel_sizes, dils[0]):
-                return False
+        for j, (up, s) in enumerate(zip(self.ups[level:], rates)):
+            err = ups_ops.shape_error(s_in, s, up.in_channels,
+                                      up.out_channels, up.kernel_size[0],
+                                      self.resblock_kernel_sizes, dils[0])
+            if err:
+                raise kernel_gap(f'HiFi-GAN tail level {level + j} '
+                                 '(ups_mrf in mrf.cu)', err)
             s_in *= s
-        return _on_cuda(x)
+        return True
 
     def mrf_weights(self, level: int, dtype: torch.dtype,
                     bias_dtype: Optional[torch.dtype] = None
@@ -229,10 +240,10 @@ class HiFiGANGenerator(nn.Module):
 
     def ups_mrf_weights(self, level: int, dtype: torch.dtype
                         ) -> Tuple[torch.Tensor, ...]:
-        """The level's weights for ``ups_mrf``: the upsampler's [k, C_in, C]
-        (pre-flipped) in ``dtype`` and its bias [C] in float32, then the
-        MRF's as :meth:`mrf_weights` packs them, with float32 biases (as the
-        JAX package's ``_ups_mrf_level`` stacks them)."""
+        """The level's weights for ``ups_mrf``: the upsampler's [k, C, C_in]
+        (``pack_up_weight``) in ``dtype`` and its bias [C] in float32, then
+        the MRF's as :meth:`mrf_weights` packs them, with float32 biases (as
+        the JAX package's ``_ups_mrf_level`` stacks them)."""
         up = self.ups[level]
         return (ups_ops.pack_up_weight(up.weight).to(dtype).contiguous(),
                 up.bias.float().contiguous(),

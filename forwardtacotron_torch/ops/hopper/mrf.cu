@@ -30,8 +30,8 @@
 //
 // Weights per branch: w1, w2 [U, C, kr*C] with j-major im2col columns
 // (column j*C + c_in, as pack_conv_weight packs them), biases b1, b2 [U, C];
-// ups_mrf_*: the upsampler per tap, transposed, [k, C, C_in] (tap m of the
-// pre-flipped [k, C_in, C] parameter), its bias [C] float32.
+// ups_mrf_*: the upsampler as [k, C, C_in], taps reversed (as
+// pack_up_weight packs it), its bias [C] float32.
 //
 // Rounding points, in the activation's type T: leaky = max(v, round(s * v))
 // with s = 0.1 in T; each convolution's f32 product, then its bias added,

@@ -36,10 +36,11 @@ _ENTRY = {torch.float32: 'ups_mrf_f32', torch.bfloat16: 'ups_mrf_bf16'}
 
 
 def pack_up_weight(weight: torch.Tensor) -> torch.Tensor:
-    """torch ``ConvTranspose1d`` weight [C_in, C_out, k] -> [k, C_in, C_out]
-    with the taps reversed: the JAX package's ``TransposedConv1d`` parameter,
-    stored pre-flipped."""
-    return weight.permute(2, 0, 1).flip(0)
+    """torch ``ConvTranspose1d`` weight [C_in, C_out, k] -> the kernel's
+    [k, C_out, C_in]: per tap the [C_out, C_in] matrix, C_in contiguous,
+    with the taps reversed. (The JAX package's ``TransposedConv1d``
+    parameter is the same taps as [k, C_in, C_out].)"""
+    return weight.permute(2, 1, 0).flip(0)
 
 
 def phase_stack(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -80,7 +81,7 @@ def ups_mrf_plain(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
                   krs: Sequence[int], dils: Sequence[int],
                   t_valid: int) -> torch.Tensor:
     """x [B, s_in*C_in, T_ps] -> [B, s_in*s_up*C, T_ps], both phase-stacked.
-    up_w [k, C_in, C] in x's dtype (:func:`pack_up_weight`), up_b [C]
+    up_w [k, C, C_in] in x's dtype (:func:`pack_up_weight`), up_b [C]
     float32; ``weights`` as for :func:`mrf.mrf_plain`, with float32 biases.
     Lanes at or past ``t_valid`` are padding.
 
@@ -91,12 +92,12 @@ def ups_mrf_plain(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
     output's padding lanes are 0."""
     dt = x.dtype
     b, _, t_ps = x.shape
-    k, _, c = up_w.shape
+    k = up_w.shape[0]
     s_out = s_in * s_up
     lane_ok = torch.arange(t_ps, device=x.device) < t_valid
     a = phase_unstack(torch.where(lane_ok, mrf_ops._leaky(x),
                                   torch.zeros((), dtype=dt)), s_in)
-    u = F.conv_transpose1d(a.float(), up_w.flip(0).permute(1, 2, 0).float(),
+    u = F.conv_transpose1d(a.float(), up_w.flip(0).permute(2, 1, 0).float(),
                            stride=s_up, padding=(k - s_up) // 2)
     u = (u + up_b.float()[:, None]).to(dt)
     n = s_out * t_valid
@@ -112,10 +113,10 @@ def pad_channels(x, up_w, up_b, weights, s_in, krs, c_in_pad, c_pad):
     (:func:`mrf.pad_weights`), so the first C output channels of every
     phase are unchanged (:func:`unpad_output` takes them)."""
     b, _, t_ps = x.shape
-    _, c_in, c = up_w.shape
+    _, c, c_in = up_w.shape
     x = F.pad(x.reshape(b, s_in, c_in, t_ps),
               (0, 0, 0, c_in_pad - c_in)).reshape(b, s_in * c_in_pad, t_ps)
-    return (x, F.pad(up_w, (0, c_pad - c, 0, c_in_pad - c_in)),
+    return (x, F.pad(up_w, (0, c_in_pad - c_in, 0, c_pad - c)),
             F.pad(up_b, (0, c_pad - c)),
             mrf_ops.pad_weights(weights, krs, c, c_pad))
 
@@ -160,11 +161,11 @@ def ups_mrf(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
                          f'[B, s_in*C_in, T] tensor, got {dt} '
                          f'{tuple(x.shape)}')
     b, rows, t_ps = x.shape
-    if up_w.dim() != 3 or rows != s_in * up_w.shape[1]:
+    if up_w.dim() != 3 or rows != s_in * up_w.shape[2]:
         raise ValueError(f'ups_mrf: x {tuple(x.shape)} does not hold {s_in} '
                          f'phases of the upsampler\'s C_in '
                          f'({tuple(up_w.shape)})')
-    k_up, c_in, c = up_w.shape
+    k_up, c, c_in = up_w.shape
     err = shape_error(s_in, s_up, c_in, c, k_up, krs, dils)
     if err:
         raise ValueError(f'ups_mrf: {err}')
@@ -174,7 +175,7 @@ def ups_mrf(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
         raise ValueError(f'ups_mrf: {len(weights)} weight tensors for '
                          f'{len(krs)} kernel sizes (4 each)')
     u = len(dils)
-    wants = [(up_w, (k_up, c_in, c), dt), (up_b, (c,), torch.float32)]
+    wants = [(up_w, (k_up, c, c_in), dt), (up_b, (c,), torch.float32)]
     for i, kr in enumerate(krs):
         for j, shape in enumerate(((u, c, kr * c), (u, c, 1)) * 2):
             wants.append((weights[4 * i + j], shape,
@@ -191,14 +192,12 @@ def ups_mrf(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
     if (c_pad, ci_pad) != (c, c_in):
         x, up_w, up_b, weights = pad_channels(x, up_w, up_b, weights, s_in,
                                               krs, ci_pad, c_pad)
-    # per tap the kernel reads W_m^T [C, C_in], C_in contiguous
-    up_t = up_w.transpose(1, 2).contiguous()
     out = torch.empty(b, s_out * c_pad, t_ps, dtype=dt, device=x.device)
     if b and t_ps:
         ptrs = (ctypes.c_void_p * len(weights))(
             *(w.data_ptr() for w in weights))
         status = _kernel(dt)(
-            build.ptr(x), build.ptr(out), build.ptr(up_t), build.ptr(up_b),
+            build.ptr(x), build.ptr(out), build.ptr(up_w), build.ptr(up_b),
             ptrs, (ctypes.c_int * len(krs))(*krs), len(krs),
             (ctypes.c_int * u)(*dils), u, b, ci_pad, c_pad, s_in, s_up, k_up,
             t_ps, t_valid, x.get_device(), build.stream_of(x))

@@ -135,6 +135,30 @@ def test_front_and_highway_raise_on_unsupported_shapes(dev):
     assert (highway.launches, cbhg.launches) == before
 
 
+def test_gates_raise_where_kernels_refuse(dev):
+    """Where the JAX package's gates send a part to a Pallas kernel and the
+    CUDA kernel does not take its shape, the forward raises on the card
+    rather than run plain operations: a CBHG front projecting to 320
+    columns, an MRF level of 128 channels, a tail level of 256 input
+    channels."""
+    from forwardtacotron_torch.models.layers import CBHG
+    from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
+
+    before = (cbhg.launches, mrf.launches, ups_mrf.launches)
+    m = CBHG(4, 80, 128, [320, 80], 4).eval().to(dev)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match='P=320'):
+        m(torch.randn(1, 9, 80, device=dev))
+    for kw, match in ((dict(upsample_initial_channel=256,
+                            fuse_mrf_max_ch=128), 'C=128'),
+                      (dict(upsample_initial_channel=1024,
+                            fuse_ups_tail_max_ch=128), 'C_in=256')):
+        gen = HiFiGANGenerator(num_mels=8, **kw).eval().to(dev)
+        with torch.no_grad(), pytest.raises(NotImplementedError,
+                                            match=match):
+            gen(torch.randn(1, 4, 8, device=dev))
+    assert (cbhg.launches, mrf.launches, ups_mrf.launches) == before
+
+
 @pytest.mark.parametrize('n,c_in,c', [(77, 80, 256), (33, 256, 256),
                                       (41, 6, 128)])
 def test_pre_highway_bf16_kernel_matches_twin(dev, n, c_in, c):
@@ -553,7 +577,7 @@ def _ups_inputs(g, b, s_in, s_up, k, c_in, c, t_ps, dev, dtype):
     """A phase-stacked level's x, upsampler, bias (float32) and MRF weights
     (float32 biases) on the card."""
     x = _rand(g, (b, s_in * c_in, t_ps), 1.0, dev, dtype)
-    up_w = _rand(g, (k, c_in, c), (k * c_in / s_up) ** -0.5, dev, dtype)
+    up_w = _rand(g, (k, c, c_in), (k * c_in / s_up) ** -0.5, dev, dtype)
     up_b = _rand(g, (c,), 0.1, dev, torch.float32)
     weights = []
     for kr in (3, 7, 11):

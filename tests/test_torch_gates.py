@@ -1,7 +1,10 @@
-"""The port's kernel gates admit only shapes their kernels take, and the
-wrappers' zero-channel padding is exact. No card is needed: each wrapper's
-shape check runs without one, and the padding is held on the plain twins
-(on a card the wrappers pad the same way before they launch).
+"""The port's kernel gates send a part to its kernel where the JAX
+package's gates send it to Pallas, and on a card raise where the kernel
+does not take the shape (no part gives way to plain operations there); the
+wrappers' zero-channel padding is exact. No card is needed: each gate's
+device clause is patched, each wrapper's shape check runs without one, and
+the padding is held on the plain twins (on a card the wrappers pad the same
+way before they launch).
 
 - ``HiFiGANGenerator._mrf_fusable`` -> ``mrf.shape_error``;
 - ``CBHG.front_fusable`` -> ``cbhg.shape_error``;
@@ -10,6 +13,7 @@ shape check runs without one, and the padding is held on the plain twins
 
 import itertools
 
+import pytest
 import torch
 import torch.nn.functional as F
 
@@ -21,51 +25,99 @@ from forwardtacotron_torch.ops.hopper import cbhg, highway, mrf, ups_mrf
 KRS, DILS = (3, 7, 11), (1, 3, 5)
 
 
+MRF_BLOCKS = ((KRS, ((1, 3, 5),) * 3), ((3, 5), ((1, 2), (1, 2))),
+              ((13,), ((1, 3, 5),)), ((4, 6), ((1, 2), (1, 2))))
+
+
+def _jax_mrf_gate(monkeypatch, gen):
+    """The JAX generator's ``_mrf_fusable`` for the port generator's shape
+    and cap, bound without variables and with its backend clause read as
+    a TPU's."""
+    import jax
+
+    from forwardtacotron_tpu.models.vocoder import \
+        HiFiGANGenerator as JaxHiFiGAN
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'tpu')
+    return JaxHiFiGAN(
+        upsample_initial_channel=gen.upsample_initial_channel,
+        resblock_kernel_sizes=gen.resblock_kernel_sizes,
+        resblock_dilation_sizes=gen.resblock_dilation_sizes, num_mels=8,
+        fuse_mrf_max_ch=gen.fuse_mrf_max_ch).bind({})._mrf_fusable
+
+
 def test_mrf_gate_admits_only_kernel_shapes(monkeypatch):
-    """Over widths, caps, kernel sizes and dilations, every level the gate
-    admits passes the kernel's check; the levels of 12 and 6 channels that
-    the kernel once refused are admitted."""
+    """On a card, over widths, caps, kernel sizes and dilations: the gate
+    admits a level where the JAX gate does and the kernel takes it, and
+    raises where the JAX gate admits a level the kernel does not take; it
+    never gives way to the per-convolution path. The levels of 12 and 6
+    channels that the kernel once refused are admitted."""
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
-    admitted = set()
-    for initial, cap, (krs, dils) in itertools.product(
-            (96, 128, 40), (16, 64, 128),
-            ((KRS, ((1, 3, 5),) * 3), ((3, 5), ((1, 2), (1, 2))),
-             ((13,), ((1, 3, 5),)), ((4, 6), ((1, 2), (1, 2))))):
+    admitted, raised = set(), set()
+    for initial, (krs, dils) in itertools.product((96, 256, 40), MRF_BLOCKS):
         gen = HiFiGANGenerator(upsample_initial_channel=initial,
                                resblock_kernel_sizes=krs,
-                               resblock_dilation_sizes=dils, num_mels=8,
-                               fuse_mrf_max_ch=cap)
-        for up in gen.ups:
-            c = up.out_channels
-            if gen._mrf_fusable(c, torch.zeros(1, c, 4)):
-                assert mrf.shape_error(c, krs, dils[0]) is None
-                admitted.add(c)
-            elif 0 < c <= cap and krs == KRS:
-                assert mrf.shape_error(c, krs, dils[0]) is not None
-    assert {12, 6, 48, 24, 64} <= admitted and 128 not in admitted
-    assert 5 in admitted and 10 in admitted            # 40 -> 20, 10, 5
+                               resblock_dilation_sizes=dils, num_mels=8)
+        for cap in (16, 64, 128):
+            gen.fuse_mrf_max_ch = cap           # the gate reads nothing else
+            jax_gate = _jax_mrf_gate(monkeypatch, gen)
+            for up in gen.ups:
+                c = up.out_channels
+                x = torch.zeros(1, c, 4)
+                err = mrf.shape_error(c, krs, dils[0])
+                if jax_gate(c) and err:
+                    with pytest.raises(NotImplementedError, match='mrf.cu'):
+                        gen._mrf_fusable(c, x)
+                    raised.add((c, krs))
+                    continue
+                got = gen._mrf_fusable(c, x)
+                assert got == jax_gate(c), (initial, krs, cap, c)
+                if got:
+                    assert err is None
+                    admitted.add(c)
+    assert {12, 6, 48, 24, 64, 5, 10} <= admitted    # 40 -> 20, 10, 5
+    assert (128, KRS) in raised and (32, (4, 6)) in raised
+    # the per-convolution path on CPU tensors, whatever the shape
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: False)
+    assert not gen._mrf_fusable(128, torch.zeros(1, 128, 4))
 
 
-def test_cbhg_gates_admit_only_kernel_shapes():
-    """Over bank sizes, widths and projections, a front or highway stack
-    the CBHG routes to its kernel passes that kernel's check; the JAX
-    package's routing of the default configs is kept."""
+def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
+    """On a card, over bank sizes, widths and projections: a front or
+    highway stack that the JAX gates route to a kernel takes the kernel
+    where its check passes and raises where it does not, so no part gives
+    way to plain operations; the JAX package's routing of the default
+    configs is kept."""
+    from forwardtacotron_torch.models import layers
+    monkeypatch.setattr(layers, '_on_cuda', lambda x: True)
     for k, c_in, c, p in itertools.product((1, 4, 8, 16), (6, 80, 256),
                                            (10, 128, 256), (12, 256, 320)):
-        m = CBHG(k, c_in, c, [p, 6 if c_in == 6 else c_in], 4)
-        if m.front_fusable:
-            assert cbhg.shape_error(k, c_in, c, p) is None
-        if m.highways_fusable:
-            assert highway.shape_error(m.pre_highway.in_features, c) is None
-    # the example that once raised on a card: P 320 takes the plain path
-    assert not CBHG(4, 80, 128, [320, 80], 4).front_fusable
-    assert cbhg.shape_error(4, 80, 128, 320) is not None
+        m = CBHG(k, c_in, c, [p, 6 if c_in == 6 else c_in], 4).eval()
+        x = torch.zeros(1, 4, c_in)
+        for fusable, err in (
+                (m.front_fusable, cbhg.shape_error(k, c_in, c, p)),
+                (m.highways_fusable,
+                 highway.shape_error(m.pre_highway.in_features, c))):
+            if fusable and err:
+                with pytest.raises(NotImplementedError, match='ROADMAP'):
+                    m._takes_kernel(fusable, err, 'part', x)
+            else:
+                assert m._takes_kernel(fusable, err, 'part', x) == fusable
+        assert m.highways_fusable == (c % 128 == 0)
+    # P 320: the gate raises before the wrapper is reached
+    m = CBHG(4, 80, 128, [320, 80], 4).eval()
+    assert m.front_fusable and m.front_error is not None
+    with torch.no_grad(), pytest.raises(NotImplementedError, match='P=320'):
+        m(torch.zeros(1, 9, 80))
+    # in training, and on CPU tensors, plain operations or the twin
+    assert not m.train()._takes_kernel(True, 'err', 'part', x)
+    monkeypatch.setattr(layers, '_on_cuda', lambda x: False)
+    assert m.eval()._takes_kernel(True, 'err', 'part', x)
     # configs/singlespeaker.yaml: the K=8 postnet front and both highway
     # stacks take the kernels, the K=16 prenet front the plain path
-    assert CBHG(8, 80, 256, [256, 80], 4).front_fusable
-    assert not CBHG(16, 256, 256, [256, 256], 4).front_fusable
-    assert CBHG(8, 80, 256, [256, 80], 4).highways_fusable
-    assert CBHG(16, 256, 256, [256, 256], 4).highways_fusable
+    for m, front in ((CBHG(8, 80, 256, [256, 80], 4), True),
+                     (CBHG(16, 256, 256, [256, 256], 4), False)):
+        assert m.front_fusable == front and m.highways_fusable
+        assert m.front_error is None and m.highways_error is None
     # an input width of 6 is padded to 8: admitted
     assert CBHG(8, 80, 128, [256, 6], 4).highways_fusable
     assert highway.shape_error(6, 128) is None
@@ -133,7 +185,7 @@ def test_ups_mrf_padding_is_exact():
     g = torch.Generator().manual_seed(3)
     s_in, s_up, k, c_in, c, t_ps = 2, 2, 4, 24, 12, 70
     x = torch.randn(2, s_in * c_in, t_ps, generator=g)
-    up_w = torch.randn(k, c_in, c, generator=g) / c_in ** .5
+    up_w = torch.randn(k, c, c_in, generator=g) / c_in ** .5
     up_b = 0.1 * torch.randn(c, generator=g)
     weights = _mrf_weights(g, c)
     want = ups_mrf.ups_mrf_plain(x, up_w, up_b, weights, s_in, s_up, KRS,
@@ -143,3 +195,24 @@ def test_ups_mrf_padding_is_exact():
     assert got.shape == (2, s_in * s_up * 16, t_ps)
     torch.testing.assert_close(ups_mrf.unpad_output(got, s_in * s_up, c),
                                want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize('kw,match', [
+    (dict(upsample_initial_channel=256, fuse_mrf_max_ch=128), 'C=128'),
+    (dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+          upsample_initial_channel=256, fuse_ups_tail_max_ch=128),
+     'C_in=256')], ids=['mrf', 'tail'])
+def test_generator_raises_where_kernel_refuses(monkeypatch, kw, match):
+    """The generator's forward on a card (device clause patched) raises at
+    the first level the JAX gate admits and the kernel does not take,
+    before any launch; on the CPU the same generator runs per
+    convolution."""
+    gen = HiFiGANGenerator(num_mels=8, **kw).eval()
+    mel = torch.zeros(1, 4, 8)
+    with torch.no_grad():
+        assert gen(mel).shape == (1, 4 * gen.hop_length)
+        monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+        before = (mrf.launches, ups_mrf.launches)
+        with pytest.raises(NotImplementedError, match=match):
+            gen(mel)
+    assert (mrf.launches, ups_mrf.launches) == before

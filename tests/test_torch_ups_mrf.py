@@ -26,8 +26,9 @@ F32_ATOL, BF16_ATOL = 2e-5, 5e-2
 
 
 def _level_inputs(s_in, s_up, k, c_in, c, t_ps, seed):
-    """x [2, s_in*C_in, T_ps], the upsampler [k, C_in, C] and bias [C], and
-    the MRF weights (float32 biases), float32 numpy."""
+    """x [2, s_in*C_in, T_ps], the upsampler in the JAX layout [k, C_in, C]
+    and its bias [C], and the MRF weights (float32 biases), float32
+    numpy."""
     rs = np.random.RandomState(seed)
     x = rs.randn(2, s_in * c_in, t_ps).astype(np.float32)
     up_w = (rs.randn(k, c_in, c) * np.sqrt(s_up / (k * c_in))).astype(
@@ -43,8 +44,11 @@ def _level_inputs(s_in, s_up, k, c_in, c, t_ps, seed):
 
 
 def _torch_level(inputs, dtype):
+    """The level's inputs for the port: the upsampler in the kernel's layout
+    [k, C, C_in] (:func:`ups_mrf.pack_up_weight`)."""
     x, up_w, up_b, weights = inputs
-    return (torch.from_numpy(x).to(dtype), torch.from_numpy(up_w).to(dtype),
+    return (torch.from_numpy(x).to(dtype),
+            torch.from_numpy(up_w).transpose(1, 2).contiguous().to(dtype),
             torch.from_numpy(up_b),
             tuple(torch.from_numpy(w).to(torch.float32 if i % 2 else dtype)
                   for i, w in enumerate(weights)))
@@ -109,13 +113,14 @@ def test_phase_stack_round_trip():
 
 def test_pack_up_weight_matches_jax():
     """pack_up_weight of the port's (converted) upsampler weights gives the
-    JAX package's ``ups_i/kernel``."""
+    JAX package's ``ups_i/kernel`` with each tap's matrix transposed."""
     cfg = dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
                upsample_initial_channel=32)
     _, variables, port = _jax_generator(cfg, seed=5, n_mels=8)
     for i, up in enumerate(port.ups):
         np.testing.assert_array_equal(
-            ups_mrf.pack_up_weight(up.weight).detach().numpy(),
+            ups_mrf.pack_up_weight(up.weight).transpose(1, 2).detach()
+            .numpy(),
             np.asarray(variables['params'][f'ups_{i}']['kernel']))
 
 
@@ -167,7 +172,7 @@ def test_generator_tail_matches_jax(name, dtype, monkeypatch):
     with torch.no_grad():
         plain = port(torch.from_numpy(mel)).float().numpy()
     assert port_levels == []            # CPU tensors: per-convolution
-    want = np.asarray(jmodel.apply(variables, mel), np.float32)
+    want = np.asarray(jax.jit(jmodel.apply)(variables, mel), np.float32)
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     with torch.no_grad():
         got = port(torch.from_numpy(mel)).float().numpy()
@@ -199,40 +204,48 @@ GATE_BLOCKS = {'1_uniform': ('1', ((1, 3, 5),) * 3),
 
 @pytest.mark.parametrize('block', list(GATE_BLOCKS))
 def test_ups_tail_gate_matches_jax(block, monkeypatch):
-    """Over rates, channel caps, widths and lengths: the port's gate admits
-    a tail exactly where the JAX gate does and the kernel takes every level
-    of it (the kernel holds at most 64 output channels); every tail it
-    admits passes the kernel's shape check."""
+    """On a card, over rates, channel caps, widths and lengths: the port's
+    gate admits a tail exactly where the JAX gate does and the kernel takes
+    every level of it, and raises where the JAX gate admits a tail with a
+    level the kernel does not take (it holds at most 64 output and 128
+    input channels); every tail it admits passes the kernel's check."""
     monkeypatch.setenv('FTT_PALLAS_INTERPRET', '1')
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     resblock, dils = GATE_BLOCKS[block]
-    admitted = refused_by_kernel = 0
-    for (rates, sizes), initial, max_ch in itertools.product(
-            GATE_RATES.items(), (64, 256), (0, 16, 32, 64, 128)):
+    admitted = raised = 0
+    for (rates, sizes), initial in itertools.product(GATE_RATES.items(),
+                                                     (64, 256)):
         cfg = dict(resblock=resblock, upsample_rates=rates,
                    upsample_kernel_sizes=sizes,
                    upsample_initial_channel=initial,
                    resblock_dilation_sizes=dils, num_mels=8)
-        port = HiFiGANGenerator(**cfg, fuse_ups_tail_max_ch=max_ch)
-        jax_gate = _jax_gate(cfg, max_ch)
-        for level, up in enumerate(port.ups):
-            kernel_ok = all(
-                ups_mrf.shape_error(
-                    int(np.prod(rates[level:j])), rates[j], u.in_channels,
-                    u.out_channels, sizes[j], port.resblock_kernel_sizes,
-                    dils[0]) is None
-                for j, u in enumerate(port.ups) if j >= level)
-            for t_in in (24, 25, 48):
-                x = torch.zeros(1, up.in_channels, t_in)
-                got = port._ups_tail_fusable(up.out_channels, level, x)
-                want = jax_gate(up.out_channels, level, t_in)
-                assert got == (want and kernel_ok), (cfg, max_ch, level, t_in)
-                admitted += got
-                refused_by_kernel += want and not kernel_ok
+        port = HiFiGANGenerator(**cfg)
+        for max_ch in (0, 16, 32, 64, 128):
+            port.fuse_ups_tail_max_ch = max_ch  # the gate reads nothing else
+            jax_gate = _jax_gate(cfg, max_ch)
+            for level, up in enumerate(port.ups):
+                kernel_ok = all(
+                    ups_mrf.shape_error(
+                        int(np.prod(rates[level:j])), rates[j],
+                        u.in_channels, u.out_channels, sizes[j],
+                        port.resblock_kernel_sizes, dils[0]) is None
+                    for j, u in enumerate(port.ups) if j >= level)
+                for t_in in (24, 25, 48):
+                    x = torch.zeros(1, up.in_channels, t_in)
+                    want = jax_gate(up.out_channels, level, t_in)
+                    if want and not kernel_ok:
+                        with pytest.raises(NotImplementedError,
+                                           match='ups_mrf'):
+                            port._ups_tail_fusable(up.out_channels, level, x)
+                        raised += 1
+                        continue
+                    got = port._ups_tail_fusable(up.out_channels, level, x)
+                    assert got == want, (cfg, max_ch, level, t_in)
+                    admitted += got
     if resblock == '1' and block.endswith('uniform'):
-        assert admitted and refused_by_kernel
+        assert admitted and raised
     else:
-        assert not admitted
+        assert not admitted and not raised
 
 
 def test_tail_option_defaults_off(monkeypatch):
