@@ -31,16 +31,26 @@ Run from the repository root. Phases, each of which must pass:
    and as one batch through ``generate_routed``, with launch counts;
 8. a bfloat16 reference: one small batch through ``generate_fused`` on the
    card and on the CPU plain path;
-9. the fused HiFi-GAN MRF level (``mrf.cu``) against its twin at v1's
-   levels 2 and 3 (C=64, 32): float32 at one request, bf16 at bench.py's
-   vocoder shape (batch 128 x 256 frames), timed beside the twin and the
-   same level as 18 cuDNN convolutions; then the phase-stacked tail's level
-   (``ups_mrf``: leaky, upsample and MRF in one launch of ``mrf.cu``)
-   against its twin at the same levels and shapes, timed beside the twin,
-   beside the level as the fused-level route computes it (cuDNN's
-   transposed convolution, bias, leaky, ``mrf.cu``) and beside the level
-   per convolution;
-10. the vocoder path: a seeded HiFi-GAN v1 checkpoint in jik876 format
+9. the CBHG variants: ``highway_stack``, ``pool_proj1`` and ``pool_mask``
+   against their twins (bf16 at one serving call's shapes, float32 at one
+   request's), timed beside the twin and the plain route the default path
+   takes; ``CBHG._highways_fused`` against the layer chain; bf16
+   ``generate_fused`` at the serving shape with the "pool_proj" and "pool"
+   routes set on the model's CBHGs (exact launches per call, mel against
+   the default route's, audio-s/s in turns with the default); the longest
+   float32 request with each route against the CPU plain path; the K=16
+   prenet front through ``cbhg_front.cu`` beside the plain and the
+   ``pool_proj1`` routes;
+10. the fused HiFi-GAN MRF level (``mrf.cu``) against its twin at v1's
+    levels 2 and 3 (C=64, 32): float32 at one request, bf16 at bench.py's
+    vocoder shape (batch 128 x 256 frames), timed beside the twin and the
+    same level as 18 cuDNN convolutions; then the phase-stacked tail's level
+    (``ups_mrf``: leaky, upsample and MRF in one launch of ``mrf.cu``)
+    against its twin at the same levels and shapes, timed beside the twin,
+    beside the level as the fused-level route computes it (cuDNN's
+    transposed convolution, bias, leaky, ``mrf.cu``) and beside the level
+    per convolution;
+11. the vocoder path: a seeded HiFi-GAN v1 checkpoint in jik876 format
     loaded by ``Vocoder.from_checkpoint`` with ``fuse_mrf_max_ch=64``, the
     4 requests through bf16 ``generate_routed(vocoder=)`` (2 ``mrf``
     launches per routed group), then again with ``fuse_ups_tail_max_ch=64``
@@ -48,22 +58,22 @@ Run from the repository root. Phases, each of which must pass:
     request on the card against the CPU plain path with either option,
     vocoder audio-s/s at batch 128 x 256 frames in turns with the tail,
     the fused levels and per convolution, the profiler and the idle share;
-11. training kernels: the length regulator (float32 and bf16), the bi-LSTM
+12. training kernels: the length regulator (float32 and bf16), the bi-LSTM
     forward that keeps its cell states, the three trainable GRUs' forward
     and the GRU / LSTM backward sweeps (incoming gradient at unit scale,
     each gate block held to its twin's in relative L2), each against its
     twin at full-width training shapes (batch 32, 160 tokens, 1024 frames),
     timed beside the twin and cuDNN's bidirectional ``nn.LSTM`` /
     ``nn.GRU`` (forward, or backward alone);
-12. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
+13. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
     at full width and batch 32 on 64 synthetic items written to a
     temporary directory: exact launch counts per step, the profiler,
     steps/s, mel frames/s and the idle share over steps on one repeated
     batch (whose loss must fall), then ``ForwardTrainer.train`` to a
     checkpoint that ``gen_forward`` loads;
-13. the float32 train step (the config's default), with the length
+14. the float32 train step (the config's default), with the length
     regulator as its only kernel, and the eval step's kernels;
-14. one train step on the card and on the CPU plain path (dropout off):
+15. one train step on the card and on the CPU plain path (dropout off):
     loss and global gradient norm, float32 and bf16.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
@@ -301,6 +311,8 @@ def reset_counts() -> None:
                                                   rnn_train, ups_mrf)
     highway.launches = cbhg.launches = griffin_lim.launches = 0
     lr_bidir.launches = lr.launches = mrf.launches = ups_mrf.launches = 0
+    highway.stack_launches = cbhg.pool_proj1_launches = 0
+    cbhg.pool_mask_launches = 0
     for counts in (rnn.launches, rnn_train.launches):
         for key in counts:
             counts[key] = 0
@@ -315,6 +327,9 @@ def read_counts() -> dict:
             'griffin_lim_iter': griffin_lim.launches,
             'lr_bidir': lr_bidir.launches, 'lr': lr.launches,
             'mrf': mrf.launches, 'ups_mrf': ups_mrf.launches,
+            'highway_stack': highway.stack_launches,
+            'pool_proj1': cbhg.pool_proj1_launches,
+            'pool_mask': cbhg.pool_mask_launches,
             **rnn.launches, **rnn_train.launches}
 
 
@@ -456,7 +471,8 @@ def kernel_phase(torch, model, config, n_tok, n_frames):
     return results
 
 
-KERNEL_NAMES = {'pre_highway_stack': ['pre_highway_stack_kernel'],
+PRE_HIGHWAY_KERNEL = r'highway_kernel<[^>]*true>'
+KERNEL_NAMES = {'pre_highway_stack': [PRE_HIGHWAY_KERNEL],
                 'cbhg_front': ['cbhg_front_kernel'],
                 'griffin_lim_iter': ['gl_idft_kernel',
                                      'gl_dft_update_kernel'],
@@ -598,7 +614,7 @@ def reference_phase(torch, model, config, tokens, outs):
 # the recurrent kernel's template instances: rnn.cu Mode values
 RNN_MODES = {'gru': 0, 'lstm': 1, 'gru_xp': 2, 'lstm_mel': 3}
 SERVING_KERNEL_NAMES = {
-    'pre_highway_stack': ['pre_highway_stack_kernel'],
+    'pre_highway_stack': [PRE_HIGHWAY_KERNEL],
     'cbhg_front': ['cbhg_front_kernel'],
     'lr_bidir': ['lr_bidir_kernel'],
     **{k: [rf'rnn_kernel<(\(int\))?{m}>'] for k, m in RNN_MODES.items()
@@ -761,6 +777,18 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
     return res
 
 
+def serving_requests(torch, batch: int):
+    """bench.py's 8 sentences tiled to ``batch`` rows, zero-padded to the
+    longest, on the card."""
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+    token_lists = [Tokenizer()(s) for s in BENCH_SENTENCES]
+    x = np.zeros((batch, max(map(len, token_lists))), np.int64)
+    for i in range(batch):
+        toks = token_lists[i % len(token_lists)]
+        x[i, :len(toks)] = toks
+    return torch.as_tensor(x, device='cuda')
+
+
 def serving_phase(torch, model, config):
     """generate_fused as bench.py drives it: one profiling call at the full
     budget, requests routed to 16-frame buckets, every group warmed, then
@@ -771,18 +799,13 @@ def serving_phase(torch, model, config):
     from forwardtacotron_torch.text.tokenizer import Tokenizer
 
     hop, sr = config['dsp']['hop_length'], config['dsp']['sample_rate']
-    token_lists = [Tokenizer()(s) for s in BENCH_SENTENCES]
-    n_tok = max(len(t) for t in token_lists)
+    n_tok = max(len(Tokenizer()(s)) for s in BENCH_SENTENCES)
     inference = TTSInference(set_frames_per_token(
         torch, model, SERVING_FRAMES_PER_TOKEN), dtype='bfloat16',
         device='cuda')
 
     def requests(batch):
-        x = np.zeros((batch, n_tok), np.int64)
-        for i in range(batch):
-            toks = token_lists[i % len(token_lists)]
-            x[i, :len(toks)] = toks
-        return torch.as_tensor(x, device='cuda')
+        return serving_requests(torch, batch)
 
     def timed_call(xd, max_len):
         torch.cuda.synchronize()
@@ -949,6 +972,357 @@ def bf16_reference_phase(torch, model):
     if not ok:
         fail('bf16 serving path disagrees with the CPU plain path')
     return err
+
+
+# --------------------------------------------------------- CBHG variants
+
+# the CBHG variants' serving routes beside the default: the fields set on
+# the model's (prenet, postnet), and each route's launches per
+# generate_fused call that differ from the default's
+VARIANT_ROUTES = {
+    'pool_proj': (dict(fuse_pool_proj=True),
+                  dict(fuse_front=False, fuse_pool_proj=True),
+                  dict(cbhg_front=0, pool_proj1=2)),
+    'pool': (dict(fuse_pool=True), dict(fuse_front=False, fuse_pool=True),
+             dict(cbhg_front=0, pool_mask=2))}
+VARIANT_ITERS, VARIANT_TRIALS = 2, 3
+# the K=16 prenet front through cbhg_front.cu takes ~1/3 s a call
+PRENET_FRONT_REPS = 5
+
+
+def set_cbhg_route(model, route) -> None:
+    """Set the CBHG fields of ``route`` (a key of VARIANT_ROUTES, or None
+    for the JAX defaults) on the model's prenet and postnet."""
+    import inspect
+
+    from forwardtacotron_torch.models.layers import CBHG
+    params = inspect.signature(CBHG).parameters
+    defaults = {k: params[k].default for k in params if k.startswith(
+        ('fuse_', 'stream_'))}
+    fields = VARIANT_ROUTES[route][:2] if route else ({}, {})
+    for mod, change in zip((model.prenet, model.postnet), fields):
+        for name, value in {**defaults, **change}.items():
+            setattr(mod, name, value)
+
+
+def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
+                         serving_tok, serving_frames):
+    """Rows 11-13 (``highway_stack``, ``pool_proj1``, ``pool_mask``) against
+    their twins at full width: bf16 at one serving call's shapes, float32
+    at one request's. Each is timed beside its twin and beside a yardstick,
+    the plain route the default path takes for the same work (no single
+    PyTorch call computes these functions: ``library_ms`` is null)."""
+    from forwardtacotron_torch.models.layers import conv1d, maxpool_time
+    from forwardtacotron_torch.models.synthesis import bucket_frames
+    from forwardtacotron_torch.ops.hopper import cbhg, highway
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def masked(b, t, valid):
+        return (torch.arange(t, device=dev) < valid).float().expand(
+            b, t).contiguous()
+
+    def check(name, kernel, plain, yardstick, args, flops, nbytes, dtype):
+        f32 = dtype == torch.float32
+        err = compare(torch, name, kernel(*args).float(),
+                      plain(*args).float(), KERNEL_TOL if f32 else BF16_TOL)
+        k_ms = time_ms(torch, lambda: kernel(*args))
+        p_ms = time_ms(torch, lambda: plain(*args))
+        y_ms = time_ms(torch, yardstick)
+        b_ms, b_by = bound(flops, nbytes,
+                           PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+        log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, yardstick '
+            f'{y_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); '
+            f'{flops / k_ms / 1e9:.1f} TFLOP/s, '
+            f'{nbytes / k_ms / 1e9:.1f} TB/s')
+        return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                    yardstick_ms=y_ms, bound_ms=b_ms, bound_by=b_by)
+
+    res = {}
+    t_req = bucket_frames(n_frames)
+    for name, dtype, b, t, valid in (
+            ('pool_mask_bf16', torch.bfloat16, batch, SERVING_MAX_LEN,
+             serving_frames),
+            ('pool_mask', torch.float32, 1, t_req, n_frames)):
+        post = (model16 if dtype == torch.bfloat16 else model).postnet
+        kc, p = post.K * post.channels, post.proj1_weight().shape[-1]
+        log(f'kernel {name}: postnet concat B={b} T={t} KC={kc} (valid '
+            f'{valid}); yardstick maxpool_time + masked_fill')
+        x, mask = randn((b, t, kc), dtype), masked(b, t, valid)
+        tail = (mask == 0)[:, :, None]
+        elt = x.element_size()
+        res[name] = check(
+            name, cbhg.pool_mask, cbhg.pool_mask_plain,
+            lambda: maxpool_time(x).masked_fill(tail, 0.0), (x, mask),
+            2 * b * t * kc, 2 * elt * b * t * kc + 4 * b * t, dtype)
+        res[name]['at'] = f'postnet concat B={b} T={t} KC={kc}'
+        if dtype == torch.bfloat16:
+            # row 12 at the postnet on the same concat
+            log(f'kernel pool_proj1_bf16: postnet B={b} T={t} KC={kc} P={p}; '
+                'yardstick maxpool_time + masked_fill + cuDNN conv1d')
+            parts = [check(
+                'postnet', cbhg.pool_proj1, cbhg.pool_proj1_plain,
+                lambda: conv1d(maxpool_time(x).masked_fill(tail, 0.0),
+                               post.conv_project1.conv),
+                (x, mask, post.proj1_weight()), 2 * b * t * 3 * kc * p,
+                elt * (b * t * kc + 3 * kc * p + b * t * p) + 4 * b * t,
+                dtype)]
+        del x, mask, tail
+
+    # row 12: the prenet's concat (no lengths: every frame valid), bf16 at
+    # the serving batch, f32 at one request
+    for name, dtype, b, t in (('pool_proj1_bf16', torch.bfloat16, batch,
+                               serving_tok),
+                              ('pool_proj1', torch.float32, 1, n_tok)):
+        pre = (model16 if dtype == torch.bfloat16 else model).prenet
+        kc, p = pre.K * pre.channels, pre.proj1_weight().shape[-1]
+        log(f'kernel {name}: prenet B={b} T={t} KC={kc} P={p}')
+        x, mask = randn((b, t, kc), dtype), masked(b, t, t)
+        elt = x.element_size()
+        part = check(
+            'prenet', cbhg.pool_proj1, cbhg.pool_proj1_plain,
+            lambda: conv1d(maxpool_time(x), pre.conv_project1.conv),
+            (x, mask, pre.proj1_weight()), 2 * b * t * 3 * kc * p,
+            elt * (b * t * kc + 3 * kc * p + b * t * p) + 4 * b * t, dtype)
+        if dtype == torch.bfloat16:
+            res[name] = sum_levels(parts + [part])
+            res[name].update(postnet_ms=parts[0]['ms'], prenet_ms=part['ms'],
+                             at=f'one serving call: postnet B={batch} '
+                                f'T={SERVING_MAX_LEN} + prenet T={t}')
+        else:
+            res[name] = dict(part, at=f'one request: prenet T={t}')
+        del x, mask
+
+    # row 11: the postnet's rows, bf16 at the serving shape, f32 at one
+    # request's budget; yardstick the HighwayNetwork chain (nn.Linear)
+    for name, dtype, n in (('highway_stack_bf16', torch.bfloat16,
+                            batch * SERVING_MAX_LEN),
+                           ('highway_stack', torch.float32, t_req)):
+        post = (model16 if dtype == torch.bfloat16 else model).postnet
+        c, layers_n = post.channels, len(post.highways)
+        log(f'kernel {name}: postnet rows N={n} C={c} L={layers_n}; '
+            'yardstick the nn.Linear chain')
+        x = randn((n, c), dtype)
+        w, bias = post.highway_weights()
+
+        def chain():
+            y = x
+            for hw in post.highways:
+                y = hw(y)
+            return y
+        elt = x.element_size()
+        res[name] = check(
+            name, highway.highway_stack, highway.highway_stack_plain, chain,
+            (x, w, bias), layers_n * 2 * n * c * 2 * c,
+            elt * (2 * n * c + layers_n * 2 * c * c) + 4 * layers_n * 2 * c,
+            dtype)
+        res[name]['at'] = f'postnet rows N={n}'
+        del x
+    for r in res.values():
+        r['library_ms'] = None
+    return res
+
+
+def highways_fused_phase(torch, model, model16, batch, serving_frames,
+                         n_frames):
+    """``CBHG._highways_fused`` (no caller in ``pre_rnn``, as in JAX) on the
+    postnet's post-projection activation, pre_highway(proj2 + residual) of
+    a masked mel batch: bf16 at the serving shape, float32 at one request's
+    budget; one ``highway_stack`` launch each (counts set to 0 just before,
+    read just after) against the plain layer chain. Returns the launches
+    per dtype."""
+    from forwardtacotron_torch.models.synthesis import bucket_frames
+    from forwardtacotron_torch.ops.hopper import cbhg
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    counts = {}
+    for dtype, b, t, valid in ((torch.bfloat16, batch, SERVING_MAX_LEN,
+                                serving_frames),
+                               (torch.float32, 1, bucket_frames(n_frames),
+                                n_frames)):
+        post = (model16 if dtype == torch.bfloat16 else model).postnet
+        mask = (torch.arange(t, device=dev) < valid).float().expand(
+            b, t).contiguous()
+        tail = (mask == 0)[:, :, None]
+        mel = (torch.randn(b, t, 80, generator=gen, device=dev)
+               * mask[:, :, None]).to(dtype)
+        front = cbhg.bank_pool_proj(*post.front_args(mel, mask))
+        h = post.pre_highway(post.conv_project2(front.masked_fill(tail, 0.0))
+                             + mel)
+        del front
+        torch.cuda.synchronize()
+        reset_counts()
+        got = post._highways_fused(h)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        label = f'_highways_fused {str(dtype)[6:]} B={b} T={t}'
+        expect_counts(label, launches, highway_stack=1)
+        want = h
+        for hw in post.highways:
+            want = hw(want)
+        f32 = dtype == torch.float32
+        compare(torch, f'{label} vs the layer chain', got.float(),
+                want.float(), KERNEL_TOL if f32 else E2E_BF16_TOL)
+        counts['f32' if f32 else 'bf16'] = launches['highway_stack']
+        del h, got, want
+    return counts
+
+
+def variant_serving_phase(torch, model16, config, serving):
+    """generate_fused at the serving phase's batch and budget with the CBHG
+    variants set on the model's prenet and postnet ("pool_proj": row 12 in
+    both, the postnet's front off; "pool": row 13 in both), each with its
+    exact launches per call (counts set to 0 just before, read just after)
+    and its mel against the default route's, then audio-s/s over
+    VARIANT_TRIALS trials of VARIANT_ITERS calls, the routes in turns.
+    Restores the defaults. Returns (launches per route, stats)."""
+    from forwardtacotron_torch.models.synthesis import TTSInference
+
+    hop, sr = config['dsp']['hop_length'], config['dsp']['sample_rate']
+    batch = serving['batch']
+    budget = serving['groups'][-1][1]
+    inference = TTSInference(model16, dtype='bfloat16', device='cuda')
+    xd = serving_requests(torch, batch)
+    base = dict(gru_xp=1, lr_bidir=1, lstm_mel=1, gru=1, pre_highway_stack=2,
+                cbhg_front=1)
+    routes = (None, *VARIANT_ROUTES)
+    outs, launches = {}, {}
+    for route in routes:
+        set_cbhg_route(model16, route)
+        inference.generate_fused(xd, max_len=budget)      # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = inference.generate_fused(xd, max_len=budget)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        name = route or 'default'
+        expect_counts(f'serving route {name}', counts,
+                      **{**base, **(VARIANT_ROUTES[route][2] if route
+                                    else {})})
+        launches[name] = counts
+        outs[name] = out
+    lens = np.minimum(outs['default']['mel_len'].cpu().numpy(), budget)
+    frames = int(lens.sum())
+    n = int(lens.max())
+    if not (lens == n).all():
+        fail(f'serving routes: mel_len {np.unique(lens)}, expected one')
+    want = outs['default']['mel_post'][:, :n].float()
+    scale = max(1.0, float(want.abs().max()))
+    errs = {}
+    for name in VARIANT_ROUTES:
+        got = outs[name]['mel_post'][:, :n].float()
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= E2E_BF16_TOL * scale
+        log(f'serving route {name} vs default: mel_post max abs err '
+            f'{err:.3e}, scale {scale:.3e} (tol {E2E_BF16_TOL:g} x scale) '
+            f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'serving route {name} disagrees with the default route')
+        errs[name] = err
+    del outs
+    rates = {route or 'default': [] for route in routes}
+    for _ in range(VARIANT_TRIALS):
+        for route in routes:
+            set_cbhg_route(model16, route)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(VARIANT_ITERS):
+                inference.generate_fused(xd, max_len=budget)
+            torch.cuda.synchronize()
+            rates[route or 'default'].append(
+                VARIANT_ITERS * frames * hop / sr
+                / (time.perf_counter() - t0))
+    set_cbhg_route(model16, None)
+    stats = {name: dict(audio_s_per_s=sorted(r), max_abs_err=errs.get(name))
+             for name, r in rates.items()}
+    for name, r in rates.items():
+        log(f'serving route {name}: audio-s/s min {min(r):.1f} median '
+            f'{statistics.median(r):.1f} max {max(r):.1f} '
+            f'({VARIANT_TRIALS} trials x {VARIANT_ITERS} calls, batch '
+            f'{batch}, budget {budget})')
+    return launches, stats
+
+
+def variant_request_phase(torch, model, tokens):
+    """The longest request in float32 through generate_cropped on the card
+    with each variant route (counts set to 0 just before, read just after)
+    against the same route on the CPU plain path. With "pool_proj" the
+    prenet takes row 12 and the postnet, over 512 frames, the plain route,
+    as the JAX gate sends it; with "pool" both take row 13. Restores the
+    defaults. Returns the launches per route."""
+    from forwardtacotron_torch.models.synthesis import TTSInference
+
+    i = max(range(len(tokens)), key=lambda j: len(tokens[j]))
+    gpu = TTSInference(model, device='cuda')
+    launches = {}
+    for route, counts in (('pool_proj', dict(pool_proj1=1)),
+                          ('pool', dict(pool_mask=2))):
+        set_cbhg_route(model, route)
+        gpu.generate_cropped(tokens[i][:8])
+        torch.cuda.synchronize()
+        reset_counts()
+        got = gpu.generate_cropped(tokens[i])
+        torch.cuda.synchronize()
+        launches[route] = read_counts()
+        expect_counts(f'float32 request, route {route}', launches[route],
+                      pre_highway_stack=2, lr=1, **counts)
+        cpu = TTSInference(copy.deepcopy(model).cpu(), device='cpu')
+        ref = cpu.generate_cropped(tokens[i])
+        err = max(float(np.abs(got[k] - ref[k]).max())
+                  for k in ('mel', 'mel_post'))
+        ok = err <= E2E_MEL_ATOL
+        log(f'float32 request {i} ({len(tokens[i])} tokens, '
+            f'{got["mel"].shape[1]} frames), route {route}: card vs the CPU '
+            f'plain path, mel/mel_post max abs err {err:.3e} '
+            f'(atol {E2E_MEL_ATOL:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'float32 route {route} disagrees with the CPU plain path')
+    set_cbhg_route(model, None)
+    return launches
+
+
+def prenet_front_phase(torch, model16, batch, serving_tok):
+    """The K=16 prenet front at the serving shape through ``cbhg_front.cu``
+    (its ``shape_error`` admits it; the JAX weight budget routes it to
+    plain convolutions, and so does the port) against the plain route
+    (cuDNN bank, pool, mask, cuDNN proj1) and the row 12 route (cuDNN
+    bank, ``pool_proj1``): outputs within the bf16 model tolerance, and
+    times. The routing stays as it is."""
+    from forwardtacotron_torch.models.layers import maxpool_time
+    from forwardtacotron_torch.ops.hopper import cbhg
+
+    pre = model16.prenet
+    c_in = pre.conv1d_bank[0].conv.in_channels
+    p = pre.proj1_weight().shape[-1]
+    err = cbhg.shape_error(pre.K, c_in, pre.channels, p)
+    if err:
+        fail(f'prenet front: cbhg_front.cu refuses it ({err})')
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn(batch, serving_tok, c_in, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    mask = torch.ones(batch, serving_tok, device=dev)
+    routes = {
+        'cbhg_front': lambda: cbhg.bank_pool_proj(*pre.front_args(x, mask)),
+        'plain': lambda: pre.conv_project1(maxpool_time(pre._bank(x))),
+        'pool_proj1': lambda: pre._pool_proj1_fused(pre._bank(x), None)}
+    log(f'prenet front K={pre.K} C_in={c_in} C={pre.channels} P={p}, '
+        f'B={batch} T={serving_tok}, bf16')
+    want = routes['plain']().float()
+    res = {}
+    for name, fn in routes.items():
+        if name != 'plain':
+            compare(torch, f'{name} route vs plain route', fn().float(),
+                    want, E2E_BF16_TOL)
+        res[f'{name}_ms'] = time_ms(torch, fn, reps=PRENET_FRONT_REPS)
+    log('prenet front: ' + ', '.join(f'{k} {v:.3f} ms'
+                                     for k, v in res.items()))
+    return res
 
 
 # ------------------------------------------------------------- vocoder
@@ -1805,6 +2179,26 @@ def main() -> None:
         set_frames_per_token(torch, model16, SERVING_FRAMES_PER_TOKEN)
     bf16_reference_phase(torch, model16)
 
+    # the CBHG variants: rows 11-13 against their twins, _highways_fused,
+    # the variant serving routes, f32 requests with them, and the K=16
+    # prenet front through cbhg_front.cu
+    t_var = time.perf_counter()
+    with torch.inference_mode():
+        results_var = variant_kernel_phase(
+            torch, model, model16, n_tok, n_frames, serving['batch'],
+            serving_tok, serving_frames)
+        highway_launches = highways_fused_phase(
+            torch, model, model16, serving['batch'], serving_frames,
+            n_frames)
+    var_launches, variants = variant_serving_phase(torch, model16, config,
+                                                   serving)
+    req_launches = variant_request_phase(torch, model, tokens)
+    with torch.inference_mode():
+        variants['prenet_front'] = prenet_front_phase(
+            torch, model16, serving['batch'], serving_tok)
+    variants['phases_s'] = time.perf_counter() - t_var
+    log(f'cbhg variant phases: {variants["phases_s"]:.1f} s')
+
     # the vocoder: the fused MRF level and the tail's level against their
     # twins at v1's shapes, then the bf16 text -> wav path, a f32 request
     # and throughput, with either
@@ -1862,7 +2256,19 @@ def main() -> None:
         ('ups_mrf', results_voc, voc_request['tail'], 'mrf.cu',
          'mrf.py:189'),
         ('ups_mrf_bf16', results_voc, voc_routed['tail'], 'mrf.cu',
-         'mrf.py:189')]
+         'mrf.py:189'),
+        ('highway_stack', results_var, highway_launches['f32'],
+         'highway.cu', 'highway.py:53'),
+        ('highway_stack_bf16', results_var, highway_launches['bf16'],
+         'highway.cu', 'highway.py:53'),
+        ('pool_proj1', results_var, req_launches['pool_proj']['pool_proj1'],
+         'pool.cu', 'cbhg.py:35'),
+        ('pool_proj1_bf16', results_var,
+         var_launches['pool_proj']['pool_proj1'], 'pool.cu', 'cbhg.py:35'),
+        ('pool_mask', results_var, req_launches['pool']['pool_mask'],
+         'pool.cu', 'cbhg.py:109'),
+        ('pool_mask_bf16', results_var, var_launches['pool']['pool_mask'],
+         'pool.cu', 'cbhg.py:109')]
     kernels = []
     for name, res, n_launches, src, tpu in rows:
         r = res[name] if name in res else res[name.replace('_bf16', '')]
@@ -1874,9 +2280,11 @@ def main() -> None:
             'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r.get('library_ms'), 'at': r['at'],
-            **{k: r[k] for k in ('fused_level_ms', 'cudnn_level_ms')
+            **{k: r[k] for k in ('fused_level_ms', 'cudnn_level_ms',
+                                 'yardstick_ms', 'postnet_ms', 'prenet_ms')
                if k in r}})
     log(f'serving: {json.dumps(serving)}')
+    log(f'cbhg variants: {json.dumps(variants)}')
     log(f'vocoder: {json.dumps(vocoder)}')
     log(f'training: {json.dumps(training)}')
     log(f'card: {card}')

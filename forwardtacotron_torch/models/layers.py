@@ -440,11 +440,17 @@ def maxpool_time(x: torch.Tensor) -> torch.Tensor:
 
 
 # The JAX package sends a CBHG front to its fused kernel only when the bank
-# and proj1 weights fit one VMEM-resident dispatch (10 MB as bf16). That
-# budget is a TPU limit, but it is what routes the K=8 postnet front to the
-# kernel and keeps the K=16 prenet front on plain convolutions; the port
-# routes the same way until the prenet front is measured on the card.
+# and proj1 weights fit one VMEM-resident dispatch (10 MB as bf16) and its
+# bank's taps fit the kernel's 8-frame halo. That budget is a TPU limit, but
+# it is what routes the K=8 postnet front to the kernel and keeps the K=16
+# prenet front on plain convolutions; the port routes the same way until the
+# prenet front is measured on the card.
 FRONT_WEIGHT_BUDGET = 10 * 2 ** 20
+BANK_HALO = 8
+# The JAX gate of the fused pool + proj1 (``CBHG._pool_proj_fusable``):
+# whole-T blocks of at most 512 frames and 2 MB
+POOL_PROJ_MAX_T = 512
+POOL_PROJ_BLOCK_BYTES = 2 * 2 ** 20
 
 
 def _front_fits_one_dispatch(k_max: int, c_in: int, c: int, p: int) -> bool:
@@ -456,16 +462,33 @@ class CBHG(nn.Module):
     """Conv bank (k=1..K) -> maxpool -> 2 projections -> residual ->
     highway stack -> bidirectional GRU (reference common_layers.py:60-124).
 
-    Inference routes the front (bank .. proj1) to the ``cbhg_front`` kernel
-    and residual + pre_highway + highways to the ``pre_highway_stack``
-    kernel where the JAX package's gates send them to Pallas (on a card, a
-    part whose shape its kernel does not take raises). Training
-    takes the plain operations, with dropout after the pool/mask and after
-    proj1, as the JAX module's training branch does."""
+    The inference variants are the JAX module's six fields, plain attributes
+    with its defaults that a caller may set after construction; ``pre_rnn``
+    reads them at each call and routes in the JAX order:
+
+    - ``fuse_front`` (on): bank .. proj1 as one ``cbhg_front`` launch where
+      the JAX gate admits the front (the weight budget, the bank halo);
+    - ``stream_pool_proj``: bank -> pool -> partial proj1 per branch, f32
+      partials (``_bank_pool_proj1_streamed``);
+    - ``fuse_pool_proj``: the bank concat, then pool + mask + proj1 as one
+      ``pool_proj1`` launch where the JAX gate admits it (T <= 512,
+      K*C % 128 == 0, a T * K*C block of at most 2 MB);
+    - else the bank (``fuse_bank``: one K-tap convolution) and the pool +
+      mask (``fuse_pool``: one ``pool_mask`` launch), then proj1;
+    - ``fuse_highways`` (on): residual + pre_highway + highways as one
+      ``pre_highway_stack`` launch where C % 128 == 0.
+
+    On a card a part whose gate admits it but whose kernel does not take
+    its shape raises (``kernel_gap``). Training takes the plain operations,
+    with dropout after the pool/mask and after proj1, as the JAX module's
+    training branch does."""
 
     def __init__(self, K: int, in_channels: int, channels: int,
                  proj_channels: Sequence[int], num_highways: int,
-                 dropout: float = 0.5):
+                 dropout: float = 0.5, fuse_bank: bool = False,
+                 stream_pool_proj: bool = False, fuse_pool_proj: bool = False,
+                 fuse_highways: bool = True, fuse_pool: bool = False,
+                 fuse_front: bool = True):
         super().__init__()
         self.K = K
         self.drop = nn.Dropout(dropout)
@@ -479,16 +502,40 @@ class CBHG(nn.Module):
         self.highways = nn.ModuleList(
             [HighwayNetwork(channels) for _ in range(num_highways)])
         self.rnn = BiGRU(channels, channels)
-        # the JAX gates (the weight budget, the lane-alignment test), kept
-        # so both packages route alike, and why each kernel cannot take its
-        # part (None where it can): such a part raises on a card
-        self.front_fusable = _front_fits_one_dispatch(
-            K, in_channels, channels, proj_channels[0])
-        self.highways_fusable = bool(num_highways) and channels % 128 == 0
+        self.fuse_bank = fuse_bank
+        self.stream_pool_proj = stream_pool_proj
+        self.fuse_pool_proj = fuse_pool_proj
+        self.fuse_highways = fuse_highways
+        self.fuse_pool = fuse_pool
+        self.fuse_front = fuse_front
+        self.front_fits = (K // 2 <= BANK_HALO and _front_fits_one_dispatch(
+            K, in_channels, channels, proj_channels[0]))
+        # why each kernel cannot take its part (None where it can): such a
+        # part raises on a card
         self.front_error = cbhg_ops.shape_error(K, in_channels, channels,
                                                 proj_channels[0])
         self.highways_error = highway_ops.shape_error(proj_channels[-1],
                                                       channels)
+
+    # the JAX gates, read from the fields at each call
+    @property
+    def front_fusable(self) -> bool:
+        """``_front_fusable`` without its T > 512 clause (the port's kernel
+        tiles time; ROADMAP.md Queue 3)."""
+        return self.fuse_front and self.front_fits
+
+    @property
+    def highways_fusable(self) -> bool:
+        """``_highways_fusable``."""
+        return (self.fuse_highways and len(self.highways) > 0
+                and self.channels % 128 == 0)
+
+    def pool_proj_fusable(self, t: int, dtype: torch.dtype) -> bool:
+        """``_pool_proj_fusable`` for T = ``t`` frames in ``dtype``."""
+        kc = self.K * self.channels
+        return (self.fuse_pool_proj and t <= POOL_PROJ_MAX_T
+                and kc % 128 == 0
+                and t * kc * dtype.itemsize <= POOL_PROJ_BLOCK_BYTES)
 
     def _takes_kernel(self, fusable: bool, err: Optional[str], what: str,
                       x: torch.Tensor) -> bool:
@@ -512,21 +559,108 @@ class CBHG(nn.Module):
                  for m in self.conv1d_bank],
                 torch.stack([f[0] for f in folded]),
                 torch.stack([f[1] for f in folded]),
-                self.conv_project1.conv.weight.permute(2, 1, 0).contiguous(),
-                p_s.contiguous(), p_b.contiguous())
+                self.proj1_weight(), p_s.contiguous(), p_b.contiguous())
 
-    def highway_args(self, a: torch.Tensor, residual: torch.Tensor):
-        """Arguments of ``pre_highway_stack`` (and its twin) for [B, T, C_in]
-        inputs: rows flattened, W1 | W2 packed as [L, C, 2C], biases in
-        float32."""
-        c_in = a.shape[-1]
+    def proj1_weight(self) -> torch.Tensor:
+        """conv_project1's kernel as [3, K*C, P]."""
+        return self.conv_project1.conv.weight.permute(2, 1, 0).contiguous()
+
+    def highway_weights(self):
+        """W1 | W2 of every highway layer packed as [L, C, 2C], and their
+        biases as [L, 2C] float32: the highway kernels' layout."""
         w = torch.stack([torch.cat([hw.W1.weight.T, hw.W2.weight.T], dim=1)
                          for hw in self.highways])
         bias = torch.stack([torch.cat([hw.W1.bias, hw.W2.bias])
                             for hw in self.highways]).float()
+        return w, bias
+
+    def highway_args(self, a: torch.Tensor, residual: torch.Tensor):
+        """Arguments of ``pre_highway_stack`` (and its twin) for [B, T, C_in]
+        inputs: rows flattened, the layers as ``highway_weights``."""
+        c_in = a.shape[-1]
         return (a.reshape(-1, c_in).contiguous(),
                 residual.reshape(-1, c_in).contiguous(),
-                self.pre_highway.weight.T.contiguous(), w, bias)
+                self.pre_highway.weight.T.contiguous(),
+                *self.highway_weights())
+
+    @staticmethod
+    def _mask(x: torch.Tensor, tail: Optional[torch.Tensor]) -> torch.Tensor:
+        """[B, T] float32, 1.0 at valid frames."""
+        if tail is None:
+            return torch.ones(x.shape[:2], device=x.device)
+        return (~tail[:, :, 0]).float()
+
+    def _bank(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([conv(x) for conv in self.conv1d_bank], dim=-1)
+
+    def _bank_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The K bank convolutions as one K-tap convolution (the JAX
+        ``_bank_fused``): each k-tap kernel zero-embedded at offset
+        K//2 - k//2, so every output equals its own convolution's (zero taps
+        add exact zeros); then ReLU and the K BatchNorms as one per-channel
+        affine at x's dtype."""
+        K, t, dt = self.K, x.shape[1], x.dtype
+        w = torch.cat([nn.functional.pad(
+            m.conv.weight, (K // 2 - k // 2, K - k - (K // 2 - k // 2)))
+            for k, m in enumerate(self.conv1d_bank, 1)])     # [K*C, C_in, K]
+        y = nn.functional.conv1d(x.transpose(1, 2), w.to(dt),
+                                 padding=K // 2)[:, :, :t].transpose(1, 2)
+        y = torch.relu(y)
+
+        def cat(name):
+            return torch.cat([getattr(m.bnorm, name)
+                              for m in self.conv1d_bank]).to(dt)
+        return (y - cat('running_mean')) * (
+            torch.rsqrt(cat('running_var') + BN_EPS) * cat('weight')) \
+            + cat('bias')
+
+    def _proj1_bn_f32(self, y: torch.Tensor) -> torch.Tensor:
+        """conv_project1's ReLU and eval BatchNorm on a float32 product, in
+        float32 (the JAX order: (y - mean) * (rsqrt(var + eps) * scale) +
+        bias)."""
+        bn = self.conv_project1.bnorm
+        return (torch.relu(y) - bn.running_mean.float()) * (
+            torch.rsqrt(bn.running_var.float() + BN_EPS) * bn.weight.float()) \
+            + bn.bias.float()
+
+    def _bank_pool_proj1_streamed(self, x: torch.Tensor,
+                                  tail: Optional[torch.Tensor]
+                                  ) -> torch.Tensor:
+        """bank -> pool -> mask -> proj1 one branch at a time (the JAX
+        ``_bank_pool_proj1_streamed``): proj1 over the concat is the sum of
+        each branch's k=3 convolution with its slice of the kernel, so the
+        [B, T, K*C] concat never exists. Each branch's partial is a float32
+        product of values in x's dtype, summed in float32; proj1's ReLU and
+        BatchNorm run once on the sum, in float32."""
+        w1, c = self.conv_project1.conv.weight, self.channels
+        acc = None
+        for i, conv in enumerate(self.conv1d_bank):
+            y = maxpool_time(conv(x))
+            if tail is not None:
+                y = y.masked_fill(tail, 0.0)
+            part = nn.functional.conv1d(
+                y.float().transpose(1, 2), w1[:, i * c:(i + 1) * c].float(),
+                padding=1).transpose(1, 2)
+            acc = part if acc is None else acc + part
+        return self._proj1_bn_f32(acc).to(x.dtype)
+
+    def _pool_proj1_fused(self, xc: torch.Tensor,
+                          tail: Optional[torch.Tensor]) -> torch.Tensor:
+        """pool -> mask -> proj1's convolution on the bank concat as one
+        ``pool_proj1`` launch (the JAX ``_pool_proj1_fused``), its output
+        in x's dtype; then ReLU and BatchNorm in float32, rounded."""
+        y = cbhg_ops.pool_proj1(xc.contiguous(), self._mask(xc, tail),
+                                self.proj1_weight())
+        return self._proj1_bn_f32(y.float()).to(xc.dtype)
+
+    def _highways_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """All highway layers on [B, T, C] as one ``highway_stack`` launch
+        (the JAX ``_highways_fused``; as there, ``pre_rnn`` does not call
+        it)."""
+        b, t, c = x.shape
+        y = highway_ops.highway_stack(x.reshape(-1, c).contiguous(),
+                                      *self.highway_weights())
+        return y.reshape(b, t, c)
 
     def pre_rnn(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -537,16 +671,25 @@ class CBHG(nn.Module):
                     >= lengths[:, None])[:, :, None]
             x = x.masked_fill(tail, 0.0)
         residual = x
+        infer = not self.training
         if self._takes_kernel(self.front_fusable, self.front_error,
                               'CBHG front (cbhg_front.cu)', x):
-            mask = (torch.ones(x.shape[:2], device=x.device)
-                    if tail is None else (~tail[:, :, 0]).float())
-            x = cbhg_ops.bank_pool_proj(*self.front_args(x, mask))
+            x = cbhg_ops.bank_pool_proj(*self.front_args(x,
+                                                         self._mask(x, tail)))
+        elif self.stream_pool_proj and infer:
+            x = self._bank_pool_proj1_streamed(x, tail)
+        elif self._takes_kernel(self.pool_proj_fusable(x.shape[1], x.dtype),
+                                None, 'CBHG pool + proj1 (pool.cu)', x):
+            x = self._pool_proj1_fused(self._bank(x), tail)
         else:
-            x = torch.cat([conv(x) for conv in self.conv1d_bank], dim=-1)
-            x = maxpool_time(x)
-            if tail is not None:
-                x = x.masked_fill(tail, 0.0)
+            x = self._bank_fused(x) if self.fuse_bank and infer \
+                else self._bank(x)
+            if self.fuse_pool and infer:
+                x = cbhg_ops.pool_mask(x.contiguous(), self._mask(x, tail))
+            else:
+                x = maxpool_time(x)
+                if tail is not None:
+                    x = x.masked_fill(tail, 0.0)
             x = self.conv_project1(self.drop(x))
         if tail is not None:
             x = x.masked_fill(tail, 0.0)

@@ -24,7 +24,7 @@ from typing import Dict, List
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / '_build'
 SOURCES = ('highway', 'cbhg_front', 'griffin_lim', 'rnn', 'lr_bidir', 'lr',
-           'rnn_bwd', 'mrf')
+           'rnn_bwd', 'mrf', 'pool')
 ARCH_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a']
 NVCC_FLAGS = ['-O3', '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas=-v'] + ARCH_FLAGS

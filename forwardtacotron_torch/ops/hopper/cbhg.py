@@ -1,9 +1,14 @@
-"""The CBHG front (bank -> pool -> mask -> proj1): the ``cbhg_front.cu``
-kernel and its plain twin, in float32 or bfloat16.
+"""The CBHG front's kernels and their plain twins, in float32 or bfloat16:
 
-Port of forwardtacotron_tpu/ops/pallas/cbhg.py::bank_pool_proj_pallas.
-``bank_pool_proj`` launches the CUDA kernel for CUDA tensors and runs the
-plain twin for CPU tensors; nothing else selects between them.
+- ``bank_pool_proj``: bank -> pool -> mask -> proj1 (``cbhg_front.cu``),
+  port of forwardtacotron_tpu/ops/pallas/cbhg.py::bank_pool_proj_pallas;
+- ``pool_proj1``: pool -> mask -> proj1's convolution on the bank concat
+  (``pool.cu``), port of cbhg.py::pool_proj1_pallas;
+- ``pool_mask``: pool -> mask on the bank concat (``pool.cu``), port of
+  cbhg.py::pool_mask_pallas.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+twin for CPU tensors; nothing else selects between them.
 """
 
 import ctypes
@@ -14,8 +19,10 @@ import torch.nn.functional as F
 
 from forwardtacotron_torch.ops.hopper import build
 
-# launches of the CUDA kernel since the count was last set to 0
-launches = 0
+# launches of each kernel since its count was last set to 0
+launches = 0              # bank_pool_proj (cbhg_front.cu)
+pool_proj1_launches = 0   # pool_proj1 (pool.cu)
+pool_mask_launches = 0    # pool_mask (pool.cu)
 
 # the kernel keeps one output column per thread
 MAX_P = 256
@@ -160,4 +167,132 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
     build.check(status, 'cbhg_front')
     global launches
     launches += 1
+    return out
+
+
+# ------------------------------------------------------------ pool.cu
+
+# pool_proj1 walks the concat's channels in chunks of POOL_KCH, and tiles
+# the projection's columns by PROJ_TILE (the weight is padded to it)
+POOL_KCH = 32
+PROJ_TILE = {torch.float32: 64, torch.bfloat16: 128}
+_POOL_MASK_ENTRY = {torch.float32: 'pool_mask_f32',
+                    torch.bfloat16: 'pool_mask_bf16'}
+_POOL_PROJ_ENTRY = {torch.float32: 'pool_proj1_f32',
+                    torch.bfloat16: 'pool_proj1_bf16'}
+
+
+def _pooled(x: torch.Tensor) -> torch.Tensor:
+    """max(x[t-1], x[t]) in x's dtype, x[0] at t = 0 (the -inf left pad)."""
+    return torch.maximum(x, torch.cat([x[:, :1], x[:, :-1]], dim=1))
+
+
+def pool_mask_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """MaxPool1d(2, 1, pad 1)[:T] over time, then the tail mask, as the TPU
+    kernel computes it: x [B, T, KC]; mask [B, T] float32 (1.0 at valid
+    frames) rounded to x's dtype and multiplied in it. Returns [B, T, KC]
+    in x's dtype."""
+    return _pooled(x) * mask.to(x.dtype)[:, :, None]
+
+
+def pool_proj1_plain(x: torch.Tensor, mask: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """The pool and mask of :func:`pool_mask_plain`, the masked value a
+    float32 product rounded to x's dtype, then proj1's k=3 convolution with
+    no bias and a zero boundary: x [B, T, KC], mask [B, T] float32, w
+    [3, KC, P] in x's dtype. The three taps' products are summed in float32
+    and rounded once. Returns [B, T, P] in x's dtype (before ReLU/BN)."""
+    dt, t = x.dtype, x.shape[1]
+    pooled = (_pooled(x).float() * mask[:, :, None]).to(dt).float()
+    pp = F.pad(pooled, (0, 0, 1, 1))
+    acc = sum(pp[:, d:d + t] @ w[d].float() for d in range(3))
+    return acc.to(dt)
+
+
+def pool_proj1_shape_error(kc: int) -> Optional[str]:
+    """Why the kernel cannot take a bank concat of ``kc`` channels, or None
+    when it can (every B, T and P). Needs no card."""
+    if kc <= 0 or kc % POOL_KCH:
+        return f'KC={kc} must be a positive multiple of {POOL_KCH}'
+    return None
+
+
+def pack_proj_weight(w: torch.Tensor, p_pad: int) -> torch.Tensor:
+    """w [3, KC, P] as the kernel reads it: [3, P_pad, KC], each output
+    column's inputs contiguous, zero columns from P to ``p_pad``."""
+    return F.pad(w.transpose(1, 2), (0, 0, 0, p_pad - w.shape[2])).contiguous()
+
+
+def _pool_lib(entry: str, n_ptr: int, n_int: int):
+    fn = getattr(build.library('pool'), entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_pool_args(name, x, mask):
+    if (x.dtype not in _POOL_MASK_ENTRY or mask.dtype != torch.float32
+            or any(not t.is_contiguous() or t.device != x.device
+                   for t in (x, mask))):
+        raise ValueError(f'{name}: x must be a contiguous float32 or bfloat16 '
+                         'tensor and mask a contiguous float32 one on its '
+                         'device')
+    if x.dim() != 3 or mask.shape != x.shape[:2]:
+        raise ValueError(f'{name}: bad shapes x {tuple(x.shape)}, mask '
+                         f'{tuple(mask.shape)}')
+
+
+def pool_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`pool_mask_plain`, one kernel launch on the
+    GPU; every B, T and KC."""
+    if x.device.type == 'cpu':
+        return pool_mask_plain(x, mask)
+    if x.device.type != 'cuda':
+        raise ValueError(f'pool_mask: unsupported device {x.device}')
+    _check_pool_args('pool_mask', x, mask)
+    b, t, kc = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    status = _pool_lib(_POOL_MASK_ENTRY[x.dtype], 3, 4)(
+        build.ptr(x), build.ptr(mask), build.ptr(out), b, t, kc,
+        x.get_device(), build.stream_of(x))
+    build.check(status, 'pool_mask')
+    global pool_mask_launches
+    pool_mask_launches += 1
+    return out
+
+
+def pool_proj1(x: torch.Tensor, mask: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`pool_proj1_plain`, one kernel launch on the
+    GPU; every B, T and P, KC a multiple of ``POOL_KCH``. The weight is
+    packed by :func:`pack_proj_weight` here. What
+    :func:`pool_proj1_shape_error` refuses raises ``ValueError``."""
+    if x.device.type == 'cpu':
+        return pool_proj1_plain(x, mask, w)
+    if x.device.type != 'cuda':
+        raise ValueError(f'pool_proj1: unsupported device {x.device}')
+    _check_pool_args('pool_proj1', x, mask)
+    b, t, kc = x.shape
+    if w.dim() != 3 or w.shape[:2] != (3, kc) or w.dtype != x.dtype \
+            or w.device != x.device:
+        raise ValueError(f'pool_proj1: w must be [3, {kc}, P] of x\'s dtype '
+                         f'on x\'s device, not {tuple(w.shape)} {w.dtype}')
+    err = pool_proj1_shape_error(kc)
+    if err:
+        raise ValueError(f'pool_proj1: {err}')
+    p = w.shape[2]
+    tile = PROJ_TILE[x.dtype]
+    wt = pack_proj_weight(w, -(-p // tile) * tile)
+    out = torch.empty(b, t, p, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    status = _pool_lib(_POOL_PROJ_ENTRY[x.dtype], 4, 6)(
+        build.ptr(x), build.ptr(mask), build.ptr(wt), build.ptr(out), b, t,
+        kc, p, wt.shape[1], x.get_device(), build.stream_of(x))
+    build.check(status, 'pool_proj1')
+    global pool_proj1_launches
+    pool_proj1_launches += 1
     return out

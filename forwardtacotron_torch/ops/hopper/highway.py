@@ -1,9 +1,11 @@
-"""Residual add + pre_highway + highway stack: the ``highway.cu`` kernel and
-its plain twin, in float32 or bfloat16.
+"""The CBHG highway stack, alone or behind the residual add and the
+pre_highway Dense: the two entries of the ``highway.cu`` kernel and their
+plain twins, in float32 or bfloat16.
 
-Port of forwardtacotron_tpu/ops/pallas/highway.py::pre_highway_stack_pallas.
-``pre_highway_stack`` launches the CUDA kernel for CUDA tensors and runs the
-plain twin for CPU tensors; nothing else selects between them.
+Port of forwardtacotron_tpu/ops/pallas/highway.py::pre_highway_stack_pallas
+(``pre_highway_stack``) and ::highway_stack_pallas (``highway_stack``).
+Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
+twin for CPU tensors; nothing else selects between them.
 """
 
 import ctypes
@@ -14,15 +16,18 @@ import torch.nn.functional as F
 
 from forwardtacotron_torch.ops.hopper import build
 
-# the kernel keeps two float32 [32, max(C_in, C)] row tiles in a block's
-# 232,448 bytes of shared memory
-MAX_WIDTH = 232448 // (2 * 32 * 4)
+# the kernel keeps two float32 [R, max(C_in, C)] row tiles in a block's
+# 232,448 bytes of shared memory, R from 32 rows down to 1 as rows widen
+MAX_WIDTH = 232448 // (2 * 1 * 4)
 
-# launches of the CUDA kernel since the count was last set to 0
-launches = 0
+# launches of each entry since its count was last set to 0
+launches = 0          # pre_highway_stack
+stack_launches = 0    # highway_stack
 
 _ENTRY = {torch.float32: 'pre_highway_stack_f32',
           torch.bfloat16: 'pre_highway_stack_bf16'}
+_STACK_ENTRY = {torch.float32: 'highway_stack_f32',
+                torch.bfloat16: 'highway_stack_bf16'}
 
 
 def pre_highway_stack_plain(a: torch.Tensor, res: torch.Tensor,
@@ -37,18 +42,34 @@ def pre_highway_stack_plain(a: torch.Tensor, res: torch.Tensor,
     add, after the pre-projection and after each layer, as the TPU kernel
     rounds it."""
     dt = a.dtype
+    x = _rnd(_rnd(a.float() + res.float(), dt) @ pre_w.float(), dt)
+    return _layers(x, w, b).to(dt)
 
-    def rnd(t):
-        return t.to(dt).float()
 
-    x = rnd(rnd(a.float() + res.float()) @ pre_w.float())
-    c = pre_w.shape[1]
+def highway_stack_plain(x: torch.Tensor, w: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """Per layer x + sigmoid(g) * (relu(h) - x) with [h | g] = x @ w[l] +
+    b[l], on rows x [N, C]; w [L, C, 2C] (W1 | W2 packed) in x's dtype, b
+    [L, 2C] float32. Returns [N, C] in x's dtype; products accumulate in
+    float32 and x is rounded to its dtype after each layer, as the TPU
+    kernel rounds it."""
+    return _layers(x.float(), w, b).to(x.dtype)
+
+
+def _rnd(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """float32 ``t`` rounded to ``dt`` and back."""
+    return t.to(dt).float()
+
+
+def _layers(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """The highway layers on float32 rows x holding values of w's dtype."""
+    dt, c = w.dtype, w.shape[1]
     for layer in range(w.shape[0]):
         hg = x @ w[layer].float() + b[layer].float()
         h = torch.relu(hg[:, :c])
         g = torch.sigmoid(hg[:, c:])
-        x = rnd(x + g * (h - x))
-    return x.to(dt)
+        x = _rnd(x + g * (h - x), dt)
+    return x
 
 
 def shape_error(c_in: int, c: int) -> Optional[str]:
@@ -76,6 +97,14 @@ def pad_input_width(a: torch.Tensor, res: torch.Tensor, pre_w: torch.Tensor,
 def _kernel(dtype):
     fn = getattr(build.library('highway'), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stack_kernel(dtype):
+    fn = getattr(build.library('highway'), _STACK_ENTRY[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -125,4 +154,40 @@ def pre_highway_stack(a: torch.Tensor, res: torch.Tensor,
     build.check(status, 'pre_highway_stack')
     global launches
     launches += 1
+    return out
+
+
+def highway_stack(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`highway_stack_plain`, one kernel launch on
+    the GPU (``highway.cu`` without its input stage). What
+    :func:`shape_error` refuses raises ``ValueError``."""
+    if x.device.type == 'cpu':
+        return highway_stack_plain(x, w, b)
+    if x.device.type != 'cuda':
+        raise ValueError(f'highway_stack: unsupported device {x.device}')
+    n, c = x.shape
+    n_layers = w.shape[0]
+    dt = x.dtype
+    if (dt not in _STACK_ENTRY or w.dtype != dt or b.dtype != torch.float32
+            or any(not t.is_contiguous() or t.device != x.device
+                   for t in (x, w, b))):
+        raise ValueError('highway_stack: x and w must be contiguous float32 '
+                         'or bfloat16 tensors of one dtype, b contiguous '
+                         'float32, all on one device')
+    if w.shape != (n_layers, c, 2 * c) or b.shape != (n_layers, 2 * c):
+        raise ValueError('highway_stack: bad shapes '
+                         f'{[tuple(t.shape) for t in (x, w, b)]}')
+    err = shape_error(c, c)
+    if err:
+        raise ValueError(f'highway_stack: {err}')
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    status = _stack_kernel(dt)(build.ptr(x), build.ptr(w), build.ptr(b),
+                               build.ptr(out), n, c, n_layers,
+                               x.get_device(), build.stream_of(x))
+    build.check(status, 'highway_stack')
+    global stack_launches
+    stack_launches += 1
     return out

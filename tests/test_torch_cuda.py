@@ -115,10 +115,11 @@ def test_front_and_highway_raise_on_unsupported_shapes(dev):
     wider than 256 columns."""
     g = torch.Generator().manual_seed(5)
     before = (highway.launches, cbhg.launches)
-    for c_in, c, match in ((80, 130, 'multiple of 4'),
-                           (80, 1024, 'shared memory')):
+    for c_in, c, layers, match in ((80, 130, 1, 'multiple of 4'),
+                                   (80, 29060, 0, 'shared memory')):
         args = [torch.randn(s, generator=g).to(dev) for s in (
-            (9, c_in), (9, c_in), (c_in, c), (1, c, 2 * c), (1, 2 * c))]
+            (9, c_in), (9, c_in), (c_in, c), (layers, c, 2 * c),
+            (layers, 2 * c))]
         with pytest.raises(ValueError, match=match):
             highway.pre_highway_stack(*args)
     k_max, c_in, c, p = 2, 8, 16, 320
@@ -654,3 +655,132 @@ def test_ups_tail_generator_on_card_matches_cpu(dev, dtype, monkeypatch):
     assert ups_mrf.launches == before + 2
     _close([got.float().cpu()], [want.float()],
            TOL if dtype == torch.float32 else BF16_TOL)
+
+
+# --------------------------------------------- the CBHG variants' kernels
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,c,layers', [(77, 256, 4), (5, 128, 2),
+                                        (33, 1024, 2), (19, 2048, 1)])
+def test_highway_stack_kernel_matches_twin(dev, dtype, n, c, layers):
+    """Rows not a multiple of the row tile, at widths the 32-row tile takes
+    (128, 256) and at the 16- and 8-row tiles (1024, 2048)."""
+    g = torch.Generator().manual_seed(n)
+    args = [_rand(g, (n, c), 1.0, dev, dtype),
+            _rand(g, (layers, c, 2 * c), c ** -0.5, dev, dtype),
+            _rand(g, (layers, 2 * c), 0.1, dev, torch.float32)]
+    before = highway.stack_launches
+    got = highway.highway_stack(*args)
+    torch.cuda.synchronize()
+    assert highway.stack_launches == before + 1 and got.dtype == dtype
+    _close([got.float()], [highway.highway_stack_plain(*args).float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize('c_in,c', [(80, 1024), (256, 2048)])
+def test_pre_highway_kernel_takes_wide_rows(dev, c_in, c):
+    g = torch.Generator().manual_seed(c)
+    args = [torch.randn(s, generator=g) * sc for s, sc in (
+        ((21, c_in), 1.0), ((21, c_in), 1.0), ((c_in, c), c_in ** -0.5),
+        ((2, c, 2 * c), c ** -0.5), ((2, 2 * c), 0.1))]
+    args = [a.to(dev) for a in args]
+    got = highway.pre_highway_stack(*args)
+    torch.cuda.synchronize()
+    _close([got], [highway.pre_highway_stack_plain(*args)])
+
+
+def _pool_args(g, b, t, kc, dev, dtype):
+    mask = torch.ones(b, t)
+    mask[-1, t // 2:] = 0.0
+    return _rand(g, (b, t, kc), 1.0, dev, dtype), mask.to(dev)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,t,kc', [(2, 70, 512), (3, 1, 64), (1, 33, 13),
+                                    (4, 17, 2048)])
+def test_pool_mask_kernel_matches_twin(dev, dtype, b, t, kc):
+    """Exact, at a single frame and at a width (13) that takes the scalar
+    path."""
+    x, mask = _pool_args(torch.Generator().manual_seed(t), b, t, kc, dev,
+                         dtype)
+    before = cbhg.pool_mask_launches
+    got = cbhg.pool_mask(x, mask)
+    torch.cuda.synchronize()
+    assert cbhg.pool_mask_launches == before + 1
+    assert torch.equal(got, cbhg.pool_mask_plain(x, mask))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,t,kc,p', [(2, 70, 512, 256), (3, 9, 64, 12),
+                                      (1, 300, 2048, 80), (2, 1, 32, 128),
+                                      (1, 92, 4096, 256)])
+def test_pool_proj1_kernel_matches_twin(dev, dtype, b, t, kc, p):
+    """Frames not a multiple of the time tile, P padded to the column tile,
+    one frame, and the f32 request's prenet shape (split over KC)."""
+    g = torch.Generator().manual_seed(kc + t)
+    x, mask = _pool_args(g, b, t, kc, dev, dtype)
+    w = _rand(g, (3, kc, p), (3 * kc) ** -0.5, dev, dtype)
+    before = cbhg.pool_proj1_launches
+    got = cbhg.pool_proj1(x, mask, w)
+    torch.cuda.synchronize()
+    assert cbhg.pool_proj1_launches == before + 1 and got.shape == (b, t, p)
+    _close([got.float()], [cbhg.pool_proj1_plain(x, mask, w).float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
+def test_variant_kernels_raise_on_unsupported_shapes(dev):
+    """pool_proj1 with a bank concat that is not a multiple of 32 channels,
+    highway_stack at a width that is not a multiple of 4, and a dtype the
+    kernels do not take: ValueError before any launch."""
+    g = torch.Generator().manual_seed(3)
+    before = (cbhg.pool_proj1_launches, cbhg.pool_mask_launches,
+              highway.stack_launches)
+    x, mask = _pool_args(g, 1, 9, 48, dev, torch.float32)
+    with pytest.raises(ValueError, match='multiple of 32'):
+        cbhg.pool_proj1(x, mask, torch.zeros(3, 48, 8, device=dev))
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        cbhg.pool_mask(x.half(), mask)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        highway.highway_stack(torch.zeros(3, 130, device=dev),
+                              torch.zeros(1, 130, 260, device=dev),
+                              torch.zeros(1, 260, device=dev))
+    assert (cbhg.pool_proj1_launches, cbhg.pool_mask_launches,
+            highway.stack_launches) == before
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('fields,counts', [
+    (dict(fuse_pool_proj=True, fuse_front=False), (1, 0, 0)),
+    (dict(fuse_pool=True, fuse_front=False), (0, 1, 0)),
+    (dict(fuse_bank=True, fuse_pool=True, fuse_front=False), (0, 1, 0)),
+    (dict(stream_pool_proj=True, fuse_front=False), (0, 0, 0))])
+def test_cbhg_variants_on_card_match_cpu(dev, dtype, fields, counts):
+    """A CBHG with each variant on the card (its launches counted) against
+    the same module on the CPU, with ragged lengths; ``_highways_fused``
+    the same."""
+    import copy
+
+    from forwardtacotron_torch.models.layers import CBHG
+
+    torch.manual_seed(0)
+    m = CBHG(4, 16, 128, [128, 16], 2, dropout=0.0, **fields).eval().to(dtype)
+    x = torch.randn(3, 40, 16, generator=torch.Generator().manual_seed(1))
+    lengths = torch.tensor([40, 23, 7])
+    with torch.no_grad():
+        want = m.pre_rnn(x.to(dtype), lengths)
+        want_hw = m._highways_fused(want)
+        card = copy.deepcopy(m).to(dev)
+        before = (cbhg.pool_proj1_launches, cbhg.pool_mask_launches,
+                  cbhg.launches, highway.stack_launches)
+        got = card.pre_rnn(x.to(dev, dtype), lengths.to(dev))
+        got_hw = card._highways_fused(got)
+        torch.cuda.synchronize()
+    after = (cbhg.pool_proj1_launches, cbhg.pool_mask_launches,
+             cbhg.launches, highway.stack_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (*counts, 1)
+    # bf16: cuDNN's and the CPU's bank convolutions round their sums
+    # differently, and proj1, proj2 and the highways carry it on: the bf16
+    # model tolerance of chip_smoke.py (E2E_BF16_TOL)
+    tol = TOL if dtype == torch.float32 else 5e-2
+    _close([got.float().cpu(), got_hw.float().cpu()],
+           [want.float(), want_hw.float()], tol)

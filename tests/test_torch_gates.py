@@ -121,7 +121,10 @@ def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
     # an input width of 6 is padded to 8: admitted
     assert CBHG(8, 80, 128, [256, 6], 4).highways_fusable
     assert highway.shape_error(6, 128) is None
-    assert highway.shape_error(1024, 128) is not None
+    # rows of any width the JAX gate admits, down to one row per CTA
+    assert highway.shape_error(1024, 2048) is None
+    assert highway.shape_error(29056, 128) is None
+    assert highway.shape_error(29060, 128) is not None
 
 
 def _mrf_weights(g, c, dtype=torch.float32):

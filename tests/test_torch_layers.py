@@ -128,8 +128,8 @@ def test_cbhg_unfused_front_matches_jax():
               dropout=0.0, fuse_front=False)
     v = _random_bn(jm.init(jax.random.PRNGKey(4), x), rs)
     ref = jax.jit(lambda v, x: jm.apply(v, x, train=False))(v, x)
-    tm = _port(layers.CBHG(3, 8, 16, [16, 8], 1), v)
-    tm.front_fusable = False
+    tm = _port(layers.CBHG(3, 8, 16, [16, 8], 1, fuse_front=False), v)
+    assert not tm.front_fusable
     got = tm(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
                                atol=ATOL, rtol=RTOL)
