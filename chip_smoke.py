@@ -611,14 +611,18 @@ def reference_phase(torch, model, config, tokens, outs):
 
 # ------------------------------------------------------------- bfloat16
 
-# the recurrent kernel's template instances: rnn.cu Mode values
-RNN_MODES = {'gru': 0, 'lstm': 1, 'gru_xp': 2, 'lstm_mel': 3}
+# the recurrent kernels' template instances by rnn.cu Mode value: the
+# step-major rnn_step_kernel<mode, unit, mel columns> runs MODE_GRU_X (0)
+# and MODE_LSTM_MEL (3), the tile-major rnn_kernel<mode> the others
+RNN_KERNELS = {'gru': r'rnn_step_kernel<(\(int\))?0,',
+               'lstm': r'rnn_kernel<(\(int\))?1>',
+               'gru_xp': r'rnn_kernel<(\(int\))?2>',
+               'lstm_mel': r'rnn_step_kernel<(\(int\))?3,'}
 SERVING_KERNEL_NAMES = {
     'pre_highway_stack': [PRE_HIGHWAY_KERNEL],
     'cbhg_front': ['cbhg_front_kernel'],
     'lr_bidir': ['lr_bidir_kernel'],
-    **{k: [rf'rnn_kernel<(\(int\))?{m}>'] for k, m in RNN_MODES.items()
-       if k != 'lstm'}}
+    **{k: [v] for k, v in RNN_KERNELS.items() if k != 'lstm'}}
 
 
 def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
@@ -636,6 +640,17 @@ def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
         f'({b_by})')
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def log_plan(rnn, mode: str, x2, hidden: int, n_mels: int = 0) -> None:
+    """The launch plan the step-major kernel ``mode`` takes for x2."""
+    t, _, b, i = x2.shape
+    p = rnn.plan(mode, b, t, i, hidden, n_mels, *rnn.device_limits(x2.device))
+    log(f'    plan: tile {p["tile"]} rows, {p["unit"]} units x '
+        f'{p["ctas_per_direction"]} CTAs per direction, {p["groups"]} groups '
+        f'of <= {p["tiles_per_group"]} tiles, {p["warpgroups"]} consumer '
+        f'warpgroups, ring {p["stages"]} x {p["chunk"]}, cluster '
+        f'{p["cluster"]}, {p["rounds"]} rounds, {p["smem"]} B shared')
 
 
 def cudnn_rnn(torch, cell: str, in_dim: int, hidden: int, x2):
@@ -746,6 +761,7 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
         2 * (t_run * 2 * b * i_dim + 2 * (i_dim + h) * 4 * h + 2 * 4 * h
              + 2 * h * m + t_run * 2 * b * m),
         cudnn_rnn(torch, 'lstm', i_dim, h, x2))
+    log_plan(rnn, 'lstm_mel', x2, h, m)
 
     # bidir_rnn, GRU body: the postnet GRU over the decode budget
     def bidir(name, mod, steps, cell):
@@ -760,12 +776,15 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
         else:
             kernel, plain, args = rnn.lstm, rnn.lstm_plain, (x2, wi, wh,
                                                              bi + bh)
-        return bf16_check(
+        res = bf16_check(
             torch, f'{name} T={steps}', kernel, plain, args,
             steps * 2 * b * 2 * (i_dim + h) * g,
             2 * (steps * 2 * b * i_dim + 2 * (i_dim + h) * g + 4 * g
                  + steps * 2 * b * h),
             cudnn_rnn(torch, cell, i_dim, h, x2))
+        if cell == 'gru':
+            log_plan(rnn, 'gru', x2, h)
+        return res
 
     res['bidir_rnn'] = bidir('postnet GRU', model.postnet.rnn, t, 'gru')
     if two_phase:
@@ -1683,7 +1702,7 @@ CHECK_BATCH = 4
 E2E_TRAIN_TOL = {'float32': 1e-3, 'bfloat16': 5e-2}
 # LR kernel vs twin: a copy, so exact
 LR_TOL = 0.0
-TRAIN_KERNEL_NAMES = {'lr': ['lr_kernel'], 'gru': [r'rnn_kernel<(\(int\))?0>'],
+TRAIN_KERNEL_NAMES = {'lr': ['lr_kernel'], 'gru': [RNN_KERNELS['gru']],
                       'lstm_train': [r'rnn_kernel<(\(int\))?4>'],
                       'gru_bwd': [r'rnn_bwd_kernel<false>'],
                       'lstm_bwd': [r'rnn_bwd_kernel<true>']}
@@ -1888,6 +1907,7 @@ def train_kernel_phase(torch, model16):
         log(f'    kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, library '
             f'{f_lib:.4f} ms (cuDNN bi-GRU forward with autograd), bound '
             f'{f_bound:.4f} ms ({f_by})')
+        log_plan(rnn, 'gru', x2, h)
         fwd[name] = dict(max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
                          library_ms=f_lib, bound_ms=f_bound, bound_by=f_by)
         args = (randn(steps, 2, b, h), hs, x2, wi, wh, bi, bh)

@@ -26,30 +26,80 @@
 // [T, 2, B, H] (or [T, 2, B, M] for the mel stage), weights [2, K, G] with
 // torch gate order (GRU r,z,n; LSTM i,f,g,o), G = NG*H.
 //
-// Bound on an H100: at serving batch the per-step products ([B, I+H] x
-// [I+H, G] per direction) are tensor-core operations; at batch 1 the T steps
-// are sequential and the time is T times the latency of one step. Design:
-// the TPU kernel keeps all weights in 16 MB of VMEM and walks time as its
-// sequential grid axis. Here the weights of one direction (4 MB for the
-// LSTM) do not fit one SM, so the hidden units are split across CTAs:
-// CTA (s, d, r) owns units [16 s, 16 s + 16) of direction d -- all NG gate
-// columns of those units, so the cell update stays local -- and keeps their
-// [I+H, NG*16] weight slice in shared memory for all T steps. Each step it
-// stages x_t and h_{t-1} of its batch tile (BB rows) in shared memory with
-// cp.async, multiplies on the tensor cores (wmma 16x16x16 bf16, f32
-// accumulation), updates its units and publishes h_t to an L2-resident
-// ping-pong buffer;
-// the H/16 CTAs of one (direction, batch-tile group) then meet at a barrier
-// before step t+1. All CTAs must be resident at once for that barrier, so
-// the kernel is launched cooperatively (the launch fails instead of hanging
-// when the grid does not fit). A group r walks the batch tiles r, r+R, ...
-// in turn. The mel stage of step t runs at step t+1, on the h_t that step
-// stages anyway: each CTA computes M/S of the mel columns.
-// A simple design: wgmma, TMA and clusters are later work.
+// Two schedules share the weight-stationary split: the weights of one
+// direction (4 MB for the LSTM) do not fit one SM, so the hidden units are
+// split across CTAs. CTA (s, d, r) owns units [U s, U s + U) of direction d
+// -- all NG gate columns of those units, so the cell update stays local --
+// and keeps their [I+H, NG*U] weight slice in shared memory for all T
+// steps. h_t goes through an L2-resident ping-pong buffer, and the H/U CTAs
+// of one (direction, batch group r) meet at a spin barrier before step t+1.
+// All CTAs must be resident at once for that barrier, so both launch
+// cooperatively: the launch fails instead of hanging when the grid does not
+// fit.
+//
+// rnn_kernel (MODE_LSTM_X, MODE_GRU_XP, MODE_LSTM_TRAIN): tile-major. U = 16;
+// a group walks its batch tiles one after another, each through all T
+// steps; per (tile, step) it stages x_t and h_{t-1} with cp.async, runs wmma
+// 16x16x16 with f32 accumulators stored to shared memory, and updates its
+// units. At serving batch that is B/BB * T serial barrier rounds of a tiny
+// product each: bound by latency, not by the tensor cores.
+//
+// rnn_step_kernel (MODE_GRU_X, MODE_LSTM_MEL): step-major, the schedule for
+// large batches. Within step t a CTA walks ALL batch tiles of its group,
+// then meets its group once: T barrier rounds per launch whatever B is.
+//   - Products: wgmma m64nNk16, one consumer warpgroup per 64-row batch
+//     tile, A (the staged activations, 128-byte swizzle) and B (the
+//     resident weight slice, K-major core matrices) from shared memory,
+//     the sums in registers. The slice is [I+H, N] with columns
+//     [gate][unit], so a thread's fragment holds every gate of the same
+//     (row, unit) pairs and the cell update runs on registers. The GRU's n
+//     gate takes two column blocks, n_x (x rows only) and n_h (h rows
+//     only), so one product keeps its halves apart; the LSTM's N adds the
+//     CTA's columns of W_mel (h rows only). Every chunk runs the same
+//     product: a branch around wgmma makes ptxas serialize them all.
+//   - Two consumer warpgroups take alternate tiles, so one's cell update
+//     overlaps the other's products. The gates run in f32 from the fast
+//     exponential (__expf): with the library's expf and tanhf the cell
+//     update took a third of a step at serving batch.
+//   - Staging: a producer warp per consumer warpgroup loads [rows, 64]
+//     boxes of x_t and h_{t-1} with TMA into the warpgroup's ring of P
+//     stages (full / empty mbarriers), P chunks ahead, while the
+//     warpgroup keeps two chunks' products in flight behind the next.
+//     The barrier is split: the consumers arrive after their last tile of
+//     step t; the producers load the x half of step t+1 at once and wait
+//     only before the first h_t chunk, so the x products overlap the
+//     barrier.
+//   - Carried state: h through hbuf (written with st.global, read by TMA:
+//     a proxy fence on each side); the LSTM's c, rounded to bf16 every
+//     step, in a [2, B, H] buffer in global memory (the CTA's own units, so
+//     no barrier guards it): 2048 rows x 16 units do not fit beside the
+//     weights.
+//   - Mel stage (MODE_LSTM_MEL): step t stages h_{t-1} anyway, so its
+//     product with the CTA's W_mel columns comes out of the same wgmma and
+//     is stored as mel_{t-1}; one more pass after the last step stores
+//     mel_{T-1}.
+// Bound on an H100 at serving batch: the products (9 TFLOP per LSTM-mel
+// call, ~9 ms at the bf16 peak) and the L2 re-reads (each CTA reads every
+// activation row of its group each step: LSTM-mel 2048 rows x 2 KB = 4 MiB
+// per CTA per step, ~128 GiB per launch). The slices are the widest the
+// carve allows (72 columns for LSTM-mel, 128 for the GRU at serving), so
+// each staged byte feeds that many columns; measured, the producers wait
+// for free stages, so L2 is not the wall: each warpgroup's chain of
+// dependent products and its cell update are. At batch 1 the time is T
+// times one step's latency: one 64-row tile with boxes of the batch's rows
+// only, narrow GRU slices (8 units) for more CTAs, the x half behind the
+// barrier, the h half P chunks deep.
+//
+// The launch plan of the step-major kernel (unit, warpgroups, groups, ring
+// stages, shared-memory carve) is computed by the caller (rnn.py ``plan``);
+// the entries check it against step_carve and the device and refuse a plan
+// that does not fit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <stdint.h>
 
 namespace {
 
@@ -72,14 +122,13 @@ struct Params {
   const bf16* x;    // [T, 2, B, I], or gx [T, 2, B, 3H] for MODE_GRU_XP
   const bf16* wi;   // [2, I, G] (null for MODE_GRU_XP)
   const bf16* wh;   // [2, H, G]
-  const bf16* bx;   // [2, G]: GRU bi, LSTM bi+bh (null for MODE_GRU_XP)
+  const bf16* bx;   // [2, G]: LSTM bi+bh (null for MODE_GRU_XP)
   const bf16* bh;   // [2, G]: GRU bh (null for the LSTM)
-  const bf16* wm;   // [2, H, M] (MODE_LSTM_MEL)
-  bf16* out;        // [T, 2, B, H], or [T, 2, B, M] for MODE_LSTM_MEL
+  bf16* out;        // [T, 2, B, H]
   bf16* cout;       // [T, 2, B, H] cell states (MODE_LSTM_TRAIN)
   bf16* hbuf;       // [2 (parity), 2 (direction), B, H]
   unsigned int* bar;  // [2, R] barrier counters, zero at launch
-  int T, B, I, H, M, BB, R;
+  int T, B, I, H, BB, R;
 };
 
 __host__ __device__ constexpr int n_gates(int mode) {
@@ -92,28 +141,31 @@ __host__ __device__ inline size_t align128(size_t n) {
 
 // Shared memory of one CTA, in carve order.
 struct Carve {
-  size_t w, a, acc_h, acc_x, c, wm, bias, total;
+  size_t w, a, acc_h, c, bias, total;
 };
 
-__host__ __device__ inline Carve carve(int mode, int I, int H, int M, int S,
-                                       int BB) {
+__host__ __device__ inline Carve carve(int mode, int I, int H, int BB) {
   const int ng = n_gates(mode);
   const int nc = ng * U;
   const int ka = (mode == MODE_GRU_XP ? 0 : I) + H;
-  const int mpc = mode == MODE_LSTM_MEL ? (M + S - 1) / S : 0;
   Carve c;
   c.w = 0;
   c.a = c.w + align128((size_t)ka * (nc + 8) * sizeof(bf16));
   c.acc_h = c.a + align128((size_t)BB * (ka + 8) * sizeof(bf16));
-  c.acc_x = c.acc_h + align128((size_t)BB * nc * sizeof(float));
-  c.c = c.acc_x + (mode == MODE_GRU_X ? align128((size_t)BB * nc * sizeof(float)) : 0);
-  c.wm = c.c + (ng == 4 ? align128((size_t)BB * U * sizeof(float)) : 0);
-  c.bias = c.wm + align128((size_t)H * mpc * sizeof(bf16));
+  c.c = c.acc_h + align128((size_t)BB * nc * sizeof(float));
+  c.bias = c.c + (ng == 4 ? align128((size_t)BB * U * sizeof(float)) : 0);
   c.total = c.bias + align128(2 * nc * sizeof(float));
   return c;
 }
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+
+// the step-major kernel's gates: f32 from the fast exponential (__expf, a
+// few ulp), which keeps the cell update from stalling the products
+__device__ __forceinline__ float fast_sigmoid(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+__device__ __forceinline__ float fast_tanh(float v) { return 2.f * fast_sigmoid(2.f * v) - 1.f; }
 
 // 16-byte global -> shared copy that does not wait for its data; .cg reads
 // through L2 only, so h written by other SMs before the barrier is seen
@@ -150,22 +202,18 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
   constexpr int NG = n_gates(MODE);
   constexpr int NC = NG * U;
   constexpr bool HAS_X = MODE != MODE_GRU_XP;
-  constexpr bool SPLIT = MODE == MODE_GRU_X;  // x and h products kept apart
   const int s = blockIdx.x, d = blockIdx.y, r = blockIdx.z;
   const int S = gridDim.x;
   const int I = HAS_X ? p.I : 0, H = p.H, G = NG * H, B = p.B, BB = p.BB;
   const int KA = I + H, lda = KA + 8, ldw = NC + 8;
-  const int mpc = MODE == MODE_LSTM_MEL ? (p.M + S - 1) / S : 0;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const Carve cv = carve(MODE, p.I, H, p.M, S, BB);
+  const Carve cv = carve(MODE, p.I, H, BB);
   bf16* Ws = reinterpret_cast<bf16*>(smem + cv.w);        // [KA][ldw]
   bf16* As = reinterpret_cast<bf16*>(smem + cv.a);        // [BB][lda]
   float* acc_h = reinterpret_cast<float*>(smem + cv.acc_h);  // [BB][NC]
-  float* acc_x = reinterpret_cast<float*>(smem + cv.acc_x);  // [BB][NC]
   float* cs = reinterpret_cast<float*>(smem + cv.c);      // [BB][U]
-  bf16* Wms = reinterpret_cast<bf16*>(smem + cv.wm);      // [H][mpc]
   float* bxs = reinterpret_cast<float*>(smem + cv.bias);  // [NC]
   float* bhs = bxs + NC;                                  // [NC]
 
@@ -181,12 +229,6 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
     bxs[j] = HAS_X ? __bfloat162float(p.bx[(size_t)d * G + col]) : 0.f;
     bhs[j] = p.bh ? __bfloat162float(p.bh[(size_t)d * G + col]) : 0.f;
   }
-  if (MODE == MODE_LSTM_MEL) {
-    for (int i = tid; i < H * mpc; i += THREADS) {
-      const int k = i / mpc, q = i - k * mpc, m = s + q * S;
-      Wms[i] = m < p.M ? p.wm[((size_t)d * H + k) * p.M + m] : __float2bfloat16(0.f);
-    }
-  }
 
   unsigned int* bar = p.bar + d * p.R + r;
   unsigned int n_bar = 0;
@@ -196,14 +238,14 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
   // stage x_t (k < I) and h_{t-1} (k >= I, zero at t = 0) of the tile's rows:
   // every copy of the thread is issued before it waits, so a step pays one
   // memory round trip, not one per copy; h comes from other SMs through L2
-  auto stage = [&](int t, int b0, bool with_x) {
+  auto stage = [&](int t, int b0) {
     const int chunks = KA / 8;
     for (int i = tid; i < BB * chunks; i += THREADS) {
       const int row = i / chunks, k = (i - row * chunks) * 8, b = b0 + row;
       const bf16* src = nullptr;
       if (b < B) {
         if (k < I) {
-          if (with_x) src = p.x + (((size_t)t * 2 + d) * B + b) * I + k;
+          src = p.x + (((size_t)t * 2 + d) * B + b) * I + k;
         } else if (t > 0) {
           src = p.hbuf + (size_t)(((t - 1) & 1) * 2 + d) * hplane + (size_t)b * H + (k - I);
         }
@@ -217,50 +259,28 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
     cp_async_wait_all();
   };
 
-  // mel columns of step tt from the staged h (As[:, I:]), one warp per output
-  auto mel_stage = [&](int tt, int b0) {
-    for (int item = warp; item < BB * mpc; item += NWARPS) {
-      const int row = item / mpc, q = item - row * mpc, m = s + q * S, b = b0 + row;
-      if (m >= p.M || b >= B) continue;
-      float acc = 0.f;
-      for (int k = lane; k < H; k += 32)
-        acc += __bfloat162float(As[row * lda + I + k]) * __bfloat162float(Wms[k * mpc + q]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0)
-        p.out[(((size_t)tt * 2 + d) * B + b) * p.M + m] = __float2bfloat16(acc);
-    }
-  };
-
   for (int tile = r; tile < n_tiles; tile += p.R) {
     const int b0 = tile * BB;
     if (NG == 4)
       for (int i = tid; i < BB * U; i += THREADS) cs[i] = 0.f;
     for (int t = 0; t < p.T; ++t) {
-      stage(t, b0, true);
+      stage(t, b0);
       __syncthreads();
-      if (MODE == MODE_LSTM_MEL && t > 0) mel_stage(t - 1, b0);
 
-      // gate products on the tensor cores: part 0 = h (or all of K for the
-      // LSTM) into acc_h, part 1 = x into acc_x (GRU with input projection)
+      // gate products on the tensor cores over all of K into acc_h
       const int rb_n = BB / 16;
-      const int n_items = rb_n * NG * (SPLIT ? 2 : 1);
-      for (int item = warp; item < n_items; item += NWARPS) {
-        const int part = item / (rb_n * NG), rem = item - part * rb_n * NG;
-        const int rb = rem / NG, cb = rem - rb * NG;
-        const int k0 = part == 1 ? 0 : (SPLIT ? I : 0);
-        const int k1 = part == 1 ? I : KA;
+      for (int item = warp; item < rb_n * NG; item += NWARPS) {
+        const int rb = item / NG, cb = item - rb * NG;
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
         wmma::fill_fragment(acc, 0.f);
-        for (int k = k0; k < k1; k += 16) {
+        for (int k = 0; k < KA; k += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
           wmma::load_matrix_sync(fa, As + rb * 16 * lda + k, lda);
           wmma::load_matrix_sync(fb, Ws + k * ldw + cb * 16, ldw);
           wmma::mma_sync(acc, fa, fb, acc);
         }
-        float* dst = (part == 1 ? acc_x : acc_h) + rb * 16 * NC + cb * 16;
-        wmma::store_matrix_sync(dst, acc, NC, wmma::mem_row_major);
+        wmma::store_matrix_sync(acc_h + rb * 16 * NC + cb * 16, acc, NC, wmma::mem_row_major);
       }
       __syncthreads();
 
@@ -270,20 +290,12 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
         const int row = i / U, u = i - row * U, b = b0 + row, unit = s * U + u;
         const float* ah = acc_h + row * NC;
         float h_new, c_new = 0.f;
-        if (NG == 3) {
-          float xr, xz, xn;
-          if (MODE == MODE_GRU_XP) {
-            if (b >= B) continue;
-            const bf16* gx = p.x + (((size_t)t * 2 + d) * B + b) * G;
-            xr = __bfloat162float(gx[unit]);
-            xz = __bfloat162float(gx[H + unit]);
-            xn = __bfloat162float(gx[2 * H + unit]);
-          } else {
-            const float* ax = acc_x + row * NC;
-            xr = ax[u] + bxs[u];
-            xz = ax[U + u] + bxs[U + u];
-            xn = ax[2 * U + u] + bxs[2 * U + u];
-          }
+        if (NG == 3) {  // MODE_GRU_XP: the input projection comes in gx
+          if (b >= B) continue;
+          const bf16* gx = p.x + (((size_t)t * 2 + d) * B + b) * G;
+          const float xr = __bfloat162float(gx[unit]);
+          const float xz = __bfloat162float(gx[H + unit]);
+          const float xn = __bfloat162float(gx[2 * H + unit]);
           const float hr = ah[u] + bhs[u];
           const float hz = ah[U + u] + bhs[U + u];
           const float hn = ah[2 * U + u] + bhs[2 * U + u];
@@ -303,19 +315,12 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
         if (b >= B) continue;
         const bf16 hb = __float2bfloat16(h_new);
         hout[(size_t)b * H + unit] = hb;
-        if (MODE != MODE_LSTM_MEL)
-          p.out[(((size_t)t * 2 + d) * B + b) * H + unit] = hb;
+        p.out[(((size_t)t * 2 + d) * B + b) * H + unit] = hb;
         if (MODE == MODE_LSTM_TRAIN)
           p.cout[(((size_t)t * 2 + d) * B + b) * H + unit] = __float2bfloat16(c_new);
       }
       ++n_bar;
       group_sync(bar, n_bar * S);
-    }
-    if (MODE == MODE_LSTM_MEL) {  // the last step's mel columns
-      stage(p.T, b0, false);
-      __syncthreads();
-      mel_stage(p.T - 1, b0);
-      __syncthreads();
     }
   }
 }
@@ -336,14 +341,14 @@ int launch(Params p, int device, cudaStream_t stream) {
   int bb = 0;
   for (int cand = 64; cand >= 16; cand /= 2) {
     if (cand > 16 * n_tiles_16 && cand > 16) continue;
-    if (carve(MODE, p.I, p.H, p.M, S, cand).total <= (size_t)max_smem) {
+    if (carve(MODE, p.I, p.H, cand).total <= (size_t)max_smem) {
       bb = cand;
       break;
     }
   }
   if (bb == 0) return (int)cudaErrorInvalidValue;
   p.BB = bb;
-  const size_t smem = carve(MODE, p.I, p.H, p.M, S, bb).total;
+  const size_t smem = carve(MODE, p.I, p.H, bb).total;
   err = cudaFuncSetAttribute(rnn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -362,47 +367,536 @@ int launch(Params p, int device, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Step-major schedule (MODE_GRU_X, MODE_LSTM_MEL)
+// ---------------------------------------------------------------------------
+
+constexpr int KC = 64;     // depth of one ring stage: one 128-byte swizzle row
+constexpr int TILE = 64;   // batch rows of a tile: one consumer warpgroup's
+constexpr int STAGE = TILE * KC * 2;
+constexpr int MAX_STAGES = 8;  // per consumer warpgroup
+
+struct StepParams {
+  CUtensorMap xmap;  // x as [T*2*B rows, I], boxes of [box_rows, 64], 128-byte swizzle
+  CUtensorMap hmap;  // hbuf as [4*B rows, H], the same boxes
+  const bf16* wi;    // [2, I, G]
+  const bf16* wh;    // [2, H, G]
+  const bf16* bx;    // [2, G]: GRU bi, LSTM bi+bh
+  const bf16* bh;    // [2, G]: GRU bh (null for the LSTM)
+  const bf16* wm;    // [2, H, M] (MODE_LSTM_MEL)
+  bf16* out;         // [T, 2, B, H], or [T, 2, B, M] for MODE_LSTM_MEL
+  bf16* hbuf;        // [2 (parity), 2 (direction), B, H]
+  bf16* cbuf;        // [2, B, H] carried c (MODE_LSTM_MEL)
+  unsigned int* bar;  // [2, R] barrier counters, zero at launch
+  int T, B, I, H, M, R, P, wgs, box_rows;  // wgs: consumer warpgroups, 64 rows each
+};
+
+__host__ __device__ inline int round64(int n) { return (n + 63) & ~63; }
+
+// Shared memory of one step-major CTA, in carve order: the weight slice
+// [round64(I) + round64(H), 4*unit + mcols] as core matrices, the biases
+// (f32, bx then bh, 4*unit each), the rings' full and empty mbarriers, then
+// `wgs` rings of `stages` stages of [TILE, KC] bf16, 1024-byte aligned (the
+// swizzle's period) inside 1024 bytes of slack. rnn.py ``plan`` repeats
+// this sum.
+struct StepCarve {
+  size_t w, bias, bars, ring, total;
+};
+
+__host__ __device__ inline StepCarve step_carve(int I, int H, int unit, int mcols, int wgs,
+                                                int stages) {
+  const int ncols = 4 * unit + mcols;
+  StepCarve c;
+  c.w = 0;
+  c.bias = align128((size_t)(round64(I) + round64(H)) * ncols * sizeof(bf16));
+  c.bars = c.bias + align128(2 * 4 * unit * sizeof(float));
+  c.ring = c.bars + align128(2 * 2 * MAX_STAGES * sizeof(uint64_t));
+  c.total = c.ring + 1024 + (size_t)wgs * stages * STAGE;
+  return c;
+}
+
+// byte offset of element (row, k) in K-major core matrices (8 rows x 16 B,
+// 128 contiguous bytes each): k-neighbours 128 B apart, 8-row groups `sbo`
+__device__ __forceinline__ uint32_t core_off(int row, int k, int sbo) {
+  return (row >> 3) * sbo + (k >> 3) * 128 + (row & 7) * 16 + (k & 7) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptors: the weight slice without swizzle (LBO
+// = k-neighbour core matrices, SBO = 8-row groups, in 16-byte units), the
+// staged activations as TMA writes them with the 128-byte swizzle (8 rows
+// of 128 B = 1024 B per row group)
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+
+// one [box_rows, 64] box of a 2D tensor map into shared memory; completion
+// counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// generic-proxy writes to global memory (h_t) ordered before async-proxy
+// reads (the TMA loads of the next step)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed wgmma groups of the warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma m64nNk16, bf16 x bf16 -> f32, A and B K-major in shared memory:
+// D = A B + (acc ? D : 0); N = 2 x the accumulator's length
+__device__ __forceinline__ void wgmma(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[36], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[40], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// bf16 pair from global memory, issued where it is written (volatile asm is
+// not moved past the products), waited for at its first use
+__device__ __forceinline__ __nv_bfloat162 ld_pair(const bf16* src) {
+  unsigned v;
+  asm volatile("ld.global.cg.b32 %0, [%1];\n" : "=r"(v) : "l"(src));
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+
+template <int MODE, int UNIT, int MCOLS>
+__global__ void __launch_bounds__(2 * (128 + 32), 1)
+    rnn_step_kernel(const __grid_constant__ StepParams p) {
+  constexpr bool MEL = MODE == MODE_LSTM_MEL;
+  constexpr int NG = n_gates(MODE);
+  constexpr int NCOLS = 4 * UNIT + MCOLS;  // GRU r z n_x n_h; LSTM i f g o, mel
+  constexpr int UB = UNIT / 8;             // 8-unit blocks of one gate
+  const int s = blockIdx.x, d = blockIdx.y, r = blockIdx.z;
+  const int S = gridDim.x, R = p.R, P = p.P;
+  const int I = p.I, H = p.H, G = NG * H, B = p.B, M = p.M;
+  const int IP = round64(I), KP = IP + round64(H);
+  const int n_cons = 128 * p.wgs;
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const StepCarve cv = step_carve(I, H, UNIT, MCOLS, p.wgs, P);
+  unsigned char* Ws = smem + cv.w;
+  float* bxs = reinterpret_cast<float*>(smem + cv.bias);  // [4 UNIT]
+  float* bhs = bxs + 4 * UNIT;                            // [4 UNIT]
+  // per consumer warpgroup w: a ring of P stages of one [64, 64] box at
+  // ring + (w P + i) STAGE, with mbarriers full[w P + i], empty[w P + i]
+  const uint32_t full = smem_u32(smem + cv.bars);
+  const uint32_t empty = full + 8 * 2 * MAX_STAGES;
+  const uint32_t ring = (smem_u32(smem + cv.ring) + 1023) & ~1023u;
+  const int sbo_w = KP * 16;
+
+  // the weight slice, [KP, NCOLS]: rows [0, I) from wi, [IP, IP + H) from
+  // wh, zero elsewhere. GRU columns r, z (x and h rows), n_x (x rows only),
+  // n_h (h rows only), so one product keeps the n gate's halves apart;
+  // LSTM columns i, f, g, o, then this CTA's MCOLS columns of W_mel (h
+  // rows only): the mel of h_{t-1} comes out of the same product
+  for (int i = tid; i < KP * NCOLS; i += blockDim.x) {
+    const int k = i / NCOLS, n = i - k * NCOLS;
+    const bool xrow = k < IP;
+    const int kk = xrow ? k : k - IP;
+    float v = 0.f;
+    if (kk < (xrow ? I : H)) {
+      const bf16* w = xrow ? p.wi + ((size_t)d * I + kk) * G : p.wh + ((size_t)d * H + kk) * G;
+      const int g = n / UNIT, u = n % UNIT;
+      if (n >= 4 * UNIT) {
+        const int m = s * MCOLS + n - 4 * UNIT;
+        if (!xrow && m < M) v = __bfloat162float(p.wm[((size_t)d * H + kk) * M + m]);
+      } else if (MEL || g < 2 || (g == 2) == xrow) {
+        v = __bfloat162float(w[(MEL ? g : min(g, 2)) * H + s * UNIT + u]);
+      }
+    }
+    *reinterpret_cast<bf16*>(Ws + core_off(n, k, sbo_w)) = __float2bfloat16(v);
+  }
+  for (int j = tid; j < NG * UNIT; j += blockDim.x) {
+    const int col = (j / UNIT) * H + s * UNIT + (j % UNIT);
+    bxs[j] = __bfloat162float(p.bx[(size_t)d * G + col]);
+    bhs[j] = MEL ? 0.f : __bfloat162float(p.bh[(size_t)d * G + col]);
+  }
+  if (tid == 0) {
+    for (int i = 0; i < p.wgs * P; ++i) {
+      mbar_init(full + 8 * i, 1);   // the producer's arrive + the bytes
+      mbar_init(empty + 8 * i, 4);  // one arrive per warp of the warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // Ws for wgmma
+  __syncthreads();
+
+  unsigned int* bar = p.bar + d * R + r;
+  const int n_tiles = (B + TILE - 1) / TILE;
+  const int my_tiles = (n_tiles - r + R - 1) / R;  // tiles r, r + R, ...
+  const int nx = IP / KC, nh = round64(H) / KC;
+  const int t_end = MEL ? p.T + 1 : p.T;  // MODE_LSTM_MEL: one more pass for mel_{T-1}
+
+  if (tid >= n_cons) {
+    // a producer warp per consumer warpgroup w: one lane loads every chunk
+    // of the warpgroup's tiles (w, w + wgs, ...) into its ring, P stages
+    // ahead of the products; per step and tile the x_t chunks, then the
+    // h_{t-1} chunks, the step's first waiting for the group's step t-1
+    const int w = (tid - n_cons) >> 5;
+    if (tid & 31) return;
+    const int box_bytes = p.box_rows * KC * 2;
+    uint32_t gc = 0;
+    for (int t = 0; t < t_end; ++t) {
+      const int nxs = t < p.T ? nx : 0, per = nxs + (t > 0 ? nh : 0);
+      for (int j = w; j < my_tiles; j += p.wgs) {
+        const int b0 = (r + j * R) * TILE;
+        for (int q = 0; q < per; ++q, ++gc) {
+          const bool is_h = q >= nxs;
+          if (is_h && j == w && q == nxs) {
+            volatile unsigned int* vb = bar;
+            while (*vb < (unsigned)t * S) {
+            }
+            __threadfence();
+            fence_proxy_async_global();
+          }
+          const uint32_t slot = w * P + gc % P;
+          if (gc >= (uint32_t)P) mbar_wait(empty + 8 * slot, (gc / P - 1) & 1);
+          mbar_expect_tx(full + 8 * slot, box_bytes);
+          if (is_h)
+            tma_load(ring + slot * STAGE, &p.hmap, (q - nxs) * KC,
+                     (((t - 1) & 1) * 2 + d) * B + b0, full + 8 * slot);
+          else
+            tma_load(ring + slot * STAGE, &p.xmap, q * KC, (t * 2 + d) * B + b0,
+                     full + 8 * slot);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups, each on its own tiles (w, w + wgs, ...), so
+  // one's cell update overlaps the other's products
+  const int wg = tid >> 7, warp4 = (tid >> 5) & 3, lane = tid & 31;
+  const size_t hplane = (size_t)B * H;  // one (parity, direction) plane of hbuf
+  // the rows and unit pairs of this thread's accumulator fragments
+  const int row0 = warp4 * 16 + (lane >> 2);  // and row0 + 8
+  const int upair = 2 * (lane & 3);            // + 8 ub within a gate
+  float acc[NCOLS / 2];
+  __nv_bfloat162 prev[2][UB];  // GRU h_{t-1}, LSTM c_{t-1} of the thread's pairs
+  uint32_t gc = 0;
+  for (int t = 0; t < t_end; ++t) {
+    const int nxs = t < p.T ? nx : 0, per = nxs + (t > 0 ? nh : 0);
+    for (int j = wg; j < my_tiles; j += p.wgs) {
+      const int b0 = (r + j * R) * TILE;
+      if (t > 0 && t < p.T) {  // the carried state of this thread's pairs
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int b = min(b0 + row0 + 8 * i, B - 1);
+#pragma unroll
+          for (int ub = 0; ub < UB; ++ub) {
+            const size_t at = (size_t)b * H + s * UNIT + ub * 8 + upair;
+            prev[i][ub] = ld_pair(MEL ? p.cbuf + d * hplane + at
+                                      : p.hbuf + (size_t)(((t - 1) & 1) * 2 + d) * hplane + at);
+          }
+        }
+      }
+      // products of the tile's chunks; the first starts the sums. Two
+      // chunks' products stay in flight while the next one's are issued;
+      // a chunk's stage goes back to the producer once they are done.
+      for (int q = 0; q < per; ++q, ++gc) {
+        const uint32_t slot = wg * P + gc % P;
+        mbar_wait(full + 8 * slot, (gc / P) & 1);
+        const int kw = q >= nxs ? IP + (q - nxs) * KC : q * KC;
+        const uint32_t a0 = ring + slot * STAGE;
+        const uint32_t w0 = smem_u32(Ws) + kw / 8 * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KC / 16; ++ks)
+          wgmma(acc, desc_sw128(a0 + ks * 32), desc_plain(w0 + ks * 256, sbo_w), q + ks > 0);
+        wgmma_commit();
+        wgmma_wait<2>();
+        if (gc > 1 && lane == 0) mbar_arrive(empty + 8 * (wg * P + (gc - 2) % P));
+      }
+      wgmma_wait<0>();
+
+      // cell update on the registers, mel_{t-1}
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = b0 + row0 + 8 * i;
+        if (b >= B) continue;
+        if (t < p.T) {
+#pragma unroll
+          for (int ub = 0; ub < UB; ++ub) {
+            float hv[2], cn[2] = {0.f, 0.f};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int u = ub * 8 + upair + e;
+              const int a = ub * 4 + i * 2 + e;  // + g * UB * 4 for gate g
+              const float pv = t == 0 ? 0.f
+                               : e ? __high2float(prev[i][ub]) : __low2float(prev[i][ub]);
+              if constexpr (MEL) {
+                const float gi = fast_sigmoid(acc[a] + bxs[u]);
+                const float gf = fast_sigmoid(acc[UB * 4 + a] + bxs[UNIT + u]);
+                const float gg = fast_tanh(acc[2 * UB * 4 + a] + bxs[2 * UNIT + u]);
+                const float go = fast_sigmoid(acc[3 * UB * 4 + a] + bxs[3 * UNIT + u]);
+                cn[e] = gf * pv + gi * gg;
+                hv[e] = go * fast_tanh(cn[e]);
+              } else {
+                const float rg = fast_sigmoid(acc[a] + bxs[u] + bhs[u]);
+                const float zg = fast_sigmoid(acc[UB * 4 + a] + bxs[UNIT + u] + bhs[UNIT + u]);
+                const float ng = fast_tanh(acc[2 * UB * 4 + a] + bxs[2 * UNIT + u] +
+                                       rg * (acc[3 * UB * 4 + a] + bhs[2 * UNIT + u]));
+                hv[e] = (1.f - zg) * ng + zg * pv;
+              }
+            }
+            const size_t at = (size_t)b * H + s * UNIT + ub * 8 + upair;
+            const __nv_bfloat162 hb = __floats2bfloat162_rn(hv[0], hv[1]);
+            *reinterpret_cast<__nv_bfloat162*>(p.hbuf + (size_t)((t & 1) * 2 + d) * hplane + at) = hb;
+            if (MEL)  // the carried c is stored as bf16
+              *reinterpret_cast<__nv_bfloat162*>(p.cbuf + d * hplane + at) =
+                  __floats2bfloat162_rn(cn[0], cn[1]);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(p.out + ((size_t)t * 2 + d) * hplane + at) = hb;
+          }
+        }
+        if (MEL && t > 0) {
+#pragma unroll
+          for (int jm = 0; jm < MCOLS / 8; ++jm)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int m = s * MCOLS + jm * 8 + upair + e;
+              if (m < M)
+                p.out[(((size_t)(t - 1) * 2 + d) * B + b) * M + m] =
+                    __float2bfloat16(acc[(4 * UB + jm) * 4 + i * 2 + e]);
+            }
+        }
+      }
+    }
+    if (t + 1 < t_end) {  // h_t of this CTA's units is out: arrive at the group
+      fence_proxy_async_global();
+      asm volatile("bar.sync 1, %0;\n" ::"r"(n_cons) : "memory");
+      if (tid == 0) {
+        __threadfence();
+        atomicAdd(bar, 1u);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// a 2D bf16 tensor map of [rows, cols] (row-major) in boxes of
+// [box_rows, 64] with the 128-byte swizzle; outside the tensor reads zero
+int make_map(CUtensorMap* map, const void* base, int cols, long long rows, int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (err != cudaSuccess) return (int)err;
+    if (q != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorNotSupported;
+    encode = (EncodeTiled)fn;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Checks a step-major plan against the device and launches it: the carve
+// must equal step_carve of the plan and fit the opt-in limit, the grid
+// (H/unit, 2, groups) of (128 + 32) wgs threads must be resident, one CTA
+// per SM.
+template <int MODE, int UNIT, int MCOLS>
+int launch_step(StepParams& p, const void* x, int wgs, int smem, int device,
+                cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (p.B + TILE - 1) / TILE;
+  if (p.H % UNIT || p.I % 16 || p.P < 2 || p.P > MAX_STAGES || p.R < 1 || p.R > n_tiles ||
+      (wgs != 1 && wgs != 2))
+    return (int)cudaErrorInvalidValue;
+  if (MODE == MODE_LSTM_MEL && (p.H / UNIT) * MCOLS < p.M) return (int)cudaErrorInvalidValue;
+  p.wgs = wgs;
+  int max_smem = 0, n_sm = 0;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t need = step_carve(p.I, p.H, UNIT, MCOLS, p.wgs, p.P).total;
+  if ((size_t)smem != need || need > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  // a batch of one tile loads only its rows, in multiples of 8
+  p.box_rows = p.B < TILE ? (p.B + 7) / 8 * 8 : TILE;
+  int st = make_map(&p.xmap, x, p.I, (long long)p.T * 2 * p.B, p.box_rows);
+  if (st) return st;
+  st = make_map(&p.hmap, p.hbuf, p.H, 4LL * p.B, p.box_rows);
+  if (st) return st;
+  auto kernel = rnn_step_kernel<MODE, UNIT, MCOLS>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (128 + 32) * p.wgs;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int S = p.H / UNIT;
+  if (per_sm < 1 || 2 * S * p.R > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  dim3 grid(S, 2, p.R);
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((void*)kernel, grid, dim3(threads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry returns a cudaError_t (0 on success). `bar` must hold 2 * B
 // zeroed counters; hbuf 2 * 2 * B * H bf16 values of scratch.
+
+// Step-major GRU; unit (8, 16 or 32), warpgroups, groups, stages and smem
+// from rnn.py plan.
 extern "C" int rnn_gru_x_bf16(const void* x, const void* wi, const void* wh, const void* bi,
                               const void* bh, void* out, void* hbuf, unsigned int* bar, int T,
-                              int B, int I, int H, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)bi, (const bf16*)bh,
-           nullptr, (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
-  return launch<MODE_GRU_X>(p, device, stream);
+                              int B, int I, int H, int unit, int wgs, int groups, int stages,
+                              int smem, int device, cudaStream_t stream) {
+  StepParams p = {};
+  p.wi = (const bf16*)wi, p.wh = (const bf16*)wh, p.bx = (const bf16*)bi, p.bh = (const bf16*)bh;
+  p.out = (bf16*)out, p.hbuf = (bf16*)hbuf, p.bar = bar;
+  p.T = T, p.B = B, p.I = I, p.H = H, p.R = groups, p.P = stages;
+  if (unit == 32) return launch_step<MODE_GRU_X, 32, 0>(p, x, wgs, smem, device, stream);
+  if (unit == 16) return launch_step<MODE_GRU_X, 16, 0>(p, x, wgs, smem, device, stream);
+  if (unit == 8) return launch_step<MODE_GRU_X, 8, 0>(p, x, wgs, smem, device, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int rnn_lstm_x_bf16(const void* x, const void* wi, const void* wh, const void* b,
                                void* out, void* hbuf, unsigned int* bar, int T, int B, int I,
                                int H, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr, nullptr,
-           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
+  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr,
+           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, 0, 0};
   return launch<MODE_LSTM_X>(p, device, stream);
 }
 
 extern "C" int rnn_gru_xp_bf16(const void* xp, const void* wh, const void* bh, void* out,
                                void* hbuf, unsigned int* bar, int T, int B, int H, int device,
                                cudaStream_t stream) {
-  Params p{(const bf16*)xp, nullptr, (const bf16*)wh, nullptr, (const bf16*)bh, nullptr,
-           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, 0, H, 0, 0, 0};
+  Params p{(const bf16*)xp, nullptr, (const bf16*)wh, nullptr, (const bf16*)bh,
+           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, 0, H, 0, 0};
   return launch<MODE_GRU_XP>(p, device, stream);
 }
 
+// Step-major LSTM + mel stage; cbuf: 2 * B * H bf16 values of scratch;
+// unit 16, mcols (8 or 16), warpgroups, groups, stages and smem from rnn.py
+// plan.
 extern "C" int rnn_lstm_mel_bf16(const void* x, const void* wi, const void* wh, const void* b,
-                                 const void* wm, void* out, void* hbuf, unsigned int* bar, int T,
-                                 int B, int I, int H, int M, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr,
-           (const bf16*)wm, (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, M, 0, 0};
-  return launch<MODE_LSTM_MEL>(p, device, stream);
+                                 const void* wm, void* out, void* hbuf, void* cbuf,
+                                 unsigned int* bar, int T, int B, int I, int H, int M, int unit,
+                                 int mcols, int wgs, int groups, int stages, int smem,
+                                 int device, cudaStream_t stream) {
+  StepParams p = {};
+  p.wi = (const bf16*)wi, p.wh = (const bf16*)wh, p.bx = (const bf16*)b, p.wm = (const bf16*)wm;
+  p.out = (bf16*)out, p.hbuf = (bf16*)hbuf, p.cbuf = (bf16*)cbuf, p.bar = bar;
+  p.T = T, p.B = B, p.I = I, p.H = H, p.M = M, p.R = groups, p.P = stages;
+  if (unit != 16) return (int)cudaErrorInvalidValue;
+  if (mcols == 8) return launch_step<MODE_LSTM_MEL, 16, 8>(p, x, wgs, smem, device, stream);
+  if (mcols == 16) return launch_step<MODE_LSTM_MEL, 16, 16>(p, x, wgs, smem, device, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // MODE_LSTM_X that also writes the cell states cout [T, 2, B, H].
 extern "C" int rnn_lstm_train_bf16(const void* x, const void* wi, const void* wh, const void* b,
                                    void* out, void* cout, void* hbuf, unsigned int* bar, int T,
                                    int B, int I, int H, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr, nullptr,
-           (bf16*)out, (bf16*)cout, (bf16*)hbuf, bar, T, B, I, H, 0, 0, 0};
+  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr,
+           (bf16*)out, (bf16*)cout, (bf16*)hbuf, bar, T, B, I, H, 0, 0};
   return launch<MODE_LSTM_TRAIN>(p, device, stream);
+}
+
+// The SM count and the opt-in shared memory per block of `device`, for
+// rnn.py plan where torch does not report them.
+extern "C" int rnn_device_limits(int device, int* n_sm, int* smem_optin) {
+  cudaError_t err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }

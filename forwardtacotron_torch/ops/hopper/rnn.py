@@ -19,7 +19,9 @@ with direction 1 already flipped by the caller, weights stacked per
 direction as [2, K, G] in torch gate order (GRU r, z, n; LSTM i, f, g, o).
 Each wrapper launches one CUDA kernel, which runs the whole sequence, for
 CUDA tensors (bfloat16 only, as the TPU kernels are), and the plain twin for
-CPU tensors; nothing else selects between them.
+CPU tensors; nothing else selects between them. ``gru`` and ``lstm_mel``
+launch rnn.cu's step-major kernel with the launch plan of :func:`plan`,
+the others its tile-major kernel.
 
 Numerics of the TPU kernels, which the twins repeat: products accumulate in
 float32, gates run in float32, the carried h and c are rounded to the input
@@ -37,6 +39,104 @@ from forwardtacotron_torch.ops.hopper import build
 
 # launches of each CUDA kernel since the counts were last set to 0
 launches = {'gru_xp': 0, 'gru': 0, 'lstm': 0, 'lstm_mel': 0, 'lstm_train': 0}
+
+# rnn.cu's step-major schedule (rnn_step_kernel): batch rows of a tile (one
+# consumer warpgroup's), depth of one ring stage, most ring stages per
+# warpgroup
+WG_ROWS = 64
+CHUNK = 64
+MAX_STAGES = 8
+
+
+def _align128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def plan(mode: str, batch: int, t_len: int, in_dim: int, hidden: int,
+         n_mels: int, n_sm: int, smem_limit: int) -> dict:
+    """The launch plan of rnn.cu's step-major kernel for ``mode`` ('gru':
+    MODE_GRU_X, 'lstm_mel': MODE_LSTM_MEL) on a card of ``n_sm`` SMs whose
+    blocks may opt in to ``smem_limit`` bytes of shared memory. Needs no
+    card. Raises ValueError where the kernel cannot take the shape.
+
+    A CTA owns ``unit`` hidden units of one direction (their weight slice
+    stays in its shared memory, K padded to CHUNK multiples, with the GRU's
+    n gate as two column blocks and the LSTM's W_mel columns beside the
+    gates), so a direction takes ``hidden / unit`` CTAs; one CTA per SM,
+    so ``groups`` = the SM count over 2 directions x that, at most the
+    number of batch tiles. Batch tile k (rows [k tile, (k+1) tile) cut at
+    the batch, ``tile`` = 64, one consumer warpgroup's rows) belongs to
+    group k mod ``groups``; each step a CTA walks all its group's tiles,
+    ``tiles_per_group`` at most, then meets its group at one barrier:
+    ``rounds`` = T serial rounds. With two tiles or more per group the CTA
+    runs 2 ``warpgroups`` on alternate tiles, each with a ring of as many
+    stages of tile x CHUNK bf16 as the carve leaves room for (at most
+    MAX_STAGES). ``smem`` is the carve in bytes, as rnn.cu's step_carve
+    sums it (the entry refuses any other value). ``mel_cols``: the W_mel
+    columns of one CTA (a multiple of 8, the wgmma width; columns past M
+    are zero). ``cluster`` is 1: no clusters."""
+    if mode not in ('gru', 'lstm_mel'):
+        raise ValueError(f'rnn.plan: no step-major kernel for {mode!r}')
+    mel = mode == 'lstm_mel'
+    tile = WG_ROWS
+    n_tiles = -(-batch // tile)
+    # the GRU's slice: 32 units (128 columns) where a batch of several
+    # tiles makes each staged byte feed more columns; 8 at one tile, for
+    # more CTAs and a shorter step
+    unit = (16 if mel or hidden % 8 else 8 if n_tiles == 1
+            else 32 if hidden % 32 == 0 else 16)
+    if hidden % unit or in_dim % 16:
+        raise ValueError(f'rnn.plan: H={hidden} is not a multiple of {unit} '
+                         f'or I={in_dim} not of 16')
+    per_dir = hidden // unit
+    mel_cols = 8 * -(-n_mels // (8 * per_dir)) if mel else 0
+    if mel_cols > 16:
+        raise ValueError(f'rnn.plan: M={n_mels} needs {mel_cols} mel columns '
+                         f'per CTA at H={hidden}; the kernel takes 16')
+    groups = min(n_sm // (2 * per_dir), n_tiles)
+    if groups < 1:
+        raise ValueError(f'rnn.plan: 2 x {per_dir} CTAs do not fit {n_sm} SMs')
+    tiles_per_group = -(-n_tiles // groups)
+    warpgroups = 2 if tiles_per_group >= 2 else 1
+    depth = -(-in_dim // CHUNK) * CHUNK + -(-hidden // CHUNK) * CHUNK
+    fixed = (_align128(depth * (4 * unit + mel_cols) * 2)
+             + _align128(2 * 4 * unit * 4) + _align128(32 * MAX_STAGES) + 1024)
+    ring_stage = warpgroups * tile * CHUNK * 2
+    stages = min(MAX_STAGES, (smem_limit - fixed) // ring_stage)
+    if stages < 2:
+        raise ValueError(f'rnn.plan: a {mode} CTA of I={in_dim}, H={hidden} '
+                         f'needs {fixed + 2 * ring_stage} B of shared '
+                         f'memory, the card has {smem_limit}')
+    return dict(unit=unit, ctas_per_direction=per_dir, tile=tile,
+                groups=groups, tiles_per_group=tiles_per_group,
+                warpgroups=warpgroups, stages=stages, chunk=CHUNK, cluster=1,
+                mel_cols=mel_cols, smem=fixed + stages * ring_stage,
+                grid=(per_dir, 2, groups), rounds=t_len)
+
+
+_limits = {}
+
+
+def device_limits(device: torch.device):
+    """(SM count, opt-in shared memory per block) of a CUDA device, from
+    torch where it reports them, else from rnn.cu's query entry."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _limits:
+        props = torch.cuda.get_device_properties(index)
+        smem = getattr(props, 'shared_memory_per_block_optin', None)
+        n_sm = props.multi_processor_count
+        if not smem:
+            fn = build.library('rnn').rnn_device_limits
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            got_sm, got_smem = ctypes.c_int(), ctypes.c_int()
+            build.check(fn(index, ctypes.byref(got_sm), ctypes.byref(got_smem)),
+                        'rnn.device_limits')
+            n_sm, smem = got_sm.value, got_smem.value
+        _limits[index] = (n_sm, smem)
+    return _limits[index]
+
 
 
 def _steps(x2: torch.Tensor, wi: Optional[torch.Tensor], wh: torch.Tensor,
@@ -146,7 +246,9 @@ def _check(name: str, x2: torch.Tensor, tensors, shapes) -> None:
 
 
 def _launch(name: str, entry: str, ptrs, ints, x2: torch.Tensor,
-            out, hidden: int):
+            out, hidden: int, cells: bool = False):
+    """One launch of ``entry``; ``cells`` adds the step-major LSTM's c
+    buffer (its own units' rows only, read after they are written)."""
     t_len, _, b = x2.shape[:3]
     if t_len == 0 or b == 0:
         return out
@@ -154,14 +256,29 @@ def _launch(name: str, entry: str, ptrs, ints, x2: torch.Tensor,
     # it is read, so left uninitialized) and their barrier counters
     hbuf = torch.empty(2, 2, b, hidden, dtype=torch.bfloat16,
                        device=x2.device)
+    scratch = (hbuf,)
+    if cells:
+        scratch += (torch.empty(2, b, hidden, dtype=torch.bfloat16,
+                                device=x2.device),)
     bar = torch.zeros(2 * b, dtype=torch.int32, device=x2.device)
     outs = out if isinstance(out, tuple) else (out,)
-    fn = _kernel(entry, len(ptrs) + len(outs) + 2, len(ints) + 1)
-    status = fn(*(build.ptr(t) for t in ptrs + outs), build.ptr(hbuf),
+    fn = _kernel(entry, len(ptrs) + len(outs) + len(scratch) + 1,
+                 len(ints) + 1)
+    status = fn(*(build.ptr(t) for t in ptrs + outs + scratch),
                 build.ptr(bar), *ints, x2.get_device(), build.stream_of(x2))
     build.check(status, f'rnn.{name}')
     launches[name] += 1
     return out
+
+
+def _plan_ints(mode: str, x2: torch.Tensor, hidden: int, n_mels: int = 0):
+    """The step-major entry's plan arguments for x2 on its card: unit, (mel
+    columns,) warpgroups, groups, ring stages, carve."""
+    t_len, _, batch, in_dim = x2.shape
+    p = plan(mode, batch, t_len, in_dim, hidden, n_mels,
+             *device_limits(x2.device))
+    return (p['unit'], *((p['mel_cols'],) if mode == 'lstm_mel' else ()),
+            p['warpgroups'], p['groups'], p['stages'], p['smem'])
 
 
 def gru_xp(xp2: torch.Tensor, wh: torch.Tensor,
@@ -190,7 +307,7 @@ def gru(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
             (2, h, 3 * h)))
     out = x2.new_empty(t_len, 2, b, h)
     return _launch('gru', 'rnn_gru_x_bf16', (x2, wi, wh, bi, bh),
-                   (t_len, b, i, h), x2, out, h)
+                   (t_len, b, i, h, *_plan_ints('gru', x2, h)), x2, out, h)
 
 
 def lstm(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
@@ -220,7 +337,8 @@ def lstm_mel(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
             (2, h, 4 * h)))
     out = x2.new_empty(t_len, 2, batch, m)
     return _launch('lstm_mel', 'rnn_lstm_mel_bf16', (x2, wi, wh, b, wm),
-                   (t_len, batch, i, h, m), x2, out, h)
+                   (t_len, batch, i, h, m, *_plan_ints('lstm_mel', x2, h, m)),
+                   x2, out, h, cells=True)
 
 
 def lstm_train(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,

@@ -283,6 +283,71 @@ def test_lstm_mel_kernel_matches_twin(dev, b, t):
            [rnn.lstm_mel_plain(x2, wi, wh, bi + bh, wm).float()], BF16_TOL)
 
 
+@pytest.mark.parametrize('b', [65, 257, 1100])
+@pytest.mark.parametrize('t', [1, 2, 37])
+@pytest.mark.parametrize('cell', ['gru', 'lstm_mel'])
+def test_step_major_kernels_match_twins_across_tiles(dev, b, t, cell):
+    """The step-major kernels at full width (the postnet GRU I 256, H 256;
+    LSTM-mel I 512, H 512, M 80) at batches that cross a 128-row tile (65
+    in one, 257 in three), a group boundary, and a ragged batch above the
+    groups' first round of tiles (1100: some groups walk two tiles)."""
+    g = torch.Generator().manual_seed(b * 100 + t)
+    if cell == 'gru':
+        i, h = 256, 256
+        wi, wh, bi, bh = _rnn_weights(g, i, h, 3, dev)
+        x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+        args, kernel, plain = (x2, wi, wh, bi, bh), rnn.gru, rnn.gru_plain
+    else:
+        i, h, m = 512, 512, 80
+        wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
+        x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+        args = (x2, wi, wh, bi + bh, _rand(g, (2, h, m), h ** -0.5, dev))
+        kernel, plain = rnn.lstm_mel, rnn.lstm_mel_plain
+    before = dict(rnn.launches)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert rnn.launches == {**before, cell: before[cell] + 1}
+    _close([got.float()], [plain(*args).float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('cell,fault', [('gru', 'carve'),
+                                        ('lstm_mel', 'limit')])
+def test_step_entry_refuses_a_plan_that_does_not_fit(dev, cell, fault,
+                                                     monkeypatch):
+    """The entry checks the plan it is given: a carve that is not the
+    kernel's own sum, or one over the card's limit, is refused and the
+    wrapper raises without counting a launch."""
+    real = rnn.plan
+
+    def faulty(*args):
+        p = dict(real(*args))
+        if fault == 'carve':
+            p['smem'] += 128
+        else:
+            stage = p['tile'] * p['chunk'] * 2
+            p['smem'] += (rnn.MAX_STAGES - p['stages']) * stage
+            p['stages'] = rnn.MAX_STAGES
+        return p
+
+    monkeypatch.setattr(rnn, 'plan', faulty)
+    g = torch.Generator().manual_seed(1)
+    i = h = 512 if cell == 'lstm_mel' else 256
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4 if cell == 'lstm_mel' else 3,
+                                  dev)
+    x2 = _rand(g, (3, 2, 300, i), 1.0, dev)    # 128-row tiles: 5 stages fit
+    before = dict(rnn.launches)
+    with pytest.raises(RuntimeError, match='launch failed'):
+        if cell == 'gru':
+            rnn.gru(x2, wi, wh, bi, bh)
+        else:
+            rnn.lstm_mel(x2, wi, wh, bi + bh,
+                         _rand(g, (2, h, 80), h ** -0.5, dev))
+    assert rnn.launches == before
+    assert fault == 'carve' or rnn.plan(
+        'lstm_mel', 300, 3, i, h, 80,
+        *rnn.device_limits(dev))['smem'] > rnn.device_limits(dev)[1]
+
+
 def test_unsupported_shapes_raise_on_the_card(dev):
     """A CUDA input the kernels do not take raises; it never runs the
     twin instead."""
