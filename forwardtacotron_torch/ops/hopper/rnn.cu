@@ -58,13 +58,16 @@
 //     CTA's columns of W_mel (h rows only). Every chunk runs the same
 //     product: a branch around wgmma makes ptxas serialize them all.
 //   - Two consumer warpgroups take alternate tiles, so one's cell update
-//     overlaps the other's products. The gates run in f32 from the fast
-//     exponential (__expf): with the library's expf and tanhf the cell
-//     update took a third of a step at serving batch.
+//     overlaps the other's products. The gates run in f32 to a few ulp, as
+//     in rnn_kernel and the twins: the library's tanhf, and a sigmoid from
+//     expf without a branch (sigmoid_nb).
 //   - Staging: a producer warp per consumer warpgroup loads [rows, 64]
 //     boxes of x_t and h_{t-1} with TMA into the warpgroup's ring of P
 //     stages (full / empty mbarriers), P chunks ahead, while the
-//     warpgroup keeps two chunks' products in flight behind the next.
+//     warpgroup keeps two chunks' products in flight behind the next. A
+//     stage goes back to the producer only once the warpgroup has waited
+//     for the chunk two after it, so P >= 3 (MIN_STAGES): with 2 the
+//     producer and the warpgroup would wait for each other.
 //     The barrier is split: the consumers arrive after their last tile of
 //     step t; the producers load the x half of step t+1 at once and wait
 //     only before the first h_t chunk, so the x products overlap the
@@ -160,12 +163,25 @@ __host__ __device__ inline Carve carve(int mode, int I, int H, int BB) {
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
-// the step-major kernel's gates: f32 from the fast exponential (__expf, a
-// few ulp), which keeps the cell update from stalling the products
-__device__ __forceinline__ float fast_sigmoid(float v) {
-  return __fdividef(1.f, 1.f + __expf(-v));
+// 1 / y for y in [1, 2]: the approximate reciprocal and one Newton step,
+// within an ulp
+__device__ __forceinline__ float rcp_1_2(float y) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  return fmaf(r, fmaf(-y, r, 1.f), r);
 }
-__device__ __forceinline__ float fast_tanh(float v) { return 2.f * fast_sigmoid(2.f * v) - 1.f; }
+
+// The step-major kernel's sigmoid, as accurate as sigmoidf (a few ulp:
+// expf's 2 and the reciprocal's 1) for every v, but without a branch:
+// the IEEE division's slow-path branch kept ptxas from interleaving a
+// thread's (row, unit) pairs, so the cell update outlasted the other
+// warpgroup's products.
+// e = exp(-|v|) lies in (0, 1], so 1 + e needs no range check.
+__device__ __forceinline__ float sigmoid_nb(float v) {
+  const float e = expf(-fabsf(v));
+  const float r = rcp_1_2(1.f + e);
+  return v >= 0.f ? r : e * r;
+}
 
 // 16-byte global -> shared copy that does not wait for its data; .cg reads
 // through L2 only, so h written by other SMs before the barrier is seen
@@ -375,6 +391,7 @@ constexpr int KC = 64;     // depth of one ring stage: one 128-byte swizzle row
 constexpr int TILE = 64;   // batch rows of a tile: one consumer warpgroup's
 constexpr int STAGE = TILE * KC * 2;
 constexpr int MAX_STAGES = 8;  // per consumer warpgroup
+constexpr int MIN_STAGES = 3;  // a chunk loading while two are held
 
 struct StepParams {
   CUtensorMap xmap;  // x as [T*2*B rows, I], boxes of [box_rows, 64], 128-byte swizzle
@@ -709,16 +726,16 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
               const float pv = t == 0 ? 0.f
                                : e ? __high2float(prev[i][ub]) : __low2float(prev[i][ub]);
               if constexpr (MEL) {
-                const float gi = fast_sigmoid(acc[a] + bxs[u]);
-                const float gf = fast_sigmoid(acc[UB * 4 + a] + bxs[UNIT + u]);
-                const float gg = fast_tanh(acc[2 * UB * 4 + a] + bxs[2 * UNIT + u]);
-                const float go = fast_sigmoid(acc[3 * UB * 4 + a] + bxs[3 * UNIT + u]);
+                const float gi = sigmoid_nb(acc[a] + bxs[u]);
+                const float gf = sigmoid_nb(acc[UB * 4 + a] + bxs[UNIT + u]);
+                const float gg = tanhf(acc[2 * UB * 4 + a] + bxs[2 * UNIT + u]);
+                const float go = sigmoid_nb(acc[3 * UB * 4 + a] + bxs[3 * UNIT + u]);
                 cn[e] = gf * pv + gi * gg;
-                hv[e] = go * fast_tanh(cn[e]);
+                hv[e] = go * tanhf(cn[e]);
               } else {
-                const float rg = fast_sigmoid(acc[a] + bxs[u] + bhs[u]);
-                const float zg = fast_sigmoid(acc[UB * 4 + a] + bxs[UNIT + u] + bhs[UNIT + u]);
-                const float ng = fast_tanh(acc[2 * UB * 4 + a] + bxs[2 * UNIT + u] +
+                const float rg = sigmoid_nb(acc[a] + bxs[u] + bhs[u]);
+                const float zg = sigmoid_nb(acc[UB * 4 + a] + bxs[UNIT + u] + bhs[UNIT + u]);
+                const float ng = tanhf(acc[2 * UB * 4 + a] + bxs[2 * UNIT + u] +
                                        rg * (acc[3 * UB * 4 + a] + bhs[2 * UNIT + u]));
                 hv[e] = (1.f - zg) * ng + zg * pv;
               }
@@ -735,14 +752,17 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
         }
         if (MEL && t > 0) {
 #pragma unroll
-          for (int jm = 0; jm < MCOLS / 8; ++jm)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int m = s * MCOLS + jm * 8 + upair + e;
-              if (m < M)
-                p.out[(((size_t)(t - 1) * 2 + d) * B + b) * M + m] =
-                    __float2bfloat16(acc[(4 * UB + jm) * 4 + i * 2 + e]);
+          for (int jm = 0; jm < MCOLS / 8; ++jm) {  // columns m, m + 1 of mel_{t-1}
+            const int m = s * MCOLS + jm * 8 + upair;
+            const float* av = acc + (4 * UB + jm) * 4 + i * 2;
+            bf16* dst = p.out + (((size_t)(t - 1) * 2 + d) * B + b) * M + m;
+            if (m + 1 < M && !(M & 1)) {  // both in the row, 4-byte aligned
+              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(av[0], av[1]);
+            } else {
+              if (m < M) dst[0] = __float2bfloat16(av[0]);
+              if (m + 1 < M) dst[1] = __float2bfloat16(av[1]);
             }
+          }
         }
       }
     }
@@ -795,8 +815,8 @@ int launch_step(StepParams& p, const void* x, int wgs, int smem, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (p.B + TILE - 1) / TILE;
-  if (p.H % UNIT || p.I % 16 || p.P < 2 || p.P > MAX_STAGES || p.R < 1 || p.R > n_tiles ||
-      (wgs != 1 && wgs != 2))
+  if (p.H % UNIT || p.I % 16 || p.P < MIN_STAGES || p.P > MAX_STAGES || p.R < 1 ||
+      p.R > n_tiles || (wgs != 1 && wgs != 2))
     return (int)cudaErrorInvalidValue;
   if (MODE == MODE_LSTM_MEL && (p.H / UNIT) * MCOLS < p.M) return (int)cudaErrorInvalidValue;
   p.wgs = wgs;

@@ -41,10 +41,12 @@ from forwardtacotron_torch.ops.hopper import build
 launches = {'gru_xp': 0, 'gru': 0, 'lstm': 0, 'lstm_mel': 0, 'lstm_train': 0}
 
 # rnn.cu's step-major schedule (rnn_step_kernel): batch rows of a tile (one
-# consumer warpgroup's), depth of one ring stage, most ring stages per
-# warpgroup
+# consumer warpgroup's), depth of one ring stage, fewest and most ring
+# stages per warpgroup (a warpgroup frees a stage only once it has waited
+# for the chunk two after it, so the producer needs a third)
 WG_ROWS = 64
 CHUNK = 64
+MIN_STAGES = 3
 MAX_STAGES = 8
 
 
@@ -70,48 +72,62 @@ def plan(mode: str, batch: int, t_len: int, in_dim: int, hidden: int,
     ``tiles_per_group`` at most, then meets its group at one barrier:
     ``rounds`` = T serial rounds. With two tiles or more per group the CTA
     runs 2 ``warpgroups`` on alternate tiles, each with a ring of as many
-    stages of tile x CHUNK bf16 as the carve leaves room for (at most
-    MAX_STAGES). ``smem`` is the carve in bytes, as rnn.cu's step_carve
-    sums it (the entry refuses any other value). ``mel_cols``: the W_mel
-    columns of one CTA (a multiple of 8, the wgmma width; columns past M
-    are zero). ``cluster`` is 1: no clusters."""
+    stages of tile x CHUNK bf16 as the carve leaves room for (MIN_STAGES
+    to MAX_STAGES). The first slice width that leaves MIN_STAGES wins:
+    LSTM-mel takes 16 units (its mel columns fill the wgmma width); the
+    GRU 32 where a batch of several tiles makes each staged byte feed more
+    columns, 8 at one tile for more CTAs and a shorter step, and the other
+    widths where the carve or the SMs refuse the first; one warpgroup only
+    where no width leaves two rings room. ``smem`` is the carve in bytes,
+    as rnn.cu's step_carve sums it (the entry refuses any other value).
+    ``mel_cols``: the W_mel columns of one CTA (a multiple of 8, the wgmma
+    width; columns past M are zero). ``cluster`` is 1: no clusters."""
     if mode not in ('gru', 'lstm_mel'):
         raise ValueError(f'rnn.plan: no step-major kernel for {mode!r}')
+    if hidden % 16 or in_dim % 16:
+        raise ValueError(f'rnn.plan: H={hidden} or I={in_dim} is not a '
+                         'multiple of 16')
     mel = mode == 'lstm_mel'
     tile = WG_ROWS
     n_tiles = -(-batch // tile)
-    # the GRU's slice: 32 units (128 columns) where a batch of several
-    # tiles makes each staged byte feed more columns; 8 at one tile, for
-    # more CTAs and a shorter step
-    unit = (16 if mel or hidden % 8 else 8 if n_tiles == 1
-            else 32 if hidden % 32 == 0 else 16)
-    if hidden % unit or in_dim % 16:
-        raise ValueError(f'rnn.plan: H={hidden} is not a multiple of {unit} '
-                         f'or I={in_dim} not of 16')
-    per_dir = hidden // unit
-    mel_cols = 8 * -(-n_mels // (8 * per_dir)) if mel else 0
-    if mel_cols > 16:
-        raise ValueError(f'rnn.plan: M={n_mels} needs {mel_cols} mel columns '
-                         f'per CTA at H={hidden}; the kernel takes 16')
-    groups = min(n_sm // (2 * per_dir), n_tiles)
-    if groups < 1:
-        raise ValueError(f'rnn.plan: 2 x {per_dir} CTAs do not fit {n_sm} SMs')
-    tiles_per_group = -(-n_tiles // groups)
-    warpgroups = 2 if tiles_per_group >= 2 else 1
     depth = -(-in_dim // CHUNK) * CHUNK + -(-hidden // CHUNK) * CHUNK
-    fixed = (_align128(depth * (4 * unit + mel_cols) * 2)
-             + _align128(2 * 4 * unit * 4) + _align128(32 * MAX_STAGES) + 1024)
-    ring_stage = warpgroups * tile * CHUNK * 2
-    stages = min(MAX_STAGES, (smem_limit - fixed) // ring_stage)
-    if stages < 2:
-        raise ValueError(f'rnn.plan: a {mode} CTA of I={in_dim}, H={hidden} '
-                         f'needs {fixed + 2 * ring_stage} B of shared '
-                         f'memory, the card has {smem_limit}')
-    return dict(unit=unit, ctas_per_direction=per_dir, tile=tile,
-                groups=groups, tiles_per_group=tiles_per_group,
-                warpgroups=warpgroups, stages=stages, chunk=CHUNK, cluster=1,
-                mel_cols=mel_cols, smem=fixed + stages * ring_stage,
-                grid=(per_dir, 2, groups), rounds=t_len)
+    units = (16,) if mel else (8, 16, 32) if n_tiles == 1 else (32, 16, 8)
+    why = []
+    for warpgroups in (2, 1):
+        for unit in units:
+            if hidden % unit:
+                continue
+            per_dir = hidden // unit
+            mel_cols = 8 * -(-n_mels // (8 * per_dir)) if mel else 0
+            if mel_cols > 16:
+                raise ValueError(f'rnn.plan: M={n_mels} needs {mel_cols} mel '
+                                 f'columns per CTA at H={hidden}; the kernel '
+                                 'takes 16')
+            groups = min(n_sm // (2 * per_dir), n_tiles)
+            if groups < 1:
+                why.append(f'{unit} units: 2 x {per_dir} CTAs > {n_sm} SMs')
+                continue
+            tiles_per_group = -(-n_tiles // groups)
+            if warpgroups > tiles_per_group:
+                continue
+            fixed = (_align128(depth * (4 * unit + mel_cols) * 2)
+                     + _align128(2 * 4 * unit * 4) + _align128(32 * MAX_STAGES)
+                     + 1024)
+            ring_stage = warpgroups * tile * CHUNK * 2
+            stages = min(MAX_STAGES, (smem_limit - fixed) // ring_stage)
+            if stages < MIN_STAGES:
+                why.append(f'{unit} units x {warpgroups} warpgroups: '
+                           f'{fixed + MIN_STAGES * ring_stage} B')
+                continue
+            return dict(unit=unit, ctas_per_direction=per_dir, tile=tile,
+                        groups=groups, tiles_per_group=tiles_per_group,
+                        warpgroups=warpgroups, stages=stages, chunk=CHUNK,
+                        cluster=1, mel_cols=mel_cols,
+                        smem=fixed + stages * ring_stage,
+                        grid=(per_dir, 2, groups), rounds=t_len)
+    raise ValueError(f'rnn.plan: no {mode} slice of I={in_dim}, H={hidden} '
+                     f'fits {n_sm} SMs of {smem_limit} B shared memory '
+                     f'({"; ".join(why)})')
 
 
 _limits = {}

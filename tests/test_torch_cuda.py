@@ -288,9 +288,11 @@ def test_lstm_mel_kernel_matches_twin(dev, b, t):
 @pytest.mark.parametrize('cell', ['gru', 'lstm_mel'])
 def test_step_major_kernels_match_twins_across_tiles(dev, b, t, cell):
     """The step-major kernels at full width (the postnet GRU I 256, H 256;
-    LSTM-mel I 512, H 512, M 80) at batches that cross a 128-row tile (65
-    in one, 257 in three), a group boundary, and a ragged batch above the
-    groups' first round of tiles (1100: some groups walk two tiles)."""
+    LSTM-mel I 512, H 512, M 80) at batches that cross 64-row tiles and
+    group boundaries: 65 (two tiles, one per group), 257 (five tiles: the
+    GRU's 8 groups hold one each, LSTM-mel's 2 groups three, so two
+    consumer warpgroups), and a ragged batch above the groups' first round
+    of tiles (1100, 18 tiles: every group walks two or more)."""
     g = torch.Generator().manual_seed(b * 100 + t)
     if cell == 'gru':
         i, h = 256, 256
@@ -310,23 +312,104 @@ def test_step_major_kernels_match_twins_across_tiles(dev, b, t, cell):
     _close([got.float()], [plain(*args).float()], BF16_TOL)
 
 
+# (cell, B, I, H) -> the plan's (unit, warpgroups, stages) on an H100
+FEW_STAGES = {
+    # the fewest stages the kernel takes, with two warpgroups
+    ('gru', 1100, 192, 512): (32, 2, 3),
+    ('lstm_mel', 1100, 640, 512): (16, 2, 3),
+    # where the first slice leaves two stages: a narrower slice, one ring
+    ('gru', 1100, 256, 512): (16, 2, 8),
+    ('lstm_mel', 1100, 768, 512): (16, 1, 5),
+    # where the first slice does not fit at all
+    ('gru', 300, 256, 1024): (16, 2, 4),
+}
+
+
+@pytest.mark.parametrize('t', [1, 37])
+@pytest.mark.parametrize('shape', sorted(FEW_STAGES))
+def test_step_major_kernels_with_few_ring_stages(dev, t, shape):
+    """Widths whose weight slice leaves the rings little room: the
+    smallest ring the plan admits (3 stages, two warpgroups of several
+    tiles each), and the plan's fallbacks to a narrower slice or one
+    warpgroup. Every element within BF16_TOL of the twin, one launch."""
+    cell, b, i, h = shape
+    m = 80 if cell == 'lstm_mel' else 0
+    if rnn.device_limits(dev) == (132, 232_448):
+        p = rnn.plan(cell, b, t, i, h, m, *rnn.device_limits(dev))
+        assert (p['unit'], p['warpgroups'], p['stages']) == FEW_STAGES[shape]
+        assert p['tiles_per_group'] >= 2
+    g = torch.Generator().manual_seed(b + t + i + h)
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4 if m else 3, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    if m:
+        args = (x2, wi, wh, bi + bh, _rand(g, (2, h, m), h ** -0.5, dev))
+        kernel, plain = rnn.lstm_mel, rnn.lstm_mel_plain
+    else:
+        args, kernel, plain = (x2, wi, wh, bi, bh), rnn.gru, rnn.gru_plain
+    before = dict(rnn.launches)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert rnn.launches == {**before, cell: before[cell] + 1}
+    _close([got.float()], [plain(*args).float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('cell', ['gru', 'lstm_mel'])
+def test_step_major_gates_match_twin_to_one_bf16_step(dev, cell):
+    """The gates alone, held tighter than BF16_TOL: one time step (h and c
+    start at 0), every product exact in float32 (small integers times a
+    power of two per weight column, zero biases; for LSTM-mel a W_mel that
+    picks one unit per mel column), so kernel and twin see the same
+    pre-activations and each output element must lie within one bfloat16
+    step (2^-7 relative) of the twin's. The column scales reach 2^-26,
+    where tanh(v) ~ v: a tanh or sigmoid that loses relative accuracy near
+    0 (tanh as 2 sigmoid(2v) - 1 from a fast exponential) fails here."""
+    g = torch.Generator().manual_seed(5)
+    b, t = 300, 1
+    i, h, m = (256, 256, 0) if cell == 'gru' else (512, 512, 80)
+    cols = (3 if cell == 'gru' else 4) * h
+
+    def ints(*shape):
+        return torch.randint(-4, 5, shape, generator=g).float()
+
+    scale = 2.0 ** -torch.randint(4, 27, (2, 1, cols), generator=g).float()
+    x2 = (ints(t, 2, b, i) / 8).to(dev, torch.bfloat16)
+    wi = (ints(2, i, cols) * scale).to(dev, torch.bfloat16)
+    wh = _rand(g, (2, h, cols), h ** -0.5, dev)     # h_{-1} = 0: unused
+    zero = torch.zeros(2, cols, dtype=torch.bfloat16, device=dev)
+    if cell == 'gru':
+        args, kernel, plain = (x2, wi, wh, zero, zero), rnn.gru, rnn.gru_plain
+    else:
+        wm = torch.zeros(2, h, m)
+        wm[:, torch.arange(m) * 37 % h, torch.arange(m)] = 1.0
+        args = (x2, wi, wh, zero, wm.to(dev, torch.bfloat16))
+        kernel, plain = rnn.lstm_mel, rnn.lstm_mel_plain
+    got, want = kernel(*args).float(), plain(*args).float()
+    assert torch.isfinite(got).all()
+    tiny = (want != 0) & (want.abs() < 1e-5)
+    assert int(tiny.sum()) > 1000 and float(want.abs().max()) > 0.1
+    assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs()).all())
+
+
 @pytest.mark.parametrize('cell,fault', [('gru', 'carve'),
-                                        ('lstm_mel', 'limit')])
+                                        ('lstm_mel', 'limit'),
+                                        ('gru', 'stages')])
 def test_step_entry_refuses_a_plan_that_does_not_fit(dev, cell, fault,
                                                      monkeypatch):
     """The entry checks the plan it is given: a carve that is not the
-    kernel's own sum, or one over the card's limit, is refused and the
-    wrapper raises without counting a launch."""
+    kernel's own sum, one over the card's limit, or a ring of fewer than
+    MIN_STAGES stages (whose producer and consumers would wait for each
+    other), is refused and the wrapper raises without counting a launch."""
     real = rnn.plan
 
     def faulty(*args):
         p = dict(real(*args))
+        stage = p['warpgroups'] * p['tile'] * p['chunk'] * 2
         if fault == 'carve':
             p['smem'] += 128
         else:
-            stage = p['tile'] * p['chunk'] * 2
-            p['smem'] += (rnn.MAX_STAGES - p['stages']) * stage
-            p['stages'] = rnn.MAX_STAGES
+            n = rnn.MAX_STAGES if fault == 'limit' else rnn.MIN_STAGES - 1
+            p['smem'] += (n - p['stages']) * stage
+            p['stages'] = n
         return p
 
     monkeypatch.setattr(rnn, 'plan', faulty)
@@ -334,7 +417,7 @@ def test_step_entry_refuses_a_plan_that_does_not_fit(dev, cell, fault,
     i = h = 512 if cell == 'lstm_mel' else 256
     wi, wh, bi, bh = _rnn_weights(g, i, h, 4 if cell == 'lstm_mel' else 3,
                                   dev)
-    x2 = _rand(g, (3, 2, 300, i), 1.0, dev)    # 128-row tiles: 5 stages fit
+    x2 = _rand(g, (3, 2, 300, i), 1.0, dev)    # five 64-row tiles
     before = dict(rnn.launches)
     with pytest.raises(RuntimeError, match='launch failed'):
         if cell == 'gru':
@@ -343,9 +426,10 @@ def test_step_entry_refuses_a_plan_that_does_not_fit(dev, cell, fault,
             rnn.lstm_mel(x2, wi, wh, bi + bh,
                          _rand(g, (2, h, 80), h ** -0.5, dev))
     assert rnn.launches == before
-    assert fault == 'carve' or rnn.plan(
-        'lstm_mel', 300, 3, i, h, 80,
-        *rnn.device_limits(dev))['smem'] > rnn.device_limits(dev)[1]
+    if fault == 'limit':    # over the card's limit, not only off the sum
+        assert rnn.plan('lstm_mel', 300, 3, i, h, 80,
+                        *rnn.device_limits(dev))['smem'] \
+            > rnn.device_limits(dev)[1]
 
 
 def test_unsupported_shapes_raise_on_the_card(dev):

@@ -28,7 +28,32 @@ SHAPES = [
     ('gru', 65, 2, 256, 256, 0),
     ('gru', 1100, 1, 64, 128, 0),
     ('lstm_mel', 17, 37, 128, 128, 80),
+    # widths where the preferred slice leaves too few ring stages, and the
+    # ones where it leaves the fewest the kernel takes
+    ('gru', 4096, 256, 256, 512, 0),
+    ('lstm_mel', 4096, 256, 768, 512, 80),
+    ('gru', 4096, 256, 256, 1024, 0),
+    ('gru', 1, 896, 256, 1024, 0),
+    ('gru', 1100, 37, 192, 512, 0),
+    ('lstm_mel', 1100, 37, 640, 512, 80),
 ]
+
+# (mode, B, T, I, H, M) -> (unit, warpgroups, stages): the slice and rings
+# that plan falls back to where its first choice does not fit, and the
+# shapes that leave exactly MIN_STAGES
+FALLBACKS = {
+    # 32 units x 2 rings leave 2 stages: 16 units
+    ('gru', 4096, 256, 256, 512, 0): (16, 2, 8),
+    # 2 rings leave 2 stages: one warpgroup, 5 stages
+    ('lstm_mel', 4096, 256, 768, 512, 80): (16, 1, 5),
+    # 32 units do not fit beside any ring: 16 units (a width the tile-major
+    # kernel took at serving batch)
+    ('gru', 4096, 256, 256, 1024, 0): (16, 2, 4),
+    # 8 units make 256 CTAs, more than the SMs: 16 units
+    ('gru', 1, 896, 256, 1024, 0): (16, 1, 8),
+    ('gru', 1100, 37, 192, 512, 0): (32, 2, 3),
+    ('lstm_mel', 1100, 37, 640, 512, 80): (16, 2, 3),
+}
 
 
 def _carve(p, i_dim, h):
@@ -50,12 +75,18 @@ def _carve(p, i_dim, h):
 @pytest.mark.parametrize('mode,batch,t_len,i_dim,h,m', SHAPES)
 def test_plan_fits_and_covers(mode, batch, t_len, i_dim, h, m):
     p = rnn.plan(mode, batch, t_len, i_dim, h, m, H100_SMS, H100_SMEM)
-    # the carve fits, and is the kernel's sum with at least a double buffer
+    # the carve fits, and is the kernel's sum with at least three stages
+    # (with two the producer and the consumers wait for each other)
     assert p['smem'] == _carve(p, i_dim, h) <= H100_SMEM
-    assert 2 <= p['stages'] <= rnn.MAX_STAGES
+    assert rnn.MIN_STAGES == 3
+    assert rnn.MIN_STAGES <= p['stages'] <= rnn.MAX_STAGES
     # 64-row tiles; two warpgroups on alternate tiles where a group has two
+    # and their rings fit, else one
     assert p['tile'] == 64
-    assert p['warpgroups'] == (2 if p['tiles_per_group'] >= 2 else 1)
+    assert p['warpgroups'] in (1, 2)
+    assert p['warpgroups'] == 1 or p['tiles_per_group'] >= 2
+    if (mode, batch, t_len, i_dim, h, m) not in FALLBACKS:
+        assert p['warpgroups'] == (2 if p['tiles_per_group'] >= 2 else 1)
     # resident: one CTA per SM, H / unit CTAs per direction and group
     s, dirs, groups = p['grid']
     assert s * p['unit'] == h and dirs == 2 and groups == p['groups']
@@ -80,6 +111,14 @@ def test_plan_fits_and_covers(mode, batch, t_len, i_dim, h, m):
         assert s * (p['mel_cols'] - 8) < m
 
 
+@pytest.mark.parametrize('shape', sorted(FALLBACKS))
+def test_plan_falls_back(shape):
+    """Where the first slice width leaves fewer than MIN_STAGES stages or
+    more CTAs than SMs, plan takes the next width, then one warpgroup."""
+    p = rnn.plan(*shape, H100_SMS, H100_SMEM)
+    assert (p['unit'], p['warpgroups'], p['stages']) == FALLBACKS[shape]
+
+
 @pytest.mark.parametrize('case', ['mode', 'carve', 'mel', 'sms'])
 def test_plan_refuses(case):
     """Shapes the step-major kernel cannot take raise ValueError: another
@@ -88,6 +127,8 @@ def test_plan_refuses(case):
     args = {'mode': ('lstm', 4, 3, 128, 128, 0, H100_SMS, H100_SMEM),
             'carve': ('lstm_mel', 4, 3, 2048, 512, 80, H100_SMS, H100_SMEM),
             'mel': ('lstm_mel', 4, 3, 128, 128, 200, H100_SMS, H100_SMEM),
-            'sms': ('gru', 4, 3, 256, 2048, 0, H100_SMS, H100_SMEM)}[case]
-    with pytest.raises(ValueError):
+            'sms': ('gru', 4, 3, 256, 256, 0, 8, H100_SMEM)}[case]
+    match = {'mode': 'no step-major kernel', 'carve': r'\d+ B\)',
+             'mel': 'mel columns', 'sms': 'CTAs > 8 SMs'}[case]
+    with pytest.raises(ValueError, match=match):
         rnn.plan(*args)
