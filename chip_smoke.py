@@ -21,8 +21,12 @@ Run from the repository root. Phases, each of which must pass:
 5. bfloat16: hold every kernel of the serving and two-phase paths (and the
    bf16 entries of the slice-1 kernels) against its twin in bf16 on the
    card, at one serving call's shapes and at one request's, and time it
-   beside its twin and, for the recurrences, cuDNN's bidirectional
-   ``nn.LSTM`` / ``nn.GRU`` as a yardstick the port never calls;
+   beside its twin and a yardstick the port never calls: for the
+   recurrences cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``, for the
+   highway stack the residual add and the ``nn.Linear`` chain, for the
+   CBHG front the bank as one cuDNN K-tap convolution, ``pool_mask`` and
+   cuDNN's proj1 convolution; the launch plans of the front and highway
+   kernels are printed;
 6. the bfloat16 serving path as ``bench.py`` shapes it: its 8 sentences
    tiled to batch 4096, 3 frames per token, ``max_len`` 256, routed to
    16-frame buckets, through ``TTSInference.generate_fused``: launch counts
@@ -33,8 +37,8 @@ Run from the repository root. Phases, each of which must pass:
    card and on the CPU plain path;
 9. the CBHG variants: ``highway_stack``, ``pool_proj1`` and ``pool_mask``
    against their twins (bf16 at one serving call's shapes, float32 at one
-   request's), timed beside the twin and the plain route the default path
-   takes; ``CBHG._highways_fused`` against the layer chain; bf16
+   request's, ``highway_stack`` also bf16 at one request's), timed beside
+   the twin and the plain route the default path takes; ``CBHG._highways_fused`` against the layer chain; bf16
    ``generate_fused`` at the serving shape with the "pool_proj" and "pool"
    routes set on the model's CBHGs (exact launches per call, mel against
    the default route's, audio-s/s in turns with the default); the longest
@@ -618,28 +622,35 @@ RNN_KERNELS = {'gru': r'rnn_step_kernel<(\(int\))?0,',
                'lstm': r'rnn_kernel<(\(int\))?1>',
                'gru_xp': r'rnn_kernel<(\(int\))?2>',
                'lstm_mel': r'rnn_step_kernel<(\(int\))?3,'}
+# the bf16 entries of rows 1 and 2 are their tensor-core kernels
 SERVING_KERNEL_NAMES = {
-    'pre_highway_stack': [PRE_HIGHWAY_KERNEL],
-    'cbhg_front': ['cbhg_front_kernel'],
+    'pre_highway_stack': [r'highway_mma_kernel<[^>]*true>'],
+    'cbhg_front': ['cbhg_front_mma_kernel'],
     'lr_bidir': ['lr_bidir_kernel'],
     **{k: [v] for k, v in RNN_KERNELS.items() if k != 'lstm'}}
 
 
 def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
-               library=None):
+               library=None, yardstick=None):
     """Kernel vs twin on the same bf16 inputs, then CUDA-event times of the
-    kernel, the twin and (where one exists) one library call."""
+    kernel, the twin and (where one exists) one library call or, where no
+    single call computes the function, a yardstick chain of calls."""
     err = compare(torch, name, kernel(*args).float(), plain(*args).float(),
                   BF16_TOL)
     k_ms = time_ms(torch, lambda: kernel(*args))
     p_ms = time_ms(torch, lambda: plain(*args))
     l_ms = None if library is None else time_ms(torch, library)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    res = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    extra = ''
+    if yardstick is not None:
+        res['yardstick_ms'] = time_ms(torch, yardstick)
+        extra = f', yardstick {res["yardstick_ms"]:.4f} ms'
     log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
-        f'{"-" if l_ms is None else f"{l_ms:.4f} ms"}, bound {b_ms:.4f} ms '
-        f'({b_by})')
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                bound_ms=b_ms, bound_by=b_by)
+        f'{"-" if l_ms is None else f"{l_ms:.4f} ms"}{extra}, bound '
+        f'{b_ms:.4f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s')
+    return res
 
 
 def log_plan(rnn, mode: str, x2, hidden: int, n_mels: int = 0) -> None:
@@ -689,39 +700,57 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
     t_run = -(-t // lr_bidir.T_TILE) * lr_bidir.T_TILE
 
     # pre_highway_stack: prenet (N = tokens, 256 -> 256) and postnet
-    # (N = frames, 80 -> 256), the two launches of one call
+    # (N = frames, 80 -> 256), the two launches of one call; yardstick the
+    # residual add and the nn.Linear chain (pre_highway, the highways)
     parts = []
     for mod, rows in ((model.prenet, b * n), (model.postnet, b * t)):
         c_in, c = mod.pre_highway.weight.shape[1], mod.channels
-        log(f'  pre_highway_stack bf16 N={rows} C_in={c_in}')
+        log(f'  pre_highway_stack bf16 N={rows} C_in={c_in} (yardstick: '
+            'residual add + nn.Linear chain)')
+        log(f'    plan: {highway.plan(c_in, c)}')
         layers_n = len(mod.highways)
         flops = 2 * rows * c_in * c + layers_n * 2 * rows * c * 2 * c
         nbytes = 2 * (2 * rows * c_in + c_in * c + layers_n * 2 * c * c
                       + rows * c) + 4 * layers_n * 2 * c
+        a, r = randn(rows, c_in), randn(rows, c_in)
+
+        def chain(mod=mod, a=a, r=r):
+            y = mod.pre_highway(a + r)
+            for hw in mod.highways:
+                y = hw(y)
+            return y
         parts.append(bf16_check(
             torch, f'N={rows}', highway.pre_highway_stack,
-            highway.pre_highway_stack_plain,
-            mod.highway_args(randn(rows, c_in), randn(rows, c_in)),
-            flops, nbytes))
+            highway.pre_highway_stack_plain, mod.highway_args(a, r),
+            flops, nbytes, yardstick=chain))
+        del a, r
     res['pre_highway_stack'] = {
         k: (max(p[k] for p in parts) if k == 'max_abs_err'
             else parts[0][k] if k == 'bound_by'
             else None if k == 'library_ms' else sum(p[k] for p in parts))
         for k in parts[0]}
 
-    # cbhg_front: the postnet front at the decode budget, tail masked
+    # cbhg_front: the postnet front at the decode budget, tail masked;
+    # yardstick the bank as one cuDNN K-tap conv1d (+ ReLU, BN), pool_mask,
+    # then cuDNN's proj1 conv1d (+ ReLU, BN)
     post = model.postnet
-    log(f'  cbhg_front bf16 B={b} T={t} (valid {frames})')
-    mask = (torch.arange(t, device=dev) < frames).float().expand(b, t)
+    log(f'  cbhg_front bf16 B={b} T={t} (valid {frames}; yardstick: fused '
+        'cuDNN bank, pool_mask, cuDNN proj1)')
+    mask = (torch.arange(t, device=dev) < frames).float().expand(
+        b, t).contiguous()
     x = randn(b, t, 80) * mask[:, :, None].to(bf)
     k_max, c, p = post.K, post.channels, 256
+    log(f'    plan: {cbhg.plan(bf, k_max, 80, c, p)}')
     sum_k = k_max * (k_max + 1) // 2
     res['cbhg_front'] = bf16_check(
         torch, f'B={b} T={t}', cbhg.bank_pool_proj, cbhg.bank_pool_proj_plain,
         post.front_args(x, mask),
         2 * b * t * (sum_k * 80 * c + 3 * k_max * c * p),
         2 * (b * t * 80 + sum_k * 80 * c + 3 * k_max * c * p + b * t * p)
-        + 4 * (b * t + 2 * k_max * c + 2 * p))
+        + 4 * (b * t + 2 * k_max * c + 2 * p),
+        yardstick=lambda: post.conv_project1(cbhg.pool_mask(
+            post._bank_fused(x).contiguous(), mask)))
+    del x
 
     # gru_from_xp: the four token GRUs as one block-diagonal H=512 GRU
     rnns = [model.dur_pred.rnn, model.pitch_pred.rnn, model.energy_pred.rnn,
@@ -1116,10 +1145,13 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
             res[name] = dict(part, at=f'one request: prenet T={t}')
         del x, mask
 
-    # row 11: the postnet's rows, bf16 at the serving shape, f32 at one
-    # request's budget; yardstick the HighwayNetwork chain (nn.Linear)
+    # row 11: the postnet's rows, bf16 at the serving shape and at one
+    # request's budget, f32 at the request's; yardstick the HighwayNetwork
+    # chain (nn.Linear)
     for name, dtype, n in (('highway_stack_bf16', torch.bfloat16,
                             batch * SERVING_MAX_LEN),
+                           ('highway_stack_bf16_request', torch.bfloat16,
+                            t_req),
                            ('highway_stack', torch.float32, t_req)):
         post = (model16 if dtype == torch.bfloat16 else model).postnet
         c, layers_n = post.channels, len(post.highways)
@@ -1141,6 +1173,10 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
             dtype)
         res[name]['at'] = f'postnet rows N={n}'
         del x
+    request = res.pop('highway_stack_bf16_request')
+    res['highway_stack_bf16'].update(
+        {f'request_{k}': request[k]
+         for k in ('ms', 'plain_ms', 'bound_ms', 'yardstick_ms')})
     for r in res.values():
         r['library_ms'] = None
     return res
@@ -2185,8 +2221,10 @@ def main() -> None:
     serving_tok = max(len(Tokenizer()(s)) for s in BENCH_SENTENCES)
     serving_frames = SERVING_FRAMES_PER_TOKEN * serving_tok
     with torch.inference_mode():
-        bf16_kernel_phase(torch, model16, 'one request', 1, n_tok, n_frames,
-                          -(-n_frames // 128) * 128, two_phase=True)
+        request16 = bf16_kernel_phase(torch, model16, 'one request', 1,
+                                      n_tok, n_frames,
+                                      -(-n_frames // 128) * 128,
+                                      two_phase=True)
     serving_launches, serving = serving_phase(torch, model16, config)
     with torch.inference_mode():
         results16 = bf16_kernel_phase(
@@ -2239,6 +2277,11 @@ def main() -> None:
         training['card_vs_cpu_rel'] = train_reference_phase(torch, config,
                                                             Path(tmp))
     training['lr_f32'] = results_train['lr_f32']
+    # rows 1 and 2 in bf16 at one request, beside the serving numbers
+    for name in ('pre_highway_stack', 'cbhg_front'):
+        results16[name].update(
+            {f'request_{k}': request16[name][k]
+             for k in ('ms', 'plain_ms', 'bound_ms', 'yardstick_ms')})
     training['gru_train_fwd'] = results_train['gru_train_fwd']
 
     rows = [  # (name, results, launches, source, TPU kernel body)
@@ -2301,7 +2344,9 @@ def main() -> None:
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r.get('library_ms'), 'at': r['at'],
             **{k: r[k] for k in ('fused_level_ms', 'cudnn_level_ms',
-                                 'yardstick_ms', 'postnet_ms', 'prenet_ms')
+                                 'yardstick_ms', 'postnet_ms', 'prenet_ms',
+                                 'request_ms', 'request_plain_ms',
+                                 'request_bound_ms', 'request_yardstick_ms')
                if k in r}})
     log(f'serving: {json.dumps(serving)}')
     log(f'cbhg variants: {json.dumps(variants)}')

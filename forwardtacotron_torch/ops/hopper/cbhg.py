@@ -24,12 +24,37 @@ launches = 0              # bank_pool_proj (cbhg_front.cu)
 pool_proj1_launches = 0   # pool_proj1 (pool.cu)
 pool_mask_launches = 0    # pool_mask (pool.cu)
 
-# the kernel keeps one output column per thread
-MAX_P = 256
-# frames per CTA, and the shared memory it holds them in: a float32 input
-# halo [TT + K + 2, C_in] and the pooled rows of one branch [TT + 2, C]
-TT = 32
+# the JAX gate's halo clause (forwardtacotron_tpu/ops/pallas/cbhg.py
+# BANK_HALO): the largest bank tap offset K // 2 the kernel is planned for
+BANK_HALO = 8
 SMEM_BYTES = 232448
+
+# bf16 entry (cbhg_front_mma_kernel): TM output frames per CTA, whose bank
+# runs over BANK_ROWS rows (nine 16-row tiles: frames t0-2 .. t0+141, of
+# which t0-2 .. t0+TM feed the pool); the bank walks C in chunks of CB
+# columns, each chunk's taps x input channels stream through a ring of
+# stages of at most KS rows, the projection's P in tiles of PT columns.
+# Weight rows are LD elements (CB + 8: ldmatrix without bank conflicts).
+TM = 128
+BANK_ROWS = 144
+CB = 64
+PT = 256
+KS = 256
+LD = CB + 8
+STAGE_BYTES = 2 * KS * LD
+MAX_STAGES = 4
+# the ring's mbarriers, the f32 bank rows of one chunk ([TM + 3, LD]), the
+# tile's mask (TM + 4) and the chunk's folded BN (2 CB) in f32, and its
+# pooled bf16 rows ([TM + 2, LD]), beside the halo and the ring
+_MMA_FIXED = 64 + 4 * ((TM + 3) * LD + TM + 4 + 2 * CB) + 2 * (TM + 2) * LD
+
+# f32 entry (cbhg_front_kernel, FMA): F32_TT frames per CTA, one bank
+# column per thread in chunks of F32_CB, one output column per thread in
+# tiles of F32_PT
+F32_TT = 32
+F32_CB = 256
+F32_PT = 256
+_F32_FIXED = 4 * (F32_TT + 2) * F32_CB
 
 _ENTRY = {torch.float32: 'cbhg_front_f32', torch.bfloat16: 'cbhg_front_bf16'}
 
@@ -69,23 +94,76 @@ def bank_pool_proj_plain(x: torch.Tensor, mask: torch.Tensor,
     return (torch.relu(acc) * proj_scale + proj_bias).to(dt)
 
 
+def _round(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def plan(dtype: torch.dtype, k_max: int, c_in: int, c: int, p: int,
+         smem_limit: int = SMEM_BYTES) -> dict:
+    """The launch plan of the front kernel for ``dtype``: a bank of
+    ``k_max`` convolutions C_in -> C and a projection to P. Needs no card.
+
+    Both entries hold the input halo of a frame tile (frames t0-2-K//2 ..
+    t0+tile+K-1-K//2, the bank's taps over the pool's and the projection's
+    look-around) in shared memory, resident over all branches where it
+    fits (``n_ci`` 1), else in ``n_ci`` chunks of ``ki`` input channels
+    reloaded for each bank chunk. bf16: ``tile`` = TM frames, C padded to
+    CB-column chunks (``c_pad``), P to PT-column tiles (``p_pad``), C_in to
+    ``n_ci`` x ``ki`` (multiples of 16), and a ring of ``stages`` (2 ..
+    MAX_STAGES) weight stages of STAGE_BYTES. f32: ``tile`` = F32_TT
+    frames, ``ki`` a multiple of 4 (the last chunk may be narrower), C and
+    P in chunks of 256 columns. Raises ``ValueError`` for a shape it cannot
+    plan."""
+    if min(k_max, c_in, c, p) <= 0:
+        raise ValueError(f'K={k_max}, C_in={c_in}, C={c}, P={p} must be '
+                         'positive')
+    if k_max // 2 > BANK_HALO:
+        raise ValueError(f'K={k_max}: bank taps reach K//2 = {k_max // 2} '
+                         f'frames back, more than the {BANK_HALO}-frame '
+                         'halo of the JAX gate')
+    if dtype == torch.bfloat16:
+        rows = BANK_ROWS + k_max - 1
+        c_in16 = _round(c_in, 16)
+        for n_ci in range(1, c_in16 // 16 + 1):
+            ki = _round(-(-c_in16 // n_ci), 16)
+            halo = 2 * rows * (ki + 8)
+            stages = min(MAX_STAGES,
+                         (smem_limit - _MMA_FIXED - halo) // STAGE_BYTES)
+            if stages >= 2:
+                return dict(tile=TM, ki=ki, n_ci=n_ci, c_in_pad=ki * n_ci,
+                            c_pad=_round(c, CB), p_pad=_round(p, PT),
+                            stages=stages,
+                            smem=_MMA_FIXED + halo + stages * STAGE_BYTES)
+        raise ValueError(f'K={k_max}: no input-channel chunk leaves room '
+                         f'for 2 ring stages in {smem_limit} bytes')
+    if dtype == torch.float32:
+        rows = F32_TT + 2 + k_max
+        c_in4 = _pad4(c_in)
+        ki = min(c_in4, (smem_limit - _F32_FIXED) // (4 * rows) // 4 * 4)
+        if ki < 4:
+            raise ValueError(f'K={k_max}: the halo does not fit {smem_limit} '
+                             'bytes')
+        return dict(tile=F32_TT, ki=ki, n_ci=-(-c_in4 // ki),
+                    c_in_pad=c_in4, c_pad=_pad4(c), p_pad=_round(p, F32_PT),
+                    stages=0, smem=_F32_FIXED + 4 * rows * ki)
+    raise ValueError(f'dtype {dtype}: float32 or bfloat16 only')
+
+
 def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
 def shape_error(k_max: int, c_in: int, c: int, p: int) -> Optional[str]:
     """Why the kernel cannot take a front of ``k_max`` bank convolutions
-    C_in -> C and a projection to P, or None when it can (C_in and C are
-    padded to multiples of 4 first). Needs no card: the wrapper raises with
-    it, and the CBHG's gate consults it."""
-    if not 0 < p <= MAX_P:
-        return (f'P={p}: the kernel keeps one output column per thread, '
-                f'P <= {MAX_P}')
-    smem = 4 * ((TT + k_max + 2) * _pad4(c_in) + (TT + 2) * _pad4(c))
-    if min(k_max, c_in, c) <= 0 or smem > SMEM_BYTES:
-        return (f'K={k_max}, C_in={c_in}, C={c}: the input halo and the '
-                f'pooled rows take {smem} bytes of shared memory, more than '
-                f'{SMEM_BYTES}')
+    C_in -> C and a projection to P, or None when it can: it tiles P and
+    chunks C and C_in, so it refuses only what the JAX gate refuses too
+    (bank taps beyond its halo). Needs no card: the wrapper raises with it,
+    and the CBHG's gate consults it."""
+    for dtype in _ENTRY:
+        try:
+            plan(dtype, k_max, c_in, c, p)
+        except ValueError as e:
+            return str(e)
     return None
 
 
@@ -105,9 +183,39 @@ def pad_channels(x, bank_w, bn_scale, bn_bias, proj_w, c_in_pad, c_pad):
             proj_w.reshape(3, k_max * c_pad, p).contiguous())
 
 
+def pack_weights(bank_w: Sequence[torch.Tensor], proj_w: torch.Tensor,
+                 fp: dict):
+    """The bf16 kernel's weight streams for plan ``fp``: each ring stage a
+    contiguous block that is its shared-memory image (one bulk copy), rows
+    of LD elements, zero where C_in, C, P or the row are padded:
+
+    - bank: the K branches' [k, C_in, C] as [n_cc, n_ci, sum(k) * ki, LD]
+      (column chunk, input-channel chunk, then branch k's k * ki rows from
+      row k(k-1)/2 * ki, tap j and input channel i as its row j * ki + i,
+      each row the chunk's CB columns); a stage is up to KS consecutive
+      rows of one branch;
+    - proj: [3, K*C, P] as [n_pt, K, n_cc, 3, PT, LD] (projection tile,
+      branch, bank column chunk, tap d, output column n, then the chunk's
+      CB bank columns); a stage is one [PT, LD] block.
+
+    The B operands of the kernel's m16n8k16 products: bank rows k-major
+    (ldmatrix .trans), proj rows n-major. A few copies per call."""
+    c_in, c = bank_w[0].shape[1:]
+    k_max, p = len(bank_w), proj_w.shape[-1]
+    ki, n_ci, cp, pp = fp['ki'], fp['n_ci'], fp['c_pad'], fp['p_pad']
+    n_cc, n_pt = cp // CB, pp // PT
+    taps = k_max * (k_max + 1) // 2
+    bank = F.pad(torch.cat(list(bank_w)), (0, cp - c, 0, n_ci * ki - c_in))
+    bank = bank.reshape(taps, n_ci, ki, n_cc, CB).permute(3, 1, 0, 2, 4)
+    pw = F.pad(proj_w.reshape(3, k_max, c, p), (0, pp - p, 0, cp - c))
+    pw = pw.reshape(3, k_max, n_cc, CB, n_pt, PT).permute(4, 1, 2, 0, 5, 3)
+    return (F.pad(bank, (0, LD - CB)).reshape(n_cc, n_ci, taps * ki, LD),
+            F.pad(pw, (0, LD - CB)))
+
+
 def _kernel(dtype):
     fn = getattr(build.library('cbhg_front'), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -119,8 +227,10 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
                    proj_w: torch.Tensor, proj_scale: torch.Tensor,
                    proj_bias: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`bank_pool_proj_plain`, one kernel launch on
-    the GPU. The kernel takes C_in and C in multiples of 4; others are
-    padded with zero channels here, which is exact. What
+    the GPU with the launch :func:`plan` of x's dtype. float32: C_in and C
+    are padded to multiples of 4 with zero channels here, which is exact.
+    bfloat16: the weights are packed by :func:`pack_weights` here (zero
+    channels and columns where C_in, C or P are padded, also exact). What
     :func:`shape_error` refuses raises ``ValueError``."""
     if x.device.type == 'cpu':
         return bank_pool_proj_plain(x, mask, bank_w, bn_scale, bn_bias,
@@ -142,14 +252,11 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
     err = shape_error(k_max, c_in, c, p)
     if err:
         raise ValueError(f'bank_pool_proj: {err}')
-    if c_in % 4 or c % 4:
-        c_in, c = _pad4(c_in), _pad4(c)
-        x, bank_w, bn_scale, bn_bias, proj_w = pad_channels(
-            x, bank_w, bn_scale, bn_bias, proj_w, c_in, c)
     dt = x.dtype
-    bank = torch.cat([w.reshape(-1) for w in bank_w])
-    args = (x, mask, bank, bn_scale, bn_bias, proj_w, proj_scale, proj_bias)
-    if (dt not in _ENTRY or bank.dtype != dt or proj_w.dtype != dt
+    args = (x, mask, *bank_w, bn_scale, bn_bias, proj_w, proj_scale,
+            proj_bias)
+    if (dt not in _ENTRY or any(w.dtype != dt for w in bank_w)
+            or proj_w.dtype != dt
             or any(a.dtype != torch.float32
                    for a in (mask, bn_scale, bn_bias, proj_scale, proj_bias))
             or any(not a.is_contiguous() or a.device != x.device
@@ -158,12 +265,29 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
                          'contiguous float32 or bfloat16 tensors of one '
                          'dtype, mask and the folded BatchNorms contiguous '
                          'float32, all on one device')
+    fp = plan(dt, k_max, c_in, c, p)
+    if dt == torch.bfloat16:
+        if c_in % 8:       # rows of whole 16-byte vectors
+            x = F.pad(x, (0, 8 - c_in % 8)).contiguous()
+        bank, proj = pack_weights(bank_w, proj_w, fp)
+        pad = (0, fp['c_pad'] - c)
+        bn_scale = F.pad(bn_scale, pad).contiguous()
+        bn_bias = F.pad(bn_bias, pad).contiguous()
+    elif (c_in, c) != (fp['c_in_pad'], fp['c_pad']):
+        x, bank_w, bn_scale, bn_bias, proj_w = pad_channels(
+            x, bank_w, bn_scale, bn_bias, proj_w, fp['c_in_pad'],
+            fp['c_pad'])
+    if dt == torch.float32:
+        bank = torch.cat([w.reshape(-1) for w in bank_w])
+        proj = proj_w
     out = torch.empty(b, t, p, dtype=dt, device=x.device)
     if b == 0 or t == 0:
         return out
-    status = _kernel(dt)(*(build.ptr(a) for a in args), build.ptr(out),
-                         b, t, c_in, c, p, k_max, x.get_device(),
-                         build.stream_of(x))
+    status = _kernel(dt)(*(build.ptr(a) for a in (
+        x, mask, bank, bn_scale, bn_bias, proj, proj_scale, proj_bias, out)),
+        b, t, x.shape[-1], fp['c_pad'], p, k_max, fp['ki'], fp['n_ci'],
+        fp['stages'],
+        x.get_device(), build.stream_of(x))
     build.check(status, 'cbhg_front')
     global launches
     launches += 1

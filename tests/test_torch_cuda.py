@@ -111,8 +111,8 @@ def _rand(g, shape, scale, dev, dtype=torch.bfloat16):
 def test_front_and_highway_raise_on_unsupported_shapes(dev):
     """Shapes the highway and CBHG-front kernels cannot take raise on the
     card, with the message of their ``shape_error``: a highway width that
-    is not a multiple of 4 or too wide for shared memory, a projection
-    wider than 256 columns."""
+    is not a multiple of 4 or too wide for shared memory, a bank whose taps
+    reach past the JAX gate's halo (K = 18)."""
     g = torch.Generator().manual_seed(5)
     before = (highway.launches, cbhg.launches)
     for c_in, c, layers, match in ((80, 130, 1, 'multiple of 4'),
@@ -122,7 +122,7 @@ def test_front_and_highway_raise_on_unsupported_shapes(dev):
             (layers, 2 * c))]
         with pytest.raises(ValueError, match=match):
             highway.pre_highway_stack(*args)
-    k_max, c_in, c, p = 2, 8, 16, 320
+    k_max, c_in, c, p = 18, 8, 16, 32
     args = [torch.randn(1, 9, c_in, generator=g).to(dev),
             torch.ones(1, 9, device=dev),
             [torch.randn(k, c_in, c, generator=g).to(dev)
@@ -131,7 +131,7 @@ def test_front_and_highway_raise_on_unsupported_shapes(dev):
             torch.zeros(k_max, c, device=dev),
             torch.randn(3, k_max * c, p, generator=g).to(dev),
             torch.ones(p, device=dev), torch.zeros(p, device=dev)]
-    with pytest.raises(ValueError, match='P=320'):
+    with pytest.raises(ValueError, match='K=18'):
         cbhg.bank_pool_proj(*args)
     assert (highway.launches, cbhg.launches) == before
 
@@ -139,16 +139,23 @@ def test_front_and_highway_raise_on_unsupported_shapes(dev):
 def test_gates_raise_where_kernels_refuse(dev):
     """Where the JAX package's gates send a part to a Pallas kernel and the
     CUDA kernel does not take its shape, the forward raises on the card
-    rather than run plain operations: a CBHG front projecting to 320
-    columns, an MRF level of 128 channels, a tail level of 256 input
-    channels."""
+    rather than run plain operations: an MRF level of 128 channels, a tail
+    level of 256 input channels. A CBHG front projecting to 320 columns,
+    which the front kernel once refused, now launches it and matches the
+    CPU."""
     from forwardtacotron_torch.models.layers import CBHG
     from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
 
+    m = CBHG(4, 80, 128, [320, 80], 4).eval()
+    x = torch.randn(1, 9, 80, generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        want = m.pre_rnn(x)
+        before = cbhg.launches
+        got = m.to(dev).pre_rnn(x.to(dev))
+        torch.cuda.synchronize()
+    assert cbhg.launches == before + 1
+    _close([got.cpu()], [want], 1e-3)
     before = (cbhg.launches, mrf.launches, ups_mrf.launches)
-    m = CBHG(4, 80, 128, [320, 80], 4).eval().to(dev)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match='P=320'):
-        m(torch.randn(1, 9, 80, device=dev))
     for kw, match in ((dict(upsample_initial_channel=256,
                             fuse_mrf_max_ch=128), 'C=128'),
                       (dict(upsample_initial_channel=1024,
@@ -196,6 +203,105 @@ def test_cbhg_front_bf16_kernel_matches_twin(dev, b, t):
     got = cbhg.bank_pool_proj(*args)
     torch.cuda.synchronize()
     _close([got.float()], [cbhg.bank_pool_proj_plain(*args).float()],
+           BF16_TOL)
+
+
+def _front_args(g, b, t, dev, dtype, c_in=80, c=256, p=256, k_max=8):
+    """Full-width postnet front inputs (K 8, C_in 80, C = P = 256 unless
+    given), the last item masked from frame t // 2 (ragged tail)."""
+    mask = torch.ones(b, t)
+    mask[-1, t // 2:] = 0.0
+    x = (torch.randn(b, t, c_in, generator=g) * mask[:, :, None]).to(
+        dev, dtype)
+    f32 = dict(device=dev, dtype=torch.float32)
+    return [x, mask.to(dev),
+            [_rand(g, (k, c_in, c), (k * c_in) ** -0.5, dev, dtype)
+             for k in range(1, k_max + 1)],
+            (torch.rand(k_max, c, generator=g) + 0.5).to(**f32),
+            _rand(g, (k_max, c), 0.1, dev, torch.float32),
+            _rand(g, (3, k_max * c, p), (3 * k_max * c) ** -0.5, dev, dtype),
+            (torch.rand(p, generator=g) + 0.5).to(**f32),
+            _rand(g, (p,), 0.1, dev, torch.float32)]
+
+
+def _front_matches(args, dtype):
+    before = cbhg.launches
+    got = cbhg.bank_pool_proj(*args)
+    torch.cuda.synchronize()
+    assert cbhg.launches == before + 1 and got.dtype == dtype
+    _close([got.float()], [cbhg.bank_pool_proj_plain(*args).float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize('b,t', [(2, 1), (2, 127), (3, 128), (2, 129),
+                                 (2, 256)])
+def test_front_bf16_kernel_off_tile(dev, b, t):
+    """The tensor-core front at full width, at T around its 128-frame tile
+    (1, tile - 1, tile, tile + 1, two tiles) with a tail mask."""
+    _front_matches(_front_args(torch.Generator().manual_seed(t), b, t, dev,
+                               torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('p', [320, 512])
+def test_front_kernel_wide_projection(dev, dtype, p):
+    """P > 256, which the JAX gate admits: both entries tile P."""
+    _front_matches(_front_args(torch.Generator().manual_seed(p), 2, 70, dev,
+                               dtype, p=p), dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_front_kernel_input_channel_chunks(dev, dtype):
+    """C_in = 1600: the input halo does not fit shared memory whole, so
+    both entries reload it in chunks of input channels (n_ci > 1); C 64 and
+    P 96 are not multiples of the f32 entry's 256-column chunks."""
+    c_in = 1600
+    for dt in (torch.float32, torch.bfloat16):
+        assert cbhg.plan(dt, 4, c_in, 64, 96)['n_ci'] > 1
+    _front_matches(_front_args(torch.Generator().manual_seed(3), 1, 130,
+                               dev, dtype, c_in=c_in, c=64, p=96, k_max=4),
+                   dtype)
+
+
+def _highway_args(g, n, c_in, c, layers, dev, dtype=torch.bfloat16):
+    return [_rand(g, (n, c_in), 1.0, dev, dtype),
+            _rand(g, (n, c_in), 1.0, dev, dtype),
+            _rand(g, (c_in, c), c_in ** -0.5, dev, dtype),
+            _rand(g, (layers, c, 2 * c), c ** -0.5, dev, dtype),
+            _rand(g, (layers, 2 * c), 0.1, dev, torch.float32)]
+
+
+@pytest.mark.parametrize('n', [1, 127, 128, 129, 256 * 3])
+@pytest.mark.parametrize('c_in', [80, 256])
+def test_highway_bf16_kernels_off_tile(dev, n, c_in):
+    """Both tensor-core entries at the CBHGs' full width (C_in 80 or 256,
+    C 256, 4 layers), at row counts around the 128-row tile."""
+    g = torch.Generator().manual_seed(n)
+    args = _highway_args(g, n, c_in, 256, 4, dev)
+    x = _rand(g, (n, 256), 1.0, dev)
+    before = (highway.launches, highway.stack_launches)
+    got = highway.pre_highway_stack(*args)
+    got_stack = highway.highway_stack(x, *args[3:])
+    torch.cuda.synchronize()
+    assert (highway.launches, highway.stack_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    _close([got.float()], [highway.pre_highway_stack_plain(*args).float()],
+           BF16_TOL)
+    _close([got_stack.float()],
+           [highway.highway_stack_plain(x, *args[3:]).float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('c_in,c,layers', [(80, 1024, 2), (256, 2048, 1),
+                                           (80, 3072, 1)])
+def test_highway_bf16_kernel_takes_wide_rows(dev, c_in, c, layers):
+    """Row tiles of 32 and 16 rows, and fewer than 16 (C = 3072)."""
+    rows = highway.plan(c_in, c)['rows']
+    assert rows == {1024: 32, 2048: 16, 3072: 15}[c]
+    args = _highway_args(torch.Generator().manual_seed(c), 41, c_in, c,
+                         layers, dev)
+    got = highway.pre_highway_stack(*args)
+    torch.cuda.synchronize()
+    _close([got.float()], [highway.pre_highway_stack_plain(*args).float()],
            BF16_TOL)
 
 

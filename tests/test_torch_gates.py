@@ -103,11 +103,12 @@ def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
             else:
                 assert m._takes_kernel(fusable, err, 'part', x) == fusable
         assert m.highways_fusable == (c % 128 == 0)
-    # P 320: the gate raises before the wrapper is reached
+    # P 320: the kernel tiles P, so the gate admits the front and the
+    # forward reaches the wrapper (on CPU tensors, its twin)
     m = CBHG(4, 80, 128, [320, 80], 4).eval()
-    assert m.front_fusable and m.front_error is not None
-    with torch.no_grad(), pytest.raises(NotImplementedError, match='P=320'):
-        m(torch.zeros(1, 9, 80))
+    assert m.front_fusable and m.front_error is None
+    with torch.no_grad():
+        assert m(torch.zeros(1, 9, 80)).shape == (1, 9, 256)
     # in training, and on CPU tensors, plain operations or the twin
     assert not m.train()._takes_kernel(True, 'err', 'part', x)
     monkeypatch.setattr(layers, '_on_cuda', lambda x: False)
@@ -118,6 +119,10 @@ def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
                      (CBHG(16, 256, 256, [256, 256], 4), False)):
         assert m.front_fusable == front and m.highways_fusable
         assert m.front_error is None and m.highways_error is None
+    # the front's check refuses only what the JAX gate refuses: taps past
+    # its halo
+    assert 'K=18' in cbhg.shape_error(18, 80, 256, 256)
+    assert not CBHG(18, 80, 256, [256, 80], 4).front_fusable
     # an input width of 6 is padded to 8: admitted
     assert CBHG(8, 80, 128, [256, 6], 4).highways_fusable
     assert highway.shape_error(6, 128) is None
@@ -125,6 +130,31 @@ def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
     assert highway.shape_error(1024, 2048) is None
     assert highway.shape_error(29056, 128) is None
     assert highway.shape_error(29060, 128) is not None
+
+
+@pytest.mark.parametrize('p', [320, 512])
+def test_front_gate_admits_wide_projections(monkeypatch, p):
+    """Fronts projecting to more than 256 columns, which the JAX gate
+    admits: the port's gate admits them too, the kernel's check passes in
+    both dtypes and ``_takes_kernel`` sends them to the kernel on a card
+    (device clause patched) without raising; the pre-RNN output on CPU
+    tensors is the plain route's."""
+    from forwardtacotron_torch.models import layers
+    m = CBHG(8, 80, 256, [p, 80], 4).eval()
+    assert m.front_fusable and m.front_error is None
+    assert cbhg.shape_error(8, 80, 256, p) is None
+    for dtype in (torch.float32, torch.bfloat16):
+        fp = cbhg.plan(dtype, 8, 80, 256, p)
+        assert fp['p_pad'] >= p and fp['smem'] <= cbhg.SMEM_BYTES
+    x = torch.randn(2, 11, 80, generator=torch.Generator().manual_seed(p))
+    monkeypatch.setattr(layers, '_on_cuda', lambda x: True)
+    assert m._takes_kernel(m.front_fusable, m.front_error, 'front', x)
+    monkeypatch.setattr(layers, '_on_cuda', lambda x: False)
+    with torch.no_grad():
+        got = m.pre_rnn(x, torch.tensor([11, 7]))
+        m.fuse_front = False
+        want = m.pre_rnn(x, torch.tensor([11, 7]))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 def _mrf_weights(g, c, dtype=torch.float32):
