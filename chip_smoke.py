@@ -45,23 +45,30 @@ Run from the repository root. Phases, each of which must pass:
    float32 request with each route against the CPU plain path; the K=16
    prenet front through ``cbhg_front.cu`` beside the plain and the
    ``pool_proj1`` routes;
-10. the fused HiFi-GAN MRF level (``mrf.cu``) against its twin at v1's
-    levels 2 and 3 (C=64, 32): float32 at one request, bf16 at bench.py's
-    vocoder shape (batch 128 x 256 frames), timed beside the twin and the
-    same level as 18 cuDNN convolutions; then the phase-stacked tail's level
+10. the fused HiFi-GAN MRF level (``mrf.cu``) against its twin at each of
+    v1's levels (C=256 and 128 in clusters of CTAs, 64, 32): float32 at one
+    request, bf16 at bench.py's vocoder shape (batch 128 x 256 frames), with
+    each level's launch plan, timed beside the twin and the same level as
+    18 cuDNN convolutions; then the phase-stacked tail's level
     (``ups_mrf``: leaky, upsample and MRF in one launch of ``mrf.cu``)
     against its twin at the same levels and shapes, timed beside the twin,
     beside the level as the fused-level route computes it (cuDNN's
     transposed convolution, bias, leaky, ``mrf.cu``) and beside the level
-    per convolution;
+    per convolution; each level's weights are prepared (padded and packed
+    into ring images, as the generator keeps them) once, and that work is
+    timed on its own; then the cycle spans of both bf16 entries at those
+    levels (a copy of ``mrf.cu`` built with ``-DMRF_CYCLES``: where one
+    thread of one CTA spends its cycles);
 11. the vocoder path: a seeded HiFi-GAN v1 checkpoint in jik876 format
     loaded by ``Vocoder.from_checkpoint`` with ``fuse_mrf_max_ch=64``, the
     4 requests through bf16 ``generate_routed(vocoder=)`` (2 ``mrf``
-    launches per routed group), then again with ``fuse_ups_tail_max_ch=64``
-    (2 ``ups_mrf`` launches per routed group, no ``mrf``), one float32
-    request on the card against the CPU plain path with either option,
-    vocoder audio-s/s at batch 128 x 256 frames in turns with the tail,
-    the fused levels and per convolution, the profiler and the idle share;
+    launches per routed group), again with ``fuse_mrf_max_ch=256`` (every
+    level fused: 4 ``mrf`` launches per group) and with
+    ``fuse_ups_tail_max_ch=64`` (2 ``ups_mrf`` launches per routed group,
+    no ``mrf``), one float32 request on the card against the CPU plain path
+    on each route, vocoder audio-s/s at batch 128 x 256 frames in turns on
+    the tail, the fused levels 2-3, every level fused and per convolution,
+    the profiler and the idle share;
 12. training kernels: the length regulator (float32 and bf16), the bi-LSTM
     forward that keeps its cell states, the three trainable GRUs' forward
     and the GRU / LSTM backward sweeps (incoming gradient at unit scale,
@@ -88,8 +95,9 @@ a CUDA device or a directory without the repository. The profiler's kernel
 tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path),
 ``chiprun_out/chip_smoke_serving_profile.txt`` (serving path),
 ``chiprun_out/chip_smoke_vocoder_profile.txt`` (bf16 vocoder call, fused
-levels), ``chiprun_out/chip_smoke_vocoder_tail_profile.txt`` (the same with
-the tail) and ``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train
+levels 2-3), ``chiprun_out/chip_smoke_vocoder_all_profile.txt`` (every
+level fused), ``chiprun_out/chip_smoke_vocoder_tail_profile.txt`` (the
+tail) and ``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train
 step).
 """
 
@@ -261,7 +269,7 @@ def build_phase(build):
     log(f'nvcc: {nvcc} ({version.splitlines()[-1]})')
     log(f'flags: {" ".join(build.NVCC_FLAGS)}')
     t0 = time.perf_counter()
-    times = build.build()
+    times = build.build(variants=[('mrf', MRF_CYCLES_DEFINES)])
     log(f'build: {time.perf_counter() - t0:.1f} s wall, '
         + ', '.join(f'{k} {v:.1f} s' for k, v in times.items()))
     for name in build.SOURCES:
@@ -490,7 +498,9 @@ def device_profile(prof, label: str, table_file: str, kernel_names) -> float:
     ``kernel_names`` patterns (regular expressions)."""
     from torch.autograd import DeviceType
     events = prof.key_averages()
-    kernels_run = [e for e in events if e.device_type == DeviceType.CUDA]
+    # a profiler schedule's step annotations span the step on the device
+    kernels_run = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith('ProfilerStep')]
     device_names = [e.key for e in kernels_run]
     busy_ms = sum(e.self_device_time_total for e in kernels_run) / 1e3
     log(f'profiled {label}: device busy {busy_ms:.1f} ms in '
@@ -1385,9 +1395,12 @@ def prenet_front_phase(torch, model16, batch, serving_tok):
 # HiFi-GAN v1 at full width (the generator's defaults: 512 initial
 # channels, levels of 256, 128, 64 and 32 channels, kernel sizes 3/7/11,
 # dilations 1/3/5) with seeded weights; levels of at most this many channels
-# (2 and 3) take the fused MRF kernel
+# (2 and 3) take the fused MRF kernel on the "fused" route, every level
+# (fuse_mrf_max_ch=256) on the "fused_all" route
 VOCODER_FUSE_MAX_CH = 64
+VOCODER_FUSE_ALL_CH = 256
 VOCODER_LEVELS = (2, 3)
+VOCODER_ALL_LEVELS = (0, 1, 2, 3)
 # bench.py's vocoder shape (bench.py:127-150): batch x frames of random
 # normal mels, bf16
 VOCODER_BATCH, VOCODER_FRAMES = 128, 256
@@ -1395,16 +1408,20 @@ VOCODER_CALLS, VOCODER_TRIALS = 4, 3
 # one f32 request vocoded on the card (fused levels, f32 kernel) vs the CPU
 # plain path (per-convolution): max abs error over max(1e-3, max |wav|)
 E2E_WAV_TOL = 1e-3
-VOCODER_KERNEL_NAMES = {'mrf': [r'mrf_kernel<(__nv_bfloat16|float)>']}
+VOCODER_KERNEL_NAMES = {
+    'mrf': [r'level_kernel<(__nv_bfloat16|float), false']}
 # the phase-stacked tail: from the first level of at most this many output
 # channels (level 2 of v1), each level is one ups_mrf launch
 VOCODER_TAIL_MAX_CH = 64
 VOCODER_TAIL_KERNEL_NAMES = {
-    'ups_mrf': [r'ups_mrf_kernel<(__nv_bfloat16|float)>']}
+    'ups_mrf': [r'level_kernel<(__nv_bfloat16|float), true']}
 # the vocoder's routes, timed in turns: (fuse_ups_tail_max_ch,
 # fuse_mrf_max_ch)
 VOCODER_ROUTES = {'tail': (VOCODER_TAIL_MAX_CH, VOCODER_FUSE_MAX_CH),
-                  'fused': (0, VOCODER_FUSE_MAX_CH), 'per_conv': (0, 0)}
+                  'fused': (0, VOCODER_FUSE_MAX_CH),
+                  'fused_all': (0, VOCODER_FUSE_ALL_CH), 'per_conv': (0, 0)}
+# mrf launches per vocoder call on each fused route
+VOCODER_MRF_LAUNCHES = {'fused': 2, 'fused_all': 4}
 
 
 def seeded_hifigan(torch):
@@ -1427,14 +1444,17 @@ def write_hifigan_checkpoint(torch, path: Path):
 
 
 def vocoder_kernel_phase(torch, n_frames):
-    """The fused MRF level against its twin on the card at v1's levels 2
-    (C=64) and 3 (C=32): float32 at one request of ``n_frames`` frames,
-    bf16 at bench.py's vocoder batch; timed beside the twin and beside the
-    same level as the generator's per-convolution path (18 cuDNN
-    convolutions, the route the JAX package's default takes), a yardstick
-    the fused path does not call. The twin's comparison and timing run with
-    cudnn.benchmark on: without it cuDNN picks a float32 algorithm for the
-    C=32 dilated convolutions that takes seconds per level."""
+    """The fused MRF level against its twin on the card at each of v1's
+    levels, 0 (C=256, clusters of CTAs), 1 (C=128), 2 (C=64) and 3 (C=32):
+    float32 at one request of ``n_frames`` frames, bf16 at bench.py's
+    vocoder batch; timed beside the twin and beside the same level as the
+    generator's per-convolution path (18 cuDNN convolutions, the route the
+    JAX package's default takes), a yardstick the fused path does not call.
+    The row's numbers sum levels 2 + 3 (the "fused" route's levels, as in
+    earlier readings); every level's are kept under ``levels``. The twin's
+    comparison and timing run with cudnn.benchmark on: without it cuDNN
+    picks a float32 algorithm for the C=32 dilated convolutions that takes
+    seconds per level."""
     from forwardtacotron_torch.ops.hopper import mrf
 
     dev = torch.device('cuda')
@@ -1442,7 +1462,7 @@ def vocoder_kernel_phase(torch, n_frames):
     model = seeded_hifigan(torch).to(dev)
     krs = model.resblock_kernel_sizes
     dils = model.resblock_dilation_sizes[0]
-    hop_at = {2: 128, 3: 256}               # samples per frame at the level
+    hop_at = {0: 8, 1: 64, 2: 128, 3: 256}  # samples per frame at the level
     res = {}
     for dtype, batch, frames in ((torch.float32, 1, n_frames),
                                  (torch.bfloat16, VOCODER_BATCH,
@@ -1451,21 +1471,29 @@ def vocoder_kernel_phase(torch, n_frames):
         tol = KERNEL_TOL if dtype == torch.float32 else BF16_TOL
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         model.to(dtype)
-        parts = []
-        for level in VOCODER_LEVELS:
+        parts, levels = [], {}
+        for level in VOCODER_ALL_LEVELS:
             c = model.ups[level].out_channels
             t = frames * hop_at[level]
             x = torch.randn(batch, c, t, generator=gen, device=dev).to(dtype)
             weights = model.mrf_weights(level, dtype)
+            prep = mrf.prepare(weights, krs, dils)
             args = (x, weights, krs, dils)
+            pl = mrf.plan(dtype, c, krs, dils)
             log(f'  {name} level {level}: B={batch} C={c} T={t}')
-            got = mrf.mrf(*args)
+            log(f'    plan: {pl["cluster"]} CTA(s) of {pl["cs"]} channels '
+                f'per tile of {pl["t_tile"]} samples, {pl["stages"]} ring '
+                f'stages, {pl["smem"]} bytes of shared memory, '
+                f'{pl["threads"]} threads')
+            got = mrf.mrf(*args, prepared=prep)
             torch.backends.cudnn.benchmark = True
             err = compare(torch, f'level {level}', got.float(),
                           mrf.mrf_plain(*args).float(), tol)
             p_ms = time_ms(torch, lambda: mrf.mrf_plain(*args), reps=3)
             torch.backends.cudnn.benchmark = False
-            k_ms = time_ms(torch, lambda: mrf.mrf(*args))
+            k_ms = time_ms(torch, lambda: mrf.mrf(*args, prepared=prep))
+            w_ms = time_ms(torch, lambda: mrf.prepare(weights, krs, dils),
+                           reps=5)
             blocks = model.resblocks[3 * level:3 * level + 3]
             y_ms = time_ms(torch, lambda: (blocks[0](x) + blocks[1](x)
                                            + blocks[2](x)) / 3)
@@ -1476,14 +1504,19 @@ def vocoder_kernel_phase(torch, n_frames):
             b_ms, b_by = bound(flops, nbytes, peak)
             log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, 18 cuDNN '
                 f'convolutions {y_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); '
-                f'{flops / k_ms / 1e9:.1f} TFLOP/s')
-            parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                              cudnn_level_ms=y_ms, bound_ms=b_ms,
-                              bound_by=b_by))
+                f'{flops / k_ms / 1e9:.1f} TFLOP/s; preparing the weights '
+                f'{w_ms:.4f} ms')
+            part = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                        cudnn_level_ms=y_ms, bound_ms=b_ms, bound_by=b_by,
+                        prepare_ms=w_ms)
+            levels[f'level{level}_C{c}'] = dict(part, t_tile=pl['t_tile'],
+                                                cluster=pl['cluster'])
+            if level in VOCODER_LEVELS:
+                parts.append(part)
         res[name] = sum_levels(parts)
-        res[name].update(library_ms=None, at=(
+        res[name].update(library_ms=None, levels=levels, at=(
             f'HiFi-GAN v1 levels 2 + 3 (C=64, 32), B={batch}, {frames} '
-            'frames, summed'))
+            'frames, summed; every level under levels'))
     return res
 
 
@@ -1531,22 +1564,28 @@ def ups_kernel_phase(torch, n_frames):
             up_w, up_b, *weights = model.ups_mrf_weights(level, dtype)
             args = (x, up_w, up_b, tuple(weights), s_in, s_up, krs, dils,
                     t_ps)
+            prep = ups_mrf.prepare(*args[1:8])
             log(f'  {name} level {level}: B={batch} s_in={s_in} C_in={c_in} '
                 f'C={c} T_ps={t_ps}')
-            got = ups_mrf.ups_mrf(*args)
+            got = ups_mrf.ups_mrf(*args, prepared=prep)
             torch.backends.cudnn.benchmark = True
             err = compare(torch, f'level {level}', got.float(),
                           ups_mrf.ups_mrf_plain(*args).float(), tol)
             p_ms = time_ms(torch, lambda: ups_mrf.ups_mrf_plain(*args),
                            reps=3)
             torch.backends.cudnn.benchmark = False
-            k_ms = time_ms(torch, lambda: ups_mrf.ups_mrf(*args))
+            k_ms = time_ms(torch, lambda: ups_mrf.ups_mrf(*args,
+                                                          prepared=prep))
+            w_ms = time_ms(torch, lambda: ups_mrf.prepare(*args[1:8]),
+                           reps=5)
             x_nat = ups_mrf.phase_unstack(x, s_in).contiguous()
             mrf_w = model.mrf_weights(level, dtype)
+            mrf_prep = mrf.prepare(mrf_w, krs, dils)
             blocks = model.resblocks[3 * level:3 * level + 3]
 
             def fused_level():
-                return mrf.mrf(up(leaky_relu(x_nat, 0.1)), mrf_w, krs, dils)
+                return mrf.mrf(up(leaky_relu(x_nat, 0.1)), mrf_w, krs, dils,
+                               prepared=mrf_prep)
 
             def per_conv_level():
                 u = up(leaky_relu(x_nat, 0.1))
@@ -1564,15 +1603,103 @@ def ups_kernel_phase(torch, n_frames):
             b_ms, b_by = bound(flops, nbytes, peak)
             log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, fused-level '
                 f'route {f_ms:.4f} ms, per convolution {y_ms:.4f} ms, bound '
-                f'{b_ms:.4f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s')
+                f'{b_ms:.4f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s; '
+                f'preparing the weights {w_ms:.4f} ms')
             parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                               fused_level_ms=f_ms, cudnn_level_ms=y_ms,
-                              bound_ms=b_ms, bound_by=b_by))
+                              bound_ms=b_ms, bound_by=b_by, prepare_ms=w_ms))
             s_in *= s_up
         res[name] = sum_levels(parts)
         res[name].update(library_ms=None, at=(
             f'HiFi-GAN v1 levels 2 + 3 (C_in 128 -> C 64, s_in 1; C_in 64 -> '
             f'C 32, s_in 2), B={batch}, {frames} frames, summed'))
+    return res
+
+
+# the cycle spans of mrf.cu's bf16 entries (mrf.cu CycleSpan order)
+MRF_CYCLES_DEFINES = ('MRF_CYCLES',)
+MRF_CYCLE_SPANS = ('ring_wait', 'products', 'epilogues', 'cluster_sync',
+                   'branch_start', 'kernel_to_output', 'producer_empty_wait',
+                   'producer_cluster_wait')
+
+
+def mrf_cycles_phase(torch):
+    """Where one CTA of ``mrf.cu``'s bf16 entries spends its cycles: the
+    copy of the library built with ``-DMRF_CYCLES`` runs the MRF level at
+    each of v1's levels and the tail's level at levels 2-3, bf16 batch
+    VOCODER_BATCH x VOCODER_FRAMES frames (seeded random weights, prepared
+    once), through the wrappers with that library's entries bound in their
+    place for this phase. Thread 0 of CTA (0, 0) sums its clock64() cycles
+    per span: waiting for a ring stage, the products (ring waits included),
+    the epilogues, the barriers after each convolution, the branch starts,
+    the whole kernel up to its output, and the producer warp's waits for a
+    free slot and for the barrier before the next product. The epilogue
+    span bounds what overlapping the epilogues with the products could
+    save."""
+    import ctypes
+
+    from forwardtacotron_torch.ops.hopper import build, mrf, ups_mrf
+
+    lib = build.library('mrf', MRF_CYCLES_DEFINES)
+    lib.mrf_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.mrf_cycles.restype = ctypes.c_int
+    bound = {}
+    for mod, entry in ((mrf, 'mrf_bf16'), (ups_mrf, 'ups_mrf_bf16')):
+        fn, real = getattr(lib, entry), mod._kernel(torch.bfloat16)
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        bound[mod] = fn
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    model = seeded_hifigan(torch).to(dev).to(torch.bfloat16)
+    krs = model.resblock_kernel_sizes
+    dils = model.resblock_dilation_sizes[0]
+    frames, batch = VOCODER_FRAMES, VOCODER_BATCH
+    h = (ctypes.c_ulonglong * len(MRF_CYCLE_SPANS))()
+
+    def spans(label, fn):
+        fn()
+        torch.cuda.synchronize()
+        build.check(lib.mrf_cycles(h, 1), 'mrf_cycles')
+        fn()
+        torch.cuda.synchronize()
+        build.check(lib.mrf_cycles(h, 0), 'mrf_cycles')
+        total = h[MRF_CYCLE_SPANS.index('kernel_to_output')]
+        out = {n: int(h[i]) for i, n in enumerate(MRF_CYCLE_SPANS)}
+        log(f'  {label}: ' + ', '.join(
+            f'{n} {v} ({100 * v / max(total, 1):.1f}%)'
+            for n, v in out.items()))
+        return out
+
+    res = {}
+    saved = mrf._kernel, ups_mrf._kernel
+    mrf._kernel = lambda dtype: bound[mrf]
+    ups_mrf._kernel = lambda dtype: bound[ups_mrf]
+    try:
+        for level, hop in ((0, 8), (1, 64), (2, 128), (3, 256)):
+            c = model.ups[level].out_channels
+            x = torch.randn(batch, c, frames * hop, generator=g,
+                            device=dev).to(torch.bfloat16)
+            w = model.mrf_weights(level, torch.bfloat16)
+            prep = mrf.prepare(w, krs, dils)
+            res[f'mrf_C{c}'] = spans(
+                f'mrf C={c} T={frames * hop}',
+                lambda: mrf.mrf(x, w, krs, dils, prepared=prep))
+        s_in, t_ps = 1, frames * 64
+        for level in VOCODER_LEVELS:
+            up = model.ups[level]
+            c_in, c = up.in_channels, up.out_channels
+            s_up = model.upsample_rates[level]
+            x = torch.randn(batch, s_in * c_in, t_ps, generator=g,
+                            device=dev).to(torch.bfloat16)
+            up_w, up_b, *w = model.ups_mrf_weights(level, torch.bfloat16)
+            args = (up_w, up_b, tuple(w), s_in, s_up, krs, dils)
+            prep = ups_mrf.prepare(*args)
+            res[f'ups_mrf_C{c}'] = spans(
+                f'ups_mrf C={c} s_in={s_in} T_ps={t_ps}',
+                lambda: ups_mrf.ups_mrf(x, *args, t_ps, prepared=prep))
+            s_in *= s_up
+    finally:
+        mrf._kernel, ups_mrf._kernel = saved
     return res
 
 
@@ -1583,13 +1710,14 @@ def set_route(model, route: str) -> None:
 def vocoder_path_phase(torch, model16, config, tokens, root: Path):
     """The vocoder path through its entry points: a jik876-format v1
     checkpoint loaded by ``Vocoder.from_checkpoint``, bf16
-    ``generate_routed(vocoder=)`` on the 4 requests with the fused levels (2
-    mrf launches per routed group) and then with the tail (2 ups_mrf
-    launches per group, no mrf), one f32 request on the card vs the CPU
-    plain path with either, then vocoder throughput at bench.py's shape
-    with the tail, the fused levels and per convolution in turns, the
-    profiler and the idle share."""
-    from torch.profiler import ProfilerActivity, profile
+    ``generate_routed(vocoder=)`` on the 4 requests with the fused levels 2-3
+    (2 mrf launches per routed group), with every level fused
+    (``fuse_mrf_max_ch=256``: 4 mrf launches per group) and with the tail
+    (2 ups_mrf launches per group, no mrf), one f32 request on the card vs
+    the CPU plain path on each, then vocoder throughput at bench.py's shape
+    on the four routes (and per convolution) in turns, the profiler and the
+    idle share."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
 
@@ -1605,7 +1733,8 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
     for i, toks in enumerate(tokens):
         x[i, :len(toks)] = toks
     routed, wavs = {}, {}
-    for route, kernel in (('fused', 'mrf'), ('tail', 'ups_mrf')):
+    fused_routes = (('fused', 'mrf'), ('fused_all', 'mrf'), ('tail', 'ups_mrf'))
+    for route, kernel in fused_routes:
         set_route(voc.model, route)
         inference.generate_routed(x, vocoder=voc)     # warm-up, same shapes
         torch.cuda.synchronize()
@@ -1617,10 +1746,11 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
         launches = read_counts()
         lens = out['mel_len'].cpu().numpy()
         groups = len(np.unique(-(-lens // 128)))
+        per_call = VOCODER_MRF_LAUNCHES.get(route, 2)
         expect_counts(f'bf16 generate_routed + vocoder ({route})', launches,
                       gru=1 + 2 * groups, lr_bidir=groups, lstm_mel=groups,
                       pre_highway_stack=2 * groups, cbhg_front=groups,
-                      **{kernel: 2 * groups})
+                      **{kernel: per_call * groups})
         wav, wav_len = out['wav'], out['wav_len'].cpu().numpy()
         if not (np.array_equal(wav_len, lens * hop)
                 and wav.shape[1] == -(-int(lens.max()) // 128) * 128 * hop
@@ -1631,8 +1761,9 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
             f'group(s), text -> wav {wall * 1e3:.1f} ms, '
             f'{int(wav_len.sum()) / sr:.2f} s of audio')
         routed[route], wavs[route] = launches[kernel], wav.float()
-    log('vocoder path: bf16 wav, tail vs fused levels, max abs diff '
-        f'{float((wavs["tail"] - wavs["fused"]).abs().max()):.3e}')
+    for route in ('tail', 'fused_all'):
+        log(f'vocoder path: bf16 wav, {route} vs fused levels, max abs diff '
+            f'{float((wavs[route] - wavs["fused"]).abs().max()):.3e}')
 
     # one f32 request: card (fused levels or tail, f32 kernels) vs the CPU
     # plain path (per convolution)
@@ -1644,14 +1775,14 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
     voc32 = Vocoder.from_checkpoint(str(path), dtype='float32',
                                     device='cuda')
     request, errs = {}, {}
-    for route, kernel in (('fused', 'mrf'), ('tail', 'ups_mrf')):
+    for route, kernel in fused_routes:
         set_route(voc32.model, route)
         reset_counts()
         got = voc32(mel)
         torch.cuda.synchronize()
         launches32 = read_counts()
         expect_counts(f'f32 vocoder request ({route})', launches32,
-                      **{kernel: 2})
+                      **{kernel: VOCODER_MRF_LAUNCHES.get(route, 2)})
         err = float((got.cpu() - ref).abs().max())
         ok = err <= E2E_WAV_TOL * scale and got.shape == (1,
                                                           int(lens[i]) * hop)
@@ -1686,26 +1817,42 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
              'audio_s_per_call': audio_s}
     for route, table, names in (
             ('fused', 'chip_smoke_vocoder_profile.txt', VOCODER_KERNEL_NAMES),
+            ('fused_all', 'chip_smoke_vocoder_all_profile.txt',
+             VOCODER_KERNEL_NAMES),
             ('tail', 'chip_smoke_vocoder_tail_profile.txt',
              VOCODER_TAIL_KERNEL_NAMES)):
         set_route(voc.model, route)
+        # the first call is the profiler's warm-up, not recorded: a trace
+        # of a lone call lost its first ~40 ms on the every-level route (a
+        # few of the warm-up's kernels may still land in the trace)
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            voc(mel)
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                voc(mel)
+                torch.cuda.synchronize()
+                prof.step()
         busy_ms = device_profile(prof, f'bf16 vocoder call ({route})', table,
                                  names)
+        recorded = sum(e.count for e in prof.key_averages()
+                       if any(re.search(n, e.key)
+                              for ns in names.values() for n in ns))
+        expected = VOCODER_MRF_LAUNCHES.get(route, 2)
         call_ms = audio_s / statistics.median(rates[route]) * 1e3
+        idle = 1 - busy_ms / call_ms if recorded == expected else None
         # the fused route keeps the key names of the earlier readings
         sfx = '' if route == 'fused' else f'_{route}'
         stats.update({f'call_ms_{route}': call_ms,
-                      f'device_busy_ms{sfx}': busy_ms,
-                      f'idle{sfx}': 1 - busy_ms / call_ms})
+                      f'device_busy_ms{sfx}': busy_ms, f'idle{sfx}': idle})
         log(f'vocoder {route}: {call_ms:.2f} ms per call (median), device '
-            f'busy {busy_ms:.2f} ms (profiled call): idle '
-            f'{100 * (1 - busy_ms / call_ms):.1f}%')
+            f'busy {busy_ms:.2f} ms (profiled call, {recorded} of '
+            f'{expected} MRF launches recorded): idle '
+            + (f'{100 * idle:.1f}%' if idle is not None
+               else 'not measured (the trace is incomplete)'))
     for route, label in (('tail', 'phase-stacked tail, levels 2-3'),
                          ('fused', 'fused levels 2-3'),
+                         ('fused_all', 'fused at every level'),
                          ('per_conv', 'per-convolution')):
         r = rates[route]
         stats[f'audio_s_per_s_{route}'] = sorted(r)
@@ -1714,7 +1861,8 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
             f'audio-s/s min {min(r):.1f} median {statistics.median(r):.1f} '
             f'max {max(r):.1f}')
     stats.update(card_vs_cpu_err=errs['fused'],
-                 card_vs_cpu_err_tail=errs['tail'])
+                 card_vs_cpu_err_tail=errs['tail'],
+                 card_vs_cpu_err_fused_all=errs['fused_all'])
     return routed, request, stats
 
 
@@ -2263,6 +2411,8 @@ def main() -> None:
     with torch.inference_mode():
         results_voc = vocoder_kernel_phase(torch, n_frames)
         results_voc.update(ups_kernel_phase(torch, n_frames))
+        log('mrf cycle spans (bf16, thread 0 of CTA (0, 0), one launch):')
+        mrf_cycles = mrf_cycles_phase(torch)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_vocoder_') as tmp:
         voc_routed, voc_request, vocoder = vocoder_path_phase(
             torch, model16, config, tokens, Path(tmp))
@@ -2343,7 +2493,7 @@ def main() -> None:
             'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r.get('library_ms'), 'at': r['at'],
-            **{k: r[k] for k in ('fused_level_ms', 'cudnn_level_ms',
+            **{k: r[k] for k in ('levels', 'fused_level_ms', 'cudnn_level_ms',
                                  'yardstick_ms', 'postnet_ms', 'prenet_ms',
                                  'request_ms', 'request_plain_ms',
                                  'request_bound_ms', 'request_yardstick_ms')
@@ -2351,6 +2501,7 @@ def main() -> None:
     log(f'serving: {json.dumps(serving)}')
     log(f'cbhg variants: {json.dumps(variants)}')
     log(f'vocoder: {json.dumps(vocoder)}')
+    log(f'mrf cycle spans: {json.dumps(mrf_cycles)}')
     log(f'training: {json.dumps(training)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))

@@ -12,7 +12,8 @@ import torch
 
 from forwardtacotron_torch.dsp.mel import mel_filterbank
 from forwardtacotron_torch.ops.hopper.griffin_lim import griffin_lim_fused
-from forwardtacotron_torch.ops.stft import griffin_lim_pair, initial_phase
+from forwardtacotron_torch.ops.stft import (griffin_lim, griffin_lim_pair,
+                                           initial_phase)
 from forwardtacotron_torch.utils.device import resolve_device
 
 
@@ -72,10 +73,6 @@ class DSP:
         ``seed``, or taken from ``phase`` ([bins, T] radians) when given.
         It cannot equal the JAX package's ``jax.random`` draw for the same
         seed, so the two agree only when given the same ``phase``."""
-        if self.n_fft % self.hop_length:
-            raise NotImplementedError(
-                'Griffin-Lim for a hop that does not divide n_fft is not '
-                'ported yet')
         mel_power = torch.exp(torch.tensor(np.asarray(mel),
                                            dtype=torch.float32,
                                            device=self.device))
@@ -84,7 +81,13 @@ class DSP:
             phase = initial_phase(linear.shape, seed)
         phase = torch.tensor(np.asarray(phase), dtype=torch.float32,
                              device=self.device)
-        if self._gl_fused_usable(linear.shape[1]):
+        if self.n_fft % self.hop_length:
+            # the pair path's strided overlap-add needs hop | n_fft: a
+            # non-dividing hop (e.g. 2048/275) takes the rfft form, as in
+            # the JAX package
+            wav = griffin_lim(linear, phase, self.n_fft, self.hop_length,
+                              self.win_length, n_iter=n_iter)
+        elif self._gl_fused_usable(linear.shape[1]):
             wav = griffin_lim_fused(linear[None], phase[None], self.n_fft,
                                     self.hop_length, self.win_length,
                                     n_iter=n_iter)[0]

@@ -144,6 +144,8 @@ class HiFiGANGenerator(nn.Module):
         self.fuse_mrf_max_ch = int(fuse_mrf_max_ch)
         self.fuse_tail_max_ch = int(fuse_tail_max_ch)
         self.fuse_ups_tail_max_ch = int(fuse_ups_tail_max_ch)
+        # the fused levels' launch weights (:meth:`_launch_weights`)
+        self._launch_cache = {}
 
         ch = self.upsample_initial_channel
         self.conv_pre = Conv(self.num_mels, ch, 7, padding=3)
@@ -249,22 +251,57 @@ class HiFiGANGenerator(nn.Module):
                 up.bias.float().contiguous(),
                 *self.mrf_weights(level, dtype, torch.float32))
 
+    def _launch_weights(self, key: tuple, modules, make):
+        """``make()``: what a fused level launches with (its weights stacked
+        and cast, padded and packed for the kernel), made once per state of
+        the weights. Kept until a parameter of ``modules`` is written in
+        place (its version counter moves; a write through ``.data`` does
+        not count) or is moved or replaced (its storage changes)."""
+        stamp = tuple((p.data_ptr(), p._version)
+                      for m in modules for p in m.parameters())
+        hit = self._launch_cache.get(key)
+        if hit is None or hit[0] != stamp:
+            with torch.no_grad():
+                hit = self._launch_cache[key] = (stamp, make())
+        return hit[1]
+
+    def _level_blocks(self, level: int):
+        n = len(self.resblock_kernel_sizes)
+        return list(self.resblocks[level * n:(level + 1) * n])
+
     def _mrf_fused(self, x: torch.Tensor, level: int) -> torch.Tensor:
         """The level's ResBlock1 branches and their mean as one ``mrf``
         call on channels-major x [B, C, T]."""
-        return mrf_ops.mrf(x.contiguous(), self.mrf_weights(level, x.dtype),
-                           self.resblock_kernel_sizes,
-                           self.resblock_dilation_sizes[0])
+        krs = self.resblock_kernel_sizes
+        dils = self.resblock_dilation_sizes[0]
+
+        def make():
+            weights = self.mrf_weights(level, x.dtype)
+            return weights, (mrf_ops.prepare(weights, krs, dils)
+                             if x.device.type == 'cuda' else None)
+        weights, prepared = self._launch_weights(
+            ('mrf', level, x.dtype), self._level_blocks(level), make)
+        return mrf_ops.mrf(x.contiguous(), weights, krs, dils,
+                           prepared=prepared)
 
     def _ups_mrf_level(self, x: torch.Tensor, level: int,
                        s_in: int) -> torch.Tensor:
         """One level of the phase-stacked tail (leaky, upsample, MRF) as one
         ``ups_mrf`` call: [B, s_in*C_in, T] -> [B, s_in*s*C, T]."""
-        up_w, up_b, *weights = self.ups_mrf_weights(level, x.dtype)
-        return ups_ops.ups_mrf(
-            x.contiguous(), up_w, up_b, tuple(weights), s_in,
-            self.upsample_rates[level], self.resblock_kernel_sizes,
-            self.resblock_dilation_sizes[0], x.shape[-1])
+        s_up, krs = self.upsample_rates[level], self.resblock_kernel_sizes
+        dils = self.resblock_dilation_sizes[0]
+
+        def make():
+            up_w, up_b, *weights = self.ups_mrf_weights(level, x.dtype)
+            return up_w, up_b, tuple(weights), (
+                ups_ops.prepare(up_w, up_b, tuple(weights), s_in, s_up, krs,
+                                dils) if x.device.type == 'cuda' else None)
+        up_w, up_b, weights, prepared = self._launch_weights(
+            ('ups_mrf', level, x.dtype, s_in),
+            [self.ups[level]] + self._level_blocks(level), make)
+        return ups_ops.ups_mrf(x.contiguous(), up_w, up_b, weights, s_in,
+                               s_up, krs, dils, x.shape[-1],
+                               prepared=prepared)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, T, n_mels] -> wav [B, T * hop_length]."""

@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / '_build'
@@ -49,37 +49,48 @@ def nvcc_path() -> str:
     raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA toolkit')
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> List[str]:
+    return NVCC_FLAGS + [f'-D{d}' for d in defines]
+
+
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     src = (SRC_DIR / f'{name}.cu').read_bytes()
-    digest = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    flags = ' '.join(_flags(defines))
+    digest = hashlib.sha1(src + flags.encode()).hexdigest()
     return BUILD_DIR / f'{name}-{digest[:12]}.so'
 
 
-def build(names: List[str] = SOURCES) -> Dict[str, float]:
-    """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together. Returns seconds per source built (0 for
-    a library already present). Raises with the compiler output on
-    failure. The ``-Xptxas=-v`` report is kept in ``_build/<name>.log``."""
+def build(names: List[str] = SOURCES,
+          variants: Sequence[Tuple[str, Sequence[str]]] = ()
+          ) -> Dict[str, float]:
+    """Compile the named sources that are not built yet, and each
+    ``(name, macros)`` of ``variants`` (the source with ``-D`` of each
+    macro, a library of its own, labelled ``name-MACRO``), one ``nvcc`` per
+    library, all started together. Returns seconds per label built (0 for a
+    library already present). Raises with the compiler output on failure.
+    The ``-Xptxas=-v`` report is kept in ``_build/<label>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs, times = {}, {}
-    for name in names:
-        out = _lib_path(name)
+    for name, defines in [(n, ()) for n in names] + list(variants):
+        label = '-'.join([name, *defines])
+        out = _lib_path(name, defines)
         if out.is_file():
-            times[name] = 0.0
+            times[label] = 0.0
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(SRC_DIR / f'{name}.cu')]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT),
-                       time.perf_counter(), tmp, out)
+        cmd = [nvcc, *_flags(defines), '-o', str(tmp),
+               str(SRC_DIR / f'{name}.cu')]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT),
+                        time.perf_counter(), tmp, out)
     errors = []
-    for name, (proc, t0, tmp, out) in procs.items():
+    for label, (proc, t0, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
-        (BUILD_DIR / f'{name}.log').write_bytes(log)
+        times[label] = time.perf_counter() - t0
+        (BUILD_DIR / f'{label}.log').write_bytes(log)
         if proc.returncode != 0:
-            errors.append(f'nvcc failed for {name}.cu:\n'
+            errors.append(f'nvcc failed for {label}:\n'
                           f'{log.decode(errors="replace")}')
             tmp.unlink(missing_ok=True)
         else:
@@ -89,14 +100,16 @@ def build(names: List[str] = SOURCES) -> Dict[str, float]:
     return times
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+def library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built with ``-D`` of each of
+    ``defines``), built first if needed."""
     with _lock:
-        lib = _libs.get(name)
+        key = (name, tuple(defines))
+        lib = _libs.get(key)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            _libs[name] = lib
+            build([], [(name, tuple(defines))])
+            lib = ctypes.CDLL(str(_lib_path(name, defines)))
+            _libs[key] = lib
         return lib
 
 

@@ -11,7 +11,7 @@ selects between them. There is no gradient: the vocoder only serves.
 """
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,15 +19,12 @@ import torch.nn.functional as F
 from forwardtacotron_torch.ops.hopper import build
 from forwardtacotron_torch.ops.hopper import mrf as mrf_ops
 
-# the kernel's limits: upsample rates, phases out of one level, input
-# channels and upsampler taps. At C_in 128 and C 64 a bf16 CTA holds the
-# MRF window, the de-interleaved input tile (in the buffer of the unit's
-# activation, dead while the upsample runs) and two staged [C, C_in]
-# upsampler taps in 229,632 of a block's 232,448 bytes of shared memory.
-RATES = (2, 4)
+# the kernel's limits: phases out of one level (the JAX gate's), upsampler
+# taps (each reaches at most IN_HALO input rows) and input channels per
+# output channel (every level of HiFi-GAN v1 and v2 halves the channels)
 MAX_PHASES = 4
-MAX_C_IN = 128
-MAX_K_UP = 16
+MAX_K_UP = 32
+IN_HALO = mrf_ops.IN_HALO
 
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -58,22 +55,75 @@ def phase_unstack(x: torch.Tensor, s: int) -> torch.Tensor:
         b, rows // s, s * t)
 
 
-def shape_error(s_in: int, s_up: int, c_in: int, c: int, k_up: int,
-                krs: Sequence[int], dils: Sequence[int]) -> Optional[str]:
-    """Why the kernel cannot take this level, or None when it can. Needs no
-    card: the wrapper raises with it, and the generator's gate consults it
-    for every level of the tail."""
-    if s_up not in RATES or s_in not in (1, 2, 4) \
-            or s_in * s_up > MAX_PHASES:
+def tap_reach(s_up: int, k_up: int) -> int:
+    """Input rows the farthest upsampler tap reads away from its output's
+    own input sample."""
+    pad_up = k_up - 1 - (k_up - s_up) // 2
+    return max(-((-pad_up) // s_up), (s_up - 1 + k_up - 1 - pad_up) // s_up)
+
+
+def level_error(s_in: int, s_up: int, c_in: int, c: int,
+                k_up: int) -> Optional[str]:
+    """Why no plan can take the upsample of this level, or None."""
+    if s_up < 2 or s_in < 1 or s_in * s_up > MAX_PHASES:
         return (f'upsample rate {s_up} after {s_in} phases: the kernel takes '
-                f'rates {RATES} and at most {MAX_PHASES} phases out')
-    if k_up < s_up or (k_up - s_up) % 2 or k_up > MAX_K_UP:
+                f'rates of at least 2 and at most {MAX_PHASES} phases out')
+    if k_up < s_up or (k_up - s_up) % 2 or k_up > MAX_K_UP \
+            or tap_reach(s_up, k_up) > IN_HALO:
         return (f'upsampler kernel size {k_up} at rate {s_up}: the kernel '
                 f'takes k - s even and k <= {MAX_K_UP}')
-    if not 0 < c_in <= MAX_C_IN:
-        return (f'C_in={c_in}: the kernel keeps the input tile in shared '
-                f'memory, which holds C_in <= {MAX_C_IN}')
-    return mrf_ops.shape_error(c, krs, dils)
+    if not 0 < c_in <= 2 * c:
+        return (f'C_in={c_in} for C={c}: the kernel takes at most 2 * C '
+                'input channels')
+    return None
+
+
+def plan(dtype: torch.dtype, s_in: int, s_up: int, c_in: int, c: int,
+         k_up: int, krs: Sequence[int], dils: Sequence[int],
+         smem_limit: Optional[int] = None) -> dict:
+    """The launch plan of one level of the tail (``mrf.plan`` with the
+    upsample's input tile and kept output); raises ValueError with the
+    reason where none fits. Needs no card."""
+    err = level_error(s_in, s_up, c_in, c, k_up)
+    if err:
+        raise ValueError(err)
+    return mrf_ops.plan(dtype, c, krs, dils, c_in=c_in, s_out=s_in * s_up,
+                        s_up=s_up, smem_limit=smem_limit)
+
+
+def shape_error(s_in: int, s_up: int, c_in: int, c: int, k_up: int,
+                krs: Sequence[int], dils: Sequence[int]) -> Optional[str]:
+    """Why the kernel cannot take this level (in float32 or bfloat16), or
+    None when it can. Needs no card: the wrapper raises with it, and the
+    generator's gate consults it for every level of the tail."""
+    for dtype in (torch.float32, torch.bfloat16):
+        try:
+            plan(dtype, s_in, s_up, c_in, c, k_up, krs, dils)
+        except ValueError as e:
+            return str(e)
+    return None
+
+
+def up_taps(s_up: int, k_up: int):
+    """The upsampler's taps (indices into the packed [k, C, C_in] weight)
+    in the kernel's order: per output phase r of the stride, the taps
+    m_first(r) + j * s_up."""
+    pad_up = k_up - 1 - (k_up - s_up) // 2
+    return [list(range((pad_up - r) % s_up, k_up, s_up))
+            for r in range(s_up)]
+
+
+def pack_weights(up_w: torch.Tensor, s_up: int,
+                 weights: Tuple[torch.Tensor, ...], krs: Sequence[int],
+                 cs: int) -> torch.Tensor:
+    """The level's upsampler taps ([k, C, C_in], C and C_in padded to the
+    plan's) in the kernel's phase order (:func:`up_taps`), then its MRF
+    weights (``mrf.pack_weights``), as the bf16 ring streams them: [C / cs,
+    stages * cs * KC]."""
+    return torch.cat([mrf_ops.product_images(up_w[taps], cs)
+                      for taps in up_taps(s_up, up_w.shape[0])]
+                     + [mrf_ops.pack_weights(weights, krs, cs)],
+                     1).contiguous()
 
 
 def ups_mrf_plain(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
@@ -106,19 +156,48 @@ def ups_mrf_plain(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
     return phase_stack(F.pad(y, (0, s_out * t_ps - n)), s_out)
 
 
-def pad_channels(x, up_w, up_b, weights, s_in, krs, c_in_pad, c_pad):
-    """The level with zero input channels up to ``c_in_pad`` in every phase
-    of x and zero output channels up to ``c_pad``: a zero output channel
-    has zero upsampler weights and bias and stays zero through the MRF
-    (:func:`mrf.pad_weights`), so the first C output channels of every
-    phase are unchanged (:func:`unpad_output` takes them)."""
-    b, _, t_ps = x.shape
-    _, c, c_in = up_w.shape
-    x = F.pad(x.reshape(b, s_in, c_in, t_ps),
-              (0, 0, 0, c_in_pad - c_in)).reshape(b, s_in * c_in_pad, t_ps)
-    return (x, F.pad(up_w, (0, c_in_pad - c_in, 0, c_pad - c)),
-            F.pad(up_b, (0, c_pad - c)),
-            mrf_ops.pad_weights(weights, krs, c, c_pad))
+def pad_input(x: torch.Tensor, s_in: int, c_in_pad: int) -> torch.Tensor:
+    """x [B, s_in*C_in, T] with zero input channels up to ``c_in_pad`` in
+    every phase."""
+    b, rows, t_ps = x.shape
+    c_in = rows // s_in
+    return F.pad(x.reshape(b, s_in, c_in, t_ps),
+                 (0, 0, 0, c_in_pad - c_in)).reshape(b, s_in * c_in_pad, t_ps)
+
+
+class Prepared(NamedTuple):
+    """A level's weights as the kernel launches them (:func:`prepare`)."""
+    up_w: torch.Tensor                  # zero channels up to the plan's
+    up_b: torch.Tensor
+    weights: Tuple[torch.Tensor, ...]
+    packed: Optional[torch.Tensor]      # the bf16 ring's stage images
+    c_pad: int
+    c_in_pad: int
+    cs: int
+
+
+def prepare(up_w: torch.Tensor, up_b: torch.Tensor,
+            weights: Tuple[torch.Tensor, ...], s_in: int, s_up: int,
+            krs: Sequence[int], dils: Sequence[int]) -> Prepared:
+    """The level's weights (as :func:`ups_mrf` takes them) with zero input
+    channels up to the plan's C_in and zero output channels up to its C (a
+    zero output channel has zero upsampler weights and bias and stays zero
+    through the MRF, :func:`mrf.pad_weights`, so the first C output
+    channels of every phase are unchanged: :func:`unpad_output` takes
+    them), and, in bf16, packed into the ring's stage images. Fixed for a
+    weight set: a caller that launches the level again passes it to
+    :func:`ups_mrf` as ``prepared`` and skips this work."""
+    krs, dils = tuple(int(k) for k in krs), tuple(int(d) for d in dils)
+    k_up, c, c_in = up_w.shape
+    pl = plan(up_w.dtype, int(s_in), int(s_up), c_in, c, k_up, krs, dils)
+    c_pad, ci_pad = pl['c_pad'], pl['c_in_pad']
+    if (c_pad, ci_pad) != (c, c_in):
+        up_w = F.pad(up_w, (0, ci_pad - c_in, 0, c_pad - c)).contiguous()
+        up_b = F.pad(up_b, (0, c_pad - c))
+        weights = mrf_ops.pad_weights(weights, krs, c, c_pad)
+    packed = pack_weights(up_w, int(s_up), weights, krs, pl['cs']) \
+        if up_w.dtype == torch.bfloat16 else None
+    return Prepared(up_w, up_b, weights, packed, c_pad, ci_pad, pl['cs'])
 
 
 def unpad_output(out: torch.Tensor, s_out: int, c: int) -> torch.Tensor:
@@ -133,21 +212,25 @@ def unpad_output(out: torch.Tensor, s_out: int, c: int) -> torch.Tensor:
 
 def _kernel(dtype):
     fn = getattr(build.library('mrf'), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] \
-        + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                            ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_void_p] \
+        + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def ups_mrf(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
             weights: Tuple[torch.Tensor, ...], s_in: int, s_up: int,
-            krs: Sequence[int], dils: Sequence[int],
-            t_valid: int) -> torch.Tensor:
+            krs: Sequence[int], dils: Sequence[int], t_valid: int,
+            prepared: Optional[Prepared] = None) -> torch.Tensor:
     """Same contract as :func:`ups_mrf_plain`, one kernel launch on the GPU.
 
-    The kernel takes C and C_in in multiples of 16; others are padded with
-    zero channels here, which is exact. What :func:`shape_error` refuses
-    raises ``ValueError``."""
+    The kernel takes C as a power of two from 16 to 256 and C_in as a power
+    of two from 16 to 64 or a multiple of 64; others are padded with zero
+    channels, which is exact. ``prepared``: :func:`prepare` of these
+    weights, made here when not given. What :func:`plan` refuses raises
+    ``ValueError``."""
     if x.device.type == 'cpu':
         return ups_mrf_plain(x, up_w, up_b, weights, s_in, s_up, krs, dils,
                              t_valid)
@@ -166,41 +249,41 @@ def ups_mrf(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
                          f'phases of the upsampler\'s C_in '
                          f'({tuple(up_w.shape)})')
     k_up, c, c_in = up_w.shape
-    err = shape_error(s_in, s_up, c_in, c, k_up, krs, dils)
-    if err:
-        raise ValueError(f'ups_mrf: {err}')
+    try:
+        pl = plan(dt, s_in, s_up, c_in, c, k_up, krs, dils)
+    except ValueError as e:
+        raise ValueError(f'ups_mrf: {e}') from None
     if not 0 <= t_valid <= t_ps:
         raise ValueError(f'ups_mrf: t_valid={t_valid} outside [0, {t_ps}]')
-    if len(weights) != 4 * len(krs):
-        raise ValueError(f'ups_mrf: {len(weights)} weight tensors for '
-                         f'{len(krs)} kernel sizes (4 each)')
-    u = len(dils)
-    wants = [(up_w, (k_up, c, c_in), dt), (up_b, (c,), torch.float32)]
-    for i, kr in enumerate(krs):
-        for j, shape in enumerate(((u, c, kr * c), (u, c, 1)) * 2):
-            wants.append((weights[4 * i + j], shape,
-                          torch.float32 if j % 2 else dt))
-    for w, shape, wdt in wants:
+    for w, shape, wdt in ((up_w, (k_up, c, c_in), dt),
+                          (up_b, (c,), torch.float32)):
         if (tuple(w.shape) != shape or w.dtype != wdt
                 or w.device != x.device or not w.is_contiguous()
                 or w.data_ptr() % 16):
             raise ValueError(f'ups_mrf: expected a contiguous, 16-byte '
                              f'aligned {wdt} {shape} tensor on {x.device}, '
                              f'got {w.dtype} {tuple(w.shape)} on {w.device}')
+    mrf_ops.check_weights('ups_mrf', weights, krs, len(dils), c, dt,
+                          torch.float32, x.device)
     s_out = s_in * s_up
-    c_pad, ci_pad = -(-c // 16) * 16, -(-c_in // 16) * 16
-    if (c_pad, ci_pad) != (c, c_in):
-        x, up_w, up_b, weights = pad_channels(x, up_w, up_b, weights, s_in,
-                                              krs, ci_pad, c_pad)
+    c_pad, ci_pad = pl['c_pad'], pl['c_in_pad']
+    if ci_pad != c_in:
+        x = pad_input(x, s_in, ci_pad)
     out = torch.empty(b, s_out * c_pad, t_ps, dtype=dt, device=x.device)
     if b and t_ps:
-        ptrs = (ctypes.c_void_p * len(weights))(
-            *(w.data_ptr() for w in weights))
+        prepared = prepared or prepare(up_w, up_b, weights, s_in, s_up, krs,
+                                       dils)
+        mrf_ops.check_prepared('ups_mrf', prepared, pl)
+        if prepared.c_in_pad != ci_pad:
+            raise ValueError(f'ups_mrf: the prepared weights are for C_in='
+                             f'{prepared.c_in_pad}, the plan takes {ci_pad}')
         status = _kernel(dt)(
-            build.ptr(x), build.ptr(out), build.ptr(up_w), build.ptr(up_b),
-            ptrs, (ctypes.c_int * len(krs))(*krs), len(krs),
-            (ctypes.c_int * u)(*dils), u, b, ci_pad, c_pad, s_in, s_up, k_up,
-            t_ps, t_valid, x.get_device(), build.stream_of(x))
+            build.ptr(x), build.ptr(out), build.ptr(prepared.up_w),
+            build.ptr(prepared.up_b),
+            *mrf_ops.launch_args(prepared.weights, prepared.packed, krs,
+                                 dils), b, ci_pad, c_pad, s_in, s_up, k_up,
+            t_ps, t_valid, pl['cs'], pl['t_tile'], pl['stages'],
+            x.get_device(), build.stream_of(x))
         build.check(status, 'ups_mrf')
         global launches
         launches += 1

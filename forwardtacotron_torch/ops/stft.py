@@ -1,14 +1,19 @@
-"""Complex-free STFT / ISTFT / Griffin-Lim as real matrix products.
+"""STFT / ISTFT / Griffin-Lim: the complex-free pair path as real matrix
+products, and the rfft form for hops that do not divide n_fft.
 
-Port of the pair path of forwardtacotron_tpu/ops/stft.py (the DFT as two
+Port of forwardtacotron_tpu/ops/stft.py: its pair path (the DFT as two
 real matmuls, framing and overlap-add as hop-strided reshapes; requires
-hop | n_fft). Conventions follow librosa as the reference uses it:
+hop | n_fft) and its rfft form (``frame_signal``, ``stft``, ``istft``,
+``griffin_lim``: a gather of frames, ``torch.fft``, an index-add overlap;
+any hop, 1-D signals, spectra [bins, n_frames]). Conventions follow
+librosa as the reference uses it:
 center=True with reflect padding, periodic Hann window,
 ``n_frames = 1 + len(y) // hop`` and magnitude (power=1) spectrograms.
 Signals may carry leading batch dimensions; spectra are frames-major
 [..., n_frames, bins].
 
-``griffin_lim_pair`` takes its initial phase as an argument: the JAX package
+``griffin_lim_pair`` and ``griffin_lim`` take their initial phase as an
+argument: the JAX package
 draws it with ``jax.random``, which PyTorch cannot reproduce bit for bit, so
 callers draw it (``DSP.griffinlim`` from a seeded ``torch.Generator``) or
 inject it (the parity tests).
@@ -16,6 +21,7 @@ inject it (the parity tests).
 
 import math
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -156,3 +162,64 @@ def initial_phase(shape, seed: int) -> torch.Tensor:
     gen = torch.Generator(device='cpu').manual_seed(seed)
     return 2.0 * math.pi * torch.rand(shape, generator=gen,
                                       dtype=torch.float32)
+
+
+# ------------------------------------------------------------- rfft form
+
+def frame_signal(y: torch.Tensor, frame_length: int,
+                 hop_length: int) -> torch.Tensor:
+    """Strided framing: [n] -> [n_frames, frame_length]."""
+    n_frames = 1 + (y.shape[-1] - frame_length) // hop_length
+    idx = (torch.arange(n_frames, device=y.device)[:, None] * hop_length
+           + torch.arange(frame_length, device=y.device)[None, :])
+    return y[idx]
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+         center: bool = True) -> torch.Tensor:
+    """Complex STFT of a 1-D signal -> [1 + n_fft // 2, n_frames]."""
+    window = _const(padded_window(win_length, n_fft), y)
+    if center:
+        y = torch.nn.functional.pad(y[None, None], (n_fft // 2, n_fft // 2),
+                                    mode='reflect')[0, 0]
+    frames = frame_signal(y, n_fft, hop_length) * window
+    return torch.fft.rfft(frames, n=n_fft, dim=-1).T
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse of :func:`stft` by windowed overlap-add with the squared
+    window's normalization; returns the center-trimmed signal."""
+    window = _const(padded_window(win_length, n_fft), spec.real)
+    frames = torch.fft.irfft(spec.T, n=n_fft, dim=-1) * window
+    n_frames = frames.shape[0]
+    total = n_fft + hop_length * (n_frames - 1)
+    idx = (torch.arange(n_frames, device=spec.device)[:, None] * hop_length
+           + torch.arange(n_fft, device=spec.device)[None, :]).reshape(-1)
+    signal = torch.zeros(total, dtype=frames.dtype, device=spec.device)
+    signal.index_add_(0, idx, frames.reshape(-1))
+    win_sq = torch.zeros(total, dtype=torch.float32, device=spec.device)
+    win_sq.index_add_(0, idx, (window ** 2).expand(n_frames, n_fft)
+                      .reshape(-1))
+    signal = signal / torch.clamp(win_sq, min=1e-10)
+    signal = signal[n_fft // 2: total - n_fft // 2]
+    return signal if length is None else signal[:length]
+
+
+def griffin_lim(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
+                hop_length: int, win_length: int, n_iter: int = 32,
+                momentum: float = 0.99) -> torch.Tensor:
+    """Griffin-Lim with momentum (librosa-style) on the rfft form, for any
+    hop. ``magnitude`` and the initial ``phase`` (radians) are [bins,
+    n_frames]; returns the [samples] waveform. Runs no kernel."""
+    angles = torch.polar(torch.ones_like(phase), phase)
+    mag = magnitude.to(torch.complex64)
+    tprev = torch.zeros_like(mag)
+    c = momentum / (1 + momentum)
+    for _ in range(n_iter):
+        rebuilt = stft(istft(mag * angles, n_fft, hop_length, win_length),
+                       n_fft, hop_length, win_length)
+        update = rebuilt - c * tprev
+        angles = update / torch.clamp(update.abs(), min=1e-16)
+        tprev = rebuilt
+    return istft(mag * angles, n_fft, hop_length, win_length)

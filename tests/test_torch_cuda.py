@@ -139,8 +139,8 @@ def test_front_and_highway_raise_on_unsupported_shapes(dev):
 def test_gates_raise_where_kernels_refuse(dev):
     """Where the JAX package's gates send a part to a Pallas kernel and the
     CUDA kernel does not take its shape, the forward raises on the card
-    rather than run plain operations: an MRF level of 128 channels, a tail
-    level of 256 input channels. A CBHG front projecting to 320 columns,
+    rather than run plain operations: an MRF level of 512 channels, a tail
+    level whose upsampler has 34 taps. A CBHG front projecting to 320 columns,
     which the front kernel once refused, now launches it and matches the
     CPU."""
     from forwardtacotron_torch.models.layers import CBHG
@@ -156,10 +156,13 @@ def test_gates_raise_where_kernels_refuse(dev):
     assert cbhg.launches == before + 1
     _close([got.cpu()], [want], 1e-3)
     before = (cbhg.launches, mrf.launches, ups_mrf.launches)
-    for kw, match in ((dict(upsample_initial_channel=256,
-                            fuse_mrf_max_ch=128), 'C=128'),
-                      (dict(upsample_initial_channel=1024,
-                            fuse_ups_tail_max_ch=128), 'C_in=256')):
+    for kw, match in ((dict(upsample_initial_channel=1024,
+                            resblock_kernel_sizes=(3,),
+                            resblock_dilation_sizes=((1, 3, 5),),
+                            fuse_mrf_max_ch=512), 'C=512'),
+                      (dict(upsample_kernel_sizes=(16, 16, 34, 4),
+                            upsample_initial_channel=128,
+                            fuse_ups_tail_max_ch=32), 'kernel size 34')):
         gen = HiFiGANGenerator(num_mels=8, **kw).eval().to(dev)
         with torch.no_grad(), pytest.raises(NotImplementedError,
                                             match=match):
@@ -781,11 +784,14 @@ def _mrf_inputs(g, b, c, t, dev, dtype, krs=(3, 7, 11), units=3):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,c,t', [(2, 64, 1000), (1, 32, 2113), (3, 16, 77),
-                                   (1, 24, 300), (2, 64, 1), (2, 12, 500)])
+                                   (1, 24, 300), (2, 64, 1), (2, 12, 500),
+                                   (2, 128, 700), (1, 256, 333),
+                                   (2, 8, 100), (1, 96, 257)])
 def test_mrf_kernel_matches_twin(dev, dtype, b, c, t):
     """One MRF level (kr 3/7/11, d 1/3/5): ragged last tiles, a level
-    shorter than one tile and its halo, C=24 and C=12 padded to 32 and 16
-    channels."""
+    shorter than one tile and its halo, C=24, 12, 8 and 96 padded to 32,
+    16, 16 and 128 channels; C=128 and 256 in clusters of CTAs that share
+    their channel slices, across tile boundaries."""
     g = torch.Generator().manual_seed(c + t)
     x, weights = _mrf_inputs(g, b, c, t, dev, dtype)
     before = mrf.launches
@@ -799,27 +805,55 @@ def test_mrf_kernel_matches_twin(dev, dtype, b, c, t):
 
 
 def test_mrf_kernel_other_branches(dev):
-    """Two branches of two units (kr 5/9, d 2/1), bf16 and f32."""
+    """Two branches of two units (kr 5/9, d 2/1), bf16 and f32; even kernel
+    sizes (4/6, d 1/2) at one CTA per tile and in a cluster; eight kernel
+    sizes of one unit each."""
     g = torch.Generator().manual_seed(7)
-    for dtype in (torch.float32, torch.bfloat16):
-        x, weights = _mrf_inputs(g, 2, 48, 700, dev, dtype, krs=(5, 9),
-                                 units=2)
-        got = mrf.mrf(x, weights, (5, 9), (2, 1))
-        torch.cuda.synchronize()
-        _close([got.float()], [mrf.mrf_plain(x, weights, (5, 9),
-                                             (2, 1)).float()],
-               TOL if dtype == torch.float32 else BF16_TOL)
+    for c, krs, dils in ((48, (5, 9), (2, 1)), (32, (4, 6), (1, 2)),
+                         (128, (4, 6), (1, 2)),
+                         (32, (2, 3, 4, 5, 6, 7, 3, 5), (1,))):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, weights = _mrf_inputs(g, 2, c, 700, dev, dtype, krs=krs,
+                                     units=len(dils))
+            got = mrf.mrf(x, weights, krs, dils)
+            torch.cuda.synchronize()
+            _close([got.float()], [mrf.mrf_plain(x, weights, krs,
+                                                 dils).float()],
+                   TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize('c', [64, 256])
+def test_mrf_kernel_fewest_ring_stages(dev, monkeypatch, c):
+    """bf16 with the plan held to the fewest ring stages the kernel takes
+    (2): the shared memory cut to the tile's buffers and two stages."""
+    pl = mrf.plan(torch.bfloat16, c, (3, 7, 11), (1, 3, 5))
+    slot = pl['cs'] * mrf.KC * 2
+    monkeypatch.setattr(mrf, 'SMEM_BYTES',
+                        pl['smem'] - (pl['stages'] - mrf.MIN_STAGES) * slot)
+    low = mrf.plan(torch.bfloat16, c, (3, 7, 11), (1, 3, 5))
+    assert (low['stages'], low['t_tile']) == (mrf.MIN_STAGES, pl['t_tile'])
+    g = torch.Generator().manual_seed(c)
+    x, weights = _mrf_inputs(g, 2, c, 600, dev, torch.bfloat16)
+    got = mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
+    torch.cuda.synchronize()
+    _close([got.float()],
+           [mrf.mrf_plain(x, weights, (3, 7, 11), (1, 3, 5)).float()],
+           BF16_TOL)
 
 
 def test_mrf_kernel_raises_on_unsupported_shapes(dev):
+    """C past the cap (512), more than 8 kernel sizes, a span past the
+    halo, a float16 input: raised before any launch."""
     g = torch.Generator().manual_seed(3)
     before = mrf.launches
-    x, weights = _mrf_inputs(g, 1, 128, 50, dev, torch.bfloat16)
-    with pytest.raises(ValueError, match='shared memory'):
-        mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
-    x, weights = _mrf_inputs(g, 1, 80, 50, dev, torch.bfloat16)
-    with pytest.raises(ValueError, match='shared memory'):
-        mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
+    x, weights = _mrf_inputs(g, 1, 512, 50, dev, torch.bfloat16, krs=(3,),
+                             units=1)
+    with pytest.raises(ValueError, match='C=512'):
+        mrf.mrf(x, weights, (3,), (1,))
+    x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16, krs=(3,) * 9,
+                             units=1)
+    with pytest.raises(ValueError, match='at most 8'):
+        mrf.mrf(x, weights, (3,) * 9, (1,))
     x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16, krs=(13,))
     with pytest.raises(ValueError, match='halo'):
         mrf.mrf(x, weights, (13,), (1, 3, 5))
@@ -849,11 +883,17 @@ def _ups_inputs(g, b, s_in, s_up, k, c_in, c, t_ps, dev, dtype):
     (1, 2, 2, 4, 64, 32, 1031, 1031),   # v1 level 3
     (3, 1, 2, 4, 64, 32, 37, 30),       # shorter than a tile, padding lanes
     (2, 1, 4, 8, 32, 16, 300, 297),     # rate 4
-    (1, 2, 2, 4, 24, 12, 200, 200)])    # C_in 24, C 12: padded to 32, 16
+    (1, 2, 2, 4, 24, 12, 200, 200),     # C_in 24, C 12: padded to 32, 16
+    (2, 1, 3, 9, 64, 32, 301, 299),     # rate 3
+    (1, 1, 2, 24, 64, 32, 257, 257),    # k_up 24
+    (1, 1, 4, 32, 32, 16, 100, 100),    # k_up 32 at rate 4
+    (2, 1, 2, 4, 256, 128, 300, 290),   # clusters of 2 (bf16)
+    (1, 2, 2, 4, 512, 256, 70, 70)])    # clusters of 4 (bf16), 8 (f32)
 def test_ups_mrf_kernel_matches_twin(dev, dtype, b, s_in, s_up, k, c_in, c,
                                      t_ps, t_valid):
     """One level of the phase-stacked tail (leaky, upsample, kr 3/7/11 and
-    d 1/3/5 MRF): ragged last tiles and lanes past t_valid."""
+    d 1/3/5 MRF): ragged last tiles and lanes past t_valid, rates 2, 3 and
+    4, upsamplers of 4 to 32 taps, C up to 256."""
     g = torch.Generator().manual_seed(c_in + t_ps)
     args = (*_ups_inputs(g, b, s_in, s_up, k, c_in, c, t_ps, dev, dtype),
             s_in, s_up, (3, 7, 11), (1, 3, 5), t_valid)
@@ -869,12 +909,12 @@ def test_ups_mrf_kernel_matches_twin(dev, dtype, b, s_in, s_up, k, c_in, c,
 
 
 def test_ups_mrf_kernel_raises_on_unsupported_shapes(dev):
-    """Levels the kernel cannot take raise on the card: more than 64 output
-    channels, more than 128 input channels, a rate of 8, a float16 input."""
+    """Levels the kernel cannot take raise on the card: an upsampler of 34
+    taps, more than 2 C input channels, a rate of 8, a float16 input."""
     g = torch.Generator().manual_seed(4)
     before = ups_mrf.launches
     for (s_in, s_up, k, c_in, c), match in (
-            ((1, 2, 4, 128, 128), 'shared memory'),
+            ((1, 2, 34, 64, 32), 'kernel size 34'),
             ((1, 2, 4, 256, 64), 'C_in'),
             ((1, 8, 16, 64, 32), 'rate')):
         args = _ups_inputs(g, 1, s_in, s_up, k, c_in, c, 40, dev,
@@ -885,6 +925,33 @@ def test_ups_mrf_kernel_raises_on_unsupported_shapes(dev):
     with pytest.raises(ValueError, match='float32 or bfloat16'):
         ups_mrf.ups_mrf(*args, 1, 2, (3, 7, 11), (1, 3, 5), 40)
     assert ups_mrf.launches == before
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_prepared_weights_launch_the_same(dev, dtype):
+    """Weights prepared once (padded and, in bf16, packed into ring images:
+    what the generator keeps) launch what preparing them per call launches,
+    bit for bit, at padded channels (C 12 -> 16, C_in 24 -> 32); weights
+    prepared for another plan raise before any launch."""
+    krs, dils = (3, 7, 11), (1, 3, 5)
+    g = torch.Generator().manual_seed(9)
+    x, weights = _mrf_inputs(g, 2, 12, 300, dev, dtype)
+    prep = mrf.prepare(weights, krs, dils)
+    got = mrf.mrf(x, weights, krs, dils, prepared=prep)
+    assert torch.equal(got, mrf.mrf(x, weights, krs, dils))
+    x_up, *level = _ups_inputs(g, 2, 1, 2, 4, 24, 12, 200, dev, dtype)
+    level = (*level, 1, 2, krs, dils)
+    uprep = ups_mrf.prepare(*level)
+    got = ups_mrf.ups_mrf(x_up, *level, 197, prepared=uprep)
+    assert torch.equal(got, ups_mrf.ups_mrf(x_up, *level, 197))
+    other = mrf.prepare(_mrf_inputs(g, 1, 64, 10, dev, dtype)[1], krs, dils)
+    before = (mrf.launches, ups_mrf.launches)
+    with pytest.raises(ValueError, match='prepared weights'):
+        mrf.mrf(x, weights, krs, dils, prepared=other)
+    with pytest.raises(ValueError, match='prepared weights'):
+        ups_mrf.ups_mrf(x_up, *level, 197, prepared=other)
+    assert (mrf.launches, ups_mrf.launches) == before
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

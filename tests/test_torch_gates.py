@@ -48,16 +48,17 @@ def _jax_mrf_gate(monkeypatch, gen):
 def test_mrf_gate_admits_only_kernel_shapes(monkeypatch):
     """On a card, over widths, caps, kernel sizes and dilations: the gate
     admits a level where the JAX gate does and the kernel takes it, and
-    raises where the JAX gate admits a level the kernel does not take; it
-    never gives way to the per-convolution path. The levels of 12 and 6
-    channels that the kernel once refused are admitted."""
+    raises where the JAX gate admits a level the kernel does not take
+    (more than 256 channels); it never gives way to the per-convolution
+    path. The levels of 12 and 6 channels that the kernel once refused, of
+    128 and 256 channels and of even kernel sizes are admitted."""
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     admitted, raised = set(), set()
     for initial, (krs, dils) in itertools.product((96, 256, 40), MRF_BLOCKS):
         gen = HiFiGANGenerator(upsample_initial_channel=initial,
                                resblock_kernel_sizes=krs,
                                resblock_dilation_sizes=dils, num_mels=8)
-        for cap in (16, 64, 128):
+        for cap in (16, 64, 128, 256):
             gen.fuse_mrf_max_ch = cap           # the gate reads nothing else
             jax_gate = _jax_mrf_gate(monkeypatch, gen)
             for up in gen.ups:
@@ -74,8 +75,17 @@ def test_mrf_gate_admits_only_kernel_shapes(monkeypatch):
                 if got:
                     assert err is None
                     admitted.add(c)
-    assert {12, 6, 48, 24, 64, 5, 10} <= admitted    # 40 -> 20, 10, 5
-    assert (128, KRS) in raised and (32, (4, 6)) in raised
+    assert {12, 6, 48, 24, 64, 5, 10, 128} <= admitted  # 40 -> 20, 10, 5
+    assert not raised
+    # a level past the kernel's 256 channels, which the JAX gate admits
+    gen = HiFiGANGenerator(upsample_initial_channel=1024,
+                           resblock_kernel_sizes=(3,),
+                           resblock_dilation_sizes=((1, 3, 5),), num_mels=8)
+    gen.fuse_mrf_max_ch = 512
+    assert _jax_mrf_gate(monkeypatch, gen)(512)
+    with pytest.raises(NotImplementedError, match='C=512'):
+        gen._mrf_fusable(512, torch.zeros(1, 512, 4))
+    assert gen._mrf_fusable(256, torch.zeros(1, 256, 4))
     # the per-convolution path on CPU tensors, whatever the shape
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: False)
     assert not gen._mrf_fusable(128, torch.zeros(1, 128, 4))
@@ -223,18 +233,23 @@ def test_ups_mrf_padding_is_exact():
     weights = _mrf_weights(g, c)
     want = ups_mrf.ups_mrf_plain(x, up_w, up_b, weights, s_in, s_up, KRS,
                                  DILS, t_ps - 3)
-    padded = ups_mrf.pad_channels(x, up_w, up_b, weights, s_in, KRS, 32, 16)
-    got = ups_mrf.ups_mrf_plain(*padded, s_in, s_up, KRS, DILS, t_ps - 3)
+    prep = ups_mrf.prepare(up_w, up_b, weights, s_in, s_up, KRS, DILS)
+    assert (prep.c_in_pad, prep.c_pad) == (32, 16) and prep.packed is None
+    got = ups_mrf.ups_mrf_plain(ups_mrf.pad_input(x, s_in, 32), prep.up_w,
+                                prep.up_b, prep.weights, s_in, s_up, KRS,
+                                DILS, t_ps - 3)
     assert got.shape == (2, s_in * s_up * 16, t_ps)
     torch.testing.assert_close(ups_mrf.unpad_output(got, s_in * s_up, c),
                                want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize('kw,match', [
-    (dict(upsample_initial_channel=256, fuse_mrf_max_ch=128), 'C=128'),
-    (dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
-          upsample_initial_channel=256, fuse_ups_tail_max_ch=128),
-     'C_in=256')], ids=['mrf', 'tail'])
+    (dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
+          resblock_dilation_sizes=((1, 3, 5),), fuse_mrf_max_ch=512),
+     'C=512'),
+    (dict(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 34, 4),
+          upsample_initial_channel=64, fuse_ups_tail_max_ch=16),
+     'kernel size 34')], ids=['mrf', 'tail'])
 def test_generator_raises_where_kernel_refuses(monkeypatch, kw, match):
     """The generator's forward on a card (device clause patched) raises at
     the first level the JAX gate admits and the kernel does not take,

@@ -121,6 +121,42 @@ def test_generate_and_griffinlim_match_jax(interp):
     np.testing.assert_allclose(wav, wav_ref, atol=1e-4, rtol=1e-3)
 
 
+def test_griffinlim_non_dividing_hop_matches_jax():
+    """A hop that does not divide n_fft (2048/275, the reference config's):
+    ``DSP.griffinlim`` takes the rfft form (plain torch, no kernel), as the
+    JAX package's does, and matches it with the JAX phase draw injected.
+    Tolerance atol 1e-4 of the waveform's scale, rtol 1e-3: float32 FFTs of
+    2048 points in another library, through 4 momentum iterations."""
+    import jax
+
+    from forwardtacotron_tpu.dsp.dsp import DSP as JaxDSP
+    from forwardtacotron_tpu.ops import stft as jstft
+
+    from forwardtacotron_torch.ops import stft as tstft
+
+    cfg = dict(num_mels=80, sample_rate=22050, n_fft=2048, hop_length=275,
+               win_length=1100, fmin=40, fmax=11025)
+    rs = np.random.RandomState(7)
+    mel = np.log(np.abs(rs.randn(80, 24)).astype(np.float32) + 1e-2)
+    jdsp = JaxDSP(**cfg)
+    wav_ref = jdsp.griffinlim(mel, n_iter=4, seed=3)
+    phase = np.asarray(2.0 * np.pi * jax.random.uniform(
+        jax.random.PRNGKey(3), (1025, 24)))
+    wav = TorchDSP(**cfg, device='cpu').griffinlim(mel, n_iter=4,
+                                                    phase=phase)
+    assert wav.shape == wav_ref.shape == (23 * 275,)
+    scale = float(np.abs(wav_ref).max())
+    np.testing.assert_allclose(wav, wav_ref, atol=1e-4 * scale, rtol=1e-3)
+    # the transforms alone: framing, STFT and ISTFT against the JAX rfft form
+    y = rs.randn(3000).astype(np.float32)
+    spec = tstft.stft(torch.from_numpy(y), 2048, 275, 1100)
+    jspec = np.asarray(jstft.stft(y, 2048, 275, 1100))
+    np.testing.assert_allclose(spec.numpy(), jspec, atol=1e-3, rtol=1e-4)
+    np.testing.assert_allclose(
+        tstft.istft(spec, 2048, 275, 1100).numpy(),
+        np.asarray(jstft.istft(jspec, 2048, 275, 1100)), atol=1e-5)
+
+
 def test_griffinlim_seeded_phase_is_deterministic():
     """Without an injected phase the draw comes from a seeded
     torch.Generator: the same seed gives the same waveform, another seed

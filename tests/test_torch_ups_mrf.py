@@ -25,7 +25,8 @@ KRS, DILS = (3, 7, 11), (1, 3, 5)
 F32_ATOL, BF16_ATOL = 2e-5, 5e-2
 
 
-def _level_inputs(s_in, s_up, k, c_in, c, t_ps, seed):
+def _level_inputs(s_in, s_up, k, c_in, c, t_ps, seed, krs=KRS,
+                  n_units=len(DILS)):
     """x [2, s_in*C_in, T_ps], the upsampler in the JAX layout [k, C_in, C]
     and its bias [C], and the MRF weights (float32 biases), float32
     numpy."""
@@ -35,11 +36,12 @@ def _level_inputs(s_in, s_up, k, c_in, c, t_ps, seed):
         np.float32)
     up_b = (0.1 * rs.randn(c)).astype(np.float32)
     weights = []
-    for kr in KRS:
+    for kr in krs:
         for _ in range(2):
-            weights.append((rs.randn(3, c, kr * c) / np.sqrt(kr * c))
+            weights.append((rs.randn(n_units, c, kr * c) / np.sqrt(kr * c))
                            .astype(np.float32))
-            weights.append((0.1 * rs.randn(3, c, 1)).astype(np.float32))
+            weights.append((0.1 * rs.randn(n_units, c, 1))
+                           .astype(np.float32))
     return x, up_w, up_b, weights
 
 
@@ -65,22 +67,37 @@ LEVELS = [(1, 2, 4, 100, 100, 512), (2, 2, 4, 300, 293, 128),
                          ids=['s1x2', 's2x2_tiles', 's1x4'])
 def test_ups_mrf_twin_matches_pallas(dtype, s_in, s_up, k, t_ps, t_valid,
                                      t_tile):
+    _check_ups_mrf_twin(dtype, s_in, s_up, k, t_ps, t_valid, t_tile, KRS,
+                        DILS)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_ups_mrf_twin_matches_pallas_even_kr(dtype):
+    """Even kernel sizes, which the JAX gate admits and the card's kernel
+    takes, in phase space (a tap at (j - kr // 2) * d of an even kr), over
+    several tiles with a ragged edge."""
+    _check_ups_mrf_twin(dtype, 2, 2, 4, 300, 293, 128, (4, 6), (1, 2))
+
+
+def _check_ups_mrf_twin(dtype, s_in, s_up, k, t_ps, t_valid, t_tile, krs,
+                        dils):
     import jax.numpy as jnp
 
     from forwardtacotron_tpu.ops.pallas.mrf import ups_mrf_pallas
 
-    inputs = _level_inputs(s_in, s_up, k, 32, 16, t_ps, seed=t_ps)
+    inputs = _level_inputs(s_in, s_up, k, 32, 16, t_ps, seed=t_ps, krs=krs,
+                           n_units=len(dils))
     x, up_w, up_b, weights = inputs
     jdt = jnp.dtype(dtype)
     ref = ups_mrf_pallas(
         jnp.asarray(x, jdt), jnp.asarray(up_w, jdt), jnp.asarray(up_b),
         tuple(jnp.asarray(w, jnp.float32 if i % 2 else jdt)
               for i, w in enumerate(weights)),
-        s_in, s_up, KRS, DILS, t_valid, t_tile=t_tile, interpret=True)
+        s_in, s_up, krs, dils, t_valid, t_tile=t_tile, interpret=True)
     ref = np.asarray(ref, np.float32)
     tdt = getattr(torch, dtype)
-    got = ups_mrf.ups_mrf_plain(*_torch_level(inputs, tdt), s_in, s_up, KRS,
-                                DILS, t_valid)
+    got = ups_mrf.ups_mrf_plain(*_torch_level(inputs, tdt), s_in, s_up, krs,
+                                dils, t_valid)
     assert got.dtype == tdt and got.shape == ref.shape \
         == (2, s_in * s_up * 16, t_ps)
     assert not got[..., t_valid:].any()
@@ -126,11 +143,19 @@ def test_pack_up_weight_matches_jax():
 
 # the narrow v1 shape of tests/test_mrf.py (levels of 64/32/16/8 channels,
 # the tail from level 2, whose input spans several kernel tiles) and its
-# two-level x2/x2 config (the tail from level 0)
+# two-level x2/x2 config (the tail from level 0); tails the kernel takes
+# since its widening: a last level at rate 3, and an upsampler of 24 taps.
+# (config, fuse_ups_tail_max_ch, (batch, frames), n_mels, tail levels)
 TAIL_CFGS = {
-    'v1_narrow': (dict(upsample_initial_channel=128), 16, (1, 24), 20),
+    'v1_narrow': (dict(upsample_initial_channel=128), 16, (1, 24), 20,
+                  [2, 3]),
     'two_levels': (dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
-                        upsample_initial_channel=128), 64, (2, 24), 20)}
+                        upsample_initial_channel=128), 64, (2, 24), 20,
+                   [0, 1]),
+    'rate3': (dict(upsample_rates=(4, 4, 3), upsample_kernel_sizes=(8, 8, 9),
+                   upsample_initial_channel=64), 8, (2, 21), 20, [2]),
+    'k_up24': (dict(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 24, 4),
+                    upsample_initial_channel=64), 16, (2, 20), 20, [1, 2])}
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -139,7 +164,8 @@ def test_generator_tail_matches_jax(name, dtype, monkeypatch):
     """The port's generator with the tail on (its device clause patched, so
     CPU tensors reach ``ups_mrf``, which runs the twin) against the JAX
     generator with the same option under FTT_PALLAS_INTERPRET=1: the same
-    levels take the tail, and the outputs agree; in float32 also with the
+    levels take the tail (on the card the gate does not raise: rate 3 and
+    24 taps included), and the outputs agree; in float32 also with the
     port's per-convolution path."""
     import jax
     import jax.numpy as jnp
@@ -147,7 +173,7 @@ def test_generator_tail_matches_jax(name, dtype, monkeypatch):
     from forwardtacotron_tpu.models.vocoder import \
         HiFiGANGenerator as JaxHiFiGAN
 
-    cfg, max_ch, (b, t), n_mels = TAIL_CFGS[name]
+    cfg, max_ch, (b, t), n_mels, levels = TAIL_CFGS[name]
     monkeypatch.setenv('FTT_PALLAS_INTERPRET', '1')
     jmodel, variables, port = _jax_generator(cfg, seed=7, n_mels=n_mels,
                                              fuse_ups_tail_max_ch=max_ch)
@@ -176,8 +202,7 @@ def test_generator_tail_matches_jax(name, dtype, monkeypatch):
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     with torch.no_grad():
         got = port(torch.from_numpy(mel)).float().numpy()
-    n_levels = len(port.ups)
-    assert jax_levels == port_levels == list(range(n_levels - 2, n_levels))
+    assert jax_levels == port_levels == levels
     assert got.shape == want.shape == (b, t * port.hop_length)
     if dtype == 'float32':
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -196,7 +221,8 @@ def _jax_gate(cfg, max_ch):
 
 
 GATE_RATES = {(8, 8, 2, 2): (16, 16, 4, 4), (8, 8, 4): (16, 16, 8),
-              (2, 2): (4, 4), (4, 4): (8, 8), (8, 8, 3): (16, 16, 5)}
+              (2, 2): (4, 4), (4, 4): (8, 8), (8, 8, 3): (16, 16, 5),
+              (4, 2, 2): (8, 34, 4)}
 GATE_BLOCKS = {'1_uniform': ('1', ((1, 3, 5),) * 3),
                '1_mixed': ('1', ((1, 3, 5), (1, 3, 5), (1, 2, 4))),
                '2_uniform': ('2', ((1, 3),) * 3)}
@@ -206,9 +232,10 @@ GATE_BLOCKS = {'1_uniform': ('1', ((1, 3, 5),) * 3),
 def test_ups_tail_gate_matches_jax(block, monkeypatch):
     """On a card, over rates, channel caps, widths and lengths: the port's
     gate admits a tail exactly where the JAX gate does and the kernel takes
-    every level of it, and raises where the JAX gate admits a tail with a
-    level the kernel does not take (it holds at most 64 output and 128
-    input channels); every tail it admits passes the kernel's check."""
+    every level of it (rates 2, 3 and 4, up to 256 output channels), and
+    raises where the JAX gate admits a tail with a level the kernel does
+    not take (an upsampler of 34 taps); every tail it admits passes the
+    kernel's check."""
     monkeypatch.setenv('FTT_PALLAS_INTERPRET', '1')
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     resblock, dils = GATE_BLOCKS[block]

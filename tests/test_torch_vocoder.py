@@ -53,34 +53,32 @@ def _close_at_scale(got, want, atol):
                                atol=atol * scale)
 
 
-def _mrf_inputs(c, t, seed):
+def _mrf_inputs(c, t, seed, krs=KRS, n_units=len(DILS)):
     rs = np.random.RandomState(seed)
     x = rs.randn(2, c, t).astype(np.float32)
     weights = []
-    for kr in KRS:
+    for kr in krs:
         for _ in range(2):
-            weights.append((rs.randn(3, c, kr * c) / np.sqrt(kr * c))
+            weights.append((rs.randn(n_units, c, kr * c) / np.sqrt(kr * c))
                            .astype(np.float32))
-            weights.append((0.1 * rs.randn(3, c, 1)).astype(np.float32))
+            weights.append((0.1 * rs.randn(n_units, c, 1))
+                           .astype(np.float32))
     return x, weights
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('c,t,t_tile', [(32, 300, 1024), (16, 413, 128)])
-def test_mrf_twin_matches_pallas(dtype, c, t, t_tile):
-    """One tile (C=32), and several tiles with a ragged edge (C=16)."""
+def _check_mrf_twin(dtype, c, t, t_tile, krs, dils):
     import jax.numpy as jnp
 
     from forwardtacotron_tpu.ops.pallas.mrf import mrf_pallas
 
-    x, weights = _mrf_inputs(c, t, seed=c)
+    x, weights = _mrf_inputs(c, t, seed=c, krs=krs, n_units=len(dils))
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     ref = mrf_pallas(jnp.asarray(x, jdt),
-                     tuple(jnp.asarray(w, jdt) for w in weights), KRS, DILS,
+                     tuple(jnp.asarray(w, jdt) for w in weights), krs, dils,
                      t_tile=t_tile, interpret=True)
     got = mrf.mrf_plain(torch.from_numpy(x).to(tdt),
                         tuple(torch.from_numpy(w).to(tdt) for w in weights),
-                        KRS, DILS)
+                        krs, dils)
     assert got.dtype == tdt and got.shape == x.shape
     if dtype == 'float32':
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
@@ -88,6 +86,22 @@ def test_mrf_twin_matches_pallas(dtype, c, t, t_tile):
     else:
         _close_at_scale(got.float().numpy(), np.asarray(ref, np.float32),
                         BF16_ATOL)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('c,t,t_tile', [(32, 300, 1024), (16, 413, 128)])
+def test_mrf_twin_matches_pallas(dtype, c, t, t_tile):
+    """One tile (C=32), and several tiles with a ragged edge (C=16)."""
+    _check_mrf_twin(dtype, c, t, t_tile, KRS, DILS)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_mrf_twin_matches_pallas_even_kr(dtype):
+    """Even kernel sizes, which the JAX gate admits and the card's kernel
+    takes: the twin's convolution yields d samples more than T at an even
+    kr and crops them, which must give the Pallas kernel's taps
+    (j - kr // 2) * d. Several tiles with a ragged edge."""
+    _check_mrf_twin(dtype, 16, 413, 128, (4, 6), (1, 2))
 
 
 def test_mrf_wrapper_takes_the_twin_on_cpu(monkeypatch):
@@ -189,6 +203,67 @@ def test_fused_mrf_path_matches_jax(dtype, monkeypatch):
         np.testing.assert_allclose(got, plain, rtol=0, atol=F32_ATOL)
     else:
         _close_at_scale(got, want, BF16_ATOL)
+
+
+def test_fused_every_level_matches_jax(monkeypatch):
+    """fuse_mrf_max_ch=256, which the JAX package accepts: on a card every
+    level of a narrow v1 (64 to 8 channels) takes the fused path, on both
+    sides (the JAX side in interpret mode, its backend clause patched; the
+    port's device clause patched, so its CPU tensors reach ``mrf``, which
+    runs the twin). float32, tolerance atol F32_ATOL (2e-5)."""
+    from forwardtacotron_tpu.models.vocoder import \
+        HiFiGANGenerator as JaxHiFiGAN
+
+    cfg = dict(upsample_initial_channel=128)
+    jmodel, variables, port = _jax_generator(cfg, seed=4, n_mels=8,
+                                             fuse_mrf_max_ch=256)
+    mel = np.random.RandomState(4).randn(2, 9, 8).astype(np.float32)
+    monkeypatch.setattr(JaxHiFiGAN, '_mrf_fusable',
+                        lambda self, ch: not self.is_initializing()
+                        and 0 < ch <= self.fuse_mrf_max_ch)
+    port_calls, jax_calls = [], []
+    orig = HiFiGANGenerator._mrf_fused
+    monkeypatch.setattr(HiFiGANGenerator, '_mrf_fused',
+                        lambda self, x, level: (port_calls.append(level),
+                                                orig(self, x, level))[1])
+    jorig = JaxHiFiGAN._mrf_fused
+    monkeypatch.setattr(JaxHiFiGAN, '_mrf_fused',
+                        lambda self, x, level: (jax_calls.append(level),
+                                                jorig(self, x, level))[1])
+    want = np.asarray(jmodel.apply(variables, mel), np.float32)
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(mel)).numpy()
+    assert jax_calls == port_calls == [0, 1, 2, 3]
+    assert got.shape == want.shape == (2, 9 * port.hop_length)
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+def test_fused_levels_keep_their_launch_weights(monkeypatch):
+    """The fused path stacks and casts a level's weights once per state of
+    the weights, not per call; an in-place write to a parameter (as
+    load_state_dict makes) is seen, and the output follows it (f32, against
+    the per-convolution path, atol F32_ATOL at the output's scale)."""
+    gen = HiFiGANGenerator(num_mels=8, upsample_initial_channel=32,
+                           fuse_mrf_max_ch=256).eval()
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    made = []
+    orig = HiFiGANGenerator.mrf_weights
+    monkeypatch.setattr(HiFiGANGenerator, 'mrf_weights',
+                        lambda self, level, *a: (made.append(level),
+                                                 orig(self, level, *a))[1])
+    mel = torch.from_numpy(np.random.RandomState(8).randn(1, 6, 8)
+                           .astype(np.float32))
+    with torch.no_grad():
+        first = gen(mel)
+        assert torch.equal(gen(mel), first) and made == [0, 1, 2, 3]
+        gen.resblocks[3].convs1[0].weight.mul_(2.0)    # level 1, kr 3
+        got = gen(mel)
+        assert made == [0, 1, 2, 3, 1]
+        gen.fuse_mrf_max_ch = 0
+        want = gen(mel)
+    assert not torch.equal(got, first)
+    _close_at_scale(got.numpy(), want.numpy(), F32_ATOL)
 
 
 def test_tails_not_ported_raise():
