@@ -10,14 +10,21 @@ Run from the repository root. Phases, each of which must pass:
    all started together);
 2. float32: hold each slice-1 kernel against its plain-PyTorch twin on the
    card at the shapes the float32 path gives it, and time both (CUDA
-   events, median of 20 runs after warm-up);
+   events, median of 20 runs after warm-up); Griffin-Lim also at R = n_fft
+   / hop = 16 (2048 / 128), with 32 iterations of kernel and twin to the
+   same spectral convergence, the profiler showing that an iteration is
+   its two launches alone, and the time of copies of ``griffin_lim.cu``
+   built to skip its A staging and/or its products (what each part adds);
 3. the float32 path at full width: ``configs/singlespeaker.yaml`` with
    seeded random weights, 4 sentences of ``sentences.txt`` through
    ``TTSInference.generate_cropped`` and ``DSP.griffinlim``, with every
    kernel's launch count set to 0 just before and read just after, and the
    profiler showing which device kernels ran;
 4. check its output: finite values of the expected lengths, and agreement
-   with the plain path run on the CPU for one sentence;
+   with the plain path run on the CPU for one sentence; then where one
+   ``DSP.griffinlim`` call of the longest request spends its time (NNLS,
+   iterations, istft, the Griffin-Lim kernels' and the other device time,
+   host time; ``--griffinlim-split`` runs this alone and stops);
 5. bfloat16: hold every kernel of the serving and two-phase paths (and the
    bf16 entries of the slice-1 kernels) against its twin in bf16 on the
    card, at one serving call's shapes and at one request's, and time it
@@ -25,8 +32,10 @@ Run from the repository root. Phases, each of which must pass:
    recurrences cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``, for the
    highway stack the residual add and the ``nn.Linear`` chain, for the
    CBHG front the bank as one cuDNN K-tap convolution, ``pool_mask`` and
-   cuDNN's proj1 convolution; the launch plans of the front and highway
-   kernels are printed;
+   cuDNN's proj1 convolution, for the multi-GRU (``gru_xp``, which takes
+   the input projection precomputed) cuDNN's bi-GRU from an 8-wide input;
+   the launch plans of the front, highway and step-major recurrent kernels
+   are printed;
 6. the bfloat16 serving path as ``bench.py`` shapes it: its 8 sentences
    tiled to batch 4096, 3 frames per token, ``max_len`` 256, routed to
    16-frame buckets, through ``TTSInference.generate_fused``: launch counts
@@ -134,6 +143,8 @@ KERNEL_TOL = 1e-4
 SC_REL_TOL = 0.01
 # full model on card vs CPU plain path, mel max abs error
 E2E_MEL_ATOL = 1e-3
+# TF32 tensor-core peak (dense), for the 3xTF32 bound of griffin_lim.cu
+PEAK_TF32_FLOPS = 495e12
 # bf16 tensor-core peak (dense), for the bounds of the bf16 kernels
 PEAK_BF16_FLOPS = 989e12
 # bf16 kernel vs twin: both round at the same points, but a float32 sum in
@@ -141,6 +152,10 @@ PEAK_BF16_FLOPS = 989e12
 # a recurrence carries it on: max abs error over max(1, max |twin|); inside
 # the JAX package's bf16 kernel tolerance of 5e-2
 BF16_TOL = 3e-2
+# the input width of cuDNN's bi-GRU beside gru_xp (which takes the input
+# projection precomputed): no single call computes gru_from_xp, so cuDNN
+# runs the recurrence from a narrow input (8, a whole 16-byte bf16 row)
+CUDNN_XP_WIDTH = 8
 # bf16 full model on the card vs the CPU plain path (both bf16, other sum
 # orders in every kernel): mel max abs error over max(1, max |mel|)
 E2E_BF16_TOL = 5e-2
@@ -269,7 +284,8 @@ def build_phase(build):
     log(f'nvcc: {nvcc} ({version.splitlines()[-1]})')
     log(f'flags: {" ".join(build.NVCC_FLAGS)}')
     t0 = time.perf_counter()
-    times = build.build(variants=[('mrf', MRF_CYCLES_DEFINES)])
+    times = build.build(variants=[('mrf', MRF_CYCLES_DEFINES)] + [
+        ('griffin_lim', d) for d in GL_PART_DEFINES.values()])
     log(f'build: {time.perf_counter() - t0:.1f} s wall, '
         + ', '.join(f'{k} {v:.1f} s' for k, v in times.items()))
     for name in build.SOURCES:
@@ -356,8 +372,7 @@ def expect_counts(label: str, launches: dict, **want) -> None:
 def kernel_phase(torch, model, config, n_tok, n_frames):
     """Each kernel against its twin at the main path's largest shapes."""
     from forwardtacotron_torch.models.synthesis import bucket_frames
-    from forwardtacotron_torch.ops.hopper import cbhg, griffin_lim, highway
-    from forwardtacotron_torch.ops.stft import initial_phase, stft_pair
+    from forwardtacotron_torch.ops.hopper import cbhg, highway
 
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -428,38 +443,94 @@ def kernel_phase(torch, model, config, n_tok, n_frames):
     tt = torch.arange(n_samples, device=dev) / dsp['sample_rate']
     sig = sum(0.2 / h * torch.sin(2 * torch.pi * h * (110 + 40 * tt) * tt)
               for h in range(1, 6)) + 0.01 * randn(n_samples)
+    log(f'kernel griffin_lim_iter ({n_samples / dsp["sample_rate"]:.2f} s)')
+    results['griffin_lim_iter'] = griffin_lim_check(
+        torch, sig, n_fft, hop, win, twin_on_cpu=True)
+    # R = n_fft / hop = 16 (n_fft 2048, hop 128: ~1700 frames of the same
+    # signal), past the JAX package's fused gate (R <= 9)
+    log('kernel griffin_lim_iter at R = 16 (n_fft 2048, hop 128, win 2048)')
+    results['griffin_lim_iter']['r16'] = griffin_lim_check(
+        torch, sig, 2048, 128, 2048, twin_on_cpu=False)
+    return results
+
+
+# griffin_lim.cu built without parts of its work, for the time each part
+# adds (the outputs of these builds are wrong; nothing else calls them)
+GL_PART_DEFINES = {'weights_and_epilogue': ('GL_SKIP_A', 'GL_SKIP_PRODUCTS'),
+                   'without_products': ('GL_SKIP_PRODUCTS',),
+                   'without_a_staging': ('GL_SKIP_A',)}
+
+
+def griffin_lim_parts(torch, it_args):
+    """CUDA-event times of one iteration with the copies of griffin_lim.cu
+    that skip the A staging, the products or both, bound in the wrapper's
+    place for this phase."""
+    from forwardtacotron_torch.ops.hopper import build, griffin_lim
+    real = griffin_lim._kernel
+    parts = {}
+    try:
+        for label, defines in GL_PART_DEFINES.items():
+            fn = build.library('griffin_lim', defines).gl_iter_f32
+            fn.argtypes, fn.restype = real().argtypes, real().restype
+            griffin_lim._kernel = lambda fn=fn: fn
+            parts[label] = time_ms(
+                torch, lambda: griffin_lim.griffin_lim_iter(*it_args))
+    finally:
+        griffin_lim._kernel = real
+    log('    parts (ms per iteration): ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in parts.items()))
+    return parts
+
+
+def griffin_lim_check(torch, sig, n_fft, hop, win, twin_on_cpu):
+    """One iteration of griffin_lim.cu against its twin from the signal's
+    own magnitude and a seeded phase (random momentum terms), timed beside
+    the twin, with both bounds: f32 FMA (held to) and the 3xTF32 tensor-core
+    form; then 32 iterations of each from the same phase, whose spectral
+    convergence must agree within SC_REL_TOL; then the same 32 iterations
+    profiled twice, to show that the launches are the iteration's only
+    device work (no edge_frames ops between them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.ops.hopper import griffin_lim
+    from forwardtacotron_torch.ops.stft import (initial_phase, istft_pair,
+                                                stft_pair)
+    dev = sig.device
+    gen = torch.Generator().manual_seed(SEED + n_fft)
     re, im = stft_pair(sig, n_fft, hop, win)
     mag = torch.sqrt(re * re + im * im)                  # [F, bins]
     f_true, bins = mag.shape
-    log(f'kernel griffin_lim_iter ({n_samples / dsp["sample_rate"]:.2f} s: '
-        f'F={f_true}, bins={bins}, n_fft={n_fft}, hop={hop})')
+    r = n_fft // hop
+    log(f'  F={f_true}, bins={bins}, n_fft={n_fft}, hop={hop}, R={r}')
     consts = griffin_lim.gl_constants(n_fft, hop, win, dev)
     winsq = griffin_lim.ola_normalizer(n_fft, hop, f_true, win, dev)
     phase = initial_phase((f_true, bins), SEED).to(dev)
     spec_re = (mag * torch.cos(phase))[None].contiguous()
     spec_im = (mag * torch.sin(phase))[None].contiguous()
-    tp_re, tp_im = randn(1, f_true, bins), randn(1, f_true, bins)
+    tp_re, tp_im = (torch.randn((1, f_true, bins), generator=gen).to(dev)
+                    for _ in range(2))
     magb = mag[None].contiguous()
-    repl = griffin_lim.edge_frames(spec_re, spec_im, hop, consts,
-                                   winsq).contiguous()
-    it_args = (spec_re, spec_im, tp_re, tp_im, magb, repl, consts, hop)
+    it_args = (spec_re, spec_im, tp_re, tp_im, magb, winsq, consts, hop)
     err = compare(torch, 'one iteration',
                   griffin_lim.griffin_lim_iter(*it_args),
                   griffin_lim.griffin_lim_iter_plain(*it_args))
     k_ms = time_ms(torch, lambda: griffin_lim.griffin_lim_iter(*it_args))
     p_ms = time_ms(torch,
                    lambda: griffin_lim.griffin_lim_iter_plain(*it_args))
-    r = n_fft // hop
-    flops = 2 * f_true * (2 * bins) * n_fft * 2 + f_true * n_fft * (2 * r - 1)
-    nbytes = 4 * (5 * f_true * bins + 2 * r * n_fft + 4 * bins * n_fft
-                  + n_fft + 4 * f_true * bins)
+    gemm = 2 * f_true * (2 * bins) * n_fft * 2
+    flops = gemm + f_true * n_fft * (2 * r - 1)
+    nbytes = 4 * (5 * f_true * bins + (f_true - 1) * hop + n_fft
+                  + 4 * bins * n_fft + 2 * n_fft + 4 * f_true * bins)
     b_ms, b_by = bound(flops, nbytes)
-    log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
-        f'bound {b_ms:.4f} ms ({b_by}) per iteration')
-    results['griffin_lim_iter'] = dict(max_abs_err=err, ms=k_ms,
-                                       plain_ms=p_ms, bound_ms=b_ms,
-                                       bound_by=b_by,
-                                       at=f'one iteration, F={f_true}')
+    tc_ms = max(3 * gemm / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound '
+        f'{b_ms:.4f} ms ({b_by}, f32 FMA; 3xTF32 on tensor cores '
+        f'{tc_ms:.4f} ms) per iteration')
+    res = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+               bound_by=b_by, tc_bound_ms=tc_ms,
+               parts_ms=griffin_lim_parts(torch, it_args),
+               at=f'one iteration, F={f_true}, n_fft={n_fft}, hop={hop}')
 
     # 32 iterations end to end: spectral convergence of kernel vs twin
     def spectral_convergence(wav):
@@ -467,27 +538,59 @@ def kernel_phase(torch, model, config, n_tok, n_frames):
         m2 = torch.sqrt(r2 * r2 + i2 * i2)[:f_true]
         return float(torch.linalg.norm(m2 - mag) / torch.linalg.norm(mag))
 
-    # the twin runs where the wrapper picks it: on CPU tensors
     mag_t, ph_t = mag.T[None].contiguous(), phase.T[None].contiguous()
     wav_k = griffin_lim.griffin_lim_fused(mag_t, ph_t, n_fft, hop, win,
                                           n_iter=32)[0]
-    wav_p = griffin_lim.griffin_lim_fused(mag_t.cpu(), ph_t.cpu(), n_fft,
-                                          hop, win, n_iter=32)[0].to(dev)
+    if twin_on_cpu:  # the wrapper picks the twin for CPU tensors
+        wav_p = griffin_lim.griffin_lim_fused(
+            mag_t.cpu(), ph_t.cpu(), n_fft, hop, win, n_iter=32)[0].to(dev)
+    else:  # the twin's iterations on the card (a CPU run takes minutes)
+        state = (spec_re, spec_im, torch.zeros_like(magb),
+                 torch.zeros_like(magb))
+        for _ in range(32):
+            state = griffin_lim.griffin_lim_iter_plain(*state, magb, winsq,
+                                                       consts, hop)
+        wav_p = istft_pair(state[0], state[1], n_fft, hop, win)[0]
     sc_k, sc_p = spectral_convergence(wav_k), spectral_convergence(wav_p)
     ok = abs(sc_k - sc_p) <= SC_REL_TOL * sc_p and sc_k < 1.0
     log(f'  32 iterations: spectral convergence kernel {sc_k:.5f}, '
         f'twin {sc_p:.5f} (|diff| <= {SC_REL_TOL:g} x twin) '
         f'{"ok" if ok else "FAIL"}')
     if not ok:
-        fail('griffin_lim_iter: 32-iteration spectral convergence')
-    return results
+        fail(f'griffin_lim_iter (R={r}): 32-iteration spectral convergence')
+    res.update(sc_kernel=sc_k, sc_twin=sc_p)
+
+    # the device kernels of griffin_lim_fused at 2 and at 4 iterations:
+    # every iteration adds its two launches and nothing else
+    counts = []
+    for n_iter in (2, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            griffin_lim.griffin_lim_fused(mag_t, ph_t, n_fft, hop, win,
+                                          n_iter=n_iter)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        counts.append((sum(1 for e in events if 'gl_gemm_kernel' in e.name),
+                       sum(1 for e in events
+                           if 'gl_gemm_kernel' not in e.name)))
+    log(f'  device kernels (gl_gemm_kernel, other) at 2 and 4 iterations: '
+        f'{counts[0]}, {counts[1]}')
+    if counts[0][0] or counts[1][0]:
+        if counts[1][0] - counts[0][0] != 4 or counts[1][1] != counts[0][1]:
+            fail('griffin_lim_iter: an iteration runs device work besides '
+                 'its two launches')
+    else:
+        log('  profiler recorded no device kernels; the launch counts are '
+            'the evidence')
+    return res
 
 
 PRE_HIGHWAY_KERNEL = r'highway_kernel<[^>]*true>'
 KERNEL_NAMES = {'pre_highway_stack': [PRE_HIGHWAY_KERNEL],
                 'cbhg_front': ['cbhg_front_kernel'],
-                'griffin_lim_iter': ['gl_idft_kernel',
-                                     'gl_dft_update_kernel'],
+                'griffin_lim_iter': [r'gl_gemm_kernel<\d+, (\(int\))?0>',
+                                     r'gl_gemm_kernel<\d+, (\(int\))?1>'],
                 'lr': ['lr_kernel']}
 
 
@@ -590,6 +693,80 @@ def main_path_phase(torch, model, config, tokens):
     return launches, outs
 
 
+def griffinlim_split_phase(torch, model, config, tokens):
+    """Where one ``DSP.griffinlim`` call of the longest float32 request
+    spends its time: the call's wall time (synchronized, median of 5); the
+    same for its parts called alone: the NNLS mel -> linear, the 32
+    iterations with their final istft (``griffin_lim_fused``), that istft,
+    and 32 calls of ``edge_frames`` (the torch ops an iteration ran between
+    its launches before griffin_lim.cu built its edge frames); and, from
+    the profiler over one call, the device time of the Griffin-Lim kernels,
+    of everything else, and the host time no device work covers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.dsp.dsp import DSP
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.ops.hopper import griffin_lim
+    from forwardtacotron_torch.ops.stft import initial_phase, istft_pair
+
+    toks = max(tokens, key=len)
+    mel = TTSInference(model, device='cuda').generate_cropped(
+        toks)['mel_post']
+    dsp = DSP.from_config(config, device='cuda')
+    n_fft, hop, win = dsp.n_fft, dsp.hop_length, dsp.win_length
+
+    def wall(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    mel_power = torch.exp(torch.tensor(mel, device='cuda'))
+    linear = dsp._mel_to_stft(mel_power)
+    phase = initial_phase(linear.shape, 0).to('cuda')
+    spec = (linear.T * torch.cos(phase.T))[None].contiguous()
+    consts = griffin_lim.gl_constants(n_fft, hop, win, spec.device)
+    winsq = griffin_lim.ola_normalizer(n_fft, hop, linear.shape[1], win,
+                                       spec.device)
+    split = dict(
+        frames=int(linear.shape[1]),
+        total_ms=wall(lambda: dsp.griffinlim(mel)),
+        nnls_ms=wall(lambda: dsp._mel_to_stft(mel_power)),
+        iterations_and_istft_ms=wall(lambda: griffin_lim.griffin_lim_fused(
+            linear[None], phase[None], n_fft, hop, win, n_iter=32)),
+        istft_ms=wall(lambda: istft_pair(spec, spec, n_fft, hop, win)),
+        edge_frames_x32_ms=wall(lambda: [
+            griffin_lim.edge_frames(spec, spec, hop, consts, winsq)
+            for _ in range(32)]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dsp.griffinlim(mel)
+        torch.cuda.synchronize()
+    gl = re.compile(r'gl_(gemm|idft|dft_update)_kernel')
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    gl_us = sum(e.self_device_time_total for e in kernels if gl.search(e.key))
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    split.update(
+        gl_kernels_device_ms=gl_us / 1e3,
+        other_device_ms=(busy_us - gl_us) / 1e3,
+        other_device_launches=sum(e.count for e in kernels
+                                  if not gl.search(e.key)),
+        host_not_covered_ms=split['total_ms'] - busy_us / 1e3)
+    log(f'griffinlim split (longest request, {split["frames"]} frames, '
+        f'{n_fft}/{hop}): ' + ', '.join(
+            f'{k} {v:.3f}' if isinstance(v, float) else f'{k} {v}'
+            for k, v in split.items()))
+    return split
+
+
 def reference_phase(torch, model, config, tokens, outs):
     """One request through the plain path on the CPU (twins, no kernels)
     against the card's result."""
@@ -626,11 +803,12 @@ def reference_phase(torch, model, config, tokens, outs):
 # ------------------------------------------------------------- bfloat16
 
 # the recurrent kernels' template instances by rnn.cu Mode value: the
-# step-major rnn_step_kernel<mode, unit, mel columns> runs MODE_GRU_X (0)
-# and MODE_LSTM_MEL (3), the tile-major rnn_kernel<mode> the others
+# step-major rnn_step_kernel<mode, unit, mel columns> runs MODE_GRU_X (0),
+# MODE_GRU_XP (2) and MODE_LSTM_MEL (3), the tile-major rnn_kernel<mode>
+# the LSTMs
 RNN_KERNELS = {'gru': r'rnn_step_kernel<(\(int\))?0,',
                'lstm': r'rnn_kernel<(\(int\))?1>',
-               'gru_xp': r'rnn_kernel<(\(int\))?2>',
+               'gru_xp': r'rnn_step_kernel<(\(int\))?2,',
                'lstm_mel': r'rnn_step_kernel<(\(int\))?3,'}
 # the bf16 entries of rows 1 and 2 are their tensor-core kernels
 SERVING_KERNEL_NAMES = {
@@ -666,6 +844,8 @@ def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
 def log_plan(rnn, mode: str, x2, hidden: int, n_mels: int = 0) -> None:
     """The launch plan the step-major kernel ``mode`` takes for x2."""
     t, _, b, i = x2.shape
+    if mode == 'gru_xp':    # x2 is the projection: no x rows in the slice
+        i = 0
     p = rnn.plan(mode, b, t, i, hidden, n_mels, *rnn.device_limits(x2.device))
     log(f'    plan: tile {p["tile"]} rows, {p["unit"]} units x '
         f'{p["ctas_per_direction"]} CTAs per direction, {p["groups"]} groups '
@@ -767,12 +947,17 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
             model.prenet.rnn]
     wh, bh = layers.multi_gru_weights(rnns)
     h = wh.shape[1]
-    log(f'  gru_from_xp T={n} B={b} H={h}')
+    log(f'  gru_from_xp T={n} B={b} H={h} (yardstick: cuDNN bi-GRU H={h} '
+        f'from an input of width {CUDNN_XP_WIDTH}, which also projects it)')
+    xp2 = randn(n, 2, b, 3 * h, scale=0.5)
     res['gru_from_xp'] = bf16_check(
-        torch, f'T={n} B={b}', rnn.gru_xp, rnn.gru_xp_plain,
-        (randn(n, 2, b, 3 * h, scale=0.5), wh, bh),
+        torch, f'T={n} B={b}', rnn.gru_xp, rnn.gru_xp_plain, (xp2, wh, bh),
         n * 2 * b * 2 * h * 3 * h,
-        2 * (n * 2 * b * 3 * h + 2 * h * 3 * h + 2 * 3 * h + n * 2 * b * h))
+        2 * (n * 2 * b * 3 * h + 2 * h * 3 * h + 2 * 3 * h + n * 2 * b * h),
+        yardstick=cudnn_rnn(torch, 'gru', CUDNN_XP_WIDTH, h,
+                            randn(n, 1, b, CUDNN_XP_WIDTH)))
+    log_plan(rnn, 'gru_xp', xp2, h)
+    del xp2
 
     # lr_bidir: tokens of C=512 -> [t_run, 2, B, 512], frames/n per token
     c_tok = 2 * model.prenet.channels
@@ -2357,12 +2542,19 @@ def main() -> None:
     config = read_config(REPO / 'configs' / 'singlespeaker.yaml')
     tokens = request_tokens(config)
     model = make_model(torch, config)
+    if '--griffinlim-split' in sys.argv[1:]:
+        # the split alone, e.g. beside a parent checkout's in one call
+        split = griffinlim_split_phase(torch, model.cuda(), config, tokens)
+        log(f'griffinlim split: {json.dumps(split)}')
+        log(f'card: {card}')
+        return
     n_tok = max(len(t) for t in tokens)
     n_frames = FRAMES_PER_TOKEN * n_tok
     with torch.inference_mode():
         results = kernel_phase(torch, model.cuda(), config, n_tok, n_frames)
     launches, outs = main_path_phase(torch, model, config, tokens)
     reference_phase(torch, model, config, tokens, outs)
+    gl_split = griffinlim_split_phase(torch, model, config, tokens)
 
     # bfloat16: a copy of the same weights, cast as TTSInference casts them
     model16 = copy.deepcopy(model).to(torch.bfloat16)
@@ -2494,10 +2686,14 @@ def main() -> None:
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r.get('library_ms'), 'at': r['at'],
             **{k: r[k] for k in ('levels', 'fused_level_ms', 'cudnn_level_ms',
-                                 'yardstick_ms', 'postnet_ms', 'prenet_ms',
+                                 'yardstick_ms', 'tc_bound_ms', 'r16',
+                                 'parts_ms',
+                                 'sc_kernel', 'sc_twin',
+                                 'postnet_ms', 'prenet_ms',
                                  'request_ms', 'request_plain_ms',
                                  'request_bound_ms', 'request_yardstick_ms')
                if k in r}})
+    log(f'griffinlim split: {json.dumps(gl_split)}')
     log(f'serving: {json.dumps(serving)}')
     log(f'cbhg variants: {json.dumps(variants)}')
     log(f'vocoder: {json.dumps(vocoder)}')

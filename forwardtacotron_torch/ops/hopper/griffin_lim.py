@@ -10,8 +10,11 @@ i-(R-1) .. i+(R-1), R = n_fft // hop,
 
 with p the hop-periodic interior of the squared-window OLA normalizer. The
 identity holds for interior frames; the first and last R frames (partial
-normalizer, reflect padding) are computed exactly outside the kernel by
-:func:`edge_frames` and passed in as replacement rows, as in the JAX package.
+normalizer, reflect padding) take their exact values from the true
+normalizer ``winsq`` (:func:`ola_normalizer`): the kernel builds them from
+the IDFT frames it has just computed, the twin by :func:`edge_frames` (the
+JAX package's ``_edge_frames``), so an iteration on the card is its two
+launches alone.
 
 Spectra are frames-major [B, F, bins] with no bin padding.
 ``griffin_lim_iter`` launches the kernel for CUDA tensors and runs the plain
@@ -32,6 +35,10 @@ from forwardtacotron_torch.ops.stft import (_dft_matrices, _ola_win_sq,
 # iterations run by the CUDA kernel since the count was last set to 0
 launches = 0
 
+# griffin_lim.cu's tile: K steps of 32 rows, 128 output columns per CTA;
+# the kernel's weight matrices are padded to whole tiles
+TILE_K, TILE_N = 32, 128
+
 
 class GLConstants(NamedTuple):
     inv_w: torch.Tensor    # [2*bins, n_fft]: [inv_re ; inv_im], window folded
@@ -39,23 +46,48 @@ class GLConstants(NamedTuple):
     fwd_im: torch.Tensor   # [n_fft, bins]
     q: torch.Tensor        # [n_fft]
     win: torch.Tensor      # [n_fft]
+    # the kernel's copies: inv_w padded to [2 bins, n_fft] rounded up to
+    # (TILE_K, TILE_N); [fwd_re | fwd_im] with columns (2k, 2k + 1) = bin
+    # k's (re, im), padded to [n_fft, 2 bins] rounded up likewise
+    inv_pad: torch.Tensor
+    fwd_pad: torch.Tensor
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 @lru_cache(maxsize=8)
 def _constants_np(n_fft: int, hop: int, win_length: int):
     fwd_re, fwd_im, inv_re, inv_im = _dft_matrices(n_fft)
+    bins = n_fft // 2 + 1
     win = padded_window(win_length, n_fft).astype(np.float32)
     p = np.zeros(hop, np.float64)
     for j in range(n_fft // hop):
         p += (win[j * hop:(j + 1) * hop] ** 2).astype(np.float64)
     p = np.maximum(p, 1e-10)
     q = (win / np.tile(p, n_fft // hop)).astype(np.float32)
-    inv_w = np.concatenate([inv_re * win[None, :], inv_im * win[None, :]])
-    return inv_w.astype(np.float32), fwd_re, fwd_im, q, win
+    inv_w = np.concatenate([inv_re * win[None, :],
+                            inv_im * win[None, :]]).astype(np.float32)
+    inv_pad = np.zeros((_round_up(2 * bins, TILE_K),
+                        _round_up(n_fft, TILE_N)), np.float32)
+    inv_pad[:2 * bins, :n_fft] = inv_w
+    fwd_pad = np.zeros((_round_up(n_fft, TILE_K),
+                        _round_up(2 * bins, TILE_N)), np.float32)
+    fwd_pad[:n_fft, 0:2 * bins:2] = fwd_re
+    fwd_pad[:n_fft, 1:2 * bins:2] = fwd_im
+    return inv_w, fwd_re, fwd_im, q, win, inv_pad, fwd_pad
 
 
 def gl_constants(n_fft: int, hop: int, win_length: int,
                  device: torch.device) -> GLConstants:
+    """The constants on ``device``, copied there once (read only)."""
+    return _constants_on(n_fft, hop, win_length, torch.device(device))
+
+
+@lru_cache(maxsize=8)
+def _constants_on(n_fft: int, hop: int, win_length: int,
+                  device: torch.device) -> GLConstants:
     return GLConstants(*(torch.as_tensor(np.ascontiguousarray(a),
                                          device=device)
                          for a in _constants_np(n_fft, hop, win_length)))
@@ -107,15 +139,15 @@ def edge_frames(spec_re: torch.Tensor, spec_im: torch.Tensor, hop: int,
     return torch.cat([head, tail], dim=1) * consts.win
 
 
-def griffin_lim_iter_plain(spec_re, spec_im, tp_re, tp_im, mag, repl,
-                           consts: GLConstants, hop: int,
-                           momentum: float = 0.99):
-    """One iteration: returns (spec_re, spec_im, rb_re, rb_im), where rb is
-    the rebuilt spectrum (the next iteration's momentum term). All spectra
-    [B, F, bins]; repl [B, 2R, n_fft] from :func:`edge_frames`."""
+def pre_dft_frames(spec_re, spec_im, winsq, consts: GLConstants,
+                   hop: int) -> torch.Tensor:
+    """The frames an iteration takes the DFT of, [B, F, n_fft]: the banded
+    OLA of the IDFT frames times q, the first and last R frames from
+    :func:`edge_frames`."""
     _, n_frames, bins = spec_re.shape
     n_fft = consts.q.shape[0]
     r = n_fft // hop
+    repl = edge_frames(spec_re, spec_im, hop, consts, winsq)
     f = spec_re @ consts.inv_w[:bins] + spec_im @ consts.inv_w[bins:]
     y = torch.zeros_like(f)
     for d in range(-(r - 1), r):
@@ -125,6 +157,18 @@ def griffin_lim_iter_plain(spec_re, spec_im, tp_re, tp_im, mag, repl,
     y = y * consts.q
     y[:, :r] = repl[:, :r]
     y[:, n_frames - r:] = repl[:, r:]
+    return y
+
+
+def griffin_lim_iter_plain(spec_re, spec_im, tp_re, tp_im, mag, winsq,
+                           consts: GLConstants, hop: int,
+                           momentum: float = 0.99):
+    """One iteration: returns (spec_re, spec_im, rb_re, rb_im), where rb is
+    the rebuilt spectrum (the next iteration's momentum term). All spectra
+    [B, F, bins]; winsq is the OLA normalizer of F frames
+    (:func:`ola_normalizer`), from which :func:`edge_frames` makes the
+    first and last R frames."""
+    y = pre_dft_frames(spec_re, spec_im, winsq, consts, hop)
     rb_re = y @ consts.fwd_re
     rb_im = y @ consts.fwd_im
     c = momentum / (1.0 + momentum)
@@ -142,27 +186,33 @@ def _kernel():
     return fn
 
 
-def griffin_lim_iter(spec_re, spec_im, tp_re, tp_im, mag, repl,
+def griffin_lim_iter(spec_re, spec_im, tp_re, tp_im, mag, winsq,
                      consts: GLConstants, hop: int, momentum: float = 0.99):
     """Same contract as :func:`griffin_lim_iter_plain`, two kernel launches
-    on the GPU (the IDFT product, then OLA + DFT + update)."""
+    on the GPU (the IDFT product; then the OLA, the edge frames, the DFT
+    product and the update)."""
     if spec_re.device.type == 'cpu':
         return griffin_lim_iter_plain(spec_re, spec_im, tp_re, tp_im, mag,
-                                      repl, consts, hop, momentum)
+                                      winsq, consts, hop, momentum)
     if spec_re.device.type != 'cuda':
         raise ValueError(f'griffin_lim_iter: unsupported device '
                          f'{spec_re.device}')
     b, n_frames, bins = spec_re.shape
     n_fft = consts.q.shape[0]
     r = n_fft // hop
-    args = (spec_re, spec_im, tp_re, tp_im, mag, repl, *consts[:4])
+    args = (spec_re, spec_im, tp_re, tp_im, mag, winsq, consts.inv_pad,
+            consts.fwd_pad, consts.q, consts.win)
     if any(t.dtype != torch.float32 or not t.is_contiguous()
            or t.device != spec_re.device for t in args):
         raise ValueError('griffin_lim_iter: every input must be a '
                          'contiguous float32 tensor on the same device')
     if (any(t.shape != spec_re.shape for t in (spec_im, tp_re, tp_im, mag))
-            or repl.shape != (b, 2 * r, n_fft) or n_fft % hop
-            or bins != n_fft // 2 + 1 or n_frames < 2 * r):
+            or winsq.shape != ((n_frames - 1) * hop + n_fft,) or n_fft % hop
+            or bins != n_fft // 2 + 1 or n_frames < 2 * r
+            or consts.inv_pad.shape != (_round_up(2 * bins, TILE_K),
+                                        _round_up(n_fft, TILE_N))
+            or consts.fwd_pad.shape != (_round_up(n_fft, TILE_K),
+                                        _round_up(2 * bins, TILE_N))):
         raise ValueError('griffin_lim_iter: bad shapes')
     frames = torch.empty(b, n_frames, n_fft, dtype=torch.float32,
                          device=spec_re.device)
@@ -203,9 +253,7 @@ def griffin_lim_fused(magnitude: torch.Tensor, phase: torch.Tensor,
     winsq = ola_normalizer(n_fft, hop_length, mag.shape[1], win_length,
                            mag.device)
     for _ in range(n_iter):
-        repl = edge_frames(spec_re, spec_im, hop_length, consts,
-                           winsq).contiguous()
         spec_re, spec_im, tp_re, tp_im = griffin_lim_iter(
-            spec_re, spec_im, tp_re, tp_im, mag, repl, consts, hop_length,
+            spec_re, spec_im, tp_re, tp_im, mag, winsq, consts, hop_length,
             momentum)
     return istft_pair(spec_re, spec_im, n_fft, hop_length, win_length)

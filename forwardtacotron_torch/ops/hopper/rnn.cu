@@ -37,16 +37,17 @@
 // cooperatively: the launch fails instead of hanging when the grid does not
 // fit.
 //
-// rnn_kernel (MODE_LSTM_X, MODE_GRU_XP, MODE_LSTM_TRAIN): tile-major. U = 16;
-// a group walks its batch tiles one after another, each through all T
-// steps; per (tile, step) it stages x_t and h_{t-1} with cp.async, runs wmma
-// 16x16x16 with f32 accumulators stored to shared memory, and updates its
-// units. At serving batch that is B/BB * T serial barrier rounds of a tiny
-// product each: bound by latency, not by the tensor cores.
+// rnn_kernel (MODE_LSTM_X, MODE_LSTM_TRAIN): tile-major. U = 16; a group
+// walks its batch tiles one after another, each through all T steps; per
+// (tile, step) it stages x_t and h_{t-1} with cp.async, runs wmma 16x16x16
+// with f32 accumulators stored to shared memory, and updates its units. At
+// a large batch that is B/BB * T serial barrier rounds of a tiny product
+// each: bound by latency, not by the tensor cores.
 //
-// rnn_step_kernel (MODE_GRU_X, MODE_LSTM_MEL): step-major, the schedule for
-// large batches. Within step t a CTA walks ALL batch tiles of its group,
-// then meets its group once: T barrier rounds per launch whatever B is.
+// rnn_step_kernel (MODE_GRU_X, MODE_GRU_XP, MODE_LSTM_MEL): step-major, the
+// schedule for large batches. Within step t a CTA walks ALL batch tiles of
+// its group, then meets its group once: T barrier rounds per launch
+// whatever B is.
 //   - Products: wgmma m64nNk16, one consumer warpgroup per 64-row batch
 //     tile, A (the staged activations, 128-byte swizzle) and B (the
 //     resident weight slice, K-major core matrices) from shared memory,
@@ -55,8 +56,10 @@
 //     (row, unit) pairs and the cell update runs on registers. The GRU's n
 //     gate takes two column blocks, n_x (x rows only) and n_h (h rows
 //     only), so one product keeps its halves apart; the LSTM's N adds the
-//     CTA's columns of W_mel (h rows only). Every chunk runs the same
-//     product: a branch around wgmma makes ptxas serialize them all.
+//     CTA's columns of W_mel (h rows only). MODE_GRU_XP has no x rows
+//     and no n_x block: its slice is [H, 3U] (r, z, n_h), N = 3U. Every
+//     chunk runs the same product: a branch around wgmma makes ptxas
+//     serialize them all.
 //   - Two consumer warpgroups take alternate tiles, so one's cell update
 //     overlaps the other's products. The gates run in f32 to a few ulp, as
 //     in rnn_kernel and the twins: the library's tanhf, and a sigmoid from
@@ -72,6 +75,14 @@
 //     step t; the producers load the x half of step t+1 at once and wait
 //     only before the first h_t chunk, so the x products overlap the
 //     barrier.
+//   - MODE_GRU_XP (the multi-GRU of the serving call, the input
+//     projection precomputed): per tile the producer loads gx_t as three
+//     [rows, U] boxes (the tile's r, z, n columns of this CTA's units)
+//     into one of GX_SLOTS slots (gx full / empty mbarriers), the first
+//     tile's ahead of the step barrier, since gx_t does not depend on h.
+//     The epilogue adds gx_t to the f32 sums and bh as _gru_xp_kernel
+//     does: r, z = sigmoid(gx + (gh + bh)), n = tanh(gx_n + r (gh_n +
+//     bh_n)); at t = 0 h_{-1} = 0, so no product runs.
 //   - Carried state: h through hbuf (written with st.global, read by TMA:
 //     a proxy fence on each side); the LSTM's c, rounded to bf16 every
 //     step, in a [2, B, H] buffer in global memory (the CTA's own units, so
@@ -82,9 +93,12 @@
 //     is stored as mel_{t-1}; one more pass after the last step stores
 //     mel_{T-1}.
 // Bound on an H100 at serving batch: the products (9 TFLOP per LSTM-mel
-// call, ~9 ms at the bf16 peak) and the L2 re-reads (each CTA reads every
-// activation row of its group each step: LSTM-mel 2048 rows x 2 KB = 4 MiB
-// per CTA per step, ~128 GiB per launch). The slices are the widest the
+// call, ~9 ms at the bf16 peak; the multi-GRU at T 81, B 4096, H 512 1.04
+// TFLOP, 1.06 ms, above the 0.81 ms of its 2.7 GB of gx in and h out) and
+// the L2 re-reads (each CTA reads every activation row of its group each
+// step: LSTM-mel 2048 rows x 2 KB = 4 MiB per CTA per step, ~128 GiB per
+// launch; the multi-GRU 1024 rows x 1 KB = 1 MiB per CTA per step, 128 MiB
+// a step over its 128 CTAs). The slices are the widest the
 // carve allows (72 columns for LSTM-mel, 128 for the GRU at serving), so
 // each staged byte feeds that many columns; measured, the producers wait
 // for free stages, so L2 is not the wall: each warpgroup's chain of
@@ -94,7 +108,9 @@
 // barrier, the h half P chunks deep.
 //
 // The launch plan of the step-major kernel (unit, warpgroups, groups, ring
-// stages, shared-memory carve) is computed by the caller (rnn.py ``plan``);
+// stages, shared-memory carve) is computed by the caller (rnn.py ``plan``:
+// at serving the multi-GRU takes 32 units, 16 CTAs per direction, 4 batch
+// groups, a 96 KB weight slice, wgmma N = 96);
 // the entries check it against step_carve and the device and refuse a plan
 // that does not fit.
 
@@ -122,11 +138,10 @@ enum Mode {
 };
 
 struct Params {
-  const bf16* x;    // [T, 2, B, I], or gx [T, 2, B, 3H] for MODE_GRU_XP
-  const bf16* wi;   // [2, I, G] (null for MODE_GRU_XP)
+  const bf16* x;    // [T, 2, B, I]
+  const bf16* wi;   // [2, I, G]
   const bf16* wh;   // [2, H, G]
-  const bf16* bx;   // [2, G]: LSTM bi+bh (null for MODE_GRU_XP)
-  const bf16* bh;   // [2, G]: GRU bh (null for the LSTM)
+  const bf16* bx;   // [2, G]: bi+bh
   bf16* out;        // [T, 2, B, H]
   bf16* cout;       // [T, 2, B, H] cell states (MODE_LSTM_TRAIN)
   bf16* hbuf;       // [2 (parity), 2 (direction), B, H]
@@ -142,22 +157,21 @@ __host__ __device__ inline size_t align128(size_t n) {
   return (n + 127) & ~(size_t)127;
 }
 
-// Shared memory of one CTA, in carve order.
+// Shared memory of one tile-major (LSTM) CTA, in carve order.
 struct Carve {
   size_t w, a, acc_h, c, bias, total;
 };
 
-__host__ __device__ inline Carve carve(int mode, int I, int H, int BB) {
-  const int ng = n_gates(mode);
-  const int nc = ng * U;
-  const int ka = (mode == MODE_GRU_XP ? 0 : I) + H;
+__host__ __device__ inline Carve carve(int I, int H, int BB) {
+  const int nc = 4 * U;
+  const int ka = I + H;
   Carve c;
   c.w = 0;
   c.a = c.w + align128((size_t)ka * (nc + 8) * sizeof(bf16));
   c.acc_h = c.a + align128((size_t)BB * (ka + 8) * sizeof(bf16));
   c.c = c.acc_h + align128((size_t)BB * nc * sizeof(float));
-  c.bias = c.c + (ng == 4 ? align128((size_t)BB * U * sizeof(float)) : 0);
-  c.total = c.bias + align128(2 * nc * sizeof(float));
+  c.bias = c.c + align128((size_t)BB * U * sizeof(float));
+  c.total = c.bias + align128(nc * sizeof(float));
   return c;
 }
 
@@ -215,23 +229,21 @@ __device__ __forceinline__ void group_sync(unsigned int* bar, unsigned int targe
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
-  constexpr int NG = n_gates(MODE);
+  constexpr int NG = 4;
   constexpr int NC = NG * U;
-  constexpr bool HAS_X = MODE != MODE_GRU_XP;
   const int s = blockIdx.x, d = blockIdx.y, r = blockIdx.z;
   const int S = gridDim.x;
-  const int I = HAS_X ? p.I : 0, H = p.H, G = NG * H, B = p.B, BB = p.BB;
+  const int I = p.I, H = p.H, G = NG * H, B = p.B, BB = p.BB;
   const int KA = I + H, lda = KA + 8, ldw = NC + 8;
   const int tid = threadIdx.x, warp = tid / 32;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const Carve cv = carve(MODE, p.I, H, BB);
+  const Carve cv = carve(I, H, BB);
   bf16* Ws = reinterpret_cast<bf16*>(smem + cv.w);        // [KA][ldw]
   bf16* As = reinterpret_cast<bf16*>(smem + cv.a);        // [BB][lda]
   float* acc_h = reinterpret_cast<float*>(smem + cv.acc_h);  // [BB][NC]
   float* cs = reinterpret_cast<float*>(smem + cv.c);      // [BB][U]
   float* bxs = reinterpret_cast<float*>(smem + cv.bias);  // [NC]
-  float* bhs = bxs + NC;                                  // [NC]
 
   // this CTA's weight slice: column j = g*U + u <- global column g*H + s*U + u
   for (int i = tid; i < KA * NC; i += THREADS) {
@@ -242,8 +254,7 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
   }
   for (int j = tid; j < NC; j += THREADS) {
     const int col = (j / U) * H + s * U + (j % U);
-    bxs[j] = HAS_X ? __bfloat162float(p.bx[(size_t)d * G + col]) : 0.f;
-    bhs[j] = p.bh ? __bfloat162float(p.bh[(size_t)d * G + col]) : 0.f;
+    bxs[j] = __bfloat162float(p.bx[(size_t)d * G + col]);
   }
 
   unsigned int* bar = p.bar + d * p.R + r;
@@ -277,8 +288,7 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
 
   for (int tile = r; tile < n_tiles; tile += p.R) {
     const int b0 = tile * BB;
-    if (NG == 4)
-      for (int i = tid; i < BB * U; i += THREADS) cs[i] = 0.f;
+    for (int i = tid; i < BB * U; i += THREADS) cs[i] = 0.f;
     for (int t = 0; t < p.T; ++t) {
       stage(t, b0);
       __syncthreads();
@@ -305,29 +315,13 @@ __global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
       for (int i = tid; i < BB * U; i += THREADS) {
         const int row = i / U, u = i - row * U, b = b0 + row, unit = s * U + u;
         const float* ah = acc_h + row * NC;
-        float h_new, c_new = 0.f;
-        if (NG == 3) {  // MODE_GRU_XP: the input projection comes in gx
-          if (b >= B) continue;
-          const bf16* gx = p.x + (((size_t)t * 2 + d) * B + b) * G;
-          const float xr = __bfloat162float(gx[unit]);
-          const float xz = __bfloat162float(gx[H + unit]);
-          const float xn = __bfloat162float(gx[2 * H + unit]);
-          const float hr = ah[u] + bhs[u];
-          const float hz = ah[U + u] + bhs[U + u];
-          const float hn = ah[2 * U + u] + bhs[2 * U + u];
-          const float rg = sigmoidf(xr + hr), zg = sigmoidf(xz + hz);
-          const float ng = tanhf(xn + rg * hn);
-          const float h_prev = __bfloat162float(As[row * lda + I + unit]);
-          h_new = (1.f - zg) * ng + zg * h_prev;
-        } else {
-          const float gi = sigmoidf(ah[u] + bxs[u]);
-          const float gf = sigmoidf(ah[U + u] + bxs[U + u]);
-          const float gg = tanhf(ah[2 * U + u] + bxs[2 * U + u]);
-          const float go = sigmoidf(ah[3 * U + u] + bxs[3 * U + u]);
-          c_new = gf * cs[i] + gi * gg;
-          cs[i] = round_bf16(c_new);  // the carried c is stored as bf16
-          h_new = go * tanhf(c_new);
-        }
+        const float gi = sigmoidf(ah[u] + bxs[u]);
+        const float gf = sigmoidf(ah[U + u] + bxs[U + u]);
+        const float gg = tanhf(ah[2 * U + u] + bxs[2 * U + u]);
+        const float go = sigmoidf(ah[3 * U + u] + bxs[3 * U + u]);
+        const float c_new = gf * cs[i] + gi * gg;
+        cs[i] = round_bf16(c_new);  // the carried c is stored as bf16
+        const float h_new = go * tanhf(c_new);
         if (b >= B) continue;
         const bf16 hb = __float2bfloat16(h_new);
         hout[(size_t)b * H + unit] = hb;
@@ -357,14 +351,14 @@ int launch(Params p, int device, cudaStream_t stream) {
   int bb = 0;
   for (int cand = 64; cand >= 16; cand /= 2) {
     if (cand > 16 * n_tiles_16 && cand > 16) continue;
-    if (carve(MODE, p.I, p.H, cand).total <= (size_t)max_smem) {
+    if (carve(p.I, p.H, cand).total <= (size_t)max_smem) {
       bb = cand;
       break;
     }
   }
   if (bb == 0) return (int)cudaErrorInvalidValue;
   p.BB = bb;
-  const size_t smem = carve(MODE, p.I, p.H, bb).total;
+  const size_t smem = carve(p.I, p.H, bb).total;
   err = cudaFuncSetAttribute(rnn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -384,7 +378,7 @@ int launch(Params p, int device, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// Step-major schedule (MODE_GRU_X, MODE_LSTM_MEL)
+// Step-major schedule (MODE_GRU_X, MODE_GRU_XP, MODE_LSTM_MEL)
 // ---------------------------------------------------------------------------
 
 constexpr int KC = 64;     // depth of one ring stage: one 128-byte swizzle row
@@ -392,13 +386,15 @@ constexpr int TILE = 64;   // batch rows of a tile: one consumer warpgroup's
 constexpr int STAGE = TILE * KC * 2;
 constexpr int MAX_STAGES = 8;  // per consumer warpgroup
 constexpr int MIN_STAGES = 3;  // a chunk loading while two are held
+constexpr int GX_SLOTS = 2;    // MODE_GRU_XP: gx slots per consumer warpgroup
 
 struct StepParams {
-  CUtensorMap xmap;  // x as [T*2*B rows, I], boxes of [box_rows, 64], 128-byte swizzle
-  CUtensorMap hmap;  // hbuf as [4*B rows, H], the same boxes
-  const bf16* wi;    // [2, I, G]
+  CUtensorMap xmap;  // x as [T*2*B rows, I], boxes of [box_rows, 64], 128-byte swizzle;
+                     // MODE_GRU_XP: gx as [T*2*B rows, 3H], boxes of [box_rows, unit]
+  CUtensorMap hmap;  // hbuf as [4*B rows, H], boxes of [box_rows, 64], 128-byte swizzle
+  const bf16* wi;    // [2, I, G] (null for MODE_GRU_XP)
   const bf16* wh;    // [2, H, G]
-  const bf16* bx;    // [2, G]: GRU bi, LSTM bi+bh
+  const bf16* bx;    // [2, G]: GRU bi, LSTM bi+bh (null for MODE_GRU_XP)
   const bf16* bh;    // [2, G]: GRU bh (null for the LSTM)
   const bf16* wm;    // [2, H, M] (MODE_LSTM_MEL)
   bf16* out;         // [T, 2, B, H], or [T, 2, B, M] for MODE_LSTM_MEL
@@ -411,23 +407,27 @@ struct StepParams {
 __host__ __device__ inline int round64(int n) { return (n + 63) & ~63; }
 
 // Shared memory of one step-major CTA, in carve order: the weight slice
-// [round64(I) + round64(H), 4*unit + mcols] as core matrices, the biases
-// (f32, bx then bh, 4*unit each), the rings' full and empty mbarriers, then
-// `wgs` rings of `stages` stages of [TILE, KC] bf16, 1024-byte aligned (the
-// swizzle's period) inside 1024 bytes of slack. rnn.py ``plan`` repeats
-// this sum.
+// [round64(I) + round64(H), ncols] as core matrices (ncols = 4*unit + mcols,
+// or 3*unit for MODE_GRU_XP), the biases (f32, bx then bh, 4*unit each), the
+// rings' full and empty mbarriers, for MODE_GRU_XP (gx) the gx slots'
+// full and empty mbarriers (128 bytes) and `wgs` x GX_SLOTS slots of three
+// [TILE, unit] bf16 boxes, then `wgs` rings of `stages` stages of [TILE, KC]
+// bf16, 1024-byte aligned (the swizzle's period) inside 1024 bytes of
+// slack. rnn.py ``plan`` repeats this sum.
 struct StepCarve {
-  size_t w, bias, bars, ring, total;
+  size_t w, bias, bars, gx, ring, total;
 };
 
-__host__ __device__ inline StepCarve step_carve(int I, int H, int unit, int mcols, int wgs,
-                                                int stages) {
-  const int ncols = 4 * unit + mcols;
+__host__ __device__ inline size_t gx_slot_bytes(int unit) { return (size_t)3 * TILE * unit * 2; }
+
+__host__ __device__ inline StepCarve step_carve(int I, int H, int unit, int ncols, bool gx,
+                                                int wgs, int stages) {
   StepCarve c;
   c.w = 0;
   c.bias = align128((size_t)(round64(I) + round64(H)) * ncols * sizeof(bf16));
   c.bars = c.bias + align128(2 * 4 * unit * sizeof(float));
-  c.ring = c.bars + align128(2 * 2 * MAX_STAGES * sizeof(uint64_t));
+  c.gx = c.bars + align128(2 * 2 * MAX_STAGES * sizeof(uint64_t));
+  c.ring = c.gx + (gx ? 128 + (size_t)wgs * GX_SLOTS * gx_slot_bytes(unit) : 0);
   c.total = c.ring + 1024 + (size_t)wgs * stages * STAGE;
   return c;
 }
@@ -511,6 +511,30 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // wgmma m64nNk16, bf16 x bf16 -> f32, A and B K-major in shared memory:
 // D = A B + (acc ? D : 0); N = 2 x the accumulator's length
+__device__ __forceinline__ void wgmma(float (&d)[12], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[24], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[48], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma(float (&d)[16], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
@@ -563,9 +587,11 @@ template <int MODE, int UNIT, int MCOLS>
 __global__ void __launch_bounds__(2 * (128 + 32), 1)
     rnn_step_kernel(const __grid_constant__ StepParams p) {
   constexpr bool MEL = MODE == MODE_LSTM_MEL;
+  constexpr bool XP = MODE == MODE_GRU_XP;
   constexpr int NG = n_gates(MODE);
-  constexpr int NCOLS = 4 * UNIT + MCOLS;  // GRU r z n_x n_h; LSTM i f g o, mel
-  constexpr int UB = UNIT / 8;             // 8-unit blocks of one gate
+  // GRU r z n_x n_h; GRU_XP r z n_h; LSTM i f g o, mel
+  constexpr int NCOLS = XP ? 3 * UNIT : 4 * UNIT + MCOLS;
+  constexpr int UB = UNIT / 8;  // 8-unit blocks of one gate
   const int s = blockIdx.x, d = blockIdx.y, r = blockIdx.z;
   const int S = gridDim.x, R = p.R, P = p.P;
   const int I = p.I, H = p.H, G = NG * H, B = p.B, M = p.M;
@@ -574,22 +600,28 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const StepCarve cv = step_carve(I, H, UNIT, MCOLS, p.wgs, P);
+  const StepCarve cv = step_carve(I, H, UNIT, NCOLS, XP, p.wgs, P);
   unsigned char* Ws = smem + cv.w;
   float* bxs = reinterpret_cast<float*>(smem + cv.bias);  // [4 UNIT]
   float* bhs = bxs + 4 * UNIT;                            // [4 UNIT]
   // per consumer warpgroup w: a ring of P stages of one [64, 64] box at
-  // ring + (w P + i) STAGE, with mbarriers full[w P + i], empty[w P + i]
+  // ring + (w P + i) STAGE, with mbarriers full[w P + i], empty[w P + i];
+  // MODE_GRU_XP: GX_SLOTS slots of gx_t's three [64, UNIT] gate boxes at
+  // gxs + (w GX_SLOTS + i) gx_slot_bytes, mbarriers gx_full, gx_empty
   const uint32_t full = smem_u32(smem + cv.bars);
   const uint32_t empty = full + 8 * 2 * MAX_STAGES;
+  const uint32_t gx_full = smem_u32(smem + cv.gx);
+  const uint32_t gx_empty = gx_full + 8 * 2 * GX_SLOTS;
+  unsigned char* gxs = smem + cv.gx + 128;
   const uint32_t ring = (smem_u32(smem + cv.ring) + 1023) & ~1023u;
   const int sbo_w = KP * 16;
 
   // the weight slice, [KP, NCOLS]: rows [0, I) from wi, [IP, IP + H) from
   // wh, zero elsewhere. GRU columns r, z (x and h rows), n_x (x rows only),
   // n_h (h rows only), so one product keeps the n gate's halves apart;
-  // LSTM columns i, f, g, o, then this CTA's MCOLS columns of W_mel (h
-  // rows only): the mel of h_{t-1} comes out of the same product
+  // GRU_XP (no x rows) r, z, n_h; LSTM columns i, f, g, o, then this CTA's
+  // MCOLS columns of W_mel (h rows only): the mel of h_{t-1} comes out of
+  // the same product
   for (int i = tid; i < KP * NCOLS; i += blockDim.x) {
     const int k = i / NCOLS, n = i - k * NCOLS;
     const bool xrow = k < IP;
@@ -598,7 +630,9 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
     if (kk < (xrow ? I : H)) {
       const bf16* w = xrow ? p.wi + ((size_t)d * I + kk) * G : p.wh + ((size_t)d * H + kk) * G;
       const int g = n / UNIT, u = n % UNIT;
-      if (n >= 4 * UNIT) {
+      if (XP) {
+        v = __bfloat162float(w[g * H + s * UNIT + u]);
+      } else if (n >= 4 * UNIT) {
         const int m = s * MCOLS + n - 4 * UNIT;
         if (!xrow && m < M) v = __bfloat162float(p.wm[((size_t)d * H + kk) * M + m]);
       } else if (MEL || g < 2 || (g == 2) == xrow) {
@@ -609,7 +643,7 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
   }
   for (int j = tid; j < NG * UNIT; j += blockDim.x) {
     const int col = (j / UNIT) * H + s * UNIT + (j % UNIT);
-    bxs[j] = __bfloat162float(p.bx[(size_t)d * G + col]);
+    bxs[j] = XP ? 0.f : __bfloat162float(p.bx[(size_t)d * G + col]);
     bhs[j] = MEL ? 0.f : __bfloat162float(p.bh[(size_t)d * G + col]);
   }
   if (tid == 0) {
@@ -617,6 +651,11 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
       mbar_init(full + 8 * i, 1);   // the producer's arrive + the bytes
       mbar_init(empty + 8 * i, 4);  // one arrive per warp of the warpgroup
     }
+    if (XP)
+      for (int i = 0; i < p.wgs * GX_SLOTS; ++i) {
+        mbar_init(gx_full + 8 * i, 1);
+        mbar_init(gx_empty + 8 * i, 4);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // Ws for wgmma
@@ -631,16 +670,28 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
   if (tid >= n_cons) {
     // a producer warp per consumer warpgroup w: one lane loads every chunk
     // of the warpgroup's tiles (w, w + wgs, ...) into its ring, P stages
-    // ahead of the products; per step and tile the x_t chunks, then the
-    // h_{t-1} chunks, the step's first waiting for the group's step t-1
+    // ahead of the products; per step and tile the x_t chunks (GRU_XP: the
+    // tile's three gx_t boxes into a gx slot), then the h_{t-1} chunks, the
+    // step's first waiting for the group's step t-1
     const int w = (tid - n_cons) >> 5;
     if (tid & 31) return;
     const int box_bytes = p.box_rows * KC * 2;
-    uint32_t gc = 0;
+    uint32_t gc = 0, gq = 0;
     for (int t = 0; t < t_end; ++t) {
       const int nxs = t < p.T ? nx : 0, per = nxs + (t > 0 ? nh : 0);
       for (int j = w; j < my_tiles; j += p.wgs) {
         const int b0 = (r + j * R) * TILE;
+        if (XP) {  // gx_t does not depend on h: loaded ahead of the barrier
+          const uint32_t slot = w * GX_SLOTS + gq % GX_SLOTS;
+          if (gq >= (uint32_t)GX_SLOTS) mbar_wait(gx_empty + 8 * slot, (gq / GX_SLOTS - 1) & 1);
+          mbar_expect_tx(gx_full + 8 * slot, 3 * p.box_rows * UNIT * 2);
+          const uint32_t dst = smem_u32(gxs + slot * gx_slot_bytes(UNIT));
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            tma_load(dst + g * TILE * UNIT * 2, &p.xmap, g * H + s * UNIT, (t * 2 + d) * B + b0,
+                     gx_full + 8 * slot);
+          ++gq;
+        }
         for (int q = 0; q < per; ++q, ++gc) {
           const bool is_h = q >= nxs;
           if (is_h && j == w && q == nxs) {
@@ -674,7 +725,7 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
   const int upair = 2 * (lane & 3);            // + 8 ub within a gate
   float acc[NCOLS / 2];
   __nv_bfloat162 prev[2][UB];  // GRU h_{t-1}, LSTM c_{t-1} of the thread's pairs
-  uint32_t gc = 0;
+  uint32_t gc = 0, gq = 0;
   for (int t = 0; t < t_end; ++t) {
     const int nxs = t < p.T ? nx : 0, per = nxs + (t > 0 ? nh : 0);
     for (int j = wg; j < my_tiles; j += p.wgs) {
@@ -690,6 +741,10 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
                                       : p.hbuf + (size_t)(((t - 1) & 1) * 2 + d) * hplane + at);
           }
         }
+      }
+      if (per == 0) {  // GRU_XP at t = 0: h_{-1} = 0, no product
+#pragma unroll
+        for (int i = 0; i < NCOLS / 2; ++i) acc[i] = 0.f;
       }
       // products of the tile's chunks; the first starts the sums. Two
       // chunks' products stay in flight while the next one's are issued;
@@ -710,6 +765,16 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
       }
       wgmma_wait<0>();
 
+      // GRU_XP: this tile's gx_t boxes, [gate][row][unit]
+      const bf16* gxt = nullptr;
+      uint32_t gslot = 0;
+      if (XP) {
+        gslot = wg * GX_SLOTS + gq % GX_SLOTS;
+        mbar_wait(gx_full + 8 * gslot, (gq / GX_SLOTS) & 1);
+        gxt = reinterpret_cast<const bf16*>(gxs + gslot * gx_slot_bytes(UNIT));
+        ++gq;
+      }
+
       // cell update on the registers, mel_{t-1}
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -719,6 +784,12 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
 #pragma unroll
           for (int ub = 0; ub < UB; ++ub) {
             float hv[2], cn[2] = {0.f, 0.f};
+            float2 gxv[3];
+            if (XP)
+#pragma unroll
+              for (int g = 0; g < 3; ++g)
+                gxv[g] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                    gxt + (g * TILE + row0 + 8 * i) * UNIT + ub * 8 + upair));
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int u = ub * 8 + upair + e;
@@ -732,6 +803,14 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
                 const float go = sigmoid_nb(acc[3 * UB * 4 + a] + bxs[3 * UNIT + u]);
                 cn[e] = gf * pv + gi * gg;
                 hv[e] = go * tanhf(cn[e]);
+              } else if constexpr (XP) {  // gx_t carries bi: gates as _gru_xp_kernel
+                const float xr = e ? gxv[0].y : gxv[0].x;
+                const float xz = e ? gxv[1].y : gxv[1].x;
+                const float xn = e ? gxv[2].y : gxv[2].x;
+                const float rg = sigmoid_nb(xr + (acc[a] + bhs[u]));
+                const float zg = sigmoid_nb(xz + (acc[UB * 4 + a] + bhs[UNIT + u]));
+                const float ng = tanhf(xn + rg * (acc[2 * UB * 4 + a] + bhs[2 * UNIT + u]));
+                hv[e] = (1.f - zg) * ng + zg * pv;
               } else {
                 const float rg = sigmoid_nb(acc[a] + bxs[u] + bhs[u]);
                 const float zg = sigmoid_nb(acc[UB * 4 + a] + bxs[UNIT + u] + bhs[UNIT + u]);
@@ -765,6 +844,10 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
           }
         }
       }
+      if (XP) {  // the gx slot goes back to the producer
+        __syncwarp();
+        if (lane == 0) mbar_arrive(gx_empty + 8 * gslot);
+      }
     }
     if (t + 1 < t_end) {  // h_t of this CTA's units is out: arrive at the group
       fence_proxy_async_global();
@@ -783,8 +866,11 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // a 2D bf16 tensor map of [rows, cols] (row-major) in boxes of
-// [box_rows, 64] with the 128-byte swizzle; outside the tensor reads zero
-int make_map(CUtensorMap* map, const void* base, int cols, long long rows, int box_rows) {
+// [box_rows, box_cols]: [box_rows, 64] with the 128-byte swizzle by
+// default, unswizzled row-major boxes otherwise; outside the tensor reads
+// zero
+int make_map(CUtensorMap* map, const void* base, int cols, long long rows, int box_rows,
+             int box_cols = KC) {
   static EncodeTiled encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -796,11 +882,13 @@ int make_map(CUtensorMap* map, const void* base, int cols, long long rows, int b
   }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              box_cols == KC ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -819,17 +907,21 @@ int launch_step(StepParams& p, const void* x, int wgs, int smem, int device,
       p.R > n_tiles || (wgs != 1 && wgs != 2))
     return (int)cudaErrorInvalidValue;
   if (MODE == MODE_LSTM_MEL && (p.H / UNIT) * MCOLS < p.M) return (int)cudaErrorInvalidValue;
+  constexpr bool XP = MODE == MODE_GRU_XP;
+  constexpr int NCOLS = XP ? 3 * UNIT : 4 * UNIT + MCOLS;
   p.wgs = wgs;
   int max_smem = 0, n_sm = 0;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const size_t need = step_carve(p.I, p.H, UNIT, MCOLS, p.wgs, p.P).total;
+  const size_t need = step_carve(p.I, p.H, UNIT, NCOLS, XP, p.wgs, p.P).total;
   if ((size_t)smem != need || need > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   // a batch of one tile loads only its rows, in multiples of 8
   p.box_rows = p.B < TILE ? (p.B + 7) / 8 * 8 : TILE;
-  int st = make_map(&p.xmap, x, p.I, (long long)p.T * 2 * p.B, p.box_rows);
+  // GRU_XP: gx [T*2*B rows, 3H] in one [box_rows, UNIT] box per gate
+  int st = XP ? make_map(&p.xmap, x, 3 * p.H, (long long)p.T * 2 * p.B, p.box_rows, UNIT)
+              : make_map(&p.xmap, x, p.I, (long long)p.T * 2 * p.B, p.box_rows);
   if (st) return st;
   st = make_map(&p.hmap, p.hbuf, p.H, 4LL * p.B, p.box_rows);
   if (st) return st;
@@ -873,17 +965,25 @@ extern "C" int rnn_gru_x_bf16(const void* x, const void* wi, const void* wh, con
 extern "C" int rnn_lstm_x_bf16(const void* x, const void* wi, const void* wh, const void* b,
                                void* out, void* hbuf, unsigned int* bar, int T, int B, int I,
                                int H, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr,
+  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b,
            (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, 0, 0};
   return launch<MODE_LSTM_X>(p, device, stream);
 }
 
+// Step-major GRU from the precomputed input projection xp [T, 2, B, 3H];
+// unit (8, 16 or 32), warpgroups, groups, stages and smem from rnn.py plan.
 extern "C" int rnn_gru_xp_bf16(const void* xp, const void* wh, const void* bh, void* out,
-                               void* hbuf, unsigned int* bar, int T, int B, int H, int device,
+                               void* hbuf, unsigned int* bar, int T, int B, int H, int unit,
+                               int wgs, int groups, int stages, int smem, int device,
                                cudaStream_t stream) {
-  Params p{(const bf16*)xp, nullptr, (const bf16*)wh, nullptr, (const bf16*)bh,
-           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, 0, H, 0, 0};
-  return launch<MODE_GRU_XP>(p, device, stream);
+  StepParams p = {};
+  p.wh = (const bf16*)wh, p.bh = (const bf16*)bh;
+  p.out = (bf16*)out, p.hbuf = (bf16*)hbuf, p.bar = bar;
+  p.T = T, p.B = B, p.I = 0, p.H = H, p.R = groups, p.P = stages;
+  if (unit == 32) return launch_step<MODE_GRU_XP, 32, 0>(p, xp, wgs, smem, device, stream);
+  if (unit == 16) return launch_step<MODE_GRU_XP, 16, 0>(p, xp, wgs, smem, device, stream);
+  if (unit == 8) return launch_step<MODE_GRU_XP, 8, 0>(p, xp, wgs, smem, device, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Step-major LSTM + mel stage; cbuf: 2 * B * H bf16 values of scratch;
@@ -908,7 +1008,7 @@ extern "C" int rnn_lstm_mel_bf16(const void* x, const void* wi, const void* wh, 
 extern "C" int rnn_lstm_train_bf16(const void* x, const void* wi, const void* wh, const void* b,
                                    void* out, void* cout, void* hbuf, unsigned int* bar, int T,
                                    int B, int I, int H, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b, nullptr,
+  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b,
            (bf16*)out, (bf16*)cout, (bf16*)hbuf, bar, T, B, I, H, 0, 0};
   return launch<MODE_LSTM_TRAIN>(p, device, stream);
 }

@@ -19,9 +19,10 @@ with direction 1 already flipped by the caller, weights stacked per
 direction as [2, K, G] in torch gate order (GRU r, z, n; LSTM i, f, g, o).
 Each wrapper launches one CUDA kernel, which runs the whole sequence, for
 CUDA tensors (bfloat16 only, as the TPU kernels are), and the plain twin for
-CPU tensors; nothing else selects between them. ``gru`` and ``lstm_mel``
-launch rnn.cu's step-major kernel with the launch plan of :func:`plan`,
-the others its tile-major kernel.
+CPU tensors; nothing else selects between them. ``gru``, ``gru_xp`` and
+``lstm_mel`` launch rnn.cu's step-major kernel with the launch plan of
+:func:`plan`, the LSTMs of ``lstm`` and ``lstm_train`` its tile-major
+kernel.
 
 Numerics of the TPU kernels, which the twins repeat: products accumulate in
 float32, gates run in float32, the carried h and c are rounded to the input
@@ -48,6 +49,8 @@ WG_ROWS = 64
 CHUNK = 64
 MIN_STAGES = 3
 MAX_STAGES = 8
+# gru_xp: slots of one tile's three [64, unit] gx_t boxes per warpgroup
+GX_SLOTS = 2
 
 
 def _align128(n: int) -> int:
@@ -57,14 +60,17 @@ def _align128(n: int) -> int:
 def plan(mode: str, batch: int, t_len: int, in_dim: int, hidden: int,
          n_mels: int, n_sm: int, smem_limit: int) -> dict:
     """The launch plan of rnn.cu's step-major kernel for ``mode`` ('gru':
-    MODE_GRU_X, 'lstm_mel': MODE_LSTM_MEL) on a card of ``n_sm`` SMs whose
-    blocks may opt in to ``smem_limit`` bytes of shared memory. Needs no
-    card. Raises ValueError where the kernel cannot take the shape.
+    MODE_GRU_X, 'gru_xp': MODE_GRU_XP, 'lstm_mel': MODE_LSTM_MEL) on a card
+    of ``n_sm`` SMs whose blocks may opt in to ``smem_limit`` bytes of
+    shared memory. Needs no card. Raises ValueError where the kernel cannot
+    take the shape. For 'gru_xp' the input is the precomputed projection
+    gx [T, 2, B, 3H] and ``in_dim`` is 0: no x rows in the slice.
 
     A CTA owns ``unit`` hidden units of one direction (their weight slice
     stays in its shared memory, K padded to CHUNK multiples, with the GRU's
     n gate as two column blocks and the LSTM's W_mel columns beside the
-    gates), so a direction takes ``hidden / unit`` CTAs; one CTA per SM,
+    gates; 'gru_xp' has h rows only and the columns r, z, n_h), so a
+    direction takes ``hidden / unit`` CTAs; one CTA per SM,
     so ``groups`` = the SM count over 2 directions x that, at most the
     number of batch tiles. Batch tile k (rows [k tile, (k+1) tile) cut at
     the batch, ``tile`` = 64, one consumer warpgroup's rows) belongs to
@@ -73,21 +79,26 @@ def plan(mode: str, batch: int, t_len: int, in_dim: int, hidden: int,
     ``rounds`` = T serial rounds. With two tiles or more per group the CTA
     runs 2 ``warpgroups`` on alternate tiles, each with a ring of as many
     stages of tile x CHUNK bf16 as the carve leaves room for (MIN_STAGES
-    to MAX_STAGES). The first slice width that leaves MIN_STAGES wins:
+    to MAX_STAGES); 'gru_xp' also keeps GX_SLOTS slots of a tile's three
+    [tile, unit] gx_t boxes per warpgroup, which its producer loads before
+    the step barrier. The first slice width that leaves MIN_STAGES wins:
     LSTM-mel takes 16 units (its mel columns fill the wgmma width); the
-    GRU 32 where a batch of several tiles makes each staged byte feed more
+    GRUs 32 where a batch of several tiles makes each staged byte feed more
     columns, 8 at one tile for more CTAs and a shorter step, and the other
     widths where the carve or the SMs refuse the first; one warpgroup only
     where no width leaves two rings room. ``smem`` is the carve in bytes,
     as rnn.cu's step_carve sums it (the entry refuses any other value).
     ``mel_cols``: the W_mel columns of one CTA (a multiple of 8, the wgmma
     width; columns past M are zero). ``cluster`` is 1: no clusters."""
-    if mode not in ('gru', 'lstm_mel'):
+    if mode not in ('gru', 'gru_xp', 'lstm_mel'):
         raise ValueError(f'rnn.plan: no step-major kernel for {mode!r}')
     if hidden % 16 or in_dim % 16:
         raise ValueError(f'rnn.plan: H={hidden} or I={in_dim} is not a '
                          'multiple of 16')
-    mel = mode == 'lstm_mel'
+    mel, xp = mode == 'lstm_mel', mode == 'gru_xp'
+    if xp and in_dim:
+        raise ValueError('rnn.plan: gru_xp takes in_dim 0 (gx holds the '
+                         'input projection)')
     tile = WG_ROWS
     n_tiles = -(-batch // tile)
     depth = -(-in_dim // CHUNK) * CHUNK + -(-hidden // CHUNK) * CHUNK
@@ -110,9 +121,12 @@ def plan(mode: str, batch: int, t_len: int, in_dim: int, hidden: int,
             tiles_per_group = -(-n_tiles // groups)
             if warpgroups > tiles_per_group:
                 continue
-            fixed = (_align128(depth * (4 * unit + mel_cols) * 2)
+            cols = 3 * unit if xp else 4 * unit + mel_cols
+            gx = (128 + warpgroups * GX_SLOTS * 3 * tile * unit * 2
+                  if xp else 0)
+            fixed = (_align128(depth * cols * 2)
                      + _align128(2 * 4 * unit * 4) + _align128(32 * MAX_STAGES)
-                     + 1024)
+                     + gx + 1024)
             ring_stage = warpgroups * tile * CHUNK * 2
             stages = min(MAX_STAGES, (smem_limit - fixed) // ring_stage)
             if stages < MIN_STAGES:
@@ -291,6 +305,8 @@ def _plan_ints(mode: str, x2: torch.Tensor, hidden: int, n_mels: int = 0):
     """The step-major entry's plan arguments for x2 on its card: unit, (mel
     columns,) warpgroups, groups, ring stages, carve."""
     t_len, _, batch, in_dim = x2.shape
+    if mode == 'gru_xp':
+        in_dim = 0
     p = plan(mode, batch, t_len, in_dim, hidden, n_mels,
              *device_limits(x2.device))
     return (p['unit'], *((p['mel_cols'],) if mode == 'lstm_mel' else ()),
@@ -308,7 +324,8 @@ def gru_xp(xp2: torch.Tensor, wh: torch.Tensor,
            ((t_len, 2, b, 3 * h), (2, 3 * h), (2, h, 3 * h)))
     out = xp2.new_empty(t_len, 2, b, h)
     return _launch('gru_xp', 'rnn_gru_xp_bf16', (xp2, wh, bh),
-                   (t_len, b, h), xp2, out, h)
+                   (t_len, b, h, *_plan_ints('gru_xp', xp2, h)), xp2, out,
+                   h)
 
 
 def gru(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,

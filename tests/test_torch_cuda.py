@@ -86,22 +86,82 @@ def test_cbhg_front_kernel_matches_twin(dev, b, t, c_in, c, p, k_max):
     _close([got], [cbhg.bank_pool_proj_plain(*args)])
 
 
-@pytest.mark.parametrize('n_fft,hop,f', [(1024, 256, 70), (64, 16, 9)])
-def test_griffin_lim_iter_kernel_matches_twin(dev, n_fft, hop, f):
+def _gl_args(dev, n_fft, hop, f, b=2):
     g = torch.Generator().manual_seed(f)
     bins = n_fft // 2 + 1
     consts = griffin_lim.gl_constants(n_fft, hop, n_fft, dev)
     winsq = griffin_lim.ola_normalizer(n_fft, hop, f, n_fft, dev)
-    spec = [torch.randn(2, f, bins, generator=g).to(dev) for _ in range(4)]
-    mag = torch.rand(2, f, bins, generator=g).to(dev)
-    repl = griffin_lim.edge_frames(spec[0], spec[1], hop, consts,
-                                   winsq).contiguous()
-    args = (*spec, mag, repl, consts, hop)
+    spec = [torch.randn(b, f, bins, generator=g).to(dev) for _ in range(4)]
+    mag = torch.rand(b, f, bins, generator=g).to(dev)
+    return (*spec, mag, winsq, consts, hop)
+
+
+@pytest.mark.parametrize('n_fft,hop,f', [(1024, 256, 70), (64, 16, 9),
+                                         (640, 64, 23), (2048, 128, 40),
+                                         (2048, 128, 32)])
+def test_griffin_lim_iter_kernel_matches_twin(dev, n_fft, hop, f):
+    """R = 4, 10 and 16 (n_fft 2048, hop 128, down to F = 2R = 32 frames,
+    every frame an edge frame): one launch pair against the twin."""
+    args = _gl_args(dev, n_fft, hop, f)
+    before = griffin_lim.launches
     got = griffin_lim.griffin_lim_iter(*args)
     torch.cuda.synchronize()
+    assert griffin_lim.launches == before + 1
     want = griffin_lim.griffin_lim_iter_plain(*args)
     _close(got[2:], want[2:])                 # rebuilt spectrum
     _close(got[:2], want[:2], tol=10 * TOL)   # phase-normalized spectrum
+
+
+@pytest.mark.parametrize('n_fft,hop,f', [(1024, 256, 70), (2048, 128, 40),
+                                         (64, 16, 9)])
+def test_griffin_lim_kernel_edge_rows_match_edge_frames(dev, n_fft, hop, f):
+    """The first and last R frames the kernel builds from its IDFT frames:
+    the rebuilt spectrum's rows there are the DFT of those frames alone, so
+    they must equal the DFT of edge_frames' rows, per item."""
+    args = _gl_args(dev, n_fft, hop, f)
+    spec_re, spec_im, consts, r = args[0], args[1], args[6], n_fft // hop
+    _, _, rb_re, rb_im = griffin_lim.griffin_lim_iter(*args)
+    torch.cuda.synchronize()
+    repl = griffin_lim.edge_frames(spec_re, spec_im, hop, consts, args[5])
+    got = [torch.cat([x[:, :r], x[:, f - r:]], dim=1) for x in (rb_re, rb_im)]
+    _close(got, [repl @ consts.fwd_re, repl @ consts.fwd_im])
+
+
+def test_dsp_griffinlim_at_r16_matches_pair_path(dev):
+    """DSP.griffinlim at n_fft 2048, hop 128 (R = 16) on the card, which
+    runs griffin_lim.cu, against the pair path (ops/stft.py, plain torch)
+    from the same phase: 32 iterations drift apart from float32 rounding,
+    so the spectral convergence of each must agree within 1%."""
+    import numpy as np
+
+    from forwardtacotron_torch.dsp.dsp import DSP
+    from forwardtacotron_torch.ops.stft import griffin_lim_pair, stft_pair
+
+    n_fft, hop, sr = 2048, 128, 22050
+    dsp = DSP(num_mels=80, sample_rate=sr, hop_length=hop, win_length=n_fft,
+              n_fft=n_fft, fmin=0, fmax=8000, device=dev)
+    t = torch.arange(hop * 199, device=dev) / sr
+    sig = sum(0.2 / k * torch.sin(2 * torch.pi * k * (110 + 40 * t) * t)
+              for k in range(1, 6))
+    re, im = stft_pair(sig, n_fft, hop, n_fft)
+    mel = torch.log(torch.clamp(dsp.mel_basis @ torch.sqrt(
+        re * re + im * im).T, min=1e-5)).cpu().numpy()       # 200 frames
+    linear = dsp._mel_to_stft(torch.exp(torch.as_tensor(mel, device=dev)))
+    phase = np.random.RandomState(0).uniform(0, 2 * np.pi, linear.shape)
+    before = griffin_lim.launches
+    wav = dsp.griffinlim(mel, n_iter=32, phase=phase)
+    assert griffin_lim.launches == before + 32
+    pair = griffin_lim_pair(linear, torch.as_tensor(
+        phase, dtype=torch.float32, device=dev), n_fft, hop, n_fft,
+        n_iter=32)
+
+    def convergence(w):
+        re, im = stft_pair(torch.as_tensor(w, device=dev), n_fft, hop, n_fft)
+        m = torch.sqrt(re * re + im * im)[:linear.shape[1]].T
+        return float(torch.linalg.norm(m - linear) / torch.linalg.norm(linear))
+
+    sc_k, sc_p = convergence(wav), convergence(pair)
+    assert sc_k < 1.0 and abs(sc_k - sc_p) <= 0.01 * sc_p
 
 
 def _rand(g, shape, scale, dev, dtype=torch.bfloat16):
@@ -356,6 +416,37 @@ def test_gru_xp_kernel_matches_twin(dev, b, t):
     torch.cuda.synchronize()
     assert rnn.launches['gru_xp'] == before + 1
     _close([got.float()], [rnn.gru_xp_plain(xp2, wh, bh).float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('b,t,h', [(b, t, 512) for b in (1, 3, 17, 64, 4096)
+                                   for t in (1, 63, 81)]
+                         + [(4096, 81, 1024), (300, 7, 1056)])
+def test_gru_xp_step_major_matches_twin(dev, b, t, h):
+    """The multi-GRU's step-major kernel at the serving width (H 512), a
+    wide one (1024) and the widest the tile-major kernel took (1056, 66
+    CTAs per direction), from one row to a serving batch: one launch, every
+    element within BF16_TOL of the twin."""
+    g = torch.Generator().manual_seed(b * 100 + t + h)
+    _, wh, _, bh = _rnn_weights(g, 16, h, 3, dev)
+    xp2 = _rand(g, (t, 2, b, 3 * h), 1.0, dev)
+    before = dict(rnn.launches)
+    got = rnn.gru_xp(xp2, wh, bh)
+    torch.cuda.synchronize()
+    assert rnn.launches == {**before, 'gru_xp': before['gru_xp'] + 1}
+    _close([got.float()], [rnn.gru_xp_plain(xp2, wh, bh).float()], BF16_TOL)
+
+
+def test_gru_xp_refused_width_raises(dev):
+    """H = 1072 needs more CTAs than the card has SMs at every slice width
+    (the tile-major kernel refused it too): the plan raises before any
+    launch."""
+    g = torch.Generator().manual_seed(3)
+    h = 1072
+    _, wh, _, bh = _rnn_weights(g, 16, h, 3, dev)
+    before = dict(rnn.launches)
+    with pytest.raises(ValueError, match='no gru_xp slice'):
+        rnn.gru_xp(_rand(g, (2, 2, 5, 3 * h), 1.0, dev), wh, bh)
+    assert rnn.launches == before
 
 
 @pytest.mark.parametrize('b', [1, 3, 17])

@@ -117,6 +117,33 @@ def test_gru_xp_twin_matches_pallas(interp, dtype):
                                rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize('b', [1, 3, 65])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_gru_xp_twin_matches_pallas_batches(interp, b, dtype):
+    """The multi-GRU twin at one row, a ragged few and just past one 64-row
+    tile of the step-major kernel, against gru_from_xp_pallas."""
+    from forwardtacotron_tpu.ops.pallas.rnn import gru_from_xp_pallas
+
+    dt, atol = DTYPES[dtype]
+    rs = np.random.RandomState(b)
+    t, hidden = 5, 128
+    xp_f, xp_b = (rs.randn(b, t, 3 * hidden).astype(np.float32)
+                  for _ in range(2))
+    wh = rs.uniform(-0.3, 0.3, (2, hidden, 3 * hidden)).astype(np.float32)
+    bh = rs.uniform(-0.3, 0.3, (2, 3 * hidden)).astype(np.float32)
+    hs, b_true = gru_from_xp_pallas(_jnp(xp_f, dt), _jnp(xp_b, dt),
+                                    _jnp(wh, dt), _jnp(bh, dt), hidden,
+                                    interpret=True)
+    assert b_true == b
+    xp2 = torch.from_numpy(np.stack([xp_f, xp_b])).permute(2, 0, 1, 3)
+    got = rnn.gru_xp(xp2.contiguous().to(dt), torch.from_numpy(wh).to(dt),
+                     torch.from_numpy(bh).to(dt))
+    assert got.shape == (t, 2, b, hidden) and got.dtype == dt
+    np.testing.assert_allclose(got.float().numpy(), _np(hs)[:, :, :b],
+                               rtol=0, atol=atol)
+    assert rnn.launches['gru_xp'] == 0   # CPU tensors never reach the kernel
+
+
 @pytest.mark.parametrize('cell', ['gru', 'lstm'])
 @pytest.mark.parametrize('ragged', [False, True])
 @pytest.mark.parametrize('dtype', DTYPES)

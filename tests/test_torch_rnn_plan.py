@@ -1,8 +1,10 @@
 """The launch plan of rnn.cu's step-major recurrences (``rnn.plan``), which
 needs no card: at an H100's 132 SMs and 232,448 B of opt-in shared memory,
-for the shapes the serving, request and training paths give the two
+for the shapes the serving, request and training paths give the three
 step-major kernels, the carve fits, the grid is resident, every batch row
 falls in exactly one tile of one group, and a launch takes T barrier rounds.
+The multi-GRU's recurrence (``gru_xp``) is planned at every width the
+tile-major kernel it replaced took: H a multiple of 16 up to 1056.
 """
 
 import pytest
@@ -36,6 +38,12 @@ SHAPES = [
     ('gru', 1, 896, 256, 1024, 0),
     ('gru', 1100, 37, 192, 512, 0),
     ('lstm_mel', 1100, 37, 640, 512, 80),
+    # the multi-GRU (token GRUs 64 + 128 + 64 + prenet 256) at serving and
+    # at a request, and the widest the tile-major kernel took
+    ('gru_xp', 4096, 81, 0, 512, 0),
+    ('gru_xp', 1, 92, 0, 512, 0),
+    ('gru_xp', 4096, 81, 0, 1056, 0),
+    ('gru_xp', 65, 2, 0, 128, 0),
 ]
 
 # (mode, B, T, I, H, M) -> (unit, warpgroups, stages): the slice and rings
@@ -56,28 +64,37 @@ FALLBACKS = {
 }
 
 
-def _carve(p, i_dim, h):
+def _carve(p, i_dim, h, xp=False):
     """rnn.cu step_carve, summed from its parts: the weight slice (K padded
-    to whole chunks, 4 gate blocks and the mel columns), the biases, the
-    rings' full and empty barriers, a ring per warpgroup and the alignment
+    to whole chunks, 4 gate blocks and the mel columns; gru_xp 3 gate
+    blocks), the biases, the rings' full and empty barriers, gru_xp's gx
+    slots and their barriers, a ring per warpgroup and the alignment
     slack."""
     def a128(n):
         return -(-n // 128) * 128
 
     def pad(n):
         return -(-n // p['chunk']) * p['chunk']
-    cols = 4 * p['unit'] + p['mel_cols']
+    cols = 3 * p['unit'] if xp else 4 * p['unit'] + p['mel_cols']
+    gx = (128 + p['warpgroups'] * rnn.GX_SLOTS * 3 * p['tile'] * p['unit']
+          * 2) if xp else 0
     return (a128((pad(i_dim) + pad(h)) * cols * 2) + a128(2 * 4 * p['unit'] * 4)
-            + a128(32 * rnn.MAX_STAGES) + 1024
+            + a128(32 * rnn.MAX_STAGES) + gx + 1024
             + p['warpgroups'] * p['stages'] * p['tile'] * p['chunk'] * 2)
 
 
 @pytest.mark.parametrize('mode,batch,t_len,i_dim,h,m', SHAPES)
 def test_plan_fits_and_covers(mode, batch, t_len, i_dim, h, m):
     p = rnn.plan(mode, batch, t_len, i_dim, h, m, H100_SMS, H100_SMEM)
+    _check_plan(p, mode, batch, t_len, i_dim, h, m)
+    if (mode, batch, t_len, i_dim, h, m) not in FALLBACKS:
+        assert p['warpgroups'] == (2 if p['tiles_per_group'] >= 2 else 1)
+
+
+def _check_plan(p, mode, batch, t_len, i_dim, h, m):
     # the carve fits, and is the kernel's sum with at least three stages
     # (with two the producer and the consumers wait for each other)
-    assert p['smem'] == _carve(p, i_dim, h) <= H100_SMEM
+    assert p['smem'] == _carve(p, i_dim, h, mode == 'gru_xp') <= H100_SMEM
     assert rnn.MIN_STAGES == 3
     assert rnn.MIN_STAGES <= p['stages'] <= rnn.MAX_STAGES
     # 64-row tiles; two warpgroups on alternate tiles where a group has two
@@ -85,8 +102,6 @@ def test_plan_fits_and_covers(mode, batch, t_len, i_dim, h, m):
     assert p['tile'] == 64
     assert p['warpgroups'] in (1, 2)
     assert p['warpgroups'] == 1 or p['tiles_per_group'] >= 2
-    if (mode, batch, t_len, i_dim, h, m) not in FALLBACKS:
-        assert p['warpgroups'] == (2 if p['tiles_per_group'] >= 2 else 1)
     # resident: one CTA per SM, H / unit CTAs per direction and group
     s, dirs, groups = p['grid']
     assert s * p['unit'] == h and dirs == 2 and groups == p['groups']
@@ -111,6 +126,34 @@ def test_plan_fits_and_covers(mode, batch, t_len, i_dim, h, m):
         assert s * (p['mel_cols'] - 8) < m
 
 
+@pytest.mark.parametrize('batch', [1, 3, 64, 4096, 8192])
+@pytest.mark.parametrize('h', [128, 256, 384, 512, 640, 768, 896, 1024])
+def test_gru_xp_plan_covers_the_serving_grid(batch, h):
+    """The multi-GRU's step-major plan at every width of 128 to 1024 and
+    batches from one row to two serving batches: the serving width (512)
+    takes 32-unit slices (wgmma N = 96, a 96 KB weight slice) and 4 groups
+    of 32 CTAs at batch 4096, as the tile-major kernel's replacement."""
+    p = rnn.plan('gru_xp', batch, 81, 0, h, 0, H100_SMS, H100_SMEM)
+    _check_plan(p, 'gru_xp', batch, 81, 0, h, 0)
+    assert p['mel_cols'] == 0
+    if (batch, h) == (4096, 512):
+        assert (p['unit'], p['groups'], p['warpgroups']) == (32, 4, 2)
+        assert 3 * p['unit'] * (h // 64) * 64 * 2 == 96 * 1024
+
+
+@pytest.mark.parametrize('batch', [1, 3, 17, 64, 65, 4096, 8192])
+def test_gru_xp_plan_takes_every_tile_major_width(batch):
+    """Every (B, H) the tile-major rnn_kernel<MODE_GRU_XP> took -- H a
+    multiple of 16, 16 to 1056 (its 16-unit CTAs, 2 H/16 of them, had to be
+    resident) -- has a step-major plan, so no shape that ran before raises
+    now; H = 1072 is refused by both."""
+    for h in range(16, 1057, 16):
+        p = rnn.plan('gru_xp', batch, 3, 0, h, 0, H100_SMS, H100_SMEM)
+        _check_plan(p, 'gru_xp', batch, 3, 0, h, 0)
+    with pytest.raises(ValueError, match='CTAs > 132 SMs'):
+        rnn.plan('gru_xp', batch, 3, 0, 1072, 0, H100_SMS, H100_SMEM)
+
+
 @pytest.mark.parametrize('shape', sorted(FALLBACKS))
 def test_plan_falls_back(shape):
     """Where the first slice width leaves fewer than MIN_STAGES stages or
@@ -119,16 +162,19 @@ def test_plan_falls_back(shape):
     assert (p['unit'], p['warpgroups'], p['stages']) == FALLBACKS[shape]
 
 
-@pytest.mark.parametrize('case', ['mode', 'carve', 'mel', 'sms'])
+@pytest.mark.parametrize('case', ['mode', 'carve', 'mel', 'sms', 'xp_in'])
 def test_plan_refuses(case):
     """Shapes the step-major kernel cannot take raise ValueError: another
     mode, a carve over the limit, more than 16 mel columns per CTA, more
-    CTAs per group than the card has SMs."""
+    CTAs per group than the card has SMs, an input width for gru_xp (whose
+    input is the projection)."""
     args = {'mode': ('lstm', 4, 3, 128, 128, 0, H100_SMS, H100_SMEM),
             'carve': ('lstm_mel', 4, 3, 2048, 512, 80, H100_SMS, H100_SMEM),
             'mel': ('lstm_mel', 4, 3, 128, 128, 200, H100_SMS, H100_SMEM),
-            'sms': ('gru', 4, 3, 256, 256, 0, 8, H100_SMEM)}[case]
+            'sms': ('gru', 4, 3, 256, 256, 0, 8, H100_SMEM),
+            'xp_in': ('gru_xp', 4, 3, 64, 128, 0, H100_SMS, H100_SMEM)}[case]
     match = {'mode': 'no step-major kernel', 'carve': r'\d+ B\)',
-             'mel': 'mel columns', 'sms': 'CTAs > 8 SMs'}[case]
+             'mel': 'mel columns', 'sms': 'CTAs > 8 SMs',
+             'xp_in': 'in_dim 0'}[case]
     with pytest.raises(ValueError, match=match):
         rnn.plan(*args)
