@@ -47,7 +47,8 @@ Run from the repository root. Phases, each of which must pass:
 9. the CBHG variants: ``highway_stack``, ``pool_proj1`` and ``pool_mask``
    against their twins (bf16 at one serving call's shapes, float32 at one
    request's, ``highway_stack`` also bf16 at one request's), timed beside
-   the twin and the plain route the default path takes; ``CBHG._highways_fused`` against the layer chain; bf16
+   the twin and the plain route the default path takes (with the bf16
+   ``pool_proj1`` launch plans); ``CBHG._highways_fused`` against the layer chain; bf16
    ``generate_fused`` at the serving shape with the "pool_proj" and "pool"
    routes set on the model's CBHGs (exact launches per call, mel against
    the default route's, audio-s/s in turns with the default); the longest
@@ -84,7 +85,12 @@ Run from the repository root. Phases, each of which must pass:
     each gate block held to its twin's in relative L2), each against its
     twin at full-width training shapes (batch 32, 160 tokens, 1024 frames),
     timed beside the twin and cuDNN's bidirectional ``nn.LSTM`` /
-    ``nn.GRU`` (forward, or backward alone);
+    ``nn.GRU`` (forward, or backward alone), with the sweeps' launch plans
+    (each sweep is two launches of ``rnn_bwd.cu``: the gate product, then
+    the reverse walk); with ``--kernel-parts`` also the times of copies of
+    ``rnn_bwd.cu`` built without the sweep's barrier wait or its products,
+    and of ``pool.cu`` built without the pool or the weight copies (phase
+    9), which are wrong and timed only, for what each part adds;
 13. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
     at full width and batch 32 on 64 synthetic items written to a
     temporary directory: exact launch counts per step, the profiler,
@@ -285,7 +291,9 @@ def build_phase(build):
     log(f'flags: {" ".join(build.NVCC_FLAGS)}')
     t0 = time.perf_counter()
     times = build.build(variants=[('mrf', MRF_CYCLES_DEFINES)] + [
-        ('griffin_lim', d) for d in GL_PART_DEFINES.values()])
+        ('griffin_lim', d) for d in GL_PART_DEFINES.values()] + [
+        ('rnn_bwd', d) for d in BWD_PART_DEFINES.values()] + [
+        ('pool', d) for d in POOL_PART_DEFINES.values()])
     log(f'build: {time.perf_counter() - t0:.1f} s wall, '
         + ', '.join(f'{k} {v:.1f} s' for k, v in times.items()))
     for name in build.SOURCES:
@@ -459,6 +467,36 @@ def kernel_phase(torch, model, config, n_tok, n_frames):
 GL_PART_DEFINES = {'weights_and_epilogue': ('GL_SKIP_A', 'GL_SKIP_PRODUCTS'),
                    'without_products': ('GL_SKIP_PRODUCTS',),
                    'without_a_staging': ('GL_SKIP_A',)}
+
+
+# copies of rnn_bwd.cu and pool.cu without one part of their work (their
+# results are wrong, only their times are kept): where a sweep step and a
+# pool_proj1 chunk spend their time; built and timed with --kernel-parts
+BWD_PART_DEFINES = {'without_barrier_wait': ('RNN_BWD_SKIP_BARRIER',),
+                    'without_products': ('RNN_BWD_SKIP_PRODUCTS',)}
+POOL_PART_DEFINES = {'without_pool': ('POOL_SKIP_POOL',),
+                     'without_weight_copies': ('POOL_SKIP_W',),
+                     'products_only': ('POOL_SKIP_POOL', 'POOL_SKIP_W')}
+
+
+def library_parts(torch, name: str, part_defines: dict, fn) -> dict:
+    """CUDA-event times of ``fn`` with each copy of the library ``name``
+    in ``part_defines`` loaded in the real one's place; nothing (no extra
+    build) without ``--kernel-parts``."""
+    from forwardtacotron_torch.ops.hopper import build
+    if '--kernel-parts' not in sys.argv[1:]:
+        return {}
+    real = build.library
+    parts = {}
+    try:
+        for label, defines in part_defines.items():
+            build.library = lambda n, d=(), defines=defines: real(
+                n, defines if n == name else d)
+            parts[label] = time_ms(torch, fn)
+    finally:
+        build.library = real
+    log('    parts (ms): ' + ', '.join(f'{k} {v:.4f}' for k, v in parts.items()))
+    return parts
 
 
 def griffin_lim_parts(torch, it_args):
@@ -852,6 +890,31 @@ def log_plan(rnn, mode: str, x2, hidden: int, n_mels: int = 0) -> None:
         f'of <= {p["tiles_per_group"]} tiles, {p["warpgroups"]} consumer '
         f'warpgroups, ring {p["stages"]} x {p["chunk"]}, cluster '
         f'{p["cluster"]}, {p["rounds"]} rounds, {p["smem"]} B shared')
+
+
+def log_bwd_plan(rnn, rnn_train, cell: str, x2, hidden: int) -> None:
+    """The launch plans of rnn_bwd.cu's gate product and sweep for x2."""
+    t, _, b, i = x2.shape
+    p = rnn_train.plan(cell, b, t, i, hidden,
+                       *rnn.device_limits(x2.device))
+    g, s = p['gates'], p['sweep']
+    log(f'    plan: gates {g["rows"]} rows x {g["steps"]} steps per tile, '
+        f'{g["m_tiles"]} x {g["n_tiles"]} tiles per direction, K {g["k"]}, '
+        f'ring {g["stages"]}, {g["grid"]} CTAs, {g["smem"]} B shared; sweep '
+        f'{s["unit"]} units x {s["ctas_per_direction"]} CTAs per direction, '
+        f'{s["groups"]} groups of <= {s["tiles_per_group"]} tiles, '
+        f'{s["chunks"]} K chunks, rings 2 x {s["stages"]}, {s["rounds"]} '
+        f'rounds, {s["smem"]} B shared')
+
+
+def log_pool_plan(cbhg, b: int, t: int, kc: int, p: int) -> None:
+    """The launch plan of pool.cu's bf16 pool_proj1 for [b, t, kc] -> p."""
+    q = cbhg.pool_proj1_plan(b, t, kc, p)
+    log(f'    plan: {q["virtual_frames"]} frames with gaps in {q["tiles"]} '
+        f'tiles of {q["tile"]}, {q["n_blocks"]} column block(s) of '
+        f'{q["n_cols"]}, {q["chunks"]} K chunks of {q["chunk"]}, ring '
+        f'{q["stages"]} + x ring {q["x_stages"]}, '
+        f'{q["grid"]} CTAs, {q["smem"]} B shared')
 
 
 def cudnn_rnn(torch, cell: str, in_dim: int, hidden: int, x2):
@@ -1274,6 +1337,10 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
         err = compare(torch, name, kernel(*args).float(),
                       plain(*args).float(), KERNEL_TOL if f32 else BF16_TOL)
         k_ms = time_ms(torch, lambda: kernel(*args))
+        parts = {}
+        if kernel is cbhg.pool_proj1 and not f32:
+            parts = library_parts(torch, 'pool', POOL_PART_DEFINES,
+                                  lambda: kernel(*args))
         p_ms = time_ms(torch, lambda: plain(*args))
         y_ms = time_ms(torch, yardstick)
         b_ms, b_by = bound(flops, nbytes,
@@ -1283,7 +1350,8 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
             f'{flops / k_ms / 1e9:.1f} TFLOP/s, '
             f'{nbytes / k_ms / 1e9:.1f} TB/s')
         return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                    yardstick_ms=y_ms, bound_ms=b_ms, bound_by=b_by)
+                    yardstick_ms=y_ms, bound_ms=b_ms, bound_by=b_by,
+                    **({'parts_ms': parts} if parts else {}))
 
     res = {}
     t_req = bucket_frames(n_frames)
@@ -1307,6 +1375,7 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
             # row 12 at the postnet on the same concat
             log(f'kernel pool_proj1_bf16: postnet B={b} T={t} KC={kc} P={p}; '
                 'yardstick maxpool_time + masked_fill + cuDNN conv1d')
+            log_pool_plan(cbhg, b, t, kc, p)
             parts = [check(
                 'postnet', cbhg.pool_proj1, cbhg.pool_proj1_plain,
                 lambda: conv1d(maxpool_time(x).masked_fill(tail, 0.0),
@@ -1324,6 +1393,8 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
         pre = (model16 if dtype == torch.bfloat16 else model).prenet
         kc, p = pre.K * pre.channels, pre.proj1_weight().shape[-1]
         log(f'kernel {name}: prenet B={b} T={t} KC={kc} P={p}')
+        if dtype == torch.bfloat16:
+            log_pool_plan(cbhg, b, t, kc, p)
         x, mask = randn((b, t, kc), dtype), masked(b, t, t)
         elt = x.element_size()
         part = check(
@@ -1332,8 +1403,14 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
             (x, mask, pre.proj1_weight()), 2 * b * t * 3 * kc * p,
             elt * (b * t * kc + 3 * kc * p + b * t * p) + 4 * b * t, dtype)
         if dtype == torch.bfloat16:
+            post_parts, pre_parts = (q.pop('parts_ms', {})
+                                     for q in (parts[0], part))
             res[name] = sum_levels(parts + [part])
             res[name].update(postnet_ms=parts[0]['ms'], prenet_ms=part['ms'],
+                             parts_ms={**{f'postnet_{k}': v
+                                          for k, v in post_parts.items()},
+                                       **{f'prenet_{k}': v
+                                          for k, v in pre_parts.items()}},
                              at=f'one serving call: postnet B={batch} '
                                 f'T={SERVING_MAX_LEN} + prenet T={t}')
         else:
@@ -2073,8 +2150,10 @@ E2E_TRAIN_TOL = {'float32': 1e-3, 'bfloat16': 5e-2}
 LR_TOL = 0.0
 TRAIN_KERNEL_NAMES = {'lr': ['lr_kernel'], 'gru': [RNN_KERNELS['gru']],
                       'lstm_train': [r'rnn_kernel<(\(int\))?4>'],
-                      'gru_bwd': [r'rnn_bwd_kernel<false>'],
-                      'lstm_bwd': [r'rnn_bwd_kernel<true>']}
+                      'gru_bwd': [r'bwd_gates_kernel<false>',
+                                  r'bwd_sweep_kernel<false>'],
+                      'lstm_bwd': [r'bwd_gates_kernel<true>',
+                                   r'bwd_sweep_kernel<true>']}
 
 
 def train_config(config, root, precision, max_step, dropout=True):
@@ -2246,9 +2325,12 @@ def train_kernel_phase(torch, model16):
                             + 2 * (i_dim + h) * g + 2 * g), PEAK_BF16_FLOPS)
     log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
         f'{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+    log_bwd_plan(rnn, rnn_train, 'lstm', x2, h)
+    parts = library_parts(torch, 'rnn_bwd', BWD_PART_DEFINES,
+                          lambda: rnn_train.lstm_bwd(*args))
     res['lstm_bwd'] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                            library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                           at=at)
+                           at=at, parts_ms=parts)
 
     # the three trainable GRUs of one step (pitch and prenet over the
     # tokens, postnet over the frames): their forward (row 7's kernel) and
@@ -2294,13 +2376,19 @@ def train_kernel_phase(torch, model16):
                            PEAK_BF16_FLOPS)
         log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
             f'{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+        log_bwd_plan(rnn, rnn_train, 'gru', x2, h)
         parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                           library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+        if name == 'postnet':
+            postnet_parts = library_parts(torch, 'rnn_bwd', BWD_PART_DEFINES,
+                                          lambda: rnn_train.gru_bwd(*args))
     res['gru_bwd'] = {k: (max(p[k] for p in parts) if k == 'max_abs_err'
                           else parts[-1][k] if k == 'bound_by'
                           else sum(p[k] for p in parts)) for k in parts[0]}
     res['gru_bwd']['at'] = (f'{at}: pitch (T={n}, H=128) + prenet (T={n}) + '
                             f'postnet (T={t}) GRUs, summed')
+    res['gru_bwd']['parts_ms'] = {f'postnet_{k}': v
+                                  for k, v in postnet_parts.items()}
     res['gru_train_fwd'] = fwd
     return res
 
@@ -2353,9 +2441,10 @@ def train_bf16_phase(torch, config, root):
     torch.cuda.synchronize()
     launches = read_counts()
     # one step: the LR, the pitch / prenet / postnet GRUs forward and
-    # backward, the bi-LSTM forward (with cells) and backward
+    # backward, the bi-LSTM forward (with cells) and backward; each
+    # backward sweep is two launches (the gate product, then the sweep)
     expect_counts('bf16 train step', launches, lr=1, gru=3, lstm_train=1,
-                  gru_bwd=3, lstm_bwd=1)
+                  gru_bwd=6, lstm_bwd=2)
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2692,7 +2781,7 @@ def main() -> None:
                                  'postnet_ms', 'prenet_ms',
                                  'request_ms', 'request_plain_ms',
                                  'request_bound_ms', 'request_yardstick_ms')
-               if k in r}})
+               if k in r and r[k] != {}}})
     log(f'griffinlim split: {json.dumps(gl_split)}')
     log(f'serving: {json.dumps(serving)}')
     log(f'cbhg variants: {json.dumps(variants)}')

@@ -296,10 +296,26 @@ def bank_pool_proj(x: torch.Tensor, mask: torch.Tensor,
 
 # ------------------------------------------------------------ pool.cu
 
-# pool_proj1 walks the concat's channels in chunks of POOL_KCH, and tiles
-# the projection's columns by PROJ_TILE (the weight is padded to it)
+# pool_proj1: K chunks of POOL_KCH input channels (both entries); the f32
+# entry tiles the projection's columns by PROJ_TILE (its weight is padded
+# to it), the bf16 entry takes them in column blocks of one of
+# POOL_MMA_COLS (wgmma widths)
 POOL_KCH = 32
-PROJ_TILE = {torch.float32: 64, torch.bfloat16: 128}
+POOL_MMA_COLS = (64, 96, 128, 192, 256)
+PROJ_TILE = 64
+# bf16 entry (pool_proj1_mma_kernel<N>): POOL_TILE virtual frames per CTA
+# (the items' frames with one zero gap frame after each), their pooled
+# rows (the taps' halo) in four 8-channel planes of 16-byte rows, the raw
+# x rows behind them (the pool's left neighbour too) in a ring of
+# POOL_X_STAGES stages; the main ring's stages hold the pooled rows and the
+# chunk's three weight taps of N columns
+POOL_TILE = 128
+POOL_PLANE = (POOL_TILE + 2) * 16
+POOL_X_BYTES = ((POOL_TILE + 3) * POOL_KCH * 2 + 127) // 128 * 128
+POOL_X_STAGES = 4
+POOL_MIN_STAGES = 2
+POOL_MAX_STAGES = 8
+_POOL_BARS = 256 + ((POOL_TILE + 2) * 8 + 127) // 128 * 128   # + rows table
 _POOL_MASK_ENTRY = {torch.float32: 'pool_mask_f32',
                     torch.bfloat16: 'pool_mask_bf16'}
 _POOL_PROJ_ENTRY = {torch.float32: 'pool_proj1_f32',
@@ -342,9 +358,60 @@ def pool_proj1_shape_error(kc: int) -> Optional[str]:
 
 
 def pack_proj_weight(w: torch.Tensor, p_pad: int) -> torch.Tensor:
-    """w [3, KC, P] as the kernel reads it: [3, P_pad, KC], each output
+    """w [3, KC, P] as the f32 kernel reads it: [3, P_pad, KC], each output
     column's inputs contiguous, zero columns from P to ``p_pad``."""
     return F.pad(w.transpose(1, 2), (0, 0, 0, p_pad - w.shape[2])).contiguous()
+
+
+def pool_proj1_plan(batch: int, t_len: int, kc: int, p: int,
+                    smem_limit: int = SMEM_BYTES) -> dict:
+    """The bf16 kernel's launch plan. Needs no card; raises ValueError
+    where the kernel cannot take the shape.
+
+    Frames are tiled over the virtual axis of all items, each followed by
+    one zero gap frame (``virtual_frames`` = B (T + 1)), ``tile`` frames per
+    CTA; the P output columns in ``n_blocks`` blocks of ``n_cols`` (the
+    narrowest of POOL_MMA_COLS that covers ceil(P / n_blocks), n_blocks =
+    ceil(P / 256)), a CTA per (tile, block): ``grid``. K runs in ``chunks``
+    of POOL_KCH channels through a main ring of ``stages`` stages (as many
+    as fit, POOL_MIN_STAGES to POOL_MAX_STAGES) and a raw x ring of
+    ``x_stages``. ``smem`` is the carve in bytes as pool.cu's mma_smem sums
+    it (the entry refuses any other value)."""
+    err = pool_proj1_shape_error(kc)
+    if err:
+        raise ValueError(f'pool_proj1_plan: {err}')
+    if batch < 1 or t_len < 1 or p < 1:
+        raise ValueError(f'pool_proj1_plan: empty shape B={batch} '
+                         f'T={t_len} P={p}')
+    virtual = batch * (t_len + 1)
+    if virtual > 2 ** 31 - 1 - 2 * POOL_TILE:
+        raise ValueError(f'pool_proj1_plan: B (T + 1) = {virtual} frames '
+                         'exceed 32-bit indices')
+    n_blocks = -(-p // POOL_MMA_COLS[-1])
+    n = next(c for c in POOL_MMA_COLS if c * n_blocks >= p)
+    stage = 4 * POOL_PLANE + 3 * n * POOL_KCH * 2
+    fixed = _POOL_BARS + POOL_X_STAGES * POOL_X_BYTES
+    stages = min(POOL_MAX_STAGES, (smem_limit - fixed) // stage)
+    if stages < POOL_MIN_STAGES:
+        raise ValueError(f'pool_proj1_plan: {fixed + 2 * stage} B of shared '
+                         f'memory needed, {smem_limit} available')
+    tiles = -(-virtual // POOL_TILE)
+    return dict(n_cols=n, n_blocks=n_blocks, tile=POOL_TILE,
+                virtual_frames=virtual, tiles=tiles, chunk=POOL_KCH,
+                chunks=kc // POOL_KCH, stages=stages,
+                x_stages=POOL_X_STAGES, smem=fixed + stages * stage,
+                grid=tiles * n_blocks)
+
+
+def pack_proj_stages(w: torch.Tensor, n: int, n_blocks: int) -> torch.Tensor:
+    """w [3, KC, P] as the bf16 kernel's weight stages, each the shared-
+    memory image one bulk copy moves: [n_blocks][KC / 32][3 taps][n / 8
+    column groups][4 channel groups][8 columns][8 channels] (core matrices,
+    K-major), zero columns from P to n x n_blocks."""
+    kc, p = w.shape[1], w.shape[2]
+    wp = F.pad(w, (0, n * n_blocks - p))
+    return wp.reshape(3, kc // POOL_KCH, POOL_KCH // 8, 8, n_blocks, n // 8,
+                      8).permute(4, 1, 0, 5, 2, 6, 3).contiguous()
 
 
 def _pool_lib(entry: str, n_ptr: int, n_int: int):
@@ -392,7 +459,8 @@ def pool_proj1(x: torch.Tensor, mask: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`pool_proj1_plain`, one kernel launch on the
     GPU; every B, T and P, KC a multiple of ``POOL_KCH``. The weight is
-    packed by :func:`pack_proj_weight` here. What
+    packed here: bf16 by :func:`pack_proj_stages` for the launch plan of
+    :func:`pool_proj1_plan`, f32 by :func:`pack_proj_weight`. What
     :func:`pool_proj1_shape_error` refuses raises ``ValueError``."""
     if x.device.type == 'cpu':
         return pool_proj1_plain(x, mask, w)
@@ -408,14 +476,21 @@ def pool_proj1(x: torch.Tensor, mask: torch.Tensor,
     if err:
         raise ValueError(f'pool_proj1: {err}')
     p = w.shape[2]
-    tile = PROJ_TILE[x.dtype]
-    wt = pack_proj_weight(w, -(-p // tile) * tile)
     out = torch.empty(b, t, p, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    status = _pool_lib(_POOL_PROJ_ENTRY[x.dtype], 4, 6)(
-        build.ptr(x), build.ptr(mask), build.ptr(wt), build.ptr(out), b, t,
-        kc, p, wt.shape[1], x.get_device(), build.stream_of(x))
+    if x.dtype == torch.bfloat16:
+        plan = pool_proj1_plan(b, t, kc, p)
+        wpk = pack_proj_stages(w, plan['n_cols'], plan['n_blocks'])
+        status = _pool_lib(_POOL_PROJ_ENTRY[x.dtype], 4, 9)(
+            build.ptr(x), build.ptr(mask), build.ptr(wpk), build.ptr(out), b,
+            t, kc, p, plan['n_cols'], plan['n_blocks'], plan['stages'],
+            plan['smem'], x.get_device(), build.stream_of(x))
+    else:
+        wt = pack_proj_weight(w, -(-p // PROJ_TILE) * PROJ_TILE)
+        status = _pool_lib(_POOL_PROJ_ENTRY[x.dtype], 4, 6)(
+            build.ptr(x), build.ptr(mask), build.ptr(wt), build.ptr(out), b,
+            t, kc, p, wt.shape[1], x.get_device(), build.stream_of(x))
     build.check(status, 'pool_proj1')
     global pool_proj1_launches
     pool_proj1_launches += 1

@@ -13,8 +13,14 @@ gates from x_t and the saved h_{t-1} (and c_t, c_{t-1}), and write the
 pre-activation gradients in bf16. The weight and input gradients are plain
 products over the whole [T*2*B] axis outside the kernels, with float32
 accumulation, as the JAX package leaves them to XLA. Each wrapper launches
-its CUDA kernel for CUDA tensors (bfloat16 only) and runs its twin for CPU
-tensors; nothing else selects between them.
+its CUDA kernels for CUDA tensors (bfloat16 only) and runs its twin for CPU
+tensors; nothing else selects between them. On the card a sweep is two
+launches of ``rnn_bwd.cu``, each counted: the gate recompute for all steps
+at once (a tensor-core product whose epilogue stores, per step, row and
+unit, the float32 coefficients that make the step's dgates linear in dh and
+dc, ``rnn_bwd.cu``'s note lists them), then the reverse walk that carries
+dh through the resident rows of Wh. :func:`plan` lays out both launches and
+:func:`pack_gate_weights` the gate product's weights, without a card.
 
 ``models.layers.bidir_rnn_trainable`` pads the batch, flips and stacks the
 directions around these cores. Which route ``models.layers._bidir_scan``
@@ -26,6 +32,7 @@ trainer sets it with :func:`rnn_mode`.
 """
 
 import ctypes
+import functools
 from contextlib import contextmanager
 
 import torch
@@ -136,24 +143,189 @@ def lstm_bwd_plain(dhs, hs, cs, x2, wi, wh, b):
 
 # --------------------------------------------------------- the CUDA kernels
 
+# rnn_bwd.cu's shapes: hidden units of a sweep CTA, K depth of a stage and
+# rows of a wgmma tile, sweep ring stages per warpgroup and coefficient
+# slots, hidden units of one gate-product column tile (4 gate blocks of
+# them), gate-product ring stages
+UNIT = 16
+CHUNK = 64
+TILE = 64
+MIN_STAGES = 2
+MAX_STAGES = 16
+COEF_SLOTS = 2
+GATE_UNITS = 32
+GATE_N = 4 * GATE_UNITS
+GATE_STAGE = 2 * TILE * CHUNK * 2 + GATE_N * CHUNK * 2
+GATE_MIN_STAGES = 2
+GATE_MAX_STAGES = 3
+# float32 values the gate product stores per (step, direction, row, unit):
+# dhs and the coefficients of the step's dgates
+N_COEF = {'gru': 6, 'lstm': 7}
+N_GATES = {'gru': 3, 'lstm': 4}
 
-def _launch(name: str, entry: str, ptrs, outs, ints, x2: torch.Tensor):
-    t_len, _, b = x2.shape[:3]
-    if t_len == 0 or b == 0:
-        return
-    bar = torch.zeros(2 * b, dtype=torch.int32, device=x2.device)
-    fn = getattr(build.library('rnn_bwd'), entry)
-    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + len(outs) + 1) \
-        + [ctypes.c_int] * (len(ints) + 1) + [ctypes.c_void_p]
+
+def _round(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def plan(cell: str, batch: int, t_len: int, in_dim: int, hidden: int,
+         n_sm: int, smem_limit: int) -> dict:
+    """The launch plans of ``rnn_bwd.cu``'s two kernels for ``cell`` ('gru'
+    or 'lstm') on a card of ``n_sm`` SMs whose blocks may opt in to
+    ``smem_limit`` bytes of shared memory. Needs no card. Raises ValueError
+    where the kernels cannot take the shape.
+
+    ``gates``: the gate recompute, one GEMM per direction over all steps.
+    Its 64-row tiles hold ``bb`` = min(B, 64) batch rows of ``tb`` = 64 //
+    bb consecutive steps of one direction (``m_tiles`` per direction), its
+    column tiles GATE_UNITS hidden units x 4 gate blocks (``n_tiles``); a
+    CTA takes two row tiles (two consumer warpgroups) and one column tile,
+    K = I and H each padded to CHUNK, through a ring of ``stages`` stages
+    (GATE_MAX_STAGES at most, so two CTAs share an SM).
+    ``sweep``: CTA (s, d, r) owns UNIT hidden units of direction d (``ctas_
+    per_direction`` = H / UNIT) and keeps their [UNIT, G] rows of Wh
+    resident; batch tile k of 64 rows belongs to group k mod ``groups``
+    (as many as the SMs hold, at most the tiles), each group walks its
+    tiles one after another, T steps each, one barrier round per step
+    after the first: ``rounds``. A tile's boxes and coefficient blocks
+    hold ``rows`` = min(B, 64) rounded up to 8 rows; its two rings have
+    ``stages`` stages of rows x CHUNK each (MIN_STAGES to MAX_STAGES), as
+    many as the carve leaves room for.
+    ``smem`` are the carves in bytes, as rnn_bwd.cu's gate_smem and
+    sweep_carve sum them (the entries refuse any other value)."""
+    if cell not in N_GATES:
+        raise ValueError(f'rnn_train.plan: no backward sweep for {cell!r}')
+    if hidden % 16 or in_dim % 16 or hidden <= 0 or in_dim <= 0:
+        raise ValueError(f'rnn_train.plan: H={hidden} or I={in_dim} is not a '
+                         'positive multiple of 16')
+    g = N_GATES[cell] * hidden
+    nk = N_COEF[cell]
+    # the gate product
+    bb = min(batch, TILE)
+    tb = TILE // bb
+    m_tiles = -(-t_len // tb) * -(-batch // bb)
+    n_tiles = -(-hidden // GATE_UNITS)
+    gate_fixed = 128 + 1024
+    gate_stages = min(GATE_MAX_STAGES,
+                      (smem_limit - gate_fixed) // GATE_STAGE)
+    if gate_stages < GATE_MIN_STAGES:
+        raise ValueError(f'rnn_train.plan: {smem_limit} B of shared memory '
+                         'hold fewer than two gate-product stages')
+    gates = dict(rows=bb, steps=tb, m_tiles=m_tiles, n_tiles=n_tiles,
+                 n_cols=n_tiles * GATE_N,
+                 k=_round(in_dim, CHUNK) + _round(hidden, CHUNK),
+                 stages=gate_stages,
+                 smem=gate_fixed + gate_stages * GATE_STAGE,
+                 grid=n_tiles * 2 * -(-m_tiles // 2))
+    # the sweep
+    per_dir = hidden // UNIT
+    b_tiles = -(-batch // TILE)
+    groups = min(n_sm // (2 * per_dir), b_tiles)
+    if groups < 1:
+        raise ValueError(f'rnn_train.plan: H={hidden} needs 2 x {per_dir} '
+                         f'CTAs, more than {n_sm} SMs')
+    rows = TILE if batch >= TILE else _round(batch, 8)
+    fixed = (_round(UNIT * _round(g, CHUNK) * 2, 128)
+             + COEF_SLOTS * rows * nk * UNIT * 4 + 8 * 128 * 4
+             + _round((4 * MAX_STAGES + 2 * COEF_SLOTS) * 8, 128) + 1024
+             + (TILE - rows) * CHUNK * 2)
+    ring_stage = 2 * rows * CHUNK * 2
+    stages = min(MAX_STAGES, (smem_limit - fixed) // ring_stage)
+    if stages < MIN_STAGES:
+        raise ValueError(f'rnn_train.plan: the {cell} sweep at H={hidden} '
+                         f'needs {fixed + MIN_STAGES * ring_stage} B of '
+                         f'shared memory, more than {smem_limit}')
+    sweep = dict(unit=UNIT, ctas_per_direction=per_dir, tile=TILE,
+                 rows=rows, groups=groups,
+                 tiles_per_group=-(-b_tiles // groups),
+                 chunks=_round(g, CHUNK) // CHUNK, stages=stages,
+                 smem=fixed + stages * ring_stage,
+                 grid=(per_dir, 2, groups),
+                 rounds=-(-b_tiles // groups) * max(t_len - 1, 0))
+    return dict(gates=gates, sweep=sweep)
+
+
+@functools.lru_cache(maxsize=None)
+def _gate_columns(cell: str, hidden: int, device: torch.device):
+    """The gate product's columns of ``pack_gate_weights`` on ``device``:
+    each column's source column of wi / wh and whether it takes the x rows
+    and the h rows (built once per shape, on the host)."""
+    lstm = cell == 'lstm'
+    n = torch.arange(_round(hidden, GATE_UNITS) * 4)
+    gate = (n % GATE_N) // GATE_UNITS
+    unit = (n // GATE_N) * GATE_UNITS + n % GATE_UNITS
+    src = gate if lstm else gate.clamp(max=2)      # GRU n_x, n_h: column n
+    col = (src * hidden + unit).clamp(max=N_GATES[cell] * hidden - 1)
+    keep_x = (unit < hidden) & (lstm | (gate != 3))
+    keep_h = (unit < hidden) & (lstm | (gate != 2))
+    return col.to(device), keep_x.to(device), keep_h.to(device)
+
+
+def pack_gate_weights(cell: str, wi: torch.Tensor,
+                      wh: torch.Tensor) -> torch.Tensor:
+    """wi [2, I, G], wh [2, H, G] as the gate product reads them: [2, NC,
+    KP], one row per product column, K-major: columns in tiles of
+    GATE_UNITS hidden units x 4 gate blocks (LSTM i, f, g, o; GRU r, z,
+    n_x, n_h, the n gate's x and h halves apart), zero past H; K = the x
+    rows (I padded to CHUNK) then the h rows (H padded to CHUNK), the GRU's
+    n_x zero in the h rows and n_h in the x rows."""
+    i_dim, h = wi.shape[1], wh.shape[1]
+    col, keep_x, keep_h = _gate_columns(cell, h, wi.device)
+    zero = wi.new_zeros(())
+    ip = _round(i_dim, CHUNK)
+    out = wi.new_zeros(2, col.numel(), ip + _round(h, CHUNK))
+    out[:, :, :i_dim] = torch.where(keep_x, wi.index_select(2, col),
+                                    zero).transpose(1, 2)
+    out[:, :, ip:ip + h] = torch.where(keep_h, wh.index_select(2, col),
+                                       zero).transpose(1, 2)
+    return out
+
+
+def coef_shape(cell: str, t_len: int, batch: int, hidden: int):
+    """The gate product's float32 output: [T, 2, H / UNIT, B, N_COEF,
+    UNIT], one sweep CTA's block of a step contiguous."""
+    return (t_len, 2, hidden // UNIT, batch, N_COEF[cell], UNIT)
+
+
+def _entry(name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(build.library('rnn_bwd'), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(*(build.ptr(t) for t in ptrs + outs), build.ptr(bar), *ints,
-                x2.get_device(), build.stream_of(x2))
-    build.check(status, f'rnn_train.{name}')
+    return fn
+
+
+def _sweep(cell: str, x2, hs, cs, dhs, wi, wh, biases, outs):
+    """The two launches of one sweep on x2's card: the gate product into
+    the coefficient buffer, then the reverse walk into ``outs``."""
+    t_len, _, b, i_dim = x2.shape
+    h = wh.shape[1]
+    p = plan(cell, b, t_len, i_dim, h, *rnn.device_limits(x2.device))
+    gates, sweep = p['gates'], p['sweep']
+    dev, stream = x2.get_device(), build.stream_of(x2)
+    name = f'{cell}_bwd'
+    wpk = pack_gate_weights(cell, wi, wh)
+    coef = torch.empty(coef_shape(cell, t_len, b, h), dtype=torch.float32,
+                       device=x2.device)
+    ptrs = (x2, hs) + ((cs,) if cell == 'lstm' else ()) + (dhs, wpk) \
+        + biases + (coef,)
+    status = _entry(f'rnn_{cell}_bwd_gates_bf16', len(ptrs), 7)(
+        *(build.ptr(t) for t in ptrs), t_len, b, i_dim, h, gates['stages'],
+        gates['smem'], dev, stream)
+    build.check(status, f'rnn_train.{name} (gates)')
+    launches[name] += 1
+    bar = torch.zeros(2 * sweep['groups'], dtype=torch.int32,
+                      device=x2.device)
+    ptrs = (coef, wh) + outs
+    status = _entry(f'rnn_{cell}_bwd_sweep_bf16', len(ptrs) + 1, 7)(
+        *(build.ptr(t) for t in ptrs), build.ptr(bar), t_len, b, h,
+        sweep['stages'], sweep['groups'], sweep['smem'], dev, stream)
+    build.check(status, f'rnn_train.{name} (sweep)')
     launches[name] += 1
 
 
 def gru_bwd(dhs, hs, x2, wi, wh, bi, bh):
-    """Same contract as :func:`gru_bwd_plain`; one launch on the GPU."""
+    """Same contract as :func:`gru_bwd_plain`; two launches on the GPU."""
     if x2.device.type == 'cpu':
         return gru_bwd_plain(dhs, hs, x2, wi, wh, bi, bh)
     t_len, _, b, i = x2.shape
@@ -163,13 +335,13 @@ def gru_bwd(dhs, hs, x2, wi, wh, bi, bh):
                 (2, i, 3 * h), (2, 3 * h), (2, 3 * h), (2, h, 3 * h)))
     dgx = x2.new_empty(t_len, 2, b, 3 * h)
     dgh = torch.empty_like(dgx)
-    _launch('gru_bwd', 'rnn_gru_bwd_bf16', (dhs, hs, x2, wi, wh, bi, bh),
-            (dgx, dgh), (t_len, b, i, h), x2)
+    if t_len and b:
+        _sweep('gru', x2, hs, None, dhs, wi, wh, (bi, bh), (dgx, dgh))
     return dgx, dgh
 
 
 def lstm_bwd(dhs, hs, cs, x2, wi, wh, b):
-    """Same contract as :func:`lstm_bwd_plain`; one launch on the GPU."""
+    """Same contract as :func:`lstm_bwd_plain`; two launches on the GPU."""
     if x2.device.type == 'cpu':
         return lstm_bwd_plain(dhs, hs, cs, x2, wi, wh, b)
     t_len, _, batch, i = x2.shape
@@ -179,8 +351,8 @@ def lstm_bwd(dhs, hs, cs, x2, wi, wh, b):
                 (t_len, 2, batch, h), (t_len, 2, batch, i), (2, i, 4 * h),
                 (2, 4 * h), (2, h, 4 * h)))
     dgates = x2.new_empty(t_len, 2, batch, 4 * h)
-    _launch('lstm_bwd', 'rnn_lstm_bwd_bf16', (dhs, hs, cs, x2, wi, wh, b),
-            (dgates,), (t_len, batch, i, h), x2)
+    if t_len and batch:
+        _sweep('lstm', x2, hs, cs, dhs, wi, wh, (b,), (dgates,))
     return dgates
 
 

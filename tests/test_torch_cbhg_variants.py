@@ -114,10 +114,20 @@ def test_pool_proj1_twin_matches_pallas(interp, dtype):
     assert got.shape == (3, 37, 24) and got.dtype == dt
     assert cbhg.pool_proj1_launches == 0
     _close(got, ref, dt)
-    packed = cbhg.pack_proj_weight(_torch(w, dt), cbhg.PROJ_TILE[dt])
-    assert packed.shape == (3, cbhg.PROJ_TILE[dt], 256)
+    if dt == torch.float32:
+        packed = cbhg.pack_proj_weight(_torch(w, dt), cbhg.PROJ_TILE)
+        assert packed.shape == (3, cbhg.PROJ_TILE, 256)
+        w_pad = packed.transpose(1, 2)
+    else:
+        # the stage images [block][chunk][tap][n/8][4][8 columns][8
+        # channels], unpacked to [3, KC, n x blocks]
+        plan = cbhg.pool_proj1_plan(3, 37, 256, 24)
+        n, nb = plan['n_cols'], plan['n_blocks']
+        packed = cbhg.pack_proj_stages(_torch(w, dt), n, nb)
+        assert packed.shape == (nb, 256 // cbhg.POOL_KCH, 3, n // 8, 4, 8, 8)
+        w_pad = packed.permute(2, 1, 4, 6, 0, 3, 5).reshape(3, 256, n * nb)
     padded = cbhg.pool_proj1_plain(_torch(x, dt), torch.from_numpy(mask),
-                                   packed.transpose(1, 2))
+                                   w_pad)
     torch.testing.assert_close(padded[..., :24], got, rtol=0, atol=0)
     assert not padded[..., 24:].any()
 

@@ -781,7 +781,12 @@ def _bwd_inputs(g, cell, t, b, i, h, dev):
 @pytest.mark.parametrize('cell,i,h', [('gru', 256, 128), ('gru', 256, 256),
                                       ('lstm', 64, 128), ('lstm', 512, 512)])
 def test_bwd_kernels_match_twins(dev, b, t, cell, i, h):
-    """The reverse-time sweeps: dgx and dgh (GRU) or dgates (LSTM)."""
+    """The reverse-time sweeps: dgx and dgh (GRU) or dgates (LSTM); two
+    launches each, the gate product and the sweep."""
+    _bwd_matches(dev, cell, t, b, i, h)
+
+
+def _bwd_matches(dev, cell, t, b, i, h):
     g = torch.Generator().manual_seed(b * 100 + t + i + h)
     args = _bwd_inputs(g, cell, t, b, i, h, dev)
     name = f'{cell}_bwd'
@@ -791,11 +796,62 @@ def test_bwd_kernels_match_twins(dev, b, t, cell, i, h):
     before = rnn_train.launches[name]
     got = kernel(*args)
     torch.cuda.synchronize()
-    assert rnn_train.launches[name] == before + 1
+    assert rnn_train.launches[name] == before + 2
     want = plain(*args)
     if cell == 'lstm':
         got, want = [got], [want]
     _close([x.float() for x in got], [x.float() for x in want], BF16_TOL)
+
+
+@pytest.mark.parametrize('t', [1, 2, 161])
+@pytest.mark.parametrize('b', [1, 17, 32, 33, 64])
+@pytest.mark.parametrize('cell,i,h', [('gru', 256, 128), ('gru', 256, 256),
+                                      ('gru', 64, 512), ('lstm', 512, 512),
+                                      ('lstm', 64, 128)])
+def test_bwd_kernels_across_tiles(dev, t, b, cell, i, h):
+    """rnn_bwd.cu's gate product and sweep across their tile edges: one
+    step (no exchange), two, 161 (the gate product's 64-row tiles hold 64 /
+    B steps, so 161 ends a tile partway); batches of one row, partial and
+    full 64-row sweep tiles; 8, 16 and 32 sweep CTAs per direction."""
+    _bwd_matches(dev, cell, t, b, i, h)
+
+
+@pytest.mark.parametrize('cell,b', [('gru', 65), ('gru', 300),
+                                    ('lstm', 130)])
+def test_bwd_kernels_walk_several_batch_tiles(dev, cell, b):
+    """Batches of several 64-row tiles: the groups walk their tiles one
+    after another, the barrier counters running on."""
+    _bwd_matches(dev, cell, 37, b, 256, 256 if cell == 'gru' else 512)
+
+
+@pytest.mark.parametrize('cell,kernel,fault', [('gru', 'sweep', 'carve'),
+                                               ('lstm', 'sweep', 'stages'),
+                                               ('gru', 'gates', 'carve'),
+                                               ('lstm', 'gates', 'stages')])
+def test_bwd_entries_refuse_a_plan_that_does_not_fit(dev, cell, kernel, fault,
+                                                     monkeypatch):
+    """The entries check the plan they are given: a carve that is not the
+    kernel's own sum, or fewer ring stages than the kernel takes, is
+    refused and the wrapper raises instead of launching a kernel that
+    would hang or overrun its shared memory."""
+    real = rnn_train.plan
+
+    def faulty(*args):
+        p = {k: dict(v) for k, v in real(*args).items()}
+        if fault == 'carve':
+            p[kernel]['smem'] += 128
+        else:
+            p[kernel]['stages'] = 1
+        return p
+
+    monkeypatch.setattr(rnn_train, 'plan', faulty)
+    g = torch.Generator().manual_seed(2)
+    args = _bwd_inputs(g, cell, 5, 3, 256, 256, dev)
+    fn = rnn_train.gru_bwd if cell == 'gru' else rnn_train.lstm_bwd
+    with pytest.raises(RuntimeError, match=f'rnn_train.{cell}_bwd '
+                                           f'\\({kernel}\\)'):
+        fn(*args)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize('cell', ['gru', 'lstm'])
@@ -831,9 +887,10 @@ def test_trainable_rnn_on_card_matches_cpu(dev, cell, ragged):
 
 def test_training_kernels_raise_on_unsupported_shapes(dev):
     """Shapes the training kernels cannot take raise instead of running the
-    twins: a float32 input, a width that is not a multiple of 16, weights
-    too large for a CTA's shared memory, and length-regulator rows that are
-    not whole, aligned 16-byte words."""
+    twins: a float32 input, a width that is not a multiple of 16, more
+    sweep CTAs than the card has SMs (H = 1072; I = H = 1024, which the
+    previous kernel refused, now launches), and length-regulator rows that
+    are not whole, aligned 16-byte words."""
     g = torch.Generator().manual_seed(1)
     before = (dict(rnn.launches), dict(rnn_train.launches), lr.launches)
     dhs, hs, x2, wi, wh, bi, bh = _bwd_inputs(g, 'gru', 5, 3, 64, 128, dev)
@@ -842,8 +899,8 @@ def test_training_kernels_raise_on_unsupported_shapes(dev):
     with pytest.raises(ValueError, match='bad shapes'):
         rnn_train.gru_bwd(dhs, hs, x2[..., :40].contiguous(),
                           wi[:, :40].contiguous(), wh, bi, bh)
-    args = _bwd_inputs(g, 'lstm', 3, 2, 1024, 1024, dev)
-    with pytest.raises(RuntimeError, match='rnn_train.lstm_bwd'):
+    args = _bwd_inputs(g, 'lstm', 3, 2, 64, 1072, dev)   # 2 x 67 CTAs
+    with pytest.raises(ValueError, match='rnn_train.plan'):
         rnn_train.lstm_bwd(*args)
     with pytest.raises(ValueError, match='int32'):
         lr.length_regulator_expand(_rand(g, (3, 4, 16), 1.0, dev),
@@ -1139,6 +1196,56 @@ def test_pool_proj1_kernel_matches_twin(dev, dtype, b, t, kc, p):
     assert cbhg.pool_proj1_launches == before + 1 and got.shape == (b, t, p)
     _close([got.float()], [cbhg.pool_proj1_plain(x, mask, w).float()],
            TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize('t', [1, 81, 129, 512])
+@pytest.mark.parametrize('kc,p', [(32, 80), (4096, 256), (4096, 300),
+                                  (2048, 8)])
+def test_pool_proj1_bf16_across_tiles(dev, t, kc, p):
+    """The bf16 kernel's 128-frame tiles over the frames of all items (one
+    gap frame after each): one frame per item, the prenet's 81, a tile
+    edge inside an item, 512; P not a multiple of the column block (80 in
+    a block of 96, 300 in two of 192), one block of 256, a narrow one; KC
+    of one chunk and of 128; ragged tail masks."""
+    g = torch.Generator().manual_seed(kc + t + p)
+    b = 3 if t < 512 else 2
+    x, mask = _pool_args(g, b, t, kc, dev, torch.bfloat16)
+    mask[0, max(1, t - 5):] = 0.0
+    w = _rand(g, (3, kc, p), (3 * kc) ** -0.5, dev, torch.bfloat16)
+    before = cbhg.pool_proj1_launches
+    got = cbhg.pool_proj1(x, mask, w)
+    torch.cuda.synchronize()
+    assert cbhg.pool_proj1_launches == before + 1
+    _close([got.float()], [cbhg.pool_proj1_plain(x, mask, w).float()],
+           BF16_TOL)
+
+
+@pytest.mark.parametrize('fault', ['carve', 'stages', 'cols'])
+def test_pool_proj1_entry_refuses_a_plan_that_does_not_fit(dev, fault,
+                                                           monkeypatch):
+    """The bf16 entry checks its plan: a carve that is not the kernel's
+    sum, one ring stage, a column width it has no kernel for; the wrapper
+    raises without counting a launch."""
+    real = cbhg.pool_proj1_plan
+
+    def faulty(*args, **kw):
+        p = dict(real(*args, **kw))
+        if fault == 'carve':
+            p['smem'] += 128
+        elif fault == 'stages':
+            p['stages'] = 1
+        else:
+            p['n_cols'] = 80
+        return p
+
+    monkeypatch.setattr(cbhg, 'pool_proj1_plan', faulty)
+    g = torch.Generator().manual_seed(4)
+    x, mask = _pool_args(g, 2, 9, 64, dev, torch.bfloat16)
+    w = _rand(g, (3, 64, 64), 0.1, dev, torch.bfloat16)
+    before = cbhg.pool_proj1_launches
+    with pytest.raises(RuntimeError, match='pool_proj1'):
+        cbhg.pool_proj1(x, mask, w)
+    assert cbhg.pool_proj1_launches == before
 
 
 def test_variant_kernels_raise_on_unsupported_shapes(dev):
