@@ -80,17 +80,20 @@ Run from the repository root. Phases, each of which must pass:
     the tail, the fused levels 2-3, every level fused and per convolution,
     the profiler and the idle share;
 12. training kernels: the length regulator (float32 and bf16), the bi-LSTM
-    forward that keeps its cell states, the three trainable GRUs' forward
-    and the GRU / LSTM backward sweeps (incoming gradient at unit scale,
-    each gate block held to its twin's in relative L2), each against its
-    twin at full-width training shapes (batch 32, 160 tokens, 1024 frames),
-    timed beside the twin and cuDNN's bidirectional ``nn.LSTM`` /
-    ``nn.GRU`` (forward, or backward alone), with the sweeps' launch plans
-    (each sweep is two launches of ``rnn_bwd.cu``: the gate product, then
-    the reverse walk); with ``--kernel-parts`` also the times of copies of
-    ``rnn_bwd.cu`` built without the sweep's barrier wait or its products,
-    and of ``pool.cu`` built without the pool or the weight copies (phase
-    9), which are wrong and timed only, for what each part adds;
+    forward that keeps its cell states (at the train step's 928 frames),
+    the three trainable GRUs' forward and the GRU / LSTM backward sweeps
+    (incoming gradient at unit scale, each gate block held to its twin's
+    in relative L2), each against its twin at full-width training shapes
+    (batch 32, 160 tokens, 1024 frames), timed beside the twin and cuDNN's
+    bidirectional ``nn.LSTM`` / ``nn.GRU`` (forward, or backward alone),
+    with the launch plans (each sweep is two launches of ``rnn_bwd.cu``:
+    the gate product, then the reverse walk); with ``--kernel-parts`` also
+    the times of copies of ``rnn_bwd.cu`` built without the sweep's
+    barrier wait or its products, of ``rnn.cu`` built without the step
+    barrier's wait or the products (the LSTM forward here, the serving
+    multi-GRU in phase 5) or with the LSTM's c through memory, and of
+    ``pool.cu`` built without the pool or the weight copies (phase 9),
+    which are wrong and timed only, for what each part adds;
 13. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
     at full width and batch 32 on 64 synthetic items written to a
     temporary directory: exact launch counts per step, the profiler,
@@ -101,6 +104,11 @@ Run from the repository root. Phases, each of which must pass:
     regulator as its only kernel, and the eval step's kernels;
 15. one train step on the card and on the CPU plain path (dropout off):
     loss and global gradient norm, float32 and bf16.
+
+``--griffinlim-split`` runs only phase 4's split and ``--lstm-times`` only
+the LSTM entries' times (``LSTM_TIMES_SHAPES``, with ``--kernel-parts``
+their parts); both stop after it and also run copied into an older
+checkout, to time two trees in one call.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
 build, one line per kernel comparison, the paths' stages, then a JSON line
@@ -116,6 +124,7 @@ tail) and ``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train
 step).
 """
 
+import collections
 import copy
 import json
 import re
@@ -290,10 +299,12 @@ def build_phase(build):
     log(f'nvcc: {nvcc} ({version.splitlines()[-1]})')
     log(f'flags: {" ".join(build.NVCC_FLAGS)}')
     t0 = time.perf_counter()
+    parts = [('rnn_bwd', BWD_PART_DEFINES), ('pool', POOL_PART_DEFINES),
+             ('rnn', RNN_PART_DEFINES)]
     times = build.build(variants=[('mrf', MRF_CYCLES_DEFINES)] + [
-        ('griffin_lim', d) for d in GL_PART_DEFINES.values()] + [
-        ('rnn_bwd', d) for d in BWD_PART_DEFINES.values()] + [
-        ('pool', d) for d in POOL_PART_DEFINES.values()])
+        ('griffin_lim', d) for d in GL_PART_DEFINES.values()] + ([
+            (name, d) for name, defs in parts for d in defs.values()]
+            if '--kernel-parts' in sys.argv[1:] else []))
     log(f'build: {time.perf_counter() - t0:.1f} s wall, '
         + ', '.join(f'{k} {v:.1f} s' for k, v in times.items()))
     for name in build.SOURCES:
@@ -477,6 +488,12 @@ BWD_PART_DEFINES = {'without_barrier_wait': ('RNN_BWD_SKIP_BARRIER',),
 POOL_PART_DEFINES = {'without_pool': ('POOL_SKIP_POOL',),
                      'without_weight_copies': ('POOL_SKIP_W',),
                      'products_only': ('POOL_SKIP_POOL', 'POOL_SKIP_W')}
+# copies of rnn.cu: one step of the step-major recurrences without its
+# barrier wait or its products (wrong sums, times only), and the LSTMs
+# with c carried through memory at every shape (right sums)
+RNN_PART_DEFINES = {'without_barrier_wait': ('RNN_SKIP_BARRIER',),
+                    'without_products': ('RNN_SKIP_PRODUCTS',),
+                    'c_through_memory': ('RNN_C_FROM_MEMORY',)}
 
 
 def library_parts(torch, name: str, part_defines: dict, fn) -> dict:
@@ -598,30 +615,71 @@ def griffin_lim_check(torch, sig, n_fft, hop, win, twin_on_cpu):
         fail(f'griffin_lim_iter (R={r}): 32-iteration spectral convergence')
     res.update(sc_kernel=sc_k, sc_twin=sc_p)
 
-    # the device kernels of griffin_lim_fused at 2 and at 4 iterations:
-    # every iteration adds its two launches and nothing else
-    counts = []
+    # the device work of griffin_lim_fused at 2 and at 4 iterations, each
+    # profiled GL_PROFILE_REPEATS times: every iteration adds its two
+    # launches and nothing else
+    counts = {}
     for n_iter in (2, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            griffin_lim.griffin_lim_fused(mag_t, ph_t, n_fft, hop, win,
-                                          n_iter=n_iter)
+        runs = []
+        for _ in range(GL_PROFILE_REPEATS):
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        counts.append((sum(1 for e in events if 'gl_gemm_kernel' in e.name),
-                       sum(1 for e in events
-                           if 'gl_gemm_kernel' not in e.name)))
-    log(f'  device kernels (gl_gemm_kernel, other) at 2 and 4 iterations: '
-        f'{counts[0]}, {counts[1]}')
-    if counts[0][0] or counts[1][0]:
-        if counts[1][0] - counts[0][0] != 4 or counts[1][1] != counts[0][1]:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                griffin_lim.griffin_lim_fused(mag_t, ph_t, n_fft, hop, win,
+                                              n_iter=n_iter)
+                torch.cuda.synchronize()
+            runs.append(collections.Counter(
+                e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA))
+        if len({tuple(sorted(c.items())) for c in runs}) > 1:
+            log(f'  profiler records differ between the {n_iter}-iteration '
+                f'runs: {[sum(c.values()) for c in runs]} device events')
+        counts[n_iter] = most_recorded(runs)
+    log(f'  device events (gl_gemm_kernel, other) at 2 and 4 iterations: '
+        + ', '.join(str((sum(v for k, v in c.items() if GL_KERNEL in k),
+                         sum(v for k, v in c.items() if GL_KERNEL not in k)))
+                    for c in counts.values()))
+    if any(GL_KERNEL in k for c in counts.values() for k in c):
+        extra = gl_iteration_extra_work(counts[2], counts[4])
+        if extra:
             fail('griffin_lim_iter: an iteration runs device work besides '
-                 'its two launches')
+                 f'its two launches: {"; ".join(extra)}')
     else:
         log('  profiler recorded no device kernels; the launch counts are '
             'the evidence')
     return res
+
+
+# the Griffin-Lim kernels' name in the profiler, and how many times the
+# iterations' device work is profiled at each iteration count
+GL_KERNEL = 'gl_gemm_kernel'
+GL_PROFILE_REPEATS = 3
+
+
+def most_recorded(runs) -> collections.Counter:
+    """Per device-event name, the largest count over profiled runs of the
+    same work: a profiler can lose a record (one run on the card counted
+    one event fewer than every other) but does not invent one, so one
+    run's loss does not lower the count, and work that every run does
+    stays in it."""
+    out = collections.Counter()
+    for c in runs:
+        out |= c
+    return out
+
+
+def gl_iteration_extra_work(at_2, at_4) -> list:
+    """What griffin_lim_fused at 4 iterations ran beyond its run at 2, per
+    device-event name (kernels and copies; ``at_2`` / ``at_4`` map names to
+    counts), besides the 4 gl_gemm_kernel launches of the 2 more
+    iterations. Empty where the counts are exactly that."""
+    gl = sum(v for k, v in at_4.items() if GL_KERNEL in k) \
+        - sum(v for k, v in at_2.items() if GL_KERNEL in k)
+    out = [] if gl == 4 else [f'{GL_KERNEL} launches +{gl}, expected +4']
+    for name in sorted(set(at_2) | set(at_4)):
+        if GL_KERNEL not in name and at_2.get(name, 0) != at_4.get(name, 0):
+            out.append(f'{name}: {at_2.get(name, 0)} at 2 iterations, '
+                       f'{at_4.get(name, 0)} at 4')
+    return out
 
 
 PRE_HIGHWAY_KERNEL = r'highway_kernel<[^>]*true>'
@@ -841,19 +899,21 @@ def reference_phase(torch, model, config, tokens, outs):
 # ------------------------------------------------------------- bfloat16
 
 # the recurrent kernels' template instances by rnn.cu Mode value: the
-# step-major rnn_step_kernel<mode, unit, mel columns> runs MODE_GRU_X (0),
-# MODE_GRU_XP (2) and MODE_LSTM_MEL (3), the tile-major rnn_kernel<mode>
-# the LSTMs
+# step-major rnn_step_kernel<mode, unit, mel columns> runs every mode,
+# MODE_GRU_X (0), MODE_LSTM_X (1), MODE_GRU_XP (2), MODE_LSTM_MEL (3) and
+# MODE_LSTM_TRAIN (4)
 RNN_KERNELS = {'gru': r'rnn_step_kernel<(\(int\))?0,',
-               'lstm': r'rnn_kernel<(\(int\))?1>',
+               'lstm': r'rnn_step_kernel<(\(int\))?1,',
                'gru_xp': r'rnn_step_kernel<(\(int\))?2,',
-               'lstm_mel': r'rnn_step_kernel<(\(int\))?3,'}
+               'lstm_mel': r'rnn_step_kernel<(\(int\))?3,',
+               'lstm_train': r'rnn_step_kernel<(\(int\))?4,'}
 # the bf16 entries of rows 1 and 2 are their tensor-core kernels
 SERVING_KERNEL_NAMES = {
     'pre_highway_stack': [r'highway_mma_kernel<[^>]*true>'],
     'cbhg_front': ['cbhg_front_mma_kernel'],
     'lr_bidir': ['lr_bidir_kernel'],
-    **{k: [v] for k, v in RNN_KERNELS.items() if k != 'lstm'}}
+    **{k: [v] for k, v in RNN_KERNELS.items()
+       if k in ('gru', 'gru_xp', 'lstm_mel')}}
 
 
 def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
@@ -1020,6 +1080,11 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
         yardstick=cudnn_rnn(torch, 'gru', CUDNN_XP_WIDTH, h,
                             randn(n, 1, b, CUDNN_XP_WIDTH)))
     log_plan(rnn, 'gru_xp', xp2, h)
+    if not two_phase:   # row 4's serving step split (--kernel-parts)
+        res['gru_from_xp']['parts_ms'] = library_parts(
+            torch, 'rnn', {k: v for k, v in RNN_PART_DEFINES.items()
+                           if k != 'c_through_memory'},
+            lambda: rnn.gru_xp(xp2, wh, bh))
     del xp2
 
     # lr_bidir: tokens of C=512 -> [t_run, 2, B, 512], frames/n per token
@@ -1069,15 +1134,14 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
             2 * (steps * 2 * b * i_dim + 2 * (i_dim + h) * g + 4 * g
                  + steps * 2 * b * h),
             cudnn_rnn(torch, cell, i_dim, h, x2))
-        if cell == 'gru':
-            log_plan(rnn, 'gru', x2, h)
+        log_plan(rnn, cell, x2, h)
         return res
 
     res['bidir_rnn'] = bidir('postnet GRU', model.postnet.rnn, t, 'gru')
     if two_phase:
         bidir('prenet GRU', model.prenet.rnn, n, 'gru')
         bidir('pitch GRU', model.pitch_pred.rnn, n, 'gru')
-        bidir('LSTM body', model.lstm, t, 'lstm')
+        res['lstm_body'] = bidir('LSTM body', model.lstm, t, 'lstm')
     for r in res.values():
         r['at'] = label
     return res
@@ -2132,6 +2196,9 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
 
 # full-width training shapes of the kernel phase: batch, tokens, frames
 TRAIN_KERNEL_SHAPE = (32, 160, 1024)
+# the frames the bf16 train step's batch is padded to (its data below):
+# lstm_train is held to its twin and timed there
+TRAIN_STEP_FRAMES = 928
 # the synthetic dataset: items, of which the last few are validation ones,
 # tokens per item and frames per token
 TRAIN_ITEMS, TRAIN_VAL_ITEMS = 64, 8
@@ -2149,7 +2216,7 @@ E2E_TRAIN_TOL = {'float32': 1e-3, 'bfloat16': 5e-2}
 # LR kernel vs twin: a copy, so exact
 LR_TOL = 0.0
 TRAIN_KERNEL_NAMES = {'lr': ['lr_kernel'], 'gru': [RNN_KERNELS['gru']],
-                      'lstm_train': [r'rnn_kernel<(\(int\))?4>'],
+                      'lstm_train': [RNN_KERNELS['lstm_train']],
                       'gru_bwd': [r'bwd_gates_kernel<false>',
                                   r'bwd_sweep_kernel<false>'],
                       'lstm_bwd': [r'bwd_gates_kernel<true>',
@@ -2285,28 +2352,38 @@ def train_kernel_phase(torch, model16):
     res['lr_f32'], res['lr'] = parts
 
     # lstm_train: the bi-LSTM forward that keeps its cell states (weights
-    # detached: the twins run outside autograd, as the kernels do)
+    # detached: the twins run outside autograd, as the kernels do), at the
+    # bf16 train step's frames (its first TRAIN_STEP_FRAMES of x2) and,
+    # timed only, at the kernel phase's T
     with torch.no_grad():
         wi, wh, bi, bh = model16.lstm.stacked_params()
     i_dim, h = wi.shape[1], wh.shape[1]
     x2 = randn(t, 2, b, i_dim, scale=0.5)
-    log(f'  lstm_train T={t} B={b} I={i_dim} H={h} (library: cuDNN bi-LSTM '
+    ts = TRAIN_STEP_FRAMES
+    xs = x2[:ts]
+    log(f'  lstm_train T={ts} B={b} I={i_dim} H={h} (library: cuDNN bi-LSTM '
         'forward with autograd)')
     err = compare_sweep(torch, 'lstm_train hs, cs',
-                        rnn.lstm_train(x2, wi, wh, bi + bh),
-                        rnn.lstm_train_plain(x2, wi, wh, bi + bh), 1)
-    k_ms = time_ms(torch, lambda: rnn.lstm_train(x2, wi, wh, bi + bh))
-    p_ms = time_ms(torch, lambda: rnn.lstm_train_plain(x2, wi, wh, bi + bh))
-    l_ms = time_ms(torch, cudnn_train(torch, 'lstm', i_dim, h, x2, False))
-    b_ms, b_by = bound(t * 2 * b * 2 * (i_dim + h) * 4 * h,
-                       2 * (t * 2 * b * (i_dim + 2 * h)
+                        rnn.lstm_train(xs, wi, wh, bi + bh),
+                        rnn.lstm_train_plain(xs, wi, wh, bi + bh), 1)
+    k_ms = time_ms(torch, lambda: rnn.lstm_train(xs, wi, wh, bi + bh))
+    p_ms = time_ms(torch, lambda: rnn.lstm_train_plain(xs, wi, wh, bi + bh))
+    l_ms = time_ms(torch, cudnn_train(torch, 'lstm', i_dim, h, xs, False))
+    b_ms, b_by = bound(ts * 2 * b * 2 * (i_dim + h) * 4 * h,
+                       2 * (ts * 2 * b * (i_dim + 2 * h)
                             + 2 * (i_dim + h) * 4 * h + 2 * 4 * h),
                        PEAK_BF16_FLOPS)
+    t_ms = time_ms(torch, lambda: rnn.lstm_train(x2, wi, wh, bi + bh))
     log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
-        f'{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+        f'{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); kernel at T={t} '
+        f'{t_ms:.4f} ms')
+    log_plan(rnn, 'lstm_train', xs, h)
+    parts = library_parts(torch, 'rnn', RNN_PART_DEFINES,
+                          lambda: rnn.lstm_train(xs, wi, wh, bi + bh))
     res['lstm_train'] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                              library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                             at=at)
+                             at=f'training B={b} T={ts}', ms_at_t=t_ms,
+                             parts_ms=parts)
 
     # lstm_bwd: its reverse-time sweep, from the kernel's saved states,
     # with an incoming gradient at unit scale
@@ -2426,6 +2503,10 @@ def train_bf16_phase(torch, config, root):
     log(f'bf16 train step: batch {len(host["x_len"])}, tokens padded to '
         f'{host["x"].shape[1]}, frames padded to {host["mel"].shape[1]} '
         f'({frames} valid mel frames)')
+    if host['mel'].shape[1] != TRAIN_STEP_FRAMES:
+        fail(f'the bf16 train step runs {host["mel"].shape[1]} frames; the '
+             f'kernel phase held lstm_train at TRAIN_STEP_FRAMES = '
+             f'{TRAIN_STEP_FRAMES}')
 
     losses = []
 
@@ -2604,6 +2685,63 @@ def train_reference_phase(torch, config, root):
     return errs
 
 
+# --lstm-times: (wrapper, B, T, I, H) of the LSTM entries at the bf16 train
+# step's shape and the kernel phase's, and with narrower inputs (fewer x
+# chunks per step), row 7's LSTM body at a request, and two kernels no
+# LSTM change touches, whose times show the spread between two checkouts:
+# the train step's postnet GRU forward and row 4's serving multi-GRU (from
+# its projection, batch 4096, 81 tokens)
+LSTM_TIMES_SHAPES = [('lstm_train', 32, TRAIN_STEP_FRAMES, 512, 512),
+                     ('lstm_train', 32, TRAIN_STEP_FRAMES, 256, 512),
+                     ('lstm_train', 32, TRAIN_STEP_FRAMES, 64, 512),
+                     ('lstm_train', 32, 1024, 512, 512),
+                     ('lstm', 1, 896, 512, 512), ('gru', 32, 1024, 256, 256),
+                     ('gru_xp', 4096, 81, 0, 512)]
+
+
+def lstm_times_phase(torch) -> dict:
+    """CUDA-event times (median of REPS) of the recurrent wrappers at
+    LSTM_TIMES_SHAPES on seeded inputs, with only rnn.cu built; runs as it
+    is in an older checkout too (the wrappers' signatures are unchanged),
+    to compare two trees in one call. With --kernel-parts also the times
+    of the LSTM entries and of gru_xp with the copies of RNN_PART_DEFINES
+    in rnn.cu's place."""
+    from forwardtacotron_torch.ops.hopper import build, rnn
+    t0 = time.perf_counter()
+    build.build(['rnn'])
+    log(f'build rnn: {time.perf_counter() - t0:.1f} s')
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=gen, device='cuda')
+                * scale).to(torch.bfloat16)
+    out = {}
+    for name, b, t, i, h in LSTM_TIMES_SHAPES:
+        g = 4 if name.startswith('lstm') else 3
+        wh = randn(2, h, g * h, scale=h ** -0.5)
+        if name == 'gru_xp':
+            args = (randn(t, 2, b, 3 * h, scale=0.5), wh,
+                    randn(2, 3 * h, scale=0.1))
+        else:
+            args = (randn(t, 2, b, i, scale=0.5),
+                    randn(2, i, g * h, scale=i ** -0.5), wh,
+                    *[randn(2, g * h, scale=0.1) for _ in range(5 - g)])
+        fn = getattr(rnn, name)
+        key = f'{name} B={b} T={t} I={i} H={h}'
+        out[key] = time_ms(torch, lambda: fn(*args))
+        log(f'  {key}: {out[key]:.4f} ms ({1e3 * out[key] / t:.2f} us a step)')
+        if (name, b, t, i) in (('lstm_train', 32, TRAIN_STEP_FRAMES, 512),
+                               ('lstm', 1, 896, 512), ('gru_xp', 4096, 81, 0)):
+            defines = RNN_PART_DEFINES if g == 4 else {
+                k: v for k, v in RNN_PART_DEFINES.items()
+                if k != 'c_through_memory'}
+            parts = library_parts(torch, 'rnn', defines, lambda: fn(*args))
+            if parts:
+                out[f'{key} parts'] = parts
+        del args
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2626,6 +2764,12 @@ def main() -> None:
     log(f'card: {card}')
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'device {torch.cuda.get_device_name(0)}')
+    if '--lstm-times' in sys.argv[1:]:
+        # the LSTM entries' times alone, e.g. beside a parent checkout's
+        with torch.inference_mode():
+            log(f'lstm times: {json.dumps(lstm_times_phase(torch))}')
+        log(f'card: {card}')
+        return
     build_phase(build)
 
     config = read_config(REPO / 'configs' / 'singlespeaker.yaml')
@@ -2714,6 +2858,11 @@ def main() -> None:
             {f'request_{k}': request16[name][k]
              for k in ('ms', 'plain_ms', 'bound_ms', 'yardstick_ms')})
     training['gru_train_fwd'] = results_train['gru_train_fwd']
+    # row 7's LSTM body (no path launches it) beside its GRU body
+    results16['bidir_rnn']['lstm_body'] = {
+        k: request16['lstm_body'][k]
+        for k in ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+                  'bound_by', 'at')}
 
     rows = [  # (name, results, launches, source, TPU kernel body)
         ('pre_highway_stack', results, launches['pre_highway_stack'],
@@ -2780,7 +2929,8 @@ def main() -> None:
                                  'sc_kernel', 'sc_twin',
                                  'postnet_ms', 'prenet_ms',
                                  'request_ms', 'request_plain_ms',
-                                 'request_bound_ms', 'request_yardstick_ms')
+                                 'request_bound_ms', 'request_yardstick_ms',
+                                 'lstm_body', 'ms_at_t')
                if k in r and r[k] != {}}})
     log(f'griffinlim split: {json.dumps(gl_split)}')
     log(f'serving: {json.dumps(serving)}')

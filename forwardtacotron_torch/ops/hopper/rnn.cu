@@ -1,6 +1,7 @@
-// Bidirectional recurrences of the bf16 serving path, whole sequence in one
-// launch: a GRU from a precomputed input projection, a GRU or LSTM with the
-// input projection in the kernel, and an LSTM whose every step ends in the
+// Bidirectional recurrences of the bf16 serving and training paths, whole
+// sequence in one launch: a GRU from a precomputed input projection, a GRU
+// or LSTM with the input projection in the kernel, the LSTM that also
+// stores every step's cell state, and an LSTM whose every step ends in the
 // mel projection h_t @ W_mel.
 //
 // Replaces forwardtacotron_tpu/ops/pallas/rnn.py:
@@ -13,6 +14,8 @@
 //                        LSTM that also stores every step's bf16 cell state
 //                        for the backward sweep (rnn_bwd.cu)
 //   _gru_fwd_call       (body _gru_kernel)        -> MODE_GRU_X
+// All five modes are instances of one kernel, rnn_step_kernel<MODE, UNIT,
+// MCOLS>.
 //
 // Numerics as in the TPU kernels: products of bf16 values accumulate in f32
 // on the tensor cores, nonlinearities run in f32, the carried h and c are
@@ -26,28 +29,18 @@
 // [T, 2, B, H] (or [T, 2, B, M] for the mel stage), weights [2, K, G] with
 // torch gate order (GRU r,z,n; LSTM i,f,g,o), G = NG*H.
 //
-// Two schedules share the weight-stationary split: the weights of one
+// One schedule, weight-stationary and step-major: the weights of one
 // direction (4 MB for the LSTM) do not fit one SM, so the hidden units are
-// split across CTAs. CTA (s, d, r) owns units [U s, U s + U) of direction d
-// -- all NG gate columns of those units, so the cell update stays local --
-// and keeps their [I+H, NG*U] weight slice in shared memory for all T
-// steps. h_t goes through an L2-resident ping-pong buffer, and the H/U CTAs
-// of one (direction, batch group r) meet at a spin barrier before step t+1.
-// All CTAs must be resident at once for that barrier, so both launch
-// cooperatively: the launch fails instead of hanging when the grid does not
-// fit.
-//
-// rnn_kernel (MODE_LSTM_X, MODE_LSTM_TRAIN): tile-major. U = 16; a group
-// walks its batch tiles one after another, each through all T steps; per
-// (tile, step) it stages x_t and h_{t-1} with cp.async, runs wmma 16x16x16
-// with f32 accumulators stored to shared memory, and updates its units. At
-// a large batch that is B/BB * T serial barrier rounds of a tiny product
-// each: bound by latency, not by the tensor cores.
-//
-// rnn_step_kernel (MODE_GRU_X, MODE_GRU_XP, MODE_LSTM_MEL): step-major, the
-// schedule for large batches. Within step t a CTA walks ALL batch tiles of
-// its group, then meets its group once: T barrier rounds per launch
-// whatever B is.
+// split across CTAs. CTA (s, d, r) owns `unit` units [unit s, unit s +
+// unit) of direction d -- all gate columns of those units, so the cell
+// update stays local -- and keeps their [I+H, N] weight slice in shared
+// memory for all T steps. h_t goes through an L2-resident ping-pong
+// buffer, and the H/unit CTAs of one (direction, batch group r) meet at a
+// spin barrier before step t+1. All CTAs must be resident at once for that
+// barrier, so the kernel launches cooperatively: the launch fails instead
+// of hanging when the grid does not fit. Within step t a CTA walks ALL
+// batch tiles of its group, then meets its group once: T barrier rounds
+// per launch whatever B is.
 //   - Products: wgmma m64nNk16, one consumer warpgroup per 64-row batch
 //     tile, A (the staged activations, 128-byte swizzle) and B (the
 //     resident weight slice, K-major core matrices) from shared memory,
@@ -55,15 +48,17 @@
 //     [gate][unit], so a thread's fragment holds every gate of the same
 //     (row, unit) pairs and the cell update runs on registers. The GRU's n
 //     gate takes two column blocks, n_x (x rows only) and n_h (h rows
-//     only), so one product keeps its halves apart; the LSTM's N adds the
-//     CTA's columns of W_mel (h rows only). MODE_GRU_XP has no x rows
-//     and no n_x block: its slice is [H, 3U] (r, z, n_h), N = 3U. Every
-//     chunk runs the same product: a branch around wgmma makes ptxas
-//     serialize them all.
+//     only), so one product keeps its halves apart; the LSTMs' columns are
+//     i, f, g, o (one accumulator chain over x and h: the TPU kernels add
+//     gx and gh apart in f32), and MODE_LSTM_MEL's N adds the CTA's
+//     columns of W_mel (h rows only). MODE_GRU_XP has no x rows and no n_x
+//     block: its slice is [H, 3 unit] (r, z, n_h), N = 3 unit. Every chunk
+//     runs the same product: a branch around wgmma makes ptxas serialize
+//     them all.
 //   - Two consumer warpgroups take alternate tiles, so one's cell update
 //     overlaps the other's products. The gates run in f32 to a few ulp, as
-//     in rnn_kernel and the twins: the library's tanhf, and a sigmoid from
-//     expf without a branch (sigmoid_nb).
+//     in the twins: the library's tanhf, and a sigmoid from expf without a
+//     branch (sigmoid_nb).
 //   - Staging: a producer warp per consumer warpgroup loads [rows, 64]
 //     boxes of x_t and h_{t-1} with TMA into the warpgroup's ring of P
 //     stages (full / empty mbarriers), P chunks ahead, while the
@@ -77,17 +72,22 @@
 //     barrier.
 //   - MODE_GRU_XP (the multi-GRU of the serving call, the input
 //     projection precomputed): per tile the producer loads gx_t as three
-//     [rows, U] boxes (the tile's r, z, n columns of this CTA's units)
+//     [rows, unit] boxes (the tile's r, z, n columns of this CTA's units)
 //     into one of GX_SLOTS slots (gx full / empty mbarriers), the first
 //     tile's ahead of the step barrier, since gx_t does not depend on h.
 //     The epilogue adds gx_t to the f32 sums and bh as _gru_xp_kernel
 //     does: r, z = sigmoid(gx + (gh + bh)), n = tanh(gx_n + r (gh_n +
 //     bh_n)); at t = 0 h_{-1} = 0, so no product runs.
 //   - Carried state: h through hbuf (written with st.global, read by TMA:
-//     a proxy fence on each side); the LSTM's c, rounded to bf16 every
-//     step, in a [2, B, H] buffer in global memory (the CTA's own units, so
-//     no barrier guards it): 2048 rows x 16 units do not fit beside the
-//     weights.
+//     a proxy fence on each side). The LSTMs' c, rounded to bf16 every
+//     step, goes to global memory and comes back the next step: each
+//     thread reads only the (row, unit) pairs it wrote, so no barrier
+//     guards it. MODE_LSTM_MEL and MODE_LSTM_X keep it in a [2, B, H]
+//     buffer (2048 rows x 16 units do not fit beside the weights);
+//     MODE_LSTM_TRAIN stores c_t into its output cout[t] and reads c_{t-1}
+//     back from cout[t-1]. Where each consumer warpgroup owns at most one
+//     tile for the whole launch (the train step's B 32, a request),
+//     MODE_LSTM_X and MODE_LSTM_TRAIN carry c in registers instead.
 //   - Mel stage (MODE_LSTM_MEL): step t stages h_{t-1} anyway, so its
 //     product with the CTA's W_mel columns comes out of the same wgmma and
 //     is stored as mel_{t-1}; one more pass after the last step stores
@@ -102,32 +102,33 @@
 // carve allows (72 columns for LSTM-mel, 128 for the GRU at serving), so
 // each staged byte feeds that many columns; measured, the producers wait
 // for free stages, so L2 is not the wall: each warpgroup's chain of
-// dependent products and its cell update are. At batch 1 the time is T
-// times one step's latency: one 64-row tile with boxes of the batch's rows
-// only, narrow GRU slices (8 units) for more CTAs, the x half behind the
-// barrier, the h half P chunks deep.
+// dependent products and its cell update are. At one tile (a request, the
+// train step's B 32: the LSTM forward with cells does 0.28 TFLOP at T 928,
+// 0.28 ms at the bf16 peak) the time is T times one step's latency: boxes
+// of the batch's rows only, narrow slices (8 units: 2 x 64 CTAs at H 512)
+// for more CTAs and a shorter step, the x half behind the barrier, the h
+// half P chunks deep.
+// What a step costs is measured with copies of this file built with
+// -DRNN_SKIP_BARRIER (the producers do not wait at the step barrier) and
+// -DRNN_SKIP_PRODUCTS (the stages arrive and go, no products), and
+// -DRNN_C_FROM_MEMORY (the LSTMs' c always through memory):
+// chip_smoke.py --kernel-parts. The first two give wrong sums; only their
+// times are kept.
 //
-// The launch plan of the step-major kernel (unit, warpgroups, groups, ring
-// stages, shared-memory carve) is computed by the caller (rnn.py ``plan``:
-// at serving the multi-GRU takes 32 units, 16 CTAs per direction, 4 batch
-// groups, a 96 KB weight slice, wgmma N = 96);
-// the entries check it against step_carve and the device and refuse a plan
-// that does not fit.
+// The launch plan (unit, warpgroups, groups, ring stages, shared-memory
+// carve) is computed by the caller (rnn.py ``plan``: at serving the
+// multi-GRU takes 32 units, 16 CTAs per direction, 4 batch groups, a 96 KB
+// weight slice, wgmma N = 96); the entries check it against step_carve
+// and the device and refuse a plan that does not fit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int U = 16;  // hidden units per CTA: one wmma column block per gate
 
 enum Mode {
   MODE_GRU_X = 0,
@@ -135,18 +136,6 @@ enum Mode {
   MODE_GRU_XP = 2,
   MODE_LSTM_MEL = 3,
   MODE_LSTM_TRAIN = 4
-};
-
-struct Params {
-  const bf16* x;    // [T, 2, B, I]
-  const bf16* wi;   // [2, I, G]
-  const bf16* wh;   // [2, H, G]
-  const bf16* bx;   // [2, G]: bi+bh
-  bf16* out;        // [T, 2, B, H]
-  bf16* cout;       // [T, 2, B, H] cell states (MODE_LSTM_TRAIN)
-  bf16* hbuf;       // [2 (parity), 2 (direction), B, H]
-  unsigned int* bar;  // [2, R] barrier counters, zero at launch
-  int T, B, I, H, BB, R;
 };
 
 __host__ __device__ constexpr int n_gates(int mode) {
@@ -157,26 +146,6 @@ __host__ __device__ inline size_t align128(size_t n) {
   return (n + 127) & ~(size_t)127;
 }
 
-// Shared memory of one tile-major (LSTM) CTA, in carve order.
-struct Carve {
-  size_t w, a, acc_h, c, bias, total;
-};
-
-__host__ __device__ inline Carve carve(int I, int H, int BB) {
-  const int nc = 4 * U;
-  const int ka = I + H;
-  Carve c;
-  c.w = 0;
-  c.a = c.w + align128((size_t)ka * (nc + 8) * sizeof(bf16));
-  c.acc_h = c.a + align128((size_t)BB * (ka + 8) * sizeof(bf16));
-  c.c = c.acc_h + align128((size_t)BB * nc * sizeof(float));
-  c.bias = c.c + align128((size_t)BB * U * sizeof(float));
-  c.total = c.bias + align128(nc * sizeof(float));
-  return c;
-}
-
-__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
 // 1 / y for y in [1, 2]: the approximate reciprocal and one Newton step,
 // within an ulp
 __device__ __forceinline__ float rcp_1_2(float y) {
@@ -185,201 +154,17 @@ __device__ __forceinline__ float rcp_1_2(float y) {
   return fmaf(r, fmaf(-y, r, 1.f), r);
 }
 
-// The step-major kernel's sigmoid, as accurate as sigmoidf (a few ulp:
-// expf's 2 and the reciprocal's 1) for every v, but without a branch:
-// the IEEE division's slow-path branch kept ptxas from interleaving a
-// thread's (row, unit) pairs, so the cell update outlasted the other
-// warpgroup's products.
+// The gates' sigmoid, as accurate as 1 / (1 + expf(-v)) (a few ulp:
+// expf's 2 and the reciprocal's 1) for every v, but without a branch: the
+// IEEE division's slow-path branch kept ptxas from interleaving a thread's
+// (row, unit) pairs, so the cell update outlasted the other warpgroup's
+// products.
 // e = exp(-|v|) lies in (0, 1], so 1 + e needs no range check.
 __device__ __forceinline__ float sigmoid_nb(float v) {
   const float e = expf(-fabsf(v));
   const float r = rcp_1_2(1.f + e);
   return v >= 0.f ? r : e * r;
 }
-
-// 16-byte global -> shared copy that does not wait for its data; .cg reads
-// through L2 only, so h written by other SMs before the barrier is seen
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// Barrier of the S CTAs of one (direction, group): a counter that only
-// grows; the n-th barrier waits for n * S arrivals.
-__device__ __forceinline__ void group_sync(unsigned int* bar, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    volatile unsigned int* vb = bar;
-    while (*vb < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) rnn_kernel(Params p) {
-  constexpr int NG = 4;
-  constexpr int NC = NG * U;
-  const int s = blockIdx.x, d = blockIdx.y, r = blockIdx.z;
-  const int S = gridDim.x;
-  const int I = p.I, H = p.H, G = NG * H, B = p.B, BB = p.BB;
-  const int KA = I + H, lda = KA + 8, ldw = NC + 8;
-  const int tid = threadIdx.x, warp = tid / 32;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Carve cv = carve(I, H, BB);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + cv.w);        // [KA][ldw]
-  bf16* As = reinterpret_cast<bf16*>(smem + cv.a);        // [BB][lda]
-  float* acc_h = reinterpret_cast<float*>(smem + cv.acc_h);  // [BB][NC]
-  float* cs = reinterpret_cast<float*>(smem + cv.c);      // [BB][U]
-  float* bxs = reinterpret_cast<float*>(smem + cv.bias);  // [NC]
-
-  // this CTA's weight slice: column j = g*U + u <- global column g*H + s*U + u
-  for (int i = tid; i < KA * NC; i += THREADS) {
-    const int k = i / NC, j = i - k * NC;
-    const int col = (j / U) * H + s * U + (j % U);
-    Ws[k * ldw + j] = k < I ? p.wi[((size_t)d * I + k) * G + col]
-                            : p.wh[((size_t)d * H + (k - I)) * G + col];
-  }
-  for (int j = tid; j < NC; j += THREADS) {
-    const int col = (j / U) * H + s * U + (j % U);
-    bxs[j] = __bfloat162float(p.bx[(size_t)d * G + col]);
-  }
-
-  unsigned int* bar = p.bar + d * p.R + r;
-  unsigned int n_bar = 0;
-  const int n_tiles = (B + BB - 1) / BB;
-  const size_t hplane = (size_t)B * H;  // one (parity, direction) plane of hbuf
-
-  // stage x_t (k < I) and h_{t-1} (k >= I, zero at t = 0) of the tile's rows:
-  // every copy of the thread is issued before it waits, so a step pays one
-  // memory round trip, not one per copy; h comes from other SMs through L2
-  auto stage = [&](int t, int b0) {
-    const int chunks = KA / 8;
-    for (int i = tid; i < BB * chunks; i += THREADS) {
-      const int row = i / chunks, k = (i - row * chunks) * 8, b = b0 + row;
-      const bf16* src = nullptr;
-      if (b < B) {
-        if (k < I) {
-          src = p.x + (((size_t)t * 2 + d) * B + b) * I + k;
-        } else if (t > 0) {
-          src = p.hbuf + (size_t)(((t - 1) & 1) * 2 + d) * hplane + (size_t)b * H + (k - I);
-        }
-      }
-      bf16* dst = As + row * lda + k;
-      if (src)
-        cp_async16(dst, src);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-    cp_async_wait_all();
-  };
-
-  for (int tile = r; tile < n_tiles; tile += p.R) {
-    const int b0 = tile * BB;
-    for (int i = tid; i < BB * U; i += THREADS) cs[i] = 0.f;
-    for (int t = 0; t < p.T; ++t) {
-      stage(t, b0);
-      __syncthreads();
-
-      // gate products on the tensor cores over all of K into acc_h
-      const int rb_n = BB / 16;
-      for (int item = warp; item < rb_n * NG; item += NWARPS) {
-        const int rb = item / NG, cb = item - rb * NG;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int k = 0; k < KA; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, As + rb * 16 * lda + k, lda);
-          wmma::load_matrix_sync(fb, Ws + k * ldw + cb * 16, ldw);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(acc_h + rb * 16 * NC + cb * 16, acc, NC, wmma::mem_row_major);
-      }
-      __syncthreads();
-
-      // cell update of this CTA's units
-      bf16* hout = p.hbuf + (size_t)((t & 1) * 2 + d) * hplane;
-      for (int i = tid; i < BB * U; i += THREADS) {
-        const int row = i / U, u = i - row * U, b = b0 + row, unit = s * U + u;
-        const float* ah = acc_h + row * NC;
-        const float gi = sigmoidf(ah[u] + bxs[u]);
-        const float gf = sigmoidf(ah[U + u] + bxs[U + u]);
-        const float gg = tanhf(ah[2 * U + u] + bxs[2 * U + u]);
-        const float go = sigmoidf(ah[3 * U + u] + bxs[3 * U + u]);
-        const float c_new = gf * cs[i] + gi * gg;
-        cs[i] = round_bf16(c_new);  // the carried c is stored as bf16
-        const float h_new = go * tanhf(c_new);
-        if (b >= B) continue;
-        const bf16 hb = __float2bfloat16(h_new);
-        hout[(size_t)b * H + unit] = hb;
-        p.out[(((size_t)t * 2 + d) * B + b) * H + unit] = hb;
-        if (MODE == MODE_LSTM_TRAIN)
-          p.cout[(((size_t)t * 2 + d) * B + b) * H + unit] = __float2bfloat16(c_new);
-      }
-      ++n_bar;
-      group_sync(bar, n_bar * S);
-    }
-  }
-}
-
-template <int MODE>
-int launch(Params p, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int S = p.H / U;
-  const int n_tiles_16 = (p.B + 15) / 16;
-  int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  // the largest batch tile that fits shared memory and the batch
-  int bb = 0;
-  for (int cand = 64; cand >= 16; cand /= 2) {
-    if (cand > 16 * n_tiles_16 && cand > 16) continue;
-    if (carve(p.I, p.H, cand).total <= (size_t)max_smem) {
-      bb = cand;
-      break;
-    }
-  }
-  if (bb == 0) return (int)cudaErrorInvalidValue;
-  p.BB = bb;
-  const size_t smem = carve(p.I, p.H, bb).total;
-  err = cudaFuncSetAttribute(rnn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rnn_kernel<MODE>, THREADS, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (p.B + bb - 1) / bb;
-  int groups = per_sm * n_sm / (2 * S);
-  if (groups < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  p.R = groups < n_tiles ? groups : n_tiles;
-  dim3 grid(S, 2, p.R);
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((void*)rnn_kernel<MODE>, grid, dim3(THREADS), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Step-major schedule (MODE_GRU_X, MODE_GRU_XP, MODE_LSTM_MEL)
-// ---------------------------------------------------------------------------
 
 constexpr int KC = 64;     // depth of one ring stage: one 128-byte swizzle row
 constexpr int TILE = 64;   // batch rows of a tile: one consumer warpgroup's
@@ -398,8 +183,9 @@ struct StepParams {
   const bf16* bh;    // [2, G]: GRU bh (null for the LSTM)
   const bf16* wm;    // [2, H, M] (MODE_LSTM_MEL)
   bf16* out;         // [T, 2, B, H], or [T, 2, B, M] for MODE_LSTM_MEL
+  bf16* cout;        // [T, 2, B, H] cell states (MODE_LSTM_TRAIN)
   bf16* hbuf;        // [2 (parity), 2 (direction), B, H]
-  bf16* cbuf;        // [2, B, H] carried c (MODE_LSTM_MEL)
+  bf16* cbuf;        // [2, B, H] carried c (MODE_LSTM_MEL, MODE_LSTM_X)
   unsigned int* bar;  // [2, R] barrier counters, zero at launch
   int T, B, I, H, M, R, P, wgs, box_rows;  // wgs: consumer warpgroups, 64 rows each
 };
@@ -588,8 +374,10 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
     rnn_step_kernel(const __grid_constant__ StepParams p) {
   constexpr bool MEL = MODE == MODE_LSTM_MEL;
   constexpr bool XP = MODE == MODE_GRU_XP;
+  constexpr bool TRAIN = MODE == MODE_LSTM_TRAIN;
   constexpr int NG = n_gates(MODE);
-  // GRU r z n_x n_h; GRU_XP r z n_h; LSTM i f g o, mel
+  constexpr bool LSTM = NG == 4;
+  // GRU r z n_x n_h; GRU_XP r z n_h; LSTM i f g o (MODE_LSTM_MEL: then mel)
   constexpr int NCOLS = XP ? 3 * UNIT : 4 * UNIT + MCOLS;
   constexpr int UB = UNIT / 8;  // 8-unit blocks of one gate
   const int s = blockIdx.x, d = blockIdx.y, r = blockIdx.z;
@@ -635,8 +423,8 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
       } else if (n >= 4 * UNIT) {
         const int m = s * MCOLS + n - 4 * UNIT;
         if (!xrow && m < M) v = __bfloat162float(p.wm[((size_t)d * H + kk) * M + m]);
-      } else if (MEL || g < 2 || (g == 2) == xrow) {
-        v = __bfloat162float(w[(MEL ? g : min(g, 2)) * H + s * UNIT + u]);
+      } else if (LSTM || g < 2 || (g == 2) == xrow) {
+        v = __bfloat162float(w[(LSTM ? g : min(g, 2)) * H + s * UNIT + u]);
       }
     }
     *reinterpret_cast<bf16*>(Ws + core_off(n, k, sbo_w)) = __float2bfloat16(v);
@@ -644,7 +432,7 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
   for (int j = tid; j < NG * UNIT; j += blockDim.x) {
     const int col = (j / UNIT) * H + s * UNIT + (j % UNIT);
     bxs[j] = XP ? 0.f : __bfloat162float(p.bx[(size_t)d * G + col]);
-    bhs[j] = MEL ? 0.f : __bfloat162float(p.bh[(size_t)d * G + col]);
+    bhs[j] = LSTM ? 0.f : __bfloat162float(p.bh[(size_t)d * G + col]);
   }
   if (tid == 0) {
     for (int i = 0; i < p.wgs * P; ++i) {
@@ -695,9 +483,11 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
         for (int q = 0; q < per; ++q, ++gc) {
           const bool is_h = q >= nxs;
           if (is_h && j == w && q == nxs) {
+#ifndef RNN_SKIP_BARRIER  // diagnostic: the h chunks without the wait (wrong sums)
             volatile unsigned int* vb = bar;
             while (*vb < (unsigned)t * S) {
             }
+#endif
             __threadfence();
             fence_proxy_async_global();
           }
@@ -725,24 +515,32 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
   const int upair = 2 * (lane & 3);            // + 8 ub within a gate
   float acc[NCOLS / 2];
   __nv_bfloat162 prev[2][UB];  // GRU h_{t-1}, LSTM c_{t-1} of the thread's pairs
+  // MODE_LSTM_X / MODE_LSTM_TRAIN with at most one tile per warpgroup: c
+  // stays in prev from one step to the next
+#ifdef RNN_C_FROM_MEMORY  // diagnostic: c through memory at every shape
+  constexpr bool c_regs = false;
+#else
+  const bool c_regs = LSTM && !MEL && my_tiles <= p.wgs;
+#endif
   uint32_t gc = 0, gq = 0;
   for (int t = 0; t < t_end; ++t) {
     const int nxs = t < p.T ? nx : 0, per = nxs + (t > 0 ? nh : 0);
     for (int j = wg; j < my_tiles; j += p.wgs) {
       const int b0 = (r + j * R) * TILE;
-      if (t > 0 && t < p.T) {  // the carried state of this thread's pairs
+      if (t > 0 && t < p.T && !c_regs) {  // the carried state of this thread's pairs
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int b = min(b0 + row0 + 8 * i, B - 1);
 #pragma unroll
           for (int ub = 0; ub < UB; ++ub) {
             const size_t at = (size_t)b * H + s * UNIT + ub * 8 + upair;
-            prev[i][ub] = ld_pair(MEL ? p.cbuf + d * hplane + at
-                                      : p.hbuf + (size_t)(((t - 1) & 1) * 2 + d) * hplane + at);
+            prev[i][ub] = ld_pair(TRAIN  ? p.cout + ((size_t)(t - 1) * 2 + d) * hplane + at
+                                  : LSTM ? p.cbuf + d * hplane + at
+                                         : p.hbuf + (size_t)(((t - 1) & 1) * 2 + d) * hplane + at);
           }
         }
       }
-      if (per == 0) {  // GRU_XP at t = 0: h_{-1} = 0, no product
+      if (per == 0) {  // no product: GRU_XP (or I = 0) at t = 0, h_{-1} = 0
 #pragma unroll
         for (int i = 0; i < NCOLS / 2; ++i) acc[i] = 0.f;
       }
@@ -756,9 +554,11 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
         const uint32_t a0 = ring + slot * STAGE;
         const uint32_t w0 = smem_u32(Ws) + kw / 8 * 128;
         wgmma_fence();
+#ifndef RNN_SKIP_PRODUCTS  // diagnostic: the stages arrive and go, no products
 #pragma unroll
         for (int ks = 0; ks < KC / 16; ++ks)
           wgmma(acc, desc_sw128(a0 + ks * 32), desc_plain(w0 + ks * 256, sbo_w), q + ks > 0);
+#endif
         wgmma_commit();
         wgmma_wait<2>();
         if (gc > 1 && lane == 0) mbar_arrive(empty + 8 * (wg * P + (gc - 2) % P));
@@ -796,7 +596,7 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
               const int a = ub * 4 + i * 2 + e;  // + g * UB * 4 for gate g
               const float pv = t == 0 ? 0.f
                                : e ? __high2float(prev[i][ub]) : __low2float(prev[i][ub]);
-              if constexpr (MEL) {
+              if constexpr (LSTM) {
                 const float gi = sigmoid_nb(acc[a] + bxs[u]);
                 const float gf = sigmoid_nb(acc[UB * 4 + a] + bxs[UNIT + u]);
                 const float gg = tanhf(acc[2 * UB * 4 + a] + bxs[2 * UNIT + u]);
@@ -822,11 +622,16 @@ __global__ void __launch_bounds__(2 * (128 + 32), 1)
             const size_t at = (size_t)b * H + s * UNIT + ub * 8 + upair;
             const __nv_bfloat162 hb = __floats2bfloat162_rn(hv[0], hv[1]);
             *reinterpret_cast<__nv_bfloat162*>(p.hbuf + (size_t)((t & 1) * 2 + d) * hplane + at) = hb;
-            if (MEL)  // the carried c is stored as bf16
-              *reinterpret_cast<__nv_bfloat162*>(p.cbuf + d * hplane + at) =
-                  __floats2bfloat162_rn(cn[0], cn[1]);
-            else
+            if (!MEL)
               *reinterpret_cast<__nv_bfloat162*>(p.out + ((size_t)t * 2 + d) * hplane + at) = hb;
+            if (LSTM) {  // the carried c is stored as bf16
+              const __nv_bfloat162 cb = __floats2bfloat162_rn(cn[0], cn[1]);
+              if (TRAIN)
+                *reinterpret_cast<__nv_bfloat162*>(p.cout + ((size_t)t * 2 + d) * hplane + at) = cb;
+              else if (!c_regs)
+                *reinterpret_cast<__nv_bfloat162*>(p.cbuf + d * hplane + at) = cb;
+              prev[i][ub] = cb;
+            }
           }
         }
         if (MEL && t > 0) {
@@ -919,9 +724,11 @@ int launch_step(StepParams& p, const void* x, int wgs, int smem, int device,
   if ((size_t)smem != need || need > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   // a batch of one tile loads only its rows, in multiples of 8
   p.box_rows = p.B < TILE ? (p.B + 7) / 8 * 8 : TILE;
-  // GRU_XP: gx [T*2*B rows, 3H] in one [box_rows, UNIT] box per gate
-  int st = XP ? make_map(&p.xmap, x, 3 * p.H, (long long)p.T * 2 * p.B, p.box_rows, UNIT)
-              : make_map(&p.xmap, x, p.I, (long long)p.T * 2 * p.B, p.box_rows);
+  // GRU_XP: gx [T*2*B rows, 3H] in one [box_rows, UNIT] box per gate; no
+  // map where there are no x rows
+  int st = XP       ? make_map(&p.xmap, x, 3 * p.H, (long long)p.T * 2 * p.B, p.box_rows, UNIT)
+           : p.I > 0 ? make_map(&p.xmap, x, p.I, (long long)p.T * 2 * p.B, p.box_rows)
+                     : 0;
   if (st) return st;
   st = make_map(&p.hmap, p.hbuf, p.H, 4LL * p.B, p.box_rows);
   if (st) return st;
@@ -962,14 +769,6 @@ extern "C" int rnn_gru_x_bf16(const void* x, const void* wi, const void* wh, con
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int rnn_lstm_x_bf16(const void* x, const void* wi, const void* wh, const void* b,
-                               void* out, void* hbuf, unsigned int* bar, int T, int B, int I,
-                               int H, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b,
-           (bf16*)out, nullptr, (bf16*)hbuf, bar, T, B, I, H, 0, 0};
-  return launch<MODE_LSTM_X>(p, device, stream);
-}
-
 // Step-major GRU from the precomputed input projection xp [T, 2, B, 3H];
 // unit (8, 16 or 32), warpgroups, groups, stages and smem from rnn.py plan.
 extern "C" int rnn_gru_xp_bf16(const void* xp, const void* wh, const void* bh, void* out,
@@ -1004,13 +803,37 @@ extern "C" int rnn_lstm_mel_bf16(const void* x, const void* wi, const void* wh, 
   return (int)cudaErrorInvalidValue;
 }
 
-// MODE_LSTM_X that also writes the cell states cout [T, 2, B, H].
+// Step-major LSTM; cbuf: 2 * B * H bf16 values of scratch; unit (8, 16 or
+// 32), warpgroups, groups, stages and smem from rnn.py plan.
+extern "C" int rnn_lstm_x_bf16(const void* x, const void* wi, const void* wh, const void* b,
+                               void* out, void* hbuf, void* cbuf, unsigned int* bar, int T, int B,
+                               int I, int H, int unit, int wgs, int groups, int stages, int smem,
+                               int device, cudaStream_t stream) {
+  StepParams p = {};
+  p.wi = (const bf16*)wi, p.wh = (const bf16*)wh, p.bx = (const bf16*)b;
+  p.out = (bf16*)out, p.hbuf = (bf16*)hbuf, p.cbuf = (bf16*)cbuf, p.bar = bar;
+  p.T = T, p.B = B, p.I = I, p.H = H, p.R = groups, p.P = stages;
+  if (unit == 32) return launch_step<MODE_LSTM_X, 32, 0>(p, x, wgs, smem, device, stream);
+  if (unit == 16) return launch_step<MODE_LSTM_X, 16, 0>(p, x, wgs, smem, device, stream);
+  if (unit == 8) return launch_step<MODE_LSTM_X, 8, 0>(p, x, wgs, smem, device, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Step-major LSTM that also writes the cell states cout [T, 2, B, H] (and
+// carries c through them); unit (8, 16 or 32), warpgroups, groups, stages
+// and smem from rnn.py plan.
 extern "C" int rnn_lstm_train_bf16(const void* x, const void* wi, const void* wh, const void* b,
                                    void* out, void* cout, void* hbuf, unsigned int* bar, int T,
-                                   int B, int I, int H, int device, cudaStream_t stream) {
-  Params p{(const bf16*)x, (const bf16*)wi, (const bf16*)wh, (const bf16*)b,
-           (bf16*)out, (bf16*)cout, (bf16*)hbuf, bar, T, B, I, H, 0, 0};
-  return launch<MODE_LSTM_TRAIN>(p, device, stream);
+                                   int B, int I, int H, int unit, int wgs, int groups,
+                                   int stages, int smem, int device, cudaStream_t stream) {
+  StepParams p = {};
+  p.wi = (const bf16*)wi, p.wh = (const bf16*)wh, p.bx = (const bf16*)b;
+  p.out = (bf16*)out, p.cout = (bf16*)cout, p.hbuf = (bf16*)hbuf, p.bar = bar;
+  p.T = T, p.B = B, p.I = I, p.H = H, p.R = groups, p.P = stages;
+  if (unit == 32) return launch_step<MODE_LSTM_TRAIN, 32, 0>(p, x, wgs, smem, device, stream);
+  if (unit == 16) return launch_step<MODE_LSTM_TRAIN, 16, 0>(p, x, wgs, smem, device, stream);
+  if (unit == 8) return launch_step<MODE_LSTM_TRAIN, 8, 0>(p, x, wgs, smem, device, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The SM count and the opt-in shared memory per block of `device`, for

@@ -19,10 +19,10 @@ with direction 1 already flipped by the caller, weights stacked per
 direction as [2, K, G] in torch gate order (GRU r, z, n; LSTM i, f, g, o).
 Each wrapper launches one CUDA kernel, which runs the whole sequence, for
 CUDA tensors (bfloat16 only, as the TPU kernels are), and the plain twin for
-CPU tensors; nothing else selects between them. ``gru``, ``gru_xp`` and
-``lstm_mel`` launch rnn.cu's step-major kernel with the launch plan of
-:func:`plan`, the LSTMs of ``lstm`` and ``lstm_train`` its tile-major
-kernel.
+CPU tensors; nothing else selects between them. Every one launches rnn.cu's
+step-major kernel (``rnn_step_kernel``) with the launch plan of
+:func:`plan`; a shape the plan refuses raises ValueError before any
+launch.
 
 Numerics of the TPU kernels, which the twins repeat: products accumulate in
 float32, gates run in float32, the carried h and c are rounded to the input
@@ -51,6 +51,8 @@ MIN_STAGES = 3
 MAX_STAGES = 8
 # gru_xp: slots of one tile's three [64, unit] gx_t boxes per warpgroup
 GX_SLOTS = 2
+# the modes of rnn_step_kernel, by wrapper
+MODES = ('gru', 'gru_xp', 'lstm', 'lstm_mel', 'lstm_train')
 
 
 def _align128(n: int) -> int:
@@ -60,7 +62,8 @@ def _align128(n: int) -> int:
 def plan(mode: str, batch: int, t_len: int, in_dim: int, hidden: int,
          n_mels: int, n_sm: int, smem_limit: int) -> dict:
     """The launch plan of rnn.cu's step-major kernel for ``mode`` ('gru':
-    MODE_GRU_X, 'gru_xp': MODE_GRU_XP, 'lstm_mel': MODE_LSTM_MEL) on a card
+    MODE_GRU_X, 'gru_xp': MODE_GRU_XP, 'lstm': MODE_LSTM_X, 'lstm_mel':
+    MODE_LSTM_MEL, 'lstm_train': MODE_LSTM_TRAIN) on a card
     of ``n_sm`` SMs whose blocks may opt in to ``smem_limit`` bytes of
     shared memory. Needs no card. Raises ValueError where the kernel cannot
     take the shape. For 'gru_xp' the input is the precomputed projection
@@ -83,14 +86,15 @@ def plan(mode: str, batch: int, t_len: int, in_dim: int, hidden: int,
     [tile, unit] gx_t boxes per warpgroup, which its producer loads before
     the step barrier. The first slice width that leaves MIN_STAGES wins:
     LSTM-mel takes 16 units (its mel columns fill the wgmma width); the
-    GRUs 32 where a batch of several tiles makes each staged byte feed more
-    columns, 8 at one tile for more CTAs and a shorter step, and the other
-    widths where the carve or the SMs refuse the first; one warpgroup only
-    where no width leaves two rings room. ``smem`` is the carve in bytes,
-    as rnn.cu's step_carve sums it (the entry refuses any other value).
+    GRUs and the other LSTMs 32 where a batch of several tiles makes each
+    staged byte feed more columns, 8 at one tile for more CTAs and a
+    shorter step, and the other widths where the carve or the SMs refuse
+    the first; one warpgroup only where no width leaves two rings room.
+    ``smem`` is the carve in bytes, as rnn.cu's step_carve sums it (the
+    entry refuses any other value).
     ``mel_cols``: the W_mel columns of one CTA (a multiple of 8, the wgmma
     width; columns past M are zero). ``cluster`` is 1: no clusters."""
-    if mode not in ('gru', 'gru_xp', 'lstm_mel'):
+    if mode not in MODES:
         raise ValueError(f'rnn.plan: no step-major kernel for {mode!r}')
     if hidden % 16 or in_dim % 16:
         raise ValueError(f'rnn.plan: H={hidden} or I={in_dim} is not a '
@@ -276,12 +280,14 @@ def _check(name: str, x2: torch.Tensor, tensors, shapes) -> None:
 
 
 def _launch(name: str, entry: str, ptrs, ints, x2: torch.Tensor,
-            out, hidden: int, cells: bool = False):
-    """One launch of ``entry``; ``cells`` adds the step-major LSTM's c
-    buffer (its own units' rows only, read after they are written)."""
+            out, hidden: int, cells: bool = False, n_mels: int = 0):
+    """One launch of ``entry`` with the plan of mode ``name`` after the
+    shape arguments ``ints``; ``cells`` adds the LSTM's c buffer (each
+    thread reads only the rows and units it wrote)."""
     t_len, _, b = x2.shape[:3]
     if t_len == 0 or b == 0:
         return out
+    ints = (*ints, *_plan_ints(name, x2, hidden, n_mels))
     # h ping-pong buffer shared by the CTAs of a direction (written before
     # it is read, so left uninitialized) and their barrier counters
     hbuf = torch.empty(2, 2, b, hidden, dtype=torch.bfloat16,
@@ -324,8 +330,7 @@ def gru_xp(xp2: torch.Tensor, wh: torch.Tensor,
            ((t_len, 2, b, 3 * h), (2, 3 * h), (2, h, 3 * h)))
     out = xp2.new_empty(t_len, 2, b, h)
     return _launch('gru_xp', 'rnn_gru_xp_bf16', (xp2, wh, bh),
-                   (t_len, b, h, *_plan_ints('gru_xp', xp2, h)), xp2, out,
-                   h)
+                   (t_len, b, h), xp2, out, h)
 
 
 def gru(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
@@ -340,7 +345,7 @@ def gru(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
             (2, h, 3 * h)))
     out = x2.new_empty(t_len, 2, b, h)
     return _launch('gru', 'rnn_gru_x_bf16', (x2, wi, wh, bi, bh),
-                   (t_len, b, i, h, *_plan_ints('gru', x2, h)), x2, out, h)
+                   (t_len, b, i, h), x2, out, h)
 
 
 def lstm(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
@@ -354,7 +359,7 @@ def lstm(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
            ((t_len, 2, batch, i), (2, i, 4 * h), (2, 4 * h), (2, h, 4 * h)))
     out = x2.new_empty(t_len, 2, batch, h)
     return _launch('lstm', 'rnn_lstm_x_bf16', (x2, wi, wh, b),
-                   (t_len, batch, i, h), x2, out, h)
+                   (t_len, batch, i, h), x2, out, h, cells=True)
 
 
 def lstm_mel(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
@@ -370,8 +375,8 @@ def lstm_mel(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
             (2, h, 4 * h)))
     out = x2.new_empty(t_len, 2, batch, m)
     return _launch('lstm_mel', 'rnn_lstm_mel_bf16', (x2, wi, wh, b, wm),
-                   (t_len, batch, i, h, m, *_plan_ints('lstm_mel', x2, h, m)),
-                   x2, out, h, cells=True)
+                   (t_len, batch, i, h, m), x2, out, h, cells=True,
+                   n_mels=m)
 
 
 def lstm_train(x2: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,

@@ -398,7 +398,7 @@ def test_lr_bidir_kernel_matches_twin(dev, b, t_run, dtype, c):
 
 
 def _rnn_weights(g, i, h, n_gates, dev):
-    return (_rand(g, (2, i, n_gates * h), i ** -0.5, dev),
+    return (_rand(g, (2, i, n_gates * h), max(i, 1) ** -0.5, dev),
             _rand(g, (2, h, n_gates * h), h ** -0.5, dev),
             _rand(g, (2, n_gates * h), 0.1, dev),
             _rand(g, (2, n_gates * h), 0.1, dev))
@@ -449,14 +449,23 @@ def test_gru_xp_refused_width_raises(dev):
     assert rnn.launches == before
 
 
-@pytest.mark.parametrize('b', [1, 3, 17])
-@pytest.mark.parametrize('t', [1, 65])
-@pytest.mark.parametrize('cell,i,h', [('gru', 80, 128), ('gru', 256, 256),
-                                      ('lstm', 64, 128)])
+# (B, T, I, H) of the LSTMs beside the small shapes: the bf16 train step's
+# bi-LSTM (batch 32, 928 frames, one 64-row tile), a batch of three tiles
+# in two groups (130), full width and narrow, and an input of width 0 (no
+# x rows: the gates from the bias and h alone)
+LSTM_SHAPES = [(32, 928, 512, 512), (130, 65, 512, 512), (130, 3, 64, 128),
+               (17, 5, 0, 128)]
+
+
+@pytest.mark.parametrize('b,t,cell,i,h', [
+    (b, t, cell, i, h) for b in (1, 3, 17) for t in (1, 65)
+    for cell, i, h in (('gru', 80, 128), ('gru', 256, 256), ('lstm', 64, 128))
+] + [(b, t, 'lstm', i, h) for b, t, i, h in LSTM_SHAPES])
 def test_bidir_rnn_kernel_matches_twin(dev, b, t, cell, i, h):
     g = torch.Generator().manual_seed(b * 100 + t + i)
     wi, wh, bi, bh = _rnn_weights(g, i, h, 3 if cell == 'gru' else 4, dev)
     x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    before = dict(rnn.launches)
     if cell == 'gru':
         got, want = rnn.gru(x2, wi, wh, bi, bh), rnn.gru_plain(
             x2, wi, wh, bi, bh)
@@ -464,6 +473,7 @@ def test_bidir_rnn_kernel_matches_twin(dev, b, t, cell, i, h):
         got, want = rnn.lstm(x2, wi, wh, bi + bh), rnn.lstm_plain(
             x2, wi, wh, bi + bh)
     torch.cuda.synchronize()
+    assert rnn.launches == {**before, cell: before[cell] + 1}
     _close([got.float()], [want.float()], BF16_TOL)
 
 
@@ -485,14 +495,15 @@ def test_lstm_mel_kernel_matches_twin(dev, b, t):
 
 @pytest.mark.parametrize('b', [65, 257, 1100])
 @pytest.mark.parametrize('t', [1, 2, 37])
-@pytest.mark.parametrize('cell', ['gru', 'lstm_mel'])
+@pytest.mark.parametrize('cell', ['gru', 'lstm_mel', 'lstm', 'lstm_train'])
 def test_step_major_kernels_match_twins_across_tiles(dev, b, t, cell):
     """The step-major kernels at full width (the postnet GRU I 256, H 256;
-    LSTM-mel I 512, H 512, M 80) at batches that cross 64-row tiles and
-    group boundaries: 65 (two tiles, one per group), 257 (five tiles: the
-    GRU's 8 groups hold one each, LSTM-mel's 2 groups three, so two
-    consumer warpgroups), and a ragged batch above the groups' first round
-    of tiles (1100, 18 tiles: every group walks two or more)."""
+    the LSTMs I 512, H 512, LSTM-mel M 80) at batches that cross 64-row
+    tiles and group boundaries: 65 (two tiles, one per group), 257 (five
+    tiles: the GRU's 8 groups hold one each, the LSTMs' 2 groups three, so
+    two consumer warpgroups and c through memory), and a ragged batch
+    above the groups' first round of tiles (1100, 18 tiles: every group
+    walks two or more). lstm_train's hs and cs both."""
     g = torch.Generator().manual_seed(b * 100 + t)
     if cell == 'gru':
         i, h = 256, 256
@@ -503,13 +514,20 @@ def test_step_major_kernels_match_twins_across_tiles(dev, b, t, cell):
         i, h, m = 512, 512, 80
         wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
         x2 = _rand(g, (t, 2, b, i), 1.0, dev)
-        args = (x2, wi, wh, bi + bh, _rand(g, (2, h, m), h ** -0.5, dev))
-        kernel, plain = rnn.lstm_mel, rnn.lstm_mel_plain
+        args = (x2, wi, wh, bi + bh)
+        kernel, plain = {'lstm': (rnn.lstm, rnn.lstm_plain),
+                         'lstm_train': (rnn.lstm_train, rnn.lstm_train_plain),
+                         'lstm_mel': (rnn.lstm_mel, rnn.lstm_mel_plain)}[cell]
+        if cell == 'lstm_mel':
+            args += (_rand(g, (2, h, m), h ** -0.5, dev),)
     before = dict(rnn.launches)
     got = kernel(*args)
     torch.cuda.synchronize()
     assert rnn.launches == {**before, cell: before[cell] + 1}
-    _close([got.float()], [plain(*args).float()], BF16_TOL)
+    want = plain(*args)
+    if cell != 'lstm_train':
+        got, want = [got], [want]
+    _close([v.float() for v in got], [v.float() for v in want], BF16_TOL)
 
 
 # (cell, B, I, H) -> the plan's (unit, warpgroups, stages) on an H100
@@ -553,7 +571,7 @@ def test_step_major_kernels_with_few_ring_stages(dev, t, shape):
     _close([got.float()], [plain(*args).float()], BF16_TOL)
 
 
-@pytest.mark.parametrize('cell', ['gru', 'lstm_mel'])
+@pytest.mark.parametrize('cell', ['gru', 'lstm_mel', 'lstm', 'lstm_train'])
 def test_step_major_gates_match_twin_to_one_bf16_step(dev, cell):
     """The gates alone, held tighter than BF16_TOL: one time step (h and c
     start at 0), every product exact in float32 (small integers times a
@@ -578,12 +596,19 @@ def test_step_major_gates_match_twin_to_one_bf16_step(dev, cell):
     zero = torch.zeros(2, cols, dtype=torch.bfloat16, device=dev)
     if cell == 'gru':
         args, kernel, plain = (x2, wi, wh, zero, zero), rnn.gru, rnn.gru_plain
-    else:
+    elif cell == 'lstm_mel':
         wm = torch.zeros(2, h, m)
         wm[:, torch.arange(m) * 37 % h, torch.arange(m)] = 1.0
         args = (x2, wi, wh, zero, wm.to(dev, torch.bfloat16))
         kernel, plain = rnn.lstm_mel, rnn.lstm_mel_plain
-    got, want = kernel(*args).float(), plain(*args).float()
+    else:
+        args = (x2, wi, wh, zero)
+        kernel, plain = ((rnn.lstm, rnn.lstm_plain) if cell == 'lstm' else
+                         (rnn.lstm_train, rnn.lstm_train_plain))
+    got, want = kernel(*args), plain(*args)
+    if cell == 'lstm_train':     # h and c of the step side by side
+        got, want = torch.cat(got, -1), torch.cat(want, -1)
+    got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
     tiny = (want != 0) & (want.abs() < 1e-5)
     assert int(tiny.sum()) > 1000 and float(want.abs().max()) > 0.1
@@ -592,7 +617,9 @@ def test_step_major_gates_match_twin_to_one_bf16_step(dev, cell):
 
 @pytest.mark.parametrize('cell,fault', [('gru', 'carve'),
                                         ('lstm_mel', 'limit'),
-                                        ('gru', 'stages')])
+                                        ('gru', 'stages'),
+                                        ('lstm', 'carve'),
+                                        ('lstm_train', 'stages')])
 def test_step_entry_refuses_a_plan_that_does_not_fit(dev, cell, fault,
                                                      monkeypatch):
     """The entry checks the plan it is given: a carve that is not the
@@ -614,17 +641,18 @@ def test_step_entry_refuses_a_plan_that_does_not_fit(dev, cell, fault,
 
     monkeypatch.setattr(rnn, 'plan', faulty)
     g = torch.Generator().manual_seed(1)
-    i = h = 512 if cell == 'lstm_mel' else 256
-    wi, wh, bi, bh = _rnn_weights(g, i, h, 4 if cell == 'lstm_mel' else 3,
-                                  dev)
+    i = h = 256 if cell == 'gru' else 512
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 3 if cell == 'gru' else 4, dev)
     x2 = _rand(g, (3, 2, 300, i), 1.0, dev)    # five 64-row tiles
     before = dict(rnn.launches)
     with pytest.raises(RuntimeError, match='launch failed'):
         if cell == 'gru':
             rnn.gru(x2, wi, wh, bi, bh)
-        else:
+        elif cell == 'lstm_mel':
             rnn.lstm_mel(x2, wi, wh, bi + bh,
                          _rand(g, (2, h, 80), h ** -0.5, dev))
+        else:
+            getattr(rnn, cell)(x2, wi, wh, bi + bh)
     assert rnn.launches == before
     if fault == 'limit':    # over the card's limit, not only off the sum
         assert rnn.plan('lstm_mel', 300, 3, i, h, 80,
@@ -748,19 +776,67 @@ def test_lr_gradient_on_card_matches_cpu(dev, b):
     assert torch.equal(grads[0], grads[1])
 
 
-@pytest.mark.parametrize('b', [1, 3, 17])
-@pytest.mark.parametrize('t', [1, 65])
-@pytest.mark.parametrize('i,h', [(64, 128), (512, 512)])
+@pytest.mark.parametrize('b,t,i,h', [
+    (b, t, i, h) for b in (1, 3, 17) for t in (1, 65)
+    for i, h in ((64, 128), (512, 512))] + LSTM_SHAPES)
 def test_lstm_train_kernel_matches_twin(dev, b, t, i, h):
     g = torch.Generator().manual_seed(b * 100 + t + i)
     wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
     x2 = _rand(g, (t, 2, b, i), 1.0, dev)
-    before = rnn.launches['lstm_train']
+    before = dict(rnn.launches)
     hs, cs = rnn.lstm_train(x2, wi, wh, bi + bh)
     torch.cuda.synchronize()
-    assert rnn.launches['lstm_train'] == before + 1
+    assert rnn.launches == {**before, 'lstm_train': before['lstm_train'] + 1}
     want = rnn.lstm_train_plain(x2, wi, wh, bi + bh)
     _close([hs.float(), cs.float()], [w.float() for w in want], BF16_TOL)
+
+
+@pytest.mark.parametrize('cell', ['lstm', 'lstm_train'])
+def test_lstm_entries_launch_the_step_major_kernel(dev, cell):
+    """One call of ``rnn.lstm`` / ``rnn.lstm_train`` at the train step's
+    shape is one launch, counted once, of rnn.cu's step-major kernel in
+    its mode (MODE_LSTM_X = 1, MODE_LSTM_TRAIN = 4) with the plan's slice
+    width, and of no other recurrent kernel (where the profiler records
+    device kernels)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(9)
+    b, t, i, h = 32, 9, 512, 512
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    fn = getattr(rnn, cell)
+    unit = rnn.plan(cell, b, t, i, h, 0, *rnn.device_limits(dev))['unit']
+    fn(x2, wi, wh, bi + bh)                     # built and loaded
+    torch.cuda.synchronize()
+    before = dict(rnn.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(x2, wi, wh, bi + bh)
+        torch.cuda.synchronize()
+    assert rnn.launches == {**before, cell: before[cell] + 1}
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    recurrent = [n for n in names if 'rnn' in n]
+    if names:
+        mode = 1 if cell == 'lstm' else 4
+        assert len(recurrent) == 1, recurrent
+        assert re.search(rf'rnn_step_kernel<(\(int\))?{mode}, {unit}, 0>',
+                         recurrent[0]), recurrent
+
+
+@pytest.mark.parametrize('cell', ['lstm', 'lstm_train'])
+def test_lstm_refused_shape_raises_before_launch(dev, cell):
+    """H = 1072 needs more CTAs than the card has SMs at every slice width
+    (the tile-major kernel the LSTMs ran before refused it too): the plan
+    raises ValueError before any launch, and no count moves."""
+    g = torch.Generator().manual_seed(4)
+    i, h = 64, 1072
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
+    before = dict(rnn.launches)
+    with pytest.raises(ValueError, match=f'no {cell} slice'):
+        getattr(rnn, cell)(_rand(g, (2, 2, 5, i), 1.0, dev), wi, wh, bi + bh)
+    assert rnn.launches == before
 
 
 def _bwd_inputs(g, cell, t, b, i, h, dev):

@@ -1,10 +1,11 @@
 """The launch plan of rnn.cu's step-major recurrences (``rnn.plan``), which
 needs no card: at an H100's 132 SMs and 232,448 B of opt-in shared memory,
-for the shapes the serving, request and training paths give the three
-step-major kernels, the carve fits, the grid is resident, every batch row
-falls in exactly one tile of one group, and a launch takes T barrier rounds.
-The multi-GRU's recurrence (``gru_xp``) is planned at every width the
-tile-major kernel it replaced took: H a multiple of 16 up to 1056.
+for the shapes the serving, request and training paths give the five
+modes of the step-major kernel, the carve fits, the grid is resident, every
+batch row falls in exactly one tile of one group, and a launch takes T
+barrier rounds. The multi-GRU's recurrence (``gru_xp``) and the LSTMs
+(``lstm``, ``lstm_train``) are planned at every shape the tile-major
+kernel they replaced took.
 """
 
 import pytest
@@ -44,6 +45,22 @@ SHAPES = [
     ('gru_xp', 1, 92, 0, 512, 0),
     ('gru_xp', 4096, 81, 0, 1056, 0),
     ('gru_xp', 65, 2, 0, 128, 0),
+    # the LSTM body and the LSTM forward with cells: the bf16 train step
+    # (batch 32, 928 frames), a request (batch 1, budget 896), batches of
+    # several tiles and groups (130: three tiles in two groups; 4096), and
+    # input widths other than H
+    ('lstm_train', 32, 928, 512, 512, 0),
+    ('lstm', 32, 928, 512, 512, 0),
+    ('lstm', 1, 896, 512, 512, 0),
+    ('lstm_train', 1, 896, 512, 512, 0),
+    ('lstm', 130, 37, 512, 512, 0),
+    ('lstm_train', 130, 37, 512, 512, 0),
+    ('lstm', 4096, 3, 512, 512, 0),
+    ('lstm_train', 4096, 3, 512, 512, 0),
+    ('lstm_train', 32, 928, 1024, 256, 0),
+    ('lstm', 130, 37, 64, 128, 0),
+    ('lstm_train', 17, 65, 128, 256, 0),
+    ('lstm', 1100, 2, 768, 512, 0),
 ]
 
 # (mode, B, T, I, H, M) -> (unit, warpgroups, stages): the slice and rings
@@ -164,11 +181,12 @@ def test_plan_falls_back(shape):
 
 @pytest.mark.parametrize('case', ['mode', 'carve', 'mel', 'sms', 'xp_in'])
 def test_plan_refuses(case):
-    """Shapes the step-major kernel cannot take raise ValueError: another
-    mode, a carve over the limit, more than 16 mel columns per CTA, more
-    CTAs per group than the card has SMs, an input width for gru_xp (whose
-    input is the projection)."""
-    args = {'mode': ('lstm', 4, 3, 128, 128, 0, H100_SMS, H100_SMEM),
+    """Shapes the step-major kernel cannot take raise ValueError: a mode it
+    does not have (the LSTM's backward sweep is rnn_bwd.cu's), a carve
+    over the limit, more than 16 mel columns per CTA, more CTAs per group
+    than the card has SMs, an input width for gru_xp (whose input is the
+    projection)."""
+    args = {'mode': ('lstm_bwd', 4, 3, 128, 128, 0, H100_SMS, H100_SMEM),
             'carve': ('lstm_mel', 4, 3, 2048, 512, 80, H100_SMS, H100_SMEM),
             'mel': ('lstm_mel', 4, 3, 128, 128, 200, H100_SMS, H100_SMEM),
             'sms': ('gru', 4, 3, 256, 256, 0, 8, H100_SMEM),
@@ -178,3 +196,72 @@ def test_plan_refuses(case):
              'xp_in': 'in_dim 0'}[case]
     with pytest.raises(ValueError, match=match):
         rnn.plan(*args)
+
+
+@pytest.mark.parametrize('mode', ['lstm', 'lstm_train'])
+@pytest.mark.parametrize('batch,unit,warpgroups,groups', [
+    (1, 8, 1, 1), (32, 8, 1, 1), (64, 8, 1, 1), (65, 8, 2, 1),
+    (130, 16, 2, 2), (4096, 16, 2, 2)])
+def test_lstm_plan_slices(mode, batch, unit, warpgroups, groups):
+    """The LSTMs at I = H = 512: at one 64-row tile (a request, the bf16
+    train step's batch 32) the narrow slice first, 8 units (wgmma N = 32,
+    a 64 KB weight slice, 2 x 64 CTAs: more SMs and a shorter step than 16
+    units); at two tiles two consumer warpgroups on that slice before a
+    wider one; from three tiles 16 units (32 units, a 256 KB slice, do not
+    fit) in as many groups as the SMs hold, two consumer warpgroups where a
+    group has two tiles."""
+    p = rnn.plan(mode, batch, 928, 512, 512, 0, H100_SMS, H100_SMEM)
+    _check_plan(p, mode, batch, 928, 512, 512, 0)
+    assert (p['unit'], p['warpgroups'], p['groups']) == (unit, warpgroups,
+                                                         groups)
+    assert p['grid'] == (512 // unit, 2, groups)
+    if unit == 8:
+        assert 4 * unit * 1024 * 2 == 64 * 1024 and p['stages'] == 8
+
+
+def _tile_major_admits(i_dim, h, n_sm=H100_SMS, smem_limit=H100_SMEM):
+    """Whether the tile-major rnn_kernel the LSTMs ran before took (I, H):
+    16-unit CTAs whose carve at its smallest batch tile (16 rows: the
+    [I+H, 64 + 8] weight slice, the [16, I+H+8] staged rows, f32 sums, c
+    and bias, each 128-byte aligned) fits the opt-in limit, and 2 H / 16
+    CTAs resident -- counted here as generously as the SM's 228 KB and
+    2048 threads allow (at most 8 CTAs of 256 threads), so the set is a
+    superset of what the launch took."""
+    def a128(n):
+        return -(-n // 128) * 128
+    if h % 16 or i_dim % 16:
+        return False
+    ka = i_dim + h
+    carve = (a128(ka * 72 * 2) + a128(16 * (ka + 8) * 2) + a128(16 * 64 * 4)
+             + a128(16 * 16 * 4) + a128(64 * 4))
+    if carve > smem_limit:
+        return False
+    per_sm = min(8, 233_472 // (carve + 1024))
+    return 2 * (h // 16) <= per_sm * n_sm
+
+
+@pytest.mark.parametrize('mode', ['lstm', 'lstm_train'])
+@pytest.mark.parametrize('batch', [1, 32, 130, 4096])
+def test_lstm_plan_takes_every_tile_major_shape(mode, batch):
+    """Every (B, I, H) the tile-major rnn_kernel<MODE_LSTM_X /
+    MODE_LSTM_TRAIN> took has a step-major plan that fits, so no shape that
+    ran before raises now; H = 1072, the first width it refused at every
+    I (2 x 67 CTAs), is refused by both."""
+    taken = 0
+    for i_dim in range(0, 1409, 16):
+        for h in range(16, 1073, 16):
+            if not _tile_major_admits(i_dim, h):
+                continue
+            taken += 1
+            p = rnn.plan(mode, batch, 3, i_dim, h, 0, H100_SMS, H100_SMEM)
+            assert p['smem'] == _carve(p, i_dim, h) <= H100_SMEM
+            assert p['stages'] >= rnn.MIN_STAGES
+            assert p['grid'][0] * p['unit'] == h
+            assert p['grid'][0] * 2 * p['groups'] <= H100_SMS
+    assert taken > 2000
+    assert not any(_tile_major_admits(i_dim, 1072)
+                   for i_dim in range(16, 1409, 16))
+    assert _tile_major_admits(16, 1056) and _tile_major_admits(1264, 16)
+    for i_dim in (16, 512):
+        with pytest.raises(ValueError, match='CTAs > 132 SMs'):
+            rnn.plan(mode, batch, 3, i_dim, 1072, 0, H100_SMS, H100_SMEM)
