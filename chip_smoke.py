@@ -27,7 +27,9 @@ Run from the repository root. Phases, each of which must pass:
    host time; ``--griffinlim-split`` runs this alone and stops);
 5. bfloat16: hold every kernel of the serving and two-phase paths (and the
    bf16 entries of the slice-1 kernels) against its twin in bf16 on the
-   card, at one serving call's shapes and at one request's, and time it
+   card, at one serving call's shapes and at one request's (the length
+   regulator's short request call also by its device time, as in phase
+   12; ``pool_mask``'s in phase 9 the same), and time it
    beside its twin and a yardstick the port never calls: for the
    recurrences cuDNN's bidirectional ``nn.LSTM`` / ``nn.GRU``, for the
    highway stack the residual add and the ``nn.Linear`` chain, for the
@@ -56,7 +58,8 @@ Run from the repository root. Phases, each of which must pass:
    prenet front through ``cbhg_front.cu`` beside the plain and the
    ``pool_proj1`` routes;
 10. the fused HiFi-GAN MRF level (``mrf.cu``) against its twin at each of
-    v1's levels (C=256 and 128 in clusters of CTAs, 64, 32): float32 at one
+    v1's levels (C=256 and 128 in clusters of CTAs, 64, 32) and at levels
+    of 10 kernel sizes and of 9 dilations: float32 at one
     request, bf16 at bench.py's vocoder shape (batch 128 x 256 frames), with
     each level's launch plan, timed beside the twin and the same level as
     18 cuDNN convolutions; then the phase-stacked tail's level
@@ -79,9 +82,15 @@ Run from the repository root. Phases, each of which must pass:
     on each route, vocoder audio-s/s at batch 128 x 256 frames in turns on
     the tail, the fused levels 2-3, every level fused and per convolution,
     the profiler and the idle share;
-12. training kernels: the length regulator (float32 and bf16), the bi-LSTM
-    forward that keeps its cell states (at the train step's 928 frames),
-    the three trainable GRUs' forward and the GRU / LSTM backward sweeps
+12. training kernels: the length regulator (row 8, ``lr.cu``'s tile
+    kernel) at the train shape in float32 and bf16, at the bf16 step's 928
+    frames and at one float32 request, exactly against its twin, with
+    where a call's time goes (the kernel's device time per launch from the
+    profiler, a CUDA graph of 20 calls, the CUDA-event pair around one
+    call, the host's time per call), the same for a gather with
+    precomputed indices (the yardstick); the bi-LSTM forward that keeps
+    its cell states (at the train step's 928 frames), the three trainable
+    GRUs' forward and the GRU / LSTM backward sweeps
     (incoming gradient at unit scale, each gate block held to its twin's
     in relative L2), each against its twin at full-width training shapes
     (batch 32, 160 tokens, 1024 frames), timed beside the twin and cuDNN's
@@ -105,9 +114,12 @@ Run from the repository root. Phases, each of which must pass:
 15. one train step on the card and on the CPU plain path (dropout off):
     loss and global gradient norm, float32 and bf16.
 
-``--griffinlim-split`` runs only phase 4's split and ``--lstm-times`` only
+``--griffinlim-split`` runs only phase 4's split, ``--lstm-times`` only
 the LSTM entries' times (``LSTM_TIMES_SHAPES``, with ``--kernel-parts``
-their parts); both stop after it and also run copied into an older
+their parts) and ``--lr-mrf-times`` only row 8's phase (with a fill of
+its output's bytes and the kernel's device time at several tiles of
+frames) and the times of HiFi-GAN v1's MRF levels 2-3 (bf16, batch 128 x 256 frames, ``mrf`` and
+``ups_mrf``); each stops after it and also runs copied into an older
 checkout, to time two trees in one call.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
@@ -227,6 +239,119 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# profiled runs of a short call: after a run of several phases the profiler
+# has recorded none, or only some, of a run's launches (on an H100, in
+# runs of chip_smoke.py), so a run is repeated until it records each one
+PROFILE_ATTEMPTS = 4
+
+
+def profiled_ms(torch, fn, pattern: str, reps: int = REPS):
+    """The device time per launch of the kernels whose name matches
+    ``pattern`` (a regular expression), from the profiler's records of
+    ``reps`` calls of ``fn`` (each one launch of them): the median of
+    their launches' device times, and the launches recorded. The first of
+    PROFILE_ATTEMPTS profiled runs that records all ``reps`` launches,
+    else the last that records some; (None, 0) where none does."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = (None, 0)
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        got = per_launch_ms(prof.events(), pattern)
+        if got[1] == reps:
+            return got
+        if got[1]:
+            best = got
+    return best
+
+
+def per_launch_ms(events, pattern: str):
+    """(the median device ms of a launch, launches) of the device events
+    (profiler events: ``name``, ``device_type``, ``time_range`` in us)
+    whose name matches ``pattern``; (None, 0) where none does. The median,
+    as a launch recorded with a wrong time (one profiled run in a full
+    chip_smoke.py run averaged half its kernel's time) moves it little."""
+    from torch.autograd import DeviceType
+    times = [e.time_range.elapsed_us() for e in events
+             if e.device_type == DeviceType.CUDA and re.search(pattern, e.name)]
+    if not times:
+        return None, 0
+    return statistics.median(times) / 1e3, len(times)
+
+
+def graph_ms(torch, fn, reps: int = REPS):
+    """One call's share of a CUDA graph of ``reps`` calls of ``fn``,
+    replayed inside one pair of CUDA events (median of 5 replays): the
+    launches back to back on the device, with no host work between them.
+    None, with the reason logged, where the calls cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        del graph
+        return statistics.median(times)
+    except RuntimeError as e:
+        log(f'    CUDA graph capture failed: {e}')
+        torch.cuda.synchronize()
+        return None
+
+
+def device_times(torch, fn, pattern: str, reps: int = REPS) -> dict:
+    """Where the time of a short call ``fn`` goes: ``event_ms``, the median
+    CUDA-event pair around one call (``time_ms``: the host's dispatch of
+    the call while the device waits, then the kernel); ``host_us``, the
+    host's time per call over ``reps`` calls issued back to back without a
+    synchronize; ``device_ms``, the kernel's own time per launch
+    (``profiled_ms`` of the kernels matching ``pattern``); ``graph_ms``,
+    one call's share of a CUDA graph of ``reps`` calls (``graph_ms``)."""
+    out = {'event_ms': time_ms(torch, fn, reps)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out['host_us'] = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    out['device_ms'], out['launches_profiled'] = profiled_ms(
+        torch, fn, pattern, reps)
+    out['graph_ms'] = graph_ms(torch, fn, reps)
+    return out
+
+
+def fmt_ms(v) -> str:
+    return 'not measured' if v is None else f'{v:.4f} ms'
+
+
+def log_device_times(label: str, d: dict) -> None:
+    log(f'    {label}: device {fmt_ms(d["device_ms"])} per launch '
+        f'({d["launches_profiled"]} launches profiled), CUDA graph '
+        f'{fmt_ms(d["graph_ms"])} per call, event pair '
+        f'{d["event_ms"]:.4f} ms per call, host {d["host_us"]:.1f} us per '
+        'call')
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -542,9 +667,10 @@ def griffin_lim_check(torch, sig, n_fft, hop, win, twin_on_cpu):
     own magnitude and a seeded phase (random momentum terms), timed beside
     the twin, with both bounds: f32 FMA (held to) and the 3xTF32 tensor-core
     form; then 32 iterations of each from the same phase, whose spectral
-    convergence must agree within SC_REL_TOL; then the same 32 iterations
-    profiled twice, to show that the launches are the iteration's only
-    device work (no edge_frames ops between them)."""
+    convergence must agree within SC_REL_TOL; then griffin_lim_fused
+    profiled at 2 and at 4 iterations, GL_PROFILE_REPEATS times each, to
+    show that the launches are the iteration's only device work (no
+    edge_frames ops between them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -630,10 +756,14 @@ def griffin_lim_check(torch, sig, n_fft, hop, win, twin_on_cpu):
             runs.append(collections.Counter(
                 e.name for e in prof.events()
                 if e.device_type == DeviceType.CUDA))
-        if len({tuple(sorted(c.items())) for c in runs}) > 1:
+        differ = {k: [c.get(k, 0) for c in runs]
+                  for k in set().union(*runs)
+                  if len({c.get(k, 0) for c in runs}) > 1}
+        if differ:
             log(f'  profiler records differ between the {n_iter}-iteration '
-                f'runs: {[sum(c.values()) for c in runs]} device events')
-        counts[n_iter] = most_recorded(runs)
+                f'runs: {[sum(c.values()) for c in runs]} device events; '
+                + '; '.join(f'{k[:60]}: {v}' for k, v in differ.items()))
+        counts[n_iter] = typical_count(runs)
     log(f'  device events (gl_gemm_kernel, other) at 2 and 4 iterations: '
         + ', '.join(str((sum(v for k, v in c.items() if GL_KERNEL in k),
                          sum(v for k, v in c.items() if GL_KERNEL not in k)))
@@ -652,19 +782,22 @@ def griffin_lim_check(torch, sig, n_fft, hop, win, twin_on_cpu):
 # the Griffin-Lim kernels' name in the profiler, and how many times the
 # iterations' device work is profiled at each iteration count
 GL_KERNEL = 'gl_gemm_kernel'
-GL_PROFILE_REPEATS = 3
+GL_PROFILE_REPEATS = 5
 
 
-def most_recorded(runs) -> collections.Counter:
-    """Per device-event name, the largest count over profiled runs of the
-    same work: a profiler can lose a record (one run on the card counted
-    one event fewer than every other) but does not invent one, so one
-    run's loss does not lower the count, and work that every run does
-    stays in it."""
-    out = collections.Counter()
-    for c in runs:
-        out |= c
-    return out
+def typical_count(runs) -> collections.Counter:
+    """Per device-event name, the median count over profiled runs of the
+    same work (the lower middle one; a run without the name counts 0). The
+    profiler's records of one run can miss an event, and a record missed
+    at the end of one run can come in the next run's (one run on the card
+    counted one event fewer than the others, another one copy more), so
+    neither the largest nor the smallest count is the work's; the work
+    itself is the same in every run, so what a majority of the runs
+    record is it, and work that every run does stays in the median."""
+    names = set().union(*runs)
+    return collections.Counter(
+        {k: statistics.median_low(c.get(k, 0) for c in runs)
+         for k in names})
 
 
 def gl_iteration_extra_work(at_2, at_4) -> list:
@@ -687,7 +820,7 @@ KERNEL_NAMES = {'pre_highway_stack': [PRE_HIGHWAY_KERNEL],
                 'cbhg_front': ['cbhg_front_kernel'],
                 'griffin_lim_iter': [r'gl_gemm_kernel<\d+, (\(int\))?0>',
                                      r'gl_gemm_kernel<\d+, (\(int\))?1>'],
-                'lr': ['lr_kernel']}
+                'lr': ['lr_tile_kernel']}
 
 
 def device_profile(prof, label: str, table_file: str, kernel_names) -> float:
@@ -1092,11 +1225,17 @@ def bf16_kernel_phase(torch, model, label, batch, n_tok, frames, t_budget,
     reps = torch.full((b, n), frames // n, dtype=torch.int32, device=dev)
     ends = torch.cumsum(reps, dim=1, dtype=torch.int32)
     log(f'  lr_bidir B={b} N={n} C={c_tok} T_run={t_run}')
+    args = (randn(b, n, c_tok), ends, t_run)
     res['lr_bidir'] = bf16_check(
         torch, f'T_run={t_run}', lr_bidir.length_regulator_bidir,
-        lr_bidir.length_regulator_bidir_plain,
-        (randn(b, n, c_tok), ends, t_run), 0,
+        lr_bidir.length_regulator_bidir_plain, args, 0,
         2 * b * n * c_tok + 4 * b * n + 2 * t_run * 2 * b * c_tok)
+    if b == 1:   # a request: where the short call's time goes
+        res['lr_bidir'].update(device_times(
+            torch, lambda: lr_bidir.length_regulator_bidir(*args),
+            'lr_bidir_kernel'))
+        log_device_times('kernel', res['lr_bidir'])
+    del args
 
     # lstm_lr_mel: the bi-LSTM H=512 over t_run frames, mel stage M=80
     wi, wh, bi, bh = model.lstm.stacked_params()
@@ -1435,6 +1574,10 @@ def variant_kernel_phase(torch, model, model16, n_tok, n_frames, batch,
             lambda: maxpool_time(x).masked_fill(tail, 0.0), (x, mask),
             2 * b * t * kc, 2 * elt * b * t * kc + 4 * b * t, dtype)
         res[name]['at'] = f'postnet concat B={b} T={t} KC={kc}'
+        if dtype == torch.float32:
+            res[name].update(device_times(
+                torch, lambda: cbhg.pool_mask(x, mask), 'pool_mask_kernel'))
+            log_device_times('kernel', res[name])
         if dtype == torch.bfloat16:
             # row 12 at the postnet on the same concat
             log(f'kernel pool_proj1_bf16: postnet B={b} T={t} KC={kc} P={p}; '
@@ -1846,6 +1989,75 @@ def vocoder_kernel_phase(torch, n_frames):
     return res
 
 
+# levels past HiFi-GAN's three kernel sizes and three dilations, within the
+# halo: (label, C, kernel sizes, dilations); bf16 at MRF_LONG_BATCH items
+# of v1 level 2's samples, float32 at one request's
+MRF_LONG_LISTS = (('10 kernel sizes', 64, tuple(range(2, 12)), (1, 3, 5)),
+                  ('9 dilations', 32, (3, 5), (1, 2) * 4 + (1,)))
+MRF_LONG_BATCH = 16
+
+
+def mrf_long_lists_phase(torch, n_frames) -> dict:
+    """The fused MRF level against its twin at MRF_LONG_LISTS (more kernel
+    sizes or dilations than v1's), float32 at one request of ``n_frames``
+    frames and bf16 at MRF_LONG_BATCH x VOCODER_FRAMES frames (v1 level
+    2's 128 samples a frame), timed beside the twin (with
+    cudnn.benchmark); returns per dtype name ('mrf', 'mrf_bf16') the
+    results per label."""
+    from forwardtacotron_torch.ops.hopper import mrf
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    res = {'mrf': {}, 'mrf_bf16': {}}
+    for label, c, krs, dils in MRF_LONG_LISTS:
+        for dtype, batch, frames in ((torch.float32, 1, n_frames),
+                                     (torch.bfloat16, MRF_LONG_BATCH,
+                                      VOCODER_FRAMES)):
+            name = 'mrf' if dtype == torch.float32 else 'mrf_bf16'
+            f32 = dtype == torch.float32
+            t = frames * 128
+
+            def randn(shape, scale=1.0):
+                return (torch.randn(shape, generator=gen, device=dev)
+                        * scale).to(dtype)
+            x = randn((batch, c, t))
+            weights = tuple(
+                w for kr in krs for _ in range(2)
+                for w in (randn((len(dils), c, kr * c), (kr * c) ** -0.5),
+                          randn((len(dils), c, 1), 0.1)))
+            prep = mrf.prepare(weights, krs, dils)
+            pl = mrf.plan(dtype, c, krs, dils)
+            log(f'  {name} {label}: B={batch} C={c} T={t} kernel sizes '
+                f'{krs} dilations {dils}; plan: {pl["cluster"]} CTA(s) of '
+                f'{pl["cs"]} channels per tile of {pl["t_tile"]} samples, '
+                f'{pl["stages"]} ring stages, {pl["smem"]} bytes of shared '
+                'memory')
+            before = mrf.launches
+            got = mrf.mrf(x, weights, krs, dils, prepared=prep)
+            if mrf.launches != before + 1:
+                fail(f'{name} {label}: no mrf launch')
+            torch.backends.cudnn.benchmark = True
+            err = compare(torch, f'{label}', got.float(),
+                          mrf.mrf_plain(x, weights, krs, dils).float(),
+                          KERNEL_TOL if f32 else BF16_TOL)
+            p_ms = time_ms(torch, lambda: mrf.mrf_plain(x, weights, krs,
+                                                        dils), reps=3)
+            torch.backends.cudnn.benchmark = False
+            k_ms = time_ms(torch, lambda: mrf.mrf(x, weights, krs, dils,
+                                                  prepared=prep))
+            flops = 2 * c * c * 2 * len(dils) * sum(krs) * t * batch
+            b_ms, b_by = bound(flops, x.element_size() * (
+                2 * batch * c * t + sum(w.numel() for w in weights)),
+                PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+            log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound '
+                f'{b_ms:.4f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s')
+            res[name][label] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    at=f'B={batch} C={c} T={t} krs={krs} '
+                                    f'dils={dils}')
+            del x, got
+    return res
+
+
 def sum_levels(parts):
     """Per-level results summed over the levels: the largest error, the
     first level's bound_by, every time summed."""
@@ -2215,12 +2427,129 @@ CHECK_BATCH = 4
 E2E_TRAIN_TOL = {'float32': 1e-3, 'bfloat16': 5e-2}
 # LR kernel vs twin: a copy, so exact
 LR_TOL = 0.0
-TRAIN_KERNEL_NAMES = {'lr': ['lr_kernel'], 'gru': [RNN_KERNELS['gru']],
+LR_KERNEL = 'lr_tile_kernel'
+TRAIN_KERNEL_NAMES = {'lr': [LR_KERNEL], 'gru': [RNN_KERNELS['gru']],
                       'lstm_train': [RNN_KERNELS['lstm_train']],
                       'gru_bwd': [r'bwd_gates_kernel<false>',
                                   r'bwd_sweep_kernel<false>'],
                       'lstm_bwd': [r'bwd_gates_kernel<true>',
                                    r'bwd_sweep_kernel<true>']}
+
+
+# row 8 (lr.cu) at the shapes its callers give it: (label, B, N, T, dtype,
+# frames per token; None: 2-9 drawn from the seed, as the train step's
+# synthetic items): the kernel phase's train shape in both dtypes, the bf16
+# step's 928 frames, and one float32 request (92 tokens of 9 frames in the
+# 896-frame budget)
+LR_C = 512
+LR_SHAPES = (('train f32', 32, 160, 1024, 'float32', None),
+             ('train bf16', 32, 160, 1024, 'bfloat16', None),
+             ('step bf16', 32, 160, TRAIN_STEP_FRAMES, 'bfloat16', None),
+             ('request f32', 1, 92, 896, 'float32', FRAMES_PER_TOKEN))
+# with --lr-mrf-times, the kernel's device time at each of these tiles
+# (frames per CTA), beside the one lr.plan takes
+LR_TILE_SWEEP = (2, 4, 8, 16, 32, 64, 128)
+# the name of the kernel in this tree and in a checkout before the tile
+# kernel
+LR_ANY_KERNEL = r'lr_(tile_)?kernel'
+
+
+def lr_phase(torch, sweep: bool = False) -> dict:
+    """Row 8 against its twin, exactly, at LR_SHAPES: where its time goes
+    (``device_times``: the kernel's device time, the CUDA graph's, the
+    event pair around a call, the host's time per call), beside the plain
+    twin and the yardstick (``torch.gather`` from the tokens with a zero
+    row appended, with precomputed indices: the copy without the search);
+    with ``sweep``, also a fill of the output's bytes (the write floor) and
+    the kernel at each tile of LR_TILE_SWEEP, each held exactly to the
+    twin. 'lr' and 'lr_f32' are the train shape's
+    rows, every shape's numbers under their 'shapes'. In a checkout before
+    the tile kernel (no ``lr.plan``) no plan and no sweep."""
+    from forwardtacotron_torch.ops.hopper import lr
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    tiled = hasattr(lr, 'plan')
+    shapes = {}
+    for label, b, n, t, dt_name, per_token in LR_SHAPES:
+        dtype = getattr(torch, dt_name)
+        if per_token:
+            reps = torch.full((b, n), per_token, device=dev)
+        else:
+            reps = torch.randint(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1, (b, n),
+                                 generator=gen, device=dev)
+        ends = torch.cumsum(reps, dim=1).to(torch.int32)
+        x = torch.randn(b, n, LR_C, generator=gen, device=dev).to(dtype)
+        over = int((ends[:, -1] > t).sum())
+        size = x.element_size()
+        log(f'  lr {label}: B={b} N={n} C={LR_C} T={t} ({over} items over '
+            f'the budget; {int(ends[:, -1].clamp(max=t).sum())} of {b * t} '
+            'frames copy a token)')
+
+        def call():
+            return lr.length_regulator_expand(x, ends, t)
+        want = lr.length_regulator_plain(x, ends, t)
+        err = compare(torch, f'lr {label}', call().float(), want.float(),
+                      LR_TOL)
+        r = dict(max_abs_err=err, **device_times(torch, call, LR_ANY_KERNEL))
+        r['ms'] = r['event_ms']
+        r['plain_ms'] = time_ms(torch, lambda: lr.length_regulator_plain(
+            x, ends, t))
+        # the yardstick: the same output by one gather, indices made here
+        x0 = torch.cat([x, x.new_zeros(b, 1, LR_C)], 1)
+        frames = torch.arange(t, device=dev, dtype=torch.int32)
+        idx = torch.searchsorted(ends, frames.expand(b, t).contiguous(),
+                                 right=True)
+        idx = torch.where(frames < ends[:, -1:], idx.clamp(max=n - 1), n)
+        idx = idx[:, :, None].expand(b, t, LR_C)
+        if not torch.equal(torch.gather(x0, 1, idx), want):
+            fail(f'lr {label}: the gather yardstick disagrees with the twin')
+        y = device_times(torch, lambda: torch.gather(x0, 1, idx), 'gather')
+        r.update(yardstick_ms=y['event_ms'],
+                 yardstick_device_ms=y['device_ms'])
+        if sweep:   # the write floor: a fill of the output's bytes
+            r['fill_device_ms'] = profiled_ms(torch, lambda: want.fill_(0),
+                                              'Fill')[0]
+            want = lr.length_regulator_plain(x, ends, t)
+        r['bound_ms'], r['bound_by'] = bound(
+            0, size * (b * n * LR_C + b * t * LR_C) + 4 * b * n)
+        r['library_ms'] = None
+        r['at'] = f'{label}: B={b} N={n} C={LR_C} T={t}'
+        log_device_times('kernel', r)
+        log(f'    plain {r["plain_ms"]:.4f} ms; yardstick (gather) device '
+            f'{fmt_ms(y["device_ms"])}, event pair {y["event_ms"]:.4f} ms; '
+            + (f'fill of the output\'s bytes {fmt_ms(r["fill_device_ms"])}; '
+               if sweep else '')
+            + f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})'
+            + ('' if r['device_ms'] is None else
+               f': the kernel at {100 * r["bound_ms"] / r["device_ms"]:.0f}% '
+               'of its bound'))
+        if tiled:
+            pl = lr.plan(b, n, t, LR_C, dtype)
+            r['plan'] = pl._asdict()
+            tiles = -(-t // pl.tile)
+            log(f'    plan: {b * tiles} CTAs of {pl.tile} frames '
+                f'({tiles} an item), rows of {pl.row_vecs} 16-byte words')
+        if tiled and sweep:
+            out = torch.empty_like(want)
+            by_tile = {}
+            for tile in LR_TILE_SWEEP:
+                q = pl._replace(tile=tile)
+                out.fill_(float('nan'))
+                lr.launch(x, ends, out, q)
+                if not torch.equal(out, want):
+                    fail(f'lr {label}: the kernel at {tile}-frame tiles '
+                         'disagrees with the twin')
+                by_tile[tile] = profiled_ms(
+                    torch, lambda: lr.launch(x, ends, out, q), LR_KERNEL)[0]
+            r['tile_sweep_device_ms'] = by_tile
+            log('    device ms per launch by tile: ' + ', '.join(
+                f'{k} {fmt_ms(v)}' for k, v in by_tile.items()))
+        shapes[label] = r
+        del x, x0, idx, want
+    res = {'lr_f32': dict(shapes['train f32']),
+           'lr': dict(shapes['train bf16'], shapes=shapes)}
+    return res
 
 
 def train_config(config, root, precision, max_step, dropout=True):
@@ -2311,7 +2640,7 @@ def train_kernel_phase(torch, model16):
     """Every kernel of the training step against its twin at full-width
     training shapes, bf16 (the LR in float32 too), timed beside its twin
     and cuDNN's recurrences."""
-    from forwardtacotron_torch.ops.hopper import lr, rnn, rnn_train
+    from forwardtacotron_torch.ops.hopper import rnn, rnn_train
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -2325,31 +2654,9 @@ def train_kernel_phase(torch, model16):
     log(f'training kernels, {at}')
     res = {}
 
-    # lr: tokens of C=512 (the prenet's 2 x 256) -> frames, float32 and bf16
-    c = 2 * model16.prenet.channels
-    reps = torch.randint(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1, (b, n),
-                         generator=gen, device=dev)
-    ends = torch.cumsum(reps, dim=1).to(torch.int32)
-    over = int((ends[:, -1] > t).sum())
-    parts = []
-    for dtype in (torch.float32, bf):
-        x = randn(b, n, c, dtype=dtype)
-        size = x.element_size()
-        log(f'  lr {str(dtype)[6:]} B={b} N={n} C={c} T={t} ({over} items '
-            f'over the budget; library: none, no single PyTorch call '
-            f'expands by per-item durations)')
-        err = compare(torch, f'lr {str(dtype)[6:]}',
-                      lr.length_regulator_expand(x, ends, t).float(),
-                      lr.length_regulator_plain(x, ends, t).float(), LR_TOL)
-        k_ms = time_ms(torch, lambda: lr.length_regulator_expand(x, ends, t))
-        p_ms = time_ms(torch, lambda: lr.length_regulator_plain(x, ends, t))
-        b_ms, b_by = bound(0, size * (b * n * c + b * t * c) + 4 * b * n)
-        log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound '
-            f'{b_ms:.4f} ms ({b_by})')
-        parts.append(dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                          at=f'{at} {str(dtype)[6:]}'))
-    res['lr_f32'], res['lr'] = parts
+    # lr: tokens of C=512 (the prenet's 2 x 256) -> frames, at the train
+    # shapes in float32 and bf16, the bf16 step's and one request's
+    res.update(lr_phase(torch))
 
     # lstm_train: the bi-LSTM forward that keeps its cell states (weights
     # detached: the twins run outside autograd, as the kernels do), at the
@@ -2742,6 +3049,45 @@ def lstm_times_phase(torch) -> dict:
     return out
 
 
+def mrf_times_phase(torch) -> dict:
+    """CUDA-event times (median of REPS) of HiFi-GAN v1's levels 2 and 3 in
+    bf16 at bench.py's vocoder batch, as the fused level (``mrf``) and as
+    the tail's level (``ups_mrf``), with prepared weights, on seeded
+    inputs; runs as it is in an older checkout too, to compare two trees
+    in one call."""
+    from forwardtacotron_torch.ops.hopper import mrf, ups_mrf
+    bf = torch.bfloat16
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    model = seeded_hifigan(torch).cuda().to(bf)
+    krs = model.resblock_kernel_sizes
+    dils = model.resblock_dilation_sizes[0]
+    out, s_in = {}, 1
+    for level, hop in ((2, 128), (3, 256)):
+        up = model.ups[level]
+        c = up.out_channels
+        x = torch.randn(VOCODER_BATCH, c, VOCODER_FRAMES * hop, generator=gen,
+                        device='cuda').to(bf)
+        weights = model.mrf_weights(level, bf)
+        prep = mrf.prepare(weights, krs, dils)
+        key = f'mrf level {level}'
+        out[key] = time_ms(torch, lambda: mrf.mrf(x, weights, krs, dils,
+                                                  prepared=prep))
+        del x
+        s_up, t_ps = model.upsample_rates[level], VOCODER_FRAMES * 64
+        x = torch.randn(VOCODER_BATCH, s_in * up.in_channels, t_ps,
+                        generator=gen, device='cuda').to(bf)
+        up_w, up_b, *weights = model.ups_mrf_weights(level, bf)
+        args = (x, up_w, up_b, tuple(weights), s_in, s_up, krs, dils, t_ps)
+        prep = ups_mrf.prepare(*args[1:8])
+        out[f'ups_mrf level {level}'] = time_ms(
+            torch, lambda: ups_mrf.ups_mrf(*args, prepared=prep))
+        del x, args
+        s_in *= s_up
+    for k, v in out.items():
+        log(f'  {k}: {v:.4f} ms')
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2768,6 +3114,19 @@ def main() -> None:
         # the LSTM entries' times alone, e.g. beside a parent checkout's
         with torch.inference_mode():
             log(f'lstm times: {json.dumps(lstm_times_phase(torch))}')
+        log(f'card: {card}')
+        return
+    if '--lr-mrf-times' in sys.argv[1:]:
+        # row 8 (with its tile sweep) and v1's MRF levels 2-3 alone, e.g.
+        # beside a parent checkout's
+        t0 = time.perf_counter()
+        build.build(['lr', 'mrf'])
+        log(f'build lr, mrf: {time.perf_counter() - t0:.1f} s')
+        lr_res = lr_phase(torch, sweep=True)['lr']['shapes']
+        with torch.inference_mode():
+            mrf_res = mrf_times_phase(torch)
+        log(f'lr times: {json.dumps(lr_res)}')
+        log(f'mrf times: {json.dumps(mrf_res)}')
         log(f'card: {card}')
         return
     build_phase(build)
@@ -2836,6 +3195,8 @@ def main() -> None:
     with torch.inference_mode():
         results_voc = vocoder_kernel_phase(torch, n_frames)
         results_voc.update(ups_kernel_phase(torch, n_frames))
+        for name, r in mrf_long_lists_phase(torch, n_frames).items():
+            results_voc[name]['long_lists'] = r
         log('mrf cycle spans (bf16, thread 0 of CTA (0, 0), one launch):')
         mrf_cycles = mrf_cycles_phase(torch)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_vocoder_') as tmp:
@@ -2858,6 +3219,11 @@ def main() -> None:
             {f'request_{k}': request16[name][k]
              for k in ('ms', 'plain_ms', 'bound_ms', 'yardstick_ms')})
     training['gru_train_fwd'] = results_train['gru_train_fwd']
+    # row 5 at one request beside its serving numbers
+    results16['lr_bidir']['request'] = {
+        k: request16['lr_bidir'][k]
+        for k in ('ms', 'plain_ms', 'bound_ms', 'event_ms', 'device_ms',
+                  'graph_ms', 'host_us', 'launches_profiled')}
     # row 7's LSTM body (no path launches it) beside its GRU body
     results16['bidir_rnn']['lstm_body'] = {
         k: request16['lstm_body'][k]
@@ -2930,7 +3296,13 @@ def main() -> None:
                                  'postnet_ms', 'prenet_ms',
                                  'request_ms', 'request_plain_ms',
                                  'request_bound_ms', 'request_yardstick_ms',
-                                 'lstm_body', 'ms_at_t')
+                                 'lstm_body', 'ms_at_t', 'event_ms',
+                                 'device_ms', 'graph_ms', 'host_us',
+                                 'launches_profiled', 'plan',
+                                 'tile_sweep_device_ms', 'shapes',
+                                 'yardstick_device_ms', 'fill_device_ms',
+                                 'request',
+                                 'long_lists')
                if k in r and r[k] != {}}})
     log(f'griffinlim split: {json.dumps(gl_split)}')
     log(f'serving: {json.dumps(serving)}')

@@ -10,14 +10,28 @@ incoming gradient over the frames it was copied to, and the durations get
 none. The forward launches the CUDA kernel for CUDA tensors and runs the
 plain twin for CPU tensors; nothing else selects between them. The backward
 is plain PyTorch on both, as the JAX backward is an XLA einsum outside any
-Pallas kernel.
+Pallas kernel. The kernel's launch (:func:`plan`: one CTA per item and
+tile of frames) needs no card.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from forwardtacotron_torch.ops.hopper import build
+
+# the launch plan: a CTA's tile of frames is a power of two up to MAX_TILE
+# (lr.cu's shared token table) whose rows hold at most TILE_BYTES, halved
+# down to MIN_TILE while the grid gives fewer than CTAS_PER_SM CTAs to each
+# of the card's N_SM SMs (an H100 SXM has 132)
+MAX_TILE = 256
+MIN_TILE = 8
+TILE_BYTES = 32768
+CTAS_PER_SM = 4
+N_SM = 132
+INT_MAX = 2 ** 31 - 1
 
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -56,18 +70,80 @@ def segment_sum(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     return (at(hi) - at(lo)).to(g.dtype)
 
 
+class Plan(NamedTuple):
+    """The launch of one ``lr.cu`` call (:func:`plan`): B * ceil(T / tile)
+    CTAs, as the kernel derives them from T and the tile."""
+    tile: int        # frames of a CTA's tile
+    row_vecs: int    # 16-byte words of a row
+
+
+def plan(b: int, n: int, t: int, c: int, dtype: torch.dtype) -> Plan:
+    """The launch of a [b, n, c] -> [b, t, c] expansion in ``dtype``: one
+    CTA per (item, tile of frames). The tile is the largest power of two up
+    to MAX_TILE whose output (tile rows of c values) is at most TILE_BYTES,
+    halved while the grid has fewer than CTAS_PER_SM CTAs per SM and the
+    tile more than MIN_TILE frames (a batch-1 request). Raises ValueError
+    with the reason for a shape the kernel does not take. Needs no card."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'lr: the kernel takes float32 or bfloat16, got '
+                         f'{dtype}')
+    if n < 1 or b < 1 or t < 1 or c < 1:
+        raise ValueError(f'lr: B={b}, N={n}, T={t}, C={c}: the kernel takes '
+                         'at least one item, token, frame and channel')
+    row_bytes = c * (2 if dtype == torch.bfloat16 else 4)
+    if row_bytes % 16:
+        raise ValueError(f'lr: rows of {row_bytes} bytes; the kernel copies '
+                         '16-byte words (C a multiple of 4 in float32, of 8 '
+                         'in bfloat16)')
+    tile = MAX_TILE
+    while tile > 1 and tile * row_bytes > TILE_BYTES:
+        tile //= 2
+    while tile > MIN_TILE and b * -(-t // tile) < CTAS_PER_SM * N_SM:
+        tile //= 2
+    tiles = -(-t // tile)
+    if b * tiles > INT_MAX or tile * row_bytes // 16 > INT_MAX:
+        raise ValueError(f'lr: {b} items of {tiles} tiles of {tile} frames: '
+                         f'the grid holds at most {INT_MAX} CTAs')
+    return Plan(tile, row_bytes // 16)
+
+
+_plan = functools.lru_cache(maxsize=256)(plan)
+_fn = None
+
+
 def _kernel():
-    fn = build.library('lr').lr_expand
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """``lr_expand`` of the built library, its argument types set once."""
+    global _fn
+    if _fn is None:
+        fn = build.library('lr').lr_expand
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def launch(x: torch.Tensor, ends: torch.Tensor, out: torch.Tensor,
+           pl: Plan) -> None:
+    """One launch of the kernel with the plan ``pl`` into ``out``; the
+    caller has checked the tensors (:func:`length_regulator_expand`)."""
+    b, n, _ = x.shape
+    status = _kernel()(x.data_ptr(), ends.data_ptr(), out.data_ptr(), b, n,
+                       out.shape[1], pl.row_vecs * 16, pl.tile,
+                       x.get_device(),
+                       # the current stream's handle, without the Stream
+                       # object torch.cuda.current_stream builds per call
+                       torch._C._cuda_getCurrentRawStream(x.get_device()))
+    build.check(status, 'lr')
+    global launches
+    launches += 1
 
 
 def length_regulator_expand(x: torch.Tensor, ends: torch.Tensor,
                             max_len: int) -> torch.Tensor:
     """Same contract as :func:`length_regulator_plain`, one kernel launch on
-    the GPU (ends must then be int32); no gradient."""
+    the GPU (ends must then be int32 and non-decreasing in each item, as a
+    running sum of durations is); no gradient."""
     if x.device.type == 'cpu':
         return length_regulator_plain(x, ends, max_len)
     if x.device.type != 'cuda':
@@ -90,11 +166,7 @@ def length_regulator_expand(x: torch.Tensor, ends: torch.Tensor,
     out = torch.empty(b, max_len, c, dtype=x.dtype, device=x.device)
     if b == 0 or max_len == 0 or c == 0:
         return out
-    status = _kernel()(build.ptr(x), build.ptr(ends), build.ptr(out), b, n,
-                       max_len, row_bytes, x.get_device(), build.stream_of(x))
-    build.check(status, 'lr')
-    global launches
-    launches += 1
+    launch(x, ends, out, _plan(b, n, max_len, c, x.dtype))
     return out
 
 

@@ -147,8 +147,13 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int HALO = 64;
 constexpr int IN_HALO = 8;      // input rows of halo on each side of the tile
-constexpr int MAX_BRANCHES = 8;
-constexpr int MAX_UNITS = 8;
+// The level's branches (kernel sizes) and units (dilations) travel in the
+// launch's parameter block (Params, ~1.7 KB of the 4 KB a launch takes).
+// Every unit of a kernel size of at least 2 adds at least 2 samples to its
+// branch's span, which the halo bounds: HALO / 2 units; branches are held
+// to the same count (mrf.py MAX_BRANCHES, MAX_UNITS).
+constexpr int MAX_BRANCHES = HALO / 2;
+constexpr int MAX_UNITS = HALO / 2;
 constexpr int MIN_STAGES = 2;
 constexpr int MAX_STAGES = 8;
 constexpr int KC = 64;          // K columns of a ring stage

@@ -46,8 +46,11 @@ MIN_STAGES, MAX_STAGES = 2, 8
 GUARD = 1024
 # rows of input halo on each side of the ups_mrf input tile
 IN_HALO = 8
-# kernel limits on the number of branches and of units per branch
-MAX_BRANCHES, MAX_UNITS = 8, 8
+# the kernel sizes (branches) and dilations (units per branch) a level's
+# launch parameters hold: every unit of a kernel size of at least 2 adds at
+# least 2 samples to its branch's span, so the halo holds HALO / 2 of them;
+# branches are held to the same count
+MAX_BRANCHES = MAX_UNITS = HALO // 2
 # threads per CTA: bf16 two consumer warpgroups and a producer warp, f32
 # 512 FMA threads
 THREADS = {torch.bfloat16: 288, torch.float32: 512}
@@ -121,13 +124,19 @@ def level_error(c: int, krs: Sequence[int],
                 f'channels over a cluster of at most {MAX_CLUSTER} CTAs of '
                 f'at most {SLICES[0]} channels each, which holds '
                 f'C <= {MAX_CHANNELS}')
-    if not (0 < len(krs) <= MAX_BRANCHES and 0 < len(dils) <= MAX_UNITS):
-        return (f'at most {MAX_BRANCHES} kernel sizes and {MAX_UNITS} '
-                f'dilations, got {tuple(krs)}, {tuple(dils)}')
+    if not (krs and dils):
+        return (f'at least one kernel size and one dilation, got '
+                f'{tuple(krs)}, {tuple(dils)}')
     if min(krs) < 1 or min(dils) < 1 \
             or max(branch_span(k, dils) for k in krs) > HALO:
         return (f'kernel sizes whose span fits the {HALO}-sample halo only, '
                 f'got {tuple(krs)}, {tuple(dils)}')
+    if len(krs) > MAX_BRANCHES or len(dils) > MAX_UNITS:
+        return (f'at most {MAX_BRANCHES} kernel sizes and {MAX_UNITS} '
+                f'dilations (the halo holds {HALO // 2} units of a kernel '
+                f'size of at least 2; the launch parameters hold as many '
+                f'kernel sizes, and as many units of 1-tap convolutions), '
+                f'got {len(krs)} kernel sizes and {len(dils)} dilations')
     return None
 
 

@@ -18,6 +18,8 @@ whose residual chains carry one bf16 step through 6 convolutions. The
 length regulators copy rows: exact.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -756,6 +758,98 @@ def test_lr_kernel_matches_twin(dev, b, t, dtype, c):
     assert torch.equal(got, lr.length_regulator_plain(x, ends.to(dev), t))
 
 
+@pytest.mark.parametrize('b,n,t,c,dtype', [
+    (32, 160, 1024, 512, torch.bfloat16),   # the train shape
+    (32, 160, 1024, 512, torch.float32),
+    (32, 160, 928, 512, torch.bfloat16),    # the bf16 step's frames
+    (1, 92, 896, 512, torch.float32),       # one request
+    (4096, 81, 256, 512, torch.bfloat16),
+    (130, 9, 63, 4, torch.float32), (130, 9, 63, 8, torch.bfloat16)])
+def test_lr_tile_kernel_at_the_port_shapes(dev, b, n, t, c, dtype):
+    """The tile kernel at the shapes its callers give it (durations of
+    2-9 frames, some items over the budget) and at batches past one wave
+    of CTAs: one launch, exact."""
+    g = torch.Generator().manual_seed(b + n + t)
+    reps = torch.randint(2, 10, (b, n), generator=g)
+    ends = torch.cumsum(reps, dim=1).to(dev, torch.int32)
+    x = _rand(g, (b, n, c), 1.0, dev, dtype)
+    before = lr.launches
+    got = lr.length_regulator_expand(x, ends, t)
+    torch.cuda.synchronize()
+    assert lr.launches == before + 1
+    assert torch.equal(got, lr.length_regulator_plain(x, ends, t))
+
+
+def _lr_edge_ends(name):
+    """[B, N] int32 span ends of an edge case (as ``duration_spans`` makes
+    them from rounded durations), C and the budget."""
+    g = torch.Generator().manual_seed(len(name))
+    if name == 'mixed':      # zero, negative and half durations, an empty
+        dur = torch.rand(4, 9, generator=g) * 6 - 1   # item, one far over
+        dur[0, ::3] = 0.0
+        dur[0, 1], dur[0, 2] = 0.5, 1.5
+        dur[1], dur[2] = 30.0, -2.0
+        c, t = 8, 100
+    elif name == 'long_tokens':   # tokens spanning several tiles
+        dur = torch.tensor([[3., 70, 0, 0, 5, 130, 1],
+                            [40., 1, 1, 1, 200, 0, 9]])
+        c, t = 24, 300
+    elif name == 'empty_runs':    # runs of more than 32 empty tokens
+        dur = torch.zeros(2, 100)
+        dur[0, [0, 40, 41, 99]] = torch.tensor([3., 2, 7, 4])
+        dur[1, 70:] = 2.0
+        c, t = 8, 80
+    else:                         # 2,000 tokens: a search of 3 probes
+        dur = (torch.rand(2, 2000, generator=g) < 0.3).float()
+        dur[1, 1500:] = 0.0
+        c, t = 8, 700
+    reps = torch.floor(dur.clamp(min=0) + 0.5).long()
+    return torch.cumsum(reps, dim=1).to(torch.int32), c, t
+
+
+@pytest.mark.parametrize('name', ['mixed', 'long_tokens', 'empty_runs',
+                                  'many_tokens'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_lr_tile_kernel_edge_cases(dev, name, dtype):
+    """Edge cases at the plan's tile and at tiles of 1 to 256 frames (tile
+    boundaries inside a token's span, tokens over several tiles): exact."""
+    ends, c, t = _lr_edge_ends(name)
+    c = c if dtype == torch.bfloat16 else c // 2
+    g = torch.Generator().manual_seed(c)
+    ends = ends.to(dev)
+    x = _rand(g, (ends.shape[0], ends.shape[1], c), 1.0, dev, dtype)
+    want = lr.length_regulator_plain(x, ends, t)
+    assert torch.equal(lr.length_regulator_expand(x, ends, t), want)
+    pl = lr.plan(x.shape[0], x.shape[1], t, c, dtype)
+    for tile in (1, 8, 32, 256):
+        out = torch.full_like(want, float('nan'))
+        lr.launch(x, ends, out, pl._replace(tile=tile))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), tile
+
+
+def test_lr_refused_shape_raises_before_launch(dev, monkeypatch):
+    """A shape the plan refuses (a grid past the limit, here lowered), a
+    float16 input and rows that are not whole 16-byte words raise before
+    any launch."""
+    g = torch.Generator().manual_seed(2)
+    ends = torch.ones(3, 4, dtype=torch.int32, device=dev).cumsum(
+        1, dtype=torch.int32)
+    before = lr.launches
+    monkeypatch.setattr(lr, 'INT_MAX', 2)
+    with pytest.raises(ValueError, match='grid holds at most 2'):
+        lr.length_regulator_expand(_rand(g, (3, 4, 16), 1.0, dev), ends, 77)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        lr.length_regulator_expand(_rand(g, (3, 4, 16), 1.0, dev,
+                                         torch.float16), ends, 8)
+    with pytest.raises(ValueError, match='16-byte'):
+        lr.length_regulator_expand(_rand(g, (3, 4, 6), 1.0, dev,
+                                         torch.float32), ends, 8)
+    torch.cuda.synchronize()
+    assert lr.launches == before
+
+
 @pytest.mark.parametrize('b', [1, 17])
 def test_lr_gradient_on_card_matches_cpu(dev, b):
     """The autograd route on the card (kernel forward, float32 running-sum
@@ -1046,6 +1140,29 @@ def test_mrf_kernel_other_branches(dev):
                    TOL if dtype == torch.float32 else BF16_TOL)
 
 
+LONG_LISTS = [(tuple(range(2, 12)), (1, 3, 5)),      # 10 kernel sizes
+              ((3, 5), (1, 2) * 4 + (1,)),          # 9 dilations
+              ((3,) * 12, (1,) * 9)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c', [32, 128])
+def test_mrf_kernel_long_lists(dev, dtype, c):
+    """More kernel sizes or dilations than v1's three, within the halo (10
+    kernel sizes, 9 dilations, 12 by 9), at one CTA per tile and in a
+    cluster of CTAs: one launch each, against the twin."""
+    g = torch.Generator().manual_seed(c)
+    for krs, dils in LONG_LISTS:
+        x, weights = _mrf_inputs(g, 2, c, 500, dev, dtype, krs=krs,
+                                 units=len(dils))
+        before = mrf.launches
+        got = mrf.mrf(x, weights, krs, dils)
+        torch.cuda.synchronize()
+        assert mrf.launches == before + 1
+        _close([got.float()], [mrf.mrf_plain(x, weights, krs, dils).float()],
+               TOL if dtype == torch.float32 else BF16_TOL)
+
+
 @pytest.mark.parametrize('c', [64, 256])
 def test_mrf_kernel_fewest_ring_stages(dev, monkeypatch, c):
     """bf16 with the plan held to the fewest ring stages the kernel takes
@@ -1066,7 +1183,7 @@ def test_mrf_kernel_fewest_ring_stages(dev, monkeypatch, c):
 
 
 def test_mrf_kernel_raises_on_unsupported_shapes(dev):
-    """C past the cap (512), more than 8 kernel sizes, a span past the
+    """C past the cap (512), more than 32 kernel sizes, a span past the
     halo, a float16 input: raised before any launch."""
     g = torch.Generator().manual_seed(3)
     before = mrf.launches
@@ -1074,10 +1191,10 @@ def test_mrf_kernel_raises_on_unsupported_shapes(dev):
                              units=1)
     with pytest.raises(ValueError, match='C=512'):
         mrf.mrf(x, weights, (3,), (1,))
-    x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16, krs=(3,) * 9,
-                             units=1)
-    with pytest.raises(ValueError, match='at most 8'):
-        mrf.mrf(x, weights, (3,) * 9, (1,))
+    x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16,
+                             krs=(3,) * 33, units=1)
+    with pytest.raises(ValueError, match='at most 32'):
+        mrf.mrf(x, weights, (3,) * 33, (1,))
     x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16, krs=(13,))
     with pytest.raises(ValueError, match='halo'):
         mrf.mrf(x, weights, (13,), (1, 3, 5))
@@ -1130,6 +1247,32 @@ def test_ups_mrf_kernel_matches_twin(dev, dtype, b, s_in, s_up, k, c_in, c,
     assert not got[..., t_valid:].any()
     _close([got.float()], [want.float()],
            TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_ups_mrf_kernel_long_lists(dev, dtype):
+    """The tail's level (v1 level 3's shape, C 32, and a cluster at C 128)
+    at LONG_LISTS: one launch each, against the twin."""
+    g = torch.Generator().manual_seed(9)
+    for (s_in, c_in, c, t_ps, t_valid), (krs, dils) in itertools.product(
+            ((2, 64, 32, 301, 297), (1, 256, 128, 150, 150)), LONG_LISTS):
+        x = _rand(g, (2, s_in * c_in, t_ps), 1.0, dev, dtype)
+        up_w = _rand(g, (4, c, c_in), (2 * c_in) ** -0.5, dev, dtype)
+        up_b = _rand(g, (c,), 0.1, dev, torch.float32)
+        weights = []
+        for kr in krs:
+            for _ in range(2):
+                weights += [_rand(g, (len(dils), c, kr * c), (kr * c) ** -0.5,
+                                  dev, dtype),
+                            _rand(g, (len(dils), c, 1), 0.1, dev,
+                                  torch.float32)]
+        args = (x, up_w, up_b, tuple(weights), s_in, 2, krs, dils, t_valid)
+        before = ups_mrf.launches
+        got = ups_mrf.ups_mrf(*args)
+        torch.cuda.synchronize()
+        assert ups_mrf.launches == before + 1
+        _close([got.float()], [ups_mrf.ups_mrf_plain(*args).float()],
+               TOL if dtype == torch.float32 else BF16_TOL)
 
 
 def test_ups_mrf_kernel_raises_on_unsupported_shapes(dev):

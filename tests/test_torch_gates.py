@@ -91,6 +91,57 @@ def test_mrf_gate_admits_only_kernel_shapes(monkeypatch):
     assert not gen._mrf_fusable(128, torch.zeros(1, 128, 4))
 
 
+# (kernel sizes, dilations, the kernel takes them) past HiFi-GAN's three
+# and three: within the halo, past it, and 33 dilations of 1-tap
+# convolutions (span 0: the JAX gates admit them, the kernel's launch
+# parameters hold 32 units)
+LONG_BLOCKS = {'10_kernel_sizes': (tuple(range(2, 12)), (1, 3, 5), True),
+               '9_dilations': ((3, 5), (1, 2) * 4 + (1,), True),
+               '12_by_9': ((3,) * 12, (1,) * 9, True),
+               'past_halo': ((3,) * 10, (1,) * 33, False),
+               '33_one_tap_units': ((1,), (1,) * 33, False)}
+
+
+@pytest.mark.parametrize('name', list(LONG_BLOCKS))
+def test_gates_fuse_long_lists(monkeypatch, name):
+    """On a card, a level of more kernel sizes or dilations than HiFi-GAN's
+    three: the fused-level gate and the tail's gate admit it where the JAX
+    gates do and the kernel takes it (every list within the halo), refuse
+    it where the JAX gate does (the fused level's, past the halo), and
+    raise, with the kernel's reason, where the JAX gate admits a level the
+    kernel does not take (the tail's gate reads no halo)."""
+    import jax
+
+    from forwardtacotron_tpu.models.vocoder import \
+        HiFiGANGenerator as JaxHiFiGAN
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'tpu')
+    krs, dils, takes = LONG_BLOCKS[name]
+    cfg = dict(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 4, 4),
+               upsample_initial_channel=64, resblock_kernel_sizes=krs,
+               resblock_dilation_sizes=(dils,) * len(krs), num_mels=8)
+    gen = HiFiGANGenerator(**cfg)
+    gen.fuse_mrf_max_ch = gen.fuse_ups_tail_max_ch = 16
+    jax_gen = JaxHiFiGAN(**cfg, fuse_mrf_max_ch=16,
+                         fuse_ups_tail_max_ch=16).bind({})
+    c, level = gen.ups[1].out_channels, 1
+    x = torch.zeros(1, gen.ups[1].in_channels, 8)
+    jax_mrf, jax_tail = jax_gen._mrf_fusable(c), jax_gen._ups_tail_fusable(
+        c, level, 8)
+    assert (mrf.shape_error(c, krs, dils) is None) == takes
+    # the JAX tail gate reads no halo: it admits all five
+    assert jax_tail and jax_mrf == (name != 'past_halo')
+    reason = 'halo' if name == 'past_halo' else 'at most 32'
+    for port_gate, want in (
+            (lambda: gen._mrf_fusable(c, torch.zeros(1, c, 8)), jax_mrf),
+            (lambda: gen._ups_tail_fusable(c, level, x), jax_tail)):
+        if want and not takes:
+            with pytest.raises(NotImplementedError, match=reason):
+                port_gate()
+        else:
+            assert port_gate() == want
+
+
 def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
     """On a card, over bank sizes, widths and projections: a front or
     highway stack that the JAX gates route to a kernel takes the kernel

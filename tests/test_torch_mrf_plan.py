@@ -61,11 +61,13 @@ def _check_plan(pl, dtype, c, c_in=0, s_out=1, s_up=1):
 @pytest.mark.parametrize('c', WIDTHS)
 @pytest.mark.parametrize('krs,dils', [
     (KRS, DILS), ((4, 6), (1, 2)), ((2, 3, 4, 5, 6, 7, 3, 5), (1,) * 8),
-    ((2,), (31,)), ((65,), (1,))])
+    ((2,), (31,)), ((65,), (1,)), (tuple(range(2, 12)), DILS),
+    ((3,) * 12, (1,) * 9), ((3, 5), (1, 2) * 4 + (1,)), ((3,), (1,) * 32),
+    ((3,) * 32, (1,)), ((1,), (1,) * 32)])
 def test_mrf_plan_fits(dtype, c, krs, dils):
     """Every width of 8 to 256 channels, odd and even kernel sizes, up to
-    8 kernel sizes and 8 dilations, spans up to the halo: a plan within the
-    H100's shared memory per block and the accumulator budget, with a
+    32 kernel sizes and 32 dilations, spans up to the halo: a plan within
+    the H100's shared memory per block and the accumulator budget, with a
     ring of at least MIN_STAGES stages in bf16; ``shape_error`` passes."""
     pl = mrf.plan(dtype, c, krs, dils)
     _check_plan(pl, dtype, c)
@@ -101,16 +103,20 @@ def test_plans_at_hifigan_levels():
 
 
 def test_plans_refuse():
-    """C past the cap, more than 8 kernel sizes or dilations, a span past
-    the halo, another dtype, an upsampler whose taps reach past the input
+    """C past the cap, more than 32 kernel sizes or (1-tap convolutions,
+    whose span is 0) dilations, a span past the halo (where more than 32
+    dilations of a kernel size of 2 or more land), another dtype, an upsampler whose taps reach past the input
     tile's halo, C_in above 2 C, more than 4 phases, and a shared memory
     that holds fewer ring stages than the kernel needs: each raises with
     its reason, and ``shape_error`` reports it."""
     with pytest.raises(ValueError, match='C=512'):
         mrf.plan(torch.bfloat16, 512, KRS, DILS)
     assert 'C=512' in mrf.shape_error(512, KRS, DILS)
-    assert 'at most 8' in mrf.shape_error(64, (3,) * 9, DILS)
-    assert 'at most 8' in mrf.shape_error(64, KRS, (1,) * 9)
+    assert 'at most 32 kernel sizes' in mrf.shape_error(64, (3,) * 33, DILS)
+    assert 'at most 32 kernel sizes' in mrf.shape_error(64, (1,), (1,) * 33)
+    assert 'halo' in mrf.shape_error(64, (2,), (1,) * 33)
+    assert 'halo' in mrf.shape_error(64, KRS, (1,) * 9)
+    assert 'at least one' in mrf.shape_error(64, (), DILS)
     assert 'halo' in mrf.shape_error(64, (13,), DILS)
     assert 'halo' in mrf.shape_error(64, (2,), (64,))
     with pytest.raises(ValueError, match='float32 or bfloat16'):
@@ -220,6 +226,40 @@ def test_stage_images_round_trip():
         assert img[at] == w[0, n, k]
 
 
+@pytest.mark.parametrize('krs,dils', [
+    ((2, 3, 4, 5, 6, 7, 8, 9, 10), (1, 3)), (tuple(range(2, 12)), DILS),
+    ((3,) * 12, (1,) * 9), ((3, 5), (1, 2) * 4 + (1,)),
+    ((3,), (1,) * 32), ((3,) * 32, (1,))])
+def test_long_lists_plan_and_pack(krs, dils):
+    """9 to 32 kernel sizes or dilations within the halo: both entries
+    plan in both dtypes (the tail's level behind a rate-2 upsample too),
+    and the bf16 packings hold every tap of every unit once, in the
+    kernel's order (after the upsampler's phases for the tail)."""
+    g = torch.Generator().manual_seed(len(krs) * 100 + len(dils))
+    c, cs = 32, 32
+    for dtype in DTYPES:
+        _check_plan(mrf.plan(dtype, c, krs, dils), dtype, c)
+        _check_plan(ups_mrf.plan(dtype, 1, 2, 2 * c, c, 4, krs, dils), dtype,
+                    c, 2 * c, 2, 2)
+        assert mrf.shape_error(c, krs, dils) is None
+        assert ups_mrf.shape_error(1, 2, 2 * c, c, 4, krs, dils) is None
+    weights = _weights(g, c, krs, units=len(dils))
+    up_w = torch.randn(4, c, 2 * c, generator=g)
+    for packed, phases in ((mrf.pack_weights(weights, krs, cs), []),
+                           (ups_mrf.pack_weights(up_w, 2, weights, krs, cs),
+                            ups_mrf.up_taps(2, 4))):
+        s = _Stream(packed, cs)
+        for taps in phases:
+            for j, tap in zip(taps, s.taps(len(taps), 2 * c)):
+                assert torch.equal(tap, up_w[j])
+        for i, kr in enumerate(krs):
+            for u in range(len(dils)):
+                for w in (weights[4 * i][u], weights[4 * i + 2][u]):
+                    for j, tap in enumerate(s.taps(kr, c)):
+                        assert torch.equal(tap, w[:, j * c:(j + 1) * c])
+        assert s.done()
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_prepare_pads_and_packs(dtype):
     """``prepare`` gives the plan's padded weights and, in bf16, their ring
@@ -287,12 +327,13 @@ def _walk_branches(cur_in, src_of, stream, biases, krs, dils, valid, tw,
 
 @pytest.mark.parametrize('c,t,krs,dils', [
     (64, 300, KRS, DILS), (128, 333, KRS, DILS), (256, 150, (3, 5), (1, 2)),
-    (32, 200, (4, 6), (1, 2))])
+    (32, 200, (4, 6), (1, 2)), (16, 150, tuple(range(2, 12)), DILS),
+    (32, 100, (3, 5), (1, 2) * 4 + (1,))])
 def test_mrf_stage_walk_matches_twin(c, t, krs, dils):
     """The level walked tile by tile as the bf16 kernel runs it (window,
     exact regions, clamped rows, taps from the packed stages) equals the
     twin, at one CTA per tile and at clusters of 2 and 4, odd and even
-    kernel sizes."""
+    kernel sizes, 10 kernel sizes and 9 dilations."""
     g = torch.Generator().manual_seed(c + t)
     weights = _weights(g, c, krs, units=len(dils))
     x = torch.randn(c, t, generator=g)

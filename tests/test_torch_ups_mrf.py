@@ -79,6 +79,17 @@ def test_ups_mrf_twin_matches_pallas_even_kr(dtype):
     _check_ups_mrf_twin(dtype, 2, 2, 4, 300, 293, 128, (4, 6), (1, 2))
 
 
+@pytest.mark.parametrize('dtype,krs,dils', [
+    ('float32', tuple(range(2, 12)), DILS),
+    ('bfloat16', (3, 5), (1, 2) * 4 + (1,))],
+    ids=['10_kernel_sizes', '9_dilations'])
+def test_ups_mrf_twin_matches_pallas_long_lists(dtype, krs, dils):
+    """10 kernel sizes (odd and even, float32) and 9 dilations (bfloat16)
+    within the halo, in phase space, over several tiles with a ragged edge
+    and padding lanes."""
+    _check_ups_mrf_twin(dtype, 2, 2, 4, 150, 143, 128, krs, dils)
+
+
 def _check_ups_mrf_twin(dtype, s_in, s_up, k, t_ps, t_valid, t_tile, krs,
                         dils):
     import jax.numpy as jnp

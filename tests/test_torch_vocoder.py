@@ -104,6 +104,18 @@ def test_mrf_twin_matches_pallas_even_kr(dtype):
     _check_mrf_twin(dtype, 16, 413, 128, (4, 6), (1, 2))
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('krs,dils', [(tuple(range(2, 12)), DILS),
+                                      ((3, 5), (1, 2) * 4 + (1,))],
+                         ids=['10_kernel_sizes', '9_dilations'])
+def test_mrf_twin_matches_pallas_long_lists(dtype, krs, dils):
+    """More kernel sizes or dilations than HiFi-GAN's three, within the
+    halo, which the JAX gate admits and the card's kernel now takes: 10
+    kernel sizes (odd and even), 9 dilations; several tiles with a ragged
+    edge."""
+    _check_mrf_twin(dtype, 16, 300, 128, krs, dils)
+
+
 def test_mrf_wrapper_takes_the_twin_on_cpu(monkeypatch):
     x, weights = _mrf_inputs(16, 50, seed=3)
     args = (torch.from_numpy(x), tuple(map(torch.from_numpy, weights)),
