@@ -1884,13 +1884,26 @@ VOCODER_KERNEL_NAMES = {
 VOCODER_TAIL_MAX_CH = 64
 VOCODER_TAIL_KERNEL_NAMES = {
     'ups_mrf': [r'level_kernel<(__nv_bfloat16|float), true']}
+# the channels-major tail: from the first level of at most this many output
+# channels (level 2 of v1), each level is a polyphase GEMM (_up_cm) and one
+# mrf launch
+VOCODER_CM_TAIL_MAX_CH = 64
 # the vocoder's routes, timed in turns: (fuse_ups_tail_max_ch,
-# fuse_mrf_max_ch)
-VOCODER_ROUTES = {'tail': (VOCODER_TAIL_MAX_CH, VOCODER_FUSE_MAX_CH),
-                  'fused': (0, VOCODER_FUSE_MAX_CH),
-                  'fused_all': (0, VOCODER_FUSE_ALL_CH), 'per_conv': (0, 0)}
+# fuse_mrf_max_ch, fuse_tail_max_ch)
+VOCODER_ROUTES = {'tail': (VOCODER_TAIL_MAX_CH, VOCODER_FUSE_MAX_CH, 0),
+                  'cm_tail': (0, 0, VOCODER_CM_TAIL_MAX_CH),
+                  'fused': (0, VOCODER_FUSE_MAX_CH, 0),
+                  'fused_all': (0, VOCODER_FUSE_ALL_CH, 0),
+                  'per_conv': (0, 0, 0)}
 # mrf launches per vocoder call on each fused route
-VOCODER_MRF_LAUNCHES = {'fused': 2, 'fused_all': 4}
+VOCODER_MRF_LAUNCHES = {'fused': 2, 'fused_all': 4, 'cm_tail': 2}
+# the channels-major tail's bf16 batch against the per-convolution route:
+# max abs error over max(1, max |wav|)
+CM_TAIL_BF16_TOL = 3e-2
+# a GEMM kernel's name in the profiler (cuBLAS's sm90 / nvjet kernels,
+# CUTLASS)
+GEMM_KERNEL = r'gemm|xmma|nvjet|cutlass'
+
 
 
 def seeded_hifigan(torch):
@@ -2242,7 +2255,8 @@ def mrf_cycles_phase(torch):
 
 
 def set_route(model, route: str) -> None:
-    model.fuse_ups_tail_max_ch, model.fuse_mrf_max_ch = VOCODER_ROUTES[route]
+    (model.fuse_ups_tail_max_ch, model.fuse_mrf_max_ch,
+     model.fuse_tail_max_ch) = VOCODER_ROUTES[route]
 
 
 def vocoder_path_phase(torch, model16, config, tokens, root: Path):
@@ -2271,7 +2285,8 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
     for i, toks in enumerate(tokens):
         x[i, :len(toks)] = toks
     routed, wavs = {}, {}
-    fused_routes = (('fused', 'mrf'), ('fused_all', 'mrf'), ('tail', 'ups_mrf'))
+    fused_routes = (('fused', 'mrf'), ('fused_all', 'mrf'), ('tail', 'ups_mrf'),
+                    ('cm_tail', 'mrf'))
     for route, kernel in fused_routes:
         set_route(voc.model, route)
         inference.generate_routed(x, vocoder=voc)     # warm-up, same shapes
@@ -2299,7 +2314,7 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
             f'group(s), text -> wav {wall * 1e3:.1f} ms, '
             f'{int(wav_len.sum()) / sr:.2f} s of audio')
         routed[route], wavs[route] = launches[kernel], wav.float()
-    for route in ('tail', 'fused_all'):
+    for route in ('tail', 'fused_all', 'cm_tail'):
         log(f'vocoder path: bf16 wav, {route} vs fused levels, max abs diff '
             f'{float((wavs[route] - wavs["fused"]).abs().max()):.3e}')
 
@@ -2341,6 +2356,30 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
         set_route(voc.model, route)
         voc(mel)
     torch.cuda.synchronize()
+    # the channels-major tail's batch against the per-convolution route:
+    # 2 mrf launches a call, no ups_mrf
+    set_route(voc.model, 'per_conv')
+    want = voc(mel).float()
+    set_route(voc.model, 'cm_tail')
+    reset_counts()
+    got = voc(mel).float()
+    torch.cuda.synchronize()
+    expect_counts('bf16 vocoder call (cm_tail)', read_counts(),
+                  mrf=VOCODER_MRF_LAUNCHES['cm_tail'])
+    cm_err = float((got - want).abs().max())
+    cm_scale = max(1.0, float(want.abs().max()))
+    ok = bool(torch.isfinite(got).all()) \
+        and cm_err <= CM_TAIL_BF16_TOL * cm_scale
+    log(f'vocoder cm_tail: bf16 batch {VOCODER_BATCH} x {VOCODER_FRAMES} vs '
+        f'the per-convolution route, max abs err {cm_err:.3e}, scale '
+        f'{cm_scale:.3e} (tol {CM_TAIL_BF16_TOL:g} x scale) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('the channels-major tail disagrees with the per-convolution '
+             'route')
+    del want, got
+    with torch.inference_mode():
+        up_cm = up_cm_times(torch, voc.model, mel)
     for _ in range(VOCODER_TRIALS):
         for route in rates:
             set_route(voc.model, route)
@@ -2358,7 +2397,9 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
             ('fused_all', 'chip_smoke_vocoder_all_profile.txt',
              VOCODER_KERNEL_NAMES),
             ('tail', 'chip_smoke_vocoder_tail_profile.txt',
-             VOCODER_TAIL_KERNEL_NAMES)):
+             VOCODER_TAIL_KERNEL_NAMES),
+            ('cm_tail', 'chip_smoke_vocoder_cm_tail_profile.txt',
+             VOCODER_KERNEL_NAMES)):
         set_route(voc.model, route)
         # the first call is the profiler's warm-up, not recorded: a trace
         # of a lone call lost its first ~40 ms on the every-level route (a
@@ -2389,6 +2430,7 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
             + (f'{100 * idle:.1f}%' if idle is not None
                else 'not measured (the trace is incomplete)'))
     for route, label in (('tail', 'phase-stacked tail, levels 2-3'),
+                         ('cm_tail', 'channels-major tail, levels 2-3'),
                          ('fused', 'fused levels 2-3'),
                          ('fused_all', 'fused at every level'),
                          ('per_conv', 'per-convolution')):
@@ -2400,8 +2442,477 @@ def vocoder_path_phase(torch, model16, config, tokens, root: Path):
             f'max {max(r):.1f}')
     stats.update(card_vs_cpu_err=errs['fused'],
                  card_vs_cpu_err_tail=errs['tail'],
-                 card_vs_cpu_err_fused_all=errs['fused_all'])
+                 card_vs_cpu_err_fused_all=errs['fused_all'],
+                 card_vs_cpu_err_cm_tail=errs['cm_tail'],
+                 cm_tail_vs_per_conv_bf16_err=cm_err, up_cm=up_cm)
     return routed, request, stats
+
+
+def up_cm_times(torch, model, mel) -> dict:
+    """The channels-major tail's upsamplers (``_up_cm``: shifted copies,
+    one GEMM, the phase interleave) at the tail's levels of a bf16 call at
+    ``mel``'s shape: per level the CUDA-event time (median of REPS), and
+    from the profiler the device time of all its kernels and of its GEMM
+    alone, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.models.vocoder import leaky_relu
+
+    out = {}
+    x = model.conv_pre(mel.to(torch.bfloat16).transpose(1, 2))
+    for i in range(len(model.ups)):
+        if i >= 2:        # v1's levels 2-3, the tail of fuse_tail_max_ch 64
+            def call(x=x, i=i):
+                return model._up_cm(leaky_relu(x, 0.1), i)
+            r = {'ms': time_ms(torch, call, reps=5)}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+            dev_events = [e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA]
+            r['device_ms'] = sum(e.self_device_time_total
+                                 for e in dev_events) / 3e3
+            r['gemm_device_ms'] = sum(
+                e.self_device_time_total for e in dev_events
+                if re.search(GEMM_KERNEL, e.key)) / 3e3
+            r['shape'] = list(x.shape)
+            out[f'level {i}'] = r
+            log(f'  _up_cm level {i}: input {list(x.shape)} bf16: '
+                f'{r["ms"]:.3f} ms (events), device {r["device_ms"]:.3f} ms, '
+                f'of which the GEMM {r["gemm_device_ms"]:.3f} ms')
+        x = model.ups[i](leaky_relu(x, 0.1))
+    return out
+
+
+# ------------------------------------------------------------ FastPitch
+
+# the long request: 256 tokens of 17 frames (4,352 frames), past the
+# blockwise attention's default threshold (2048 frames)
+FP_LONG_TOKENS, FP_LONG_FRAMES = 256, 17
+# a threshold no request reaches: the full attention path
+FP_FULL_ATTENTION_T = 100000
+# the long request's blockwise attention against its full path (float32):
+# max abs error over max(1, max |mel|)
+FP_BLOCKWISE_TOL = 1e-4
+# the bf16 serving call's slice held against the CPU path
+FP_CHECK_BATCH = 8
+# row 8 at FastPitch's width (d_model 256): (label, B, N, T, dtype, frames
+# a token). In bfloat16 the JAX package's FastPitch (so the port's) expands
+# float32 tokens: its positional table is a float32 constant that promotes
+# the transformer's activations; the bf16 shape is timed for the plan.
+FP_LR_C = 256
+FP_LR_SHAPES = (('FastPitch serving f32', SERVING_BATCH, 81, 256, 'float32',
+                 SERVING_FRAMES_PER_TOKEN),
+                ('FastPitch serving bf16', SERVING_BATCH, 81, 256,
+                 'bfloat16', SERVING_FRAMES_PER_TOKEN),
+                ('FastPitch request f32', 1, 92, 896, 'float32',
+                 FRAMES_PER_TOKEN))
+
+
+def fast_pitch_config(config):
+    cfg = copy.deepcopy(config)
+    cfg['tts_model'] = 'fast_pitch'
+    return cfg
+
+
+def make_fast_pitch(torch, config):
+    """FastPitch at the full width of ``configs/singlespeaker.yaml``'s
+    fast_pitch section (d_model 256, 4 + 4 FFT blocks of 1024, predictors
+    of 128), seeded weights (PyTorch's initializers), on the CPU, with a
+    duration head that gives every token FRAMES_PER_TOKEN frames."""
+    from forwardtacotron_torch.models.registry import init_tts_model
+    torch.manual_seed(SEED)
+    model = init_tts_model(fast_pitch_config(config))
+    return set_frames_per_token(torch, model, FRAMES_PER_TOKEN)
+
+
+def fast_pitch_request_phase(torch, model, config, tokens):
+    """The 4 requests, float32, one at a time through
+    ``TTSInference.generate_cropped`` on the card (one ``lr`` launch each,
+    text -> mel latency), each against the CPU path."""
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    cpu = TTSInference(copy.deepcopy(model), device='cpu')
+    inference = TTSInference(copy.deepcopy(model), device='cuda')
+    inference.generate_cropped(tokens[0][:8])          # warm-up
+    torch.cuda.synchronize()
+    outs, lat, errs = [], [], []
+    n_mels = config['dsp']['num_mels']
+    for i, toks in enumerate(tokens):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = inference.generate_cropped(toks)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        expect_counts(f'FastPitch f32 request {i}', read_counts(), lr=1)
+        frames = FRAMES_PER_TOKEN * len(toks)
+        if out['mel_post'].shape != (n_mels, frames) \
+                or not np.isfinite(out['mel_post']).all():
+            fail(f'FastPitch request {i}: mel_post {out["mel_post"].shape}')
+        ref = cpu.generate_cropped(toks)
+        err = max(float(np.abs(out[k] - ref[k]).max())
+                  for k in ('mel', 'dur', 'pitch', 'energy'))
+        ok = err <= E2E_MEL_ATOL
+        log(f'  FastPitch f32 request {i}: {len(toks)} tokens -> {frames} '
+            f'frames: text->mel {lat[-1]:.1f} ms; vs the CPU path max abs '
+            f'err {err:.3e} (atol {E2E_MEL_ATOL:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail('FastPitch float32 request disagrees with the CPU path')
+        outs.append(out)
+        errs.append(err)
+    return outs, {'request_ms': lat, 'card_vs_cpu_err': max(errs),
+                  'lr_launches_per_request': 1}
+
+
+def fast_pitch_long_phase(torch, model):
+    """One float32 request of FP_LONG_TOKENS tokens x FP_LONG_FRAMES frames
+    through ``TTSInference.generate``: the post-regulator attention on the
+    blockwise schedule (the default threshold) against the full path
+    (threshold forced high), each call's time and peak device memory."""
+    import os
+
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    model = set_frames_per_token(torch, copy.deepcopy(model), FP_LONG_FRAMES)
+    inference = TTSInference(model, device='cuda')
+    x = np.random.RandomState(SEED + 15).randint(
+        1, model.embedding.num_embeddings, (1, FP_LONG_TOKENS))
+    frames = FP_LONG_TOKENS * FP_LONG_FRAMES
+    res, mels = {}, {}
+    saved = os.environ.pop('FTT_ATTN_BLOCK_T', None)
+    try:
+        for path, threshold in (('blockwise', None),
+                                ('full', FP_FULL_ATTENTION_T)):
+            if threshold is not None:
+                os.environ['FTT_ATTN_BLOCK_T'] = str(threshold)
+            inference.generate(x)                       # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = inference.generate(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            expect_counts(f'FastPitch long request ({path})', read_counts(),
+                          lr=1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            if int(out['mel_len'][0]) != frames \
+                    or not bool(torch.isfinite(out['mel']).all()):
+                fail(f'FastPitch long request ({path}): mel_len '
+                     f'{out["mel_len"].tolist()}')
+            mels[path] = out['mel'][0, :frames].float()
+            res[path] = {'ms': ms, 'peak_mib': peak}
+            log(f'  FastPitch long request ({path} attention): '
+                f'{FP_LONG_TOKENS} tokens -> {frames} frames, {ms:.1f} ms, '
+                f'peak device memory {peak:.1f} MiB above the weights')
+    finally:
+        os.environ.pop('FTT_ATTN_BLOCK_T', None)
+        if saved is not None:
+            os.environ['FTT_ATTN_BLOCK_T'] = saved
+    err = float((mels['blockwise'] - mels['full']).abs().max())
+    scale = max(1.0, float(mels['full'].abs().max()))
+    ok = err <= FP_BLOCKWISE_TOL * scale
+    log(f'  FastPitch long request: blockwise vs full attention, max abs err '
+        f'{err:.3e}, scale {scale:.3e} (tol {FP_BLOCKWISE_TOL:g} x scale) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('FastPitch blockwise attention disagrees with the full path')
+    res.update(frames=frames, blockwise_vs_full_err=err)
+    return res
+
+
+def fast_pitch_serving_phase(torch, model, config):
+    """bf16 ``generate_fused`` (FastPitch: ``predict_series`` then
+    ``generate`` at the budget) at the ForwardTacotron serving shape: batch
+    SERVING_BATCH of bench.py's sentences, SERVING_FRAMES_PER_TOKEN frames
+    a token, ``max_len`` SERVING_MAX_LEN; one ``lr`` launch a call,
+    audio-s/s over trials, the profiler (device time by op, idle share),
+    and a slice against the CPU path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+
+    hop, sr = config['dsp']['hop_length'], config['dsp']['sample_rate']
+    model = set_frames_per_token(torch, copy.deepcopy(model),
+                                 SERVING_FRAMES_PER_TOKEN)
+    cpu = TTSInference(copy.deepcopy(model), dtype='bfloat16', device='cpu')
+    inference = TTSInference(model, dtype='bfloat16', device='cuda')
+    n_tok = max(len(Tokenizer()(s)) for s in BENCH_SENTENCES)
+
+    def timed_call(xd):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inference.generate_fused(xd, max_len=SERVING_MAX_LEN)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    batch = SERVING_BATCH
+    xd = serving_requests(torch, batch)
+    timed_call(xd[:FP_CHECK_BATCH])
+    out, first_s = timed_call(xd)
+    log(f'FastPitch serving: first generate_fused call, batch {batch}, '
+        f'max_len {SERVING_MAX_LEN}: {first_s:.3f} s')
+    if first_s > SERVING_CALL_LIMIT_S:
+        batch = 1024
+        log(f'FastPitch serving: over {SERVING_CALL_LIMIT_S:g} s, batch '
+            f'dropped to {batch}')
+        xd = xd[:batch]
+        out, first_s = timed_call(xd)
+    mel_lens = np.minimum(out['mel_len'].cpu().numpy(), SERVING_MAX_LEN)
+    if not (mel_lens == SERVING_FRAMES_PER_TOKEN * n_tok).all():
+        fail(f'FastPitch serving: mel_len {np.unique(mel_lens)}, expected '
+             f'{SERVING_FRAMES_PER_TOKEN * n_tok} for every request')
+    del out
+    reset_counts()
+    out, _ = timed_call(xd)
+    expect_counts('FastPitch serving call', read_counts(), lr=1)
+    if out['mel_post'].shape != (batch, SERVING_MAX_LEN,
+                                 config['dsp']['num_mels']) \
+            or not bool(torch.isfinite(out['mel_post']).all()):
+        fail(f'FastPitch serving: bad mel_post {tuple(out["mel_post"].shape)}')
+    del out
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed_call(xd)
+    busy_ms = device_profile(prof, 'FastPitch serving call',
+                             'chip_smoke_fast_pitch_serving_profile.txt',
+                             {'lr': [LR_KERNEL]})
+    by_op = sorted(((e.key, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA),
+                   key=lambda kv: -kv[1])[:12]
+
+    audio_s = int(mel_lens.sum()) * hop / sr
+    rates, walls = [], []
+    for _ in range(SERVING_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVING_ITERS):
+            inference.generate_fused(xd, max_len=SERVING_MAX_LEN)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        walls.append(elapsed / SERVING_ITERS)
+        rates.append(SERVING_ITERS * audio_s / elapsed)
+    wall_ms = statistics.median(walls) * 1e3
+    stats = dict(batch=batch, audio_s_per_call=audio_s,
+                 audio_s_per_s=sorted(rates), call_ms=wall_ms,
+                 device_busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
+                 device_ms_by_op=by_op)
+    log(f'FastPitch serving: {audio_s:.1f} audio-s per call; '
+        f'{SERVING_TRIALS} trials x {SERVING_ITERS} calls: audio-s/s min '
+        f'{min(rates):.1f} median {statistics.median(rates):.1f} max '
+        f'{max(rates):.1f}; call {wall_ms:.2f} ms wall (median), device '
+        f'busy {busy_ms:.2f} ms (profiled call): idle '
+        f'{100 * stats["idle"]:.1f}%')
+
+    x8 = xd[:FP_CHECK_BATCH]
+    got = inference.generate_fused(x8, max_len=SERVING_MAX_LEN)
+    ref = cpu.generate_fused(x8.cpu(), max_len=SERVING_MAX_LEN)
+    if not torch.equal(got['mel_len'].cpu(), ref['mel_len']):
+        fail('FastPitch bf16: mel_len differs between card and CPU')
+    n = int(ref['mel_len'].min())
+    err = float((got['mel'][:, :n].float().cpu()
+                 - ref['mel'][:, :n].float()).abs().max())
+    scale = max(1.0, float(ref['mel'][:, :n].float().abs().max()))
+    ok = err <= E2E_BF16_TOL * scale
+    log(f'FastPitch bf16 reference: generate_fused of {FP_CHECK_BATCH} '
+        f'requests on the card vs the CPU path, mel max abs err {err:.3e}, '
+        f'scale {scale:.3e} (tol {E2E_BF16_TOL:g} x scale) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('FastPitch bf16 serving disagrees with the CPU path')
+    stats['card_vs_cpu_err'] = err
+    return stats
+
+
+def fast_pitch_lr_phase(torch) -> dict:
+    """Row 8 at FastPitch's width (``lr_shape_times`` at FP_LR_SHAPES)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 16)
+    return {label: lr_shape_times(torch, gen, label, b, n, t, FP_LR_C,
+                                  dt_name, per_token)
+            for label, b, n, t, dt_name, per_token in FP_LR_SHAPES}
+
+
+# --------------------------------------------------------------- MelGAN
+
+# seungwonpark/melgan's published generator: 512 base channels, rates
+# 8-8-2-2 (hop 256), 80 mels
+MELGAN_HOP = 256
+
+
+def write_melgan_checkpoint(torch, path: Path, n_mels: int):
+    """A MelGAN generator with weights drawn from SEED (PyTorch's default
+    initializers) saved as seungwonpark/melgan saves it: every conv
+    weight-normed (weight_g / weight_v), the keys its ``nn.Sequential``'s
+    (``generator.{i}...``), the state dict under 'model_g'."""
+    from forwardtacotron_torch.models.vocoder import MelGANGenerator
+    torch.manual_seed(SEED)
+    gen = MelGANGenerator(mel_channels=n_mels)
+    for m in gen.modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+            torch.nn.utils.weight_norm(m)
+    names = {'conv_pre': '1', 'conv_post': '16'}
+    for j in range(4):
+        seq = 3 + 3 * j
+        names[f'ups.{j}'] = str(seq)
+        for u in range(3):
+            names[f'res.{j}.blocks_conv1.{u}'] = f'{seq + 1}.blocks.{u}.2'
+            names[f'res.{j}.blocks_conv2.{u}'] = f'{seq + 1}.blocks.{u}.4'
+            names[f'res.{j}.shortcuts.{u}'] = f'{seq + 1}.shortcuts.{u}'
+    sd = {}
+    for k, v in gen.state_dict().items():
+        module, leaf = k.rsplit('.', 1)
+        sd[f'generator.{names[module]}.{leaf}'] = v
+    torch.save({'model_g': sd}, str(path))
+
+
+def melgan_phase(torch, config, fp_model, fp_outs, tokens, root: Path):
+    """MelGAN through its entry points: a seeded published-format
+    checkpoint loaded by ``Vocoder.from_checkpoint(vocoder_type='melgan')``;
+    one float32 request (FastPitch's longest mel) on the card against the
+    CPU; bf16 audio-s/s at bench.py's vocoder shape, with the profiler;
+    FastPitch + MelGAN through bf16 ``generate_routed(vocoder=)``; and
+    ``python -m forwardtacotron_torch.gen_forward melgan
+    --vocoder_checkpoint`` on a seeded FastPitch checkpoint, writing
+    .wav files."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
+    from forwardtacotron_torch.utils.checkpoints import save_checkpoint
+
+    n_mels, sr = config['dsp']['num_mels'], config['dsp']['sample_rate']
+    path = root / 'nvidia_tacotron2_LJ11_epoch6400.pt'
+    write_melgan_checkpoint(torch, path, n_mels)
+    stats = {}
+
+    # one f32 request: the longest FastPitch mel
+    i = max(range(len(fp_outs)), key=lambda j: fp_outs[j]['mel_post'].shape[1])
+    mel = torch.from_numpy(np.ascontiguousarray(fp_outs[i]['mel_post'].T))[None]
+    frames = mel.shape[1]
+    voc32 = Vocoder.from_checkpoint(str(path), vocoder_type='melgan',
+                                    dtype='float32', device='cuda')
+    voc32(mel[:, :8])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = voc32(mel)
+    torch.cuda.synchronize()
+    stats['f32_request_ms'] = (time.perf_counter() - t0) * 1e3
+    expect_counts('MelGAN f32 request', read_counts())
+    ref = Vocoder.from_checkpoint(str(path), vocoder_type='melgan',
+                                  dtype='float32', device='cpu')(mel)
+    err = float((got.cpu() - ref).abs().max())
+    scale = max(1e-3, float(ref.abs().max()))
+    ok = got.shape == (1, frames * MELGAN_HOP) and err <= E2E_WAV_TOL * scale
+    log(f'MelGAN: f32 request ({frames} frames) on the card '
+        f'{stats["f32_request_ms"]:.1f} ms; vs the CPU path max abs err '
+        f'{err:.3e}, peak {scale:.3e} (tol {E2E_WAV_TOL:g} x peak) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('MelGAN float32 request disagrees with the CPU path')
+    stats['card_vs_cpu_err'] = err
+    del voc32
+
+    # bf16 throughput at bench.py's vocoder shape
+    voc = Vocoder.from_checkpoint(str(path), vocoder_type='melgan',
+                                  dtype='bfloat16', device='cuda')
+    mel = torch.randn(VOCODER_BATCH, VOCODER_FRAMES, n_mels,
+                      generator=torch.Generator().manual_seed(SEED)).cuda()
+    audio_s = VOCODER_BATCH * VOCODER_FRAMES * MELGAN_HOP / sr
+    wav = voc(mel)
+    torch.cuda.synchronize()
+    if wav.shape != (VOCODER_BATCH, VOCODER_FRAMES * MELGAN_HOP) \
+            or not bool(torch.isfinite(wav).all()):
+        fail(f'MelGAN bf16: wav {tuple(wav.shape)}')
+    del wav
+    rates = []
+    for _ in range(VOCODER_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VOCODER_CALLS):
+            voc(mel)
+            torch.cuda.synchronize()
+        rates.append(VOCODER_CALLS * audio_s / (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            voc(mel)
+            torch.cuda.synchronize()
+            prof.step()
+    busy_ms = device_profile(prof, 'MelGAN bf16 call',
+                             'chip_smoke_melgan_profile.txt', {})
+    call_ms = audio_s / statistics.median(rates) * 1e3
+    stats.update(batch=VOCODER_BATCH, frames=VOCODER_FRAMES,
+                 audio_s_per_call=audio_s, audio_s_per_s=sorted(rates),
+                 call_ms=call_ms, device_busy_ms=busy_ms,
+                 idle=1 - busy_ms / call_ms)
+    log(f'MelGAN bf16: batch {VOCODER_BATCH} x {VOCODER_FRAMES} frames, '
+        f'{VOCODER_TRIALS} trials x {VOCODER_CALLS} calls: audio-s/s min '
+        f'{min(rates):.1f} median {statistics.median(rates):.1f} max '
+        f'{max(rates):.1f}; {call_ms:.2f} ms a call, device busy '
+        f'{busy_ms:.2f} ms: idle {100 * stats["idle"]:.1f}%')
+
+    # FastPitch + MelGAN, bf16, routed
+    inference = TTSInference(copy.deepcopy(fp_model), dtype='bfloat16',
+                             device='cuda')
+    x = np.zeros((len(tokens), max(map(len, tokens))), np.int64)
+    for j, toks in enumerate(tokens):
+        x[j, :len(toks)] = toks
+    inference.generate_routed(x, vocoder=voc)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = inference.generate_routed(x, vocoder=voc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lens = out['mel_len'].cpu().numpy()
+    groups = len(np.unique(-(-lens // 128)))
+    expect_counts('FastPitch + MelGAN generate_routed', read_counts(),
+                  lr=groups)
+    wav, wav_len = out['wav'], out['wav_len'].cpu().numpy()
+    if not (np.array_equal(wav_len, lens * MELGAN_HOP)
+            and bool(torch.isfinite(wav).all())):
+        fail(f'FastPitch + MelGAN: wav {tuple(wav.shape)}, wav_len '
+             f'{wav_len}, mel_len {lens}')
+    stats['routed_ms'] = wall * 1e3
+    log(f'FastPitch + MelGAN generate_routed: {len(tokens)} requests, '
+        f'{groups} routed group(s), text -> wav {wall * 1e3:.1f} ms, '
+        f'{int(wav_len.sum()) / sr:.2f} s of audio')
+
+    # the CLI, on a seeded FastPitch checkpoint
+    ckpt = root / 'fast_pitch.pt'
+    save_checkpoint(ckpt, copy.deepcopy(fp_model).cpu(),
+                    fast_pitch_config(config), step=0)
+    with open(REPO / 'sentences.txt', encoding='utf-8') as f:
+        lines = [line.strip() for line in f if line.strip()][:2]
+    text = root / 'text.txt'
+    text.write_text('\n'.join(lines) + '\n', encoding='utf-8')
+    out_dir = root / 'melgan_wavs'
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'forwardtacotron_torch.gen_forward',
+         '--checkpoint', str(ckpt), '--text_file', str(text), '--output',
+         str(out_dir), '--vocoder_checkpoint', str(path), 'melgan'],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f'gen_forward melgan failed:\n{proc.stderr[-3000:]}')
+    from scipy.io import wavfile
+    wavs = sorted(out_dir.glob('*.wav'))
+    if len(wavs) != len(lines):
+        fail(f'gen_forward melgan wrote {wavs}')
+    for w, toks in zip(wavs, tokens):
+        n = len(wavfile.read(str(w))[1])
+        if n != FRAMES_PER_TOKEN * len(toks) * MELGAN_HOP:
+            fail(f'gen_forward melgan: {w.name} has {n} samples')
+    stats['cli_s'] = time.perf_counter() - t0
+    log(f'gen_forward melgan --vocoder_checkpoint: {len(wavs)} .wav files '
+        f'from a FastPitch checkpoint, {stats["cli_s"]:.1f} s')
+    return stats
 
 
 # ------------------------------------------------------------- training
@@ -2455,101 +2966,107 @@ LR_ANY_KERNEL = r'lr_(tile_)?kernel'
 
 
 def lr_phase(torch, sweep: bool = False) -> dict:
-    """Row 8 against its twin, exactly, at LR_SHAPES: where its time goes
-    (``device_times``: the kernel's device time, the CUDA graph's, the
-    event pair around a call, the host's time per call), beside the plain
-    twin and the yardstick (``torch.gather`` from the tokens with a zero
-    row appended, with precomputed indices: the copy without the search);
-    with ``sweep``, also a fill of the output's bytes (the write floor) and
-    the kernel at each tile of LR_TILE_SWEEP, each held exactly to the
-    twin. 'lr' and 'lr_f32' are the train shape's
-    rows, every shape's numbers under their 'shapes'. In a checkout before
-    the tile kernel (no ``lr.plan``) no plan and no sweep."""
+    """Row 8 against its twin, exactly, at LR_SHAPES (``lr_shape_times``).
+    'lr' and 'lr_f32' are the train shape's rows, every shape's numbers
+    under their 'shapes'."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    shapes = {label: lr_shape_times(torch, gen, label, b, n, t, LR_C,
+                                    dt_name, per_token, sweep)
+              for label, b, n, t, dt_name, per_token in LR_SHAPES}
+    return {'lr_f32': dict(shapes['train f32']),
+            'lr': dict(shapes['train bf16'], shapes=shapes)}
+
+
+def lr_shape_times(torch, gen, label, b, n, t, c, dt_name, per_token,
+                   sweep=False) -> dict:
+    """Row 8 against its twin, exactly, at one shape ([b, n, c] tokens to t
+    frames, ``per_token`` frames a token or TRAIN_FRAMES at random): where
+    its time goes (``device_times``: the kernel's device time, the CUDA
+    graph's, the event pair around a call, the host's time per call),
+    beside the plain twin and the yardstick (``torch.gather`` from the
+    tokens with a zero row appended, with precomputed indices: the copy
+    without the search); with ``sweep``, also a fill of the output's bytes
+    (the write floor) and the kernel at each tile of LR_TILE_SWEEP, each
+    held exactly to the twin. In a checkout before the tile kernel (no
+    ``lr.plan``) no plan and no sweep."""
     from forwardtacotron_torch.ops.hopper import lr
 
     dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     tiled = hasattr(lr, 'plan')
-    shapes = {}
-    for label, b, n, t, dt_name, per_token in LR_SHAPES:
-        dtype = getattr(torch, dt_name)
-        if per_token:
-            reps = torch.full((b, n), per_token, device=dev)
-        else:
-            reps = torch.randint(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1, (b, n),
-                                 generator=gen, device=dev)
-        ends = torch.cumsum(reps, dim=1).to(torch.int32)
-        x = torch.randn(b, n, LR_C, generator=gen, device=dev).to(dtype)
-        over = int((ends[:, -1] > t).sum())
-        size = x.element_size()
-        log(f'  lr {label}: B={b} N={n} C={LR_C} T={t} ({over} items over '
-            f'the budget; {int(ends[:, -1].clamp(max=t).sum())} of {b * t} '
-            'frames copy a token)')
+    dtype = getattr(torch, dt_name)
+    if per_token:
+        reps = torch.full((b, n), per_token, device=dev)
+    else:
+        reps = torch.randint(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1, (b, n),
+                             generator=gen, device=dev)
+    ends = torch.cumsum(reps, dim=1).to(torch.int32)
+    x = torch.randn(b, n, c, generator=gen, device=dev).to(dtype)
+    over = int((ends[:, -1] > t).sum())
+    size = x.element_size()
+    log(f'  lr {label}: B={b} N={n} C={c} T={t} ({over} items over '
+        f'the budget; {int(ends[:, -1].clamp(max=t).sum())} of {b * t} '
+        'frames copy a token)')
 
-        def call():
-            return lr.length_regulator_expand(x, ends, t)
+    def call():
+        return lr.length_regulator_expand(x, ends, t)
+    want = lr.length_regulator_plain(x, ends, t)
+    err = compare(torch, f'lr {label}', call().float(), want.float(),
+                  LR_TOL)
+    r = dict(max_abs_err=err, **device_times(torch, call, LR_ANY_KERNEL))
+    r['ms'] = r['event_ms']
+    r['plain_ms'] = time_ms(torch, lambda: lr.length_regulator_plain(
+        x, ends, t))
+    # the yardstick: the same output by one gather, indices made here
+    x0 = torch.cat([x, x.new_zeros(b, 1, c)], 1)
+    frames = torch.arange(t, device=dev, dtype=torch.int32)
+    idx = torch.searchsorted(ends, frames.expand(b, t).contiguous(),
+                             right=True)
+    idx = torch.where(frames < ends[:, -1:], idx.clamp(max=n - 1), n)
+    idx = idx[:, :, None].expand(b, t, c)
+    if not torch.equal(torch.gather(x0, 1, idx), want):
+        fail(f'lr {label}: the gather yardstick disagrees with the twin')
+    y = device_times(torch, lambda: torch.gather(x0, 1, idx), 'gather')
+    r.update(yardstick_ms=y['event_ms'], yardstick_device_ms=y['device_ms'])
+    if sweep:   # the write floor: a fill of the output's bytes
+        r['fill_device_ms'] = profiled_ms(torch, lambda: want.fill_(0),
+                                          'Fill')[0]
         want = lr.length_regulator_plain(x, ends, t)
-        err = compare(torch, f'lr {label}', call().float(), want.float(),
-                      LR_TOL)
-        r = dict(max_abs_err=err, **device_times(torch, call, LR_ANY_KERNEL))
-        r['ms'] = r['event_ms']
-        r['plain_ms'] = time_ms(torch, lambda: lr.length_regulator_plain(
-            x, ends, t))
-        # the yardstick: the same output by one gather, indices made here
-        x0 = torch.cat([x, x.new_zeros(b, 1, LR_C)], 1)
-        frames = torch.arange(t, device=dev, dtype=torch.int32)
-        idx = torch.searchsorted(ends, frames.expand(b, t).contiguous(),
-                                 right=True)
-        idx = torch.where(frames < ends[:, -1:], idx.clamp(max=n - 1), n)
-        idx = idx[:, :, None].expand(b, t, LR_C)
-        if not torch.equal(torch.gather(x0, 1, idx), want):
-            fail(f'lr {label}: the gather yardstick disagrees with the twin')
-        y = device_times(torch, lambda: torch.gather(x0, 1, idx), 'gather')
-        r.update(yardstick_ms=y['event_ms'],
-                 yardstick_device_ms=y['device_ms'])
-        if sweep:   # the write floor: a fill of the output's bytes
-            r['fill_device_ms'] = profiled_ms(torch, lambda: want.fill_(0),
-                                              'Fill')[0]
-            want = lr.length_regulator_plain(x, ends, t)
-        r['bound_ms'], r['bound_by'] = bound(
-            0, size * (b * n * LR_C + b * t * LR_C) + 4 * b * n)
-        r['library_ms'] = None
-        r['at'] = f'{label}: B={b} N={n} C={LR_C} T={t}'
-        log_device_times('kernel', r)
-        log(f'    plain {r["plain_ms"]:.4f} ms; yardstick (gather) device '
-            f'{fmt_ms(y["device_ms"])}, event pair {y["event_ms"]:.4f} ms; '
-            + (f'fill of the output\'s bytes {fmt_ms(r["fill_device_ms"])}; '
-               if sweep else '')
-            + f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})'
-            + ('' if r['device_ms'] is None else
-               f': the kernel at {100 * r["bound_ms"] / r["device_ms"]:.0f}% '
-               'of its bound'))
-        if tiled:
-            pl = lr.plan(b, n, t, LR_C, dtype)
-            r['plan'] = pl._asdict()
-            tiles = -(-t // pl.tile)
-            log(f'    plan: {b * tiles} CTAs of {pl.tile} frames '
-                f'({tiles} an item), rows of {pl.row_vecs} 16-byte words')
-        if tiled and sweep:
-            out = torch.empty_like(want)
-            by_tile = {}
-            for tile in LR_TILE_SWEEP:
-                q = pl._replace(tile=tile)
-                out.fill_(float('nan'))
-                lr.launch(x, ends, out, q)
-                if not torch.equal(out, want):
-                    fail(f'lr {label}: the kernel at {tile}-frame tiles '
-                         'disagrees with the twin')
-                by_tile[tile] = profiled_ms(
-                    torch, lambda: lr.launch(x, ends, out, q), LR_KERNEL)[0]
-            r['tile_sweep_device_ms'] = by_tile
-            log('    device ms per launch by tile: ' + ', '.join(
-                f'{k} {fmt_ms(v)}' for k, v in by_tile.items()))
-        shapes[label] = r
-        del x, x0, idx, want
-    res = {'lr_f32': dict(shapes['train f32']),
-           'lr': dict(shapes['train bf16'], shapes=shapes)}
-    return res
+    r['bound_ms'], r['bound_by'] = bound(
+        0, size * (b * n * c + b * t * c) + 4 * b * n)
+    r['library_ms'] = None
+    r['at'] = f'{label}: B={b} N={n} C={c} T={t}'
+    log_device_times('kernel', r)
+    log(f'    plain {r["plain_ms"]:.4f} ms; yardstick (gather) device '
+        f'{fmt_ms(y["device_ms"])}, event pair {y["event_ms"]:.4f} ms; '
+        + (f'fill of the output\'s bytes {fmt_ms(r["fill_device_ms"])}; '
+           if sweep else '')
+        + f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})'
+        + ('' if r['device_ms'] is None else
+           f': the kernel at {100 * r["bound_ms"] / r["device_ms"]:.0f}% '
+           'of its bound'))
+    if tiled:
+        pl = lr.plan(b, n, t, c, dtype)
+        r['plan'] = pl._asdict()
+        tiles = -(-t // pl.tile)
+        log(f'    plan: {b * tiles} CTAs of {pl.tile} frames '
+            f'({tiles} an item), rows of {pl.row_vecs} 16-byte words')
+    if tiled and sweep:
+        out = torch.empty_like(want)
+        by_tile = {}
+        for tile in LR_TILE_SWEEP:
+            q = pl._replace(tile=tile)
+            out.fill_(float('nan'))
+            lr.launch(x, ends, out, q)
+            if not torch.equal(out, want):
+                fail(f'lr {label}: the kernel at {tile}-frame tiles '
+                     'disagrees with the twin')
+            by_tile[tile] = profiled_ms(
+                torch, lambda: lr.launch(x, ends, out, q), LR_KERNEL)[0]
+        r['tile_sweep_device_ms'] = by_tile
+        log('    device ms per launch by tile: ' + ', '.join(
+            f'{k} {fmt_ms(v)}' for k, v in by_tile.items()))
+    return r
 
 
 def train_config(config, root, precision, max_step, dropout=True):
@@ -3203,6 +3720,25 @@ def main() -> None:
         voc_routed, voc_request, vocoder = vocoder_path_phase(
             torch, model16, config, tokens, Path(tmp))
 
+    # FastPitch at full width: f32 requests, the long request (blockwise
+    # against full attention), bf16 serving, row 8 at its width; MelGAN
+    t_fp = time.perf_counter()
+    fp_model = make_fast_pitch(torch, config)
+    log('FastPitch f32 requests (host clock, synchronized):')
+    fp_outs, fast_pitch = fast_pitch_request_phase(torch, fp_model, config,
+                                                   tokens)
+    fast_pitch['long'] = fast_pitch_long_phase(torch, fp_model)
+    fast_pitch['serving'] = fast_pitch_serving_phase(torch, fp_model, config)
+    torch.cuda.empty_cache()
+    log('row 8 at FastPitch\'s width:')
+    fp_lr = fast_pitch_lr_phase(torch)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_melgan_') as tmp:
+        melgan = melgan_phase(torch, config, fp_model, fp_outs, tokens,
+                              Path(tmp))
+    torch.cuda.empty_cache()
+    fast_pitch['phases_s'] = time.perf_counter() - t_fp
+    log(f'FastPitch and MelGAN phases: {fast_pitch["phases_s"]:.1f} s')
+
     # training: the kernels at full-width training shapes (with autograd on,
     # for cuDNN's yardstick), the bf16 and float32 train steps on synthetic
     # data in a temporary directory, and one step on card vs CPU
@@ -3224,6 +3760,17 @@ def main() -> None:
         k: request16['lr_bidir'][k]
         for k in ('ms', 'plain_ms', 'bound_ms', 'event_ms', 'device_ms',
                   'graph_ms', 'host_us', 'launches_profiled')}
+    # rows 8 and 14 on the paths of FastPitch and the channels-major tail
+    results_train['lr']['new_paths'] = {
+        'fast_pitch_f32_request': fast_pitch['lr_launches_per_request'],
+        'fast_pitch_serving_call': 1,
+        'fast_pitch_melgan_routed_group': 1,
+        'C256': {k: {m: v[m] for m in ('device_ms', 'event_ms', 'bound_ms',
+                                        'plain_ms', 'plan')}
+                 for k, v in fp_lr.items()}}
+    results_voc['mrf']['new_paths'] = {
+        'cm_tail_f32_request': voc_request['cm_tail'],
+        'cm_tail_bf16_routed': voc_routed['cm_tail']}
     # row 7's LSTM body (no path launches it) beside its GRU body
     results16['bidir_rnn']['lstm_body'] = {
         k: request16['lstm_body'][k]
@@ -3302,12 +3849,14 @@ def main() -> None:
                                  'tile_sweep_device_ms', 'shapes',
                                  'yardstick_device_ms', 'fill_device_ms',
                                  'request',
-                                 'long_lists')
+                                 'long_lists', 'new_paths')
                if k in r and r[k] != {}}})
     log(f'griffinlim split: {json.dumps(gl_split)}')
     log(f'serving: {json.dumps(serving)}')
     log(f'cbhg variants: {json.dumps(variants)}')
     log(f'vocoder: {json.dumps(vocoder)}')
+    log(f'fast_pitch: {json.dumps(fast_pitch)}')
+    log(f'melgan: {json.dumps(melgan)}')
     log(f'mrf cycle spans: {json.dumps(mrf_cycles)}')
     log(f'training: {json.dumps(training)}')
     log(f'card: {card}')

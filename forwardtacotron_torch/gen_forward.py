@@ -2,8 +2,9 @@
 
 Mirrors the repository's root ``gen_forward.py`` on the PyTorch port:
 float32 or bfloat16, one sentence at a time or, with ``--batched``, all
-sentences as one length-routed batch; vocoded with Griffin-Lim, or with a
-HiFi-GAN generator checkpoint on the device (``hifigan
+sentences as one length-routed batch; a ForwardTacotron or FastPitch
+checkpoint; vocoded with Griffin-Lim, or with a HiFi-GAN or MelGAN
+generator checkpoint on the device (``hifigan|melgan
 --vocoder_checkpoint``), or, without a checkpoint, exported as the
 reference exports mels for an external vocoder (``.mel`` for melgan,
 ``.npy`` for hifigan):
@@ -50,10 +51,10 @@ def main(argv=None):
     parser.add_argument('vocoder', nargs='?', default='griffinlim',
                         choices=['griffinlim', 'melgan', 'hifigan'])
     parser.add_argument('--vocoder_checkpoint', default=None,
-                        help='published HiFi-GAN generator weights; when '
-                             'given, vocoding runs on the device at --dtype '
-                             'and .wav files are written instead of mel '
-                             'exports')
+                        help='published HiFi-GAN or MelGAN generator '
+                             'weights; when given, vocoding runs on the '
+                             'device at --dtype and .wav files are written '
+                             'instead of mel exports')
     parser.add_argument('--vocoder_config', default=None,
                         help='HiFi-GAN config.json for --vocoder_checkpoint '
                              '(v1 defaults if omitted)')
@@ -92,7 +93,7 @@ def main(argv=None):
     vocoder = None
     if args.vocoder_checkpoint and args.vocoder != 'griffinlim':
         voc_config = None
-        if args.vocoder_config:
+        if args.vocoder == 'hifigan' and args.vocoder_config:
             voc_config = json.loads(Path(args.vocoder_config).read_text())
         vocoder = Vocoder.from_checkpoint(
             args.vocoder_checkpoint, vocoder_type=args.vocoder,

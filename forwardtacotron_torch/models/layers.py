@@ -20,9 +20,12 @@ trainer sets ``rnn_train.rnn_mode('train')`` so that the eligible
 recurrences take the differentiable kernels of ``ops/hopper/rnn_train.py``.
 """
 
+import functools
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -717,3 +720,245 @@ def make_len_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] lengths -> [B, max_len] bool, True at positions >= length."""
     return (torch.arange(max_len, device=lengths.device)[None, :]
             >= lengths[:, None])
+
+
+# ---------------------------------------------------------------- transformer
+#
+# The JAX package builds the positional table as a float32 constant, so in
+# bfloat16 (variables cast to bfloat16) x + scale * table is float32, and
+# every flax layer after it promotes its bfloat16 parameters to the float32
+# activation: the transformer computes in float32 with bfloat16-valued
+# weights. The modules below promote the same way (:func:`_promoted`).
+
+# flax's LayerNorm epsilon (the reference's torch LayerNorm uses 1e-5)
+LN_EPS = 1e-6
+# the reference's PositionalEncoding buffer length (state_dict parity only)
+PE_MAX_LEN = 5000
+
+
+def _promoted(x: torch.Tensor, *params: Optional[torch.Tensor]):
+    """x and the parameters in the type both promote to, as flax's layers
+    promote their inputs and parameters (``dtype=None``)."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return (x.to(dt),) + tuple(None if p is None else p.to(dt)
+                               for p in params)
+
+
+def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
+    """[max_len, d_model] float32 sines (even columns) and cosines (odd)."""
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * (-math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+@functools.lru_cache(maxsize=32)
+def _table(t: int, d_model: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(sinusoidal_table(t, d_model)).to(device)
+
+
+class PositionalEncoding(nn.Module):
+    """x + scale * table with a learned scalar scale (reference
+    common_layers.py:127-145). The table is built in float32 at the call's
+    length, with no 5000-frame cap; its values in the shared range are the
+    reference buffer's. The ``pe`` buffer [5000, 1, d] is kept only so
+    that the state_dict is the reference's."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1):
+        super().__init__()
+        self.d_model = d_model
+        self.drop = nn.Dropout(dropout)
+        self.scale = nn.Parameter(torch.ones(1))
+        self.register_buffer('pe', torch.from_numpy(
+            sinusoidal_table(PE_MAX_LEN, d_model))[:, None, :])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pe = _table(x.shape[1], self.d_model, x.device)
+        return self.drop(x + self.scale * pe[None])
+
+
+def attn_blockwise_threshold() -> int:
+    """Sequence length from which deterministic self-attention takes the
+    blockwise schedule (:func:`blockwise_attention`); FTT_ATTN_BLOCK_T,
+    read at each call, 2048 by default."""
+    return int(os.environ.get('FTT_ATTN_BLOCK_T', 2048))
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_pad_mask: Optional[torch.Tensor],
+                        block_q: int = 512,
+                        block_k: int = 512) -> torch.Tensor:
+    """Exact softmax attention in O(T) memory: an online softmax (running
+    max and denominator in float32) over key blocks, for each block of
+    queries; no [B, H, T, T] tensor is made. A row whose keys are all
+    padding gives zeros, as the full path does.
+
+    q, k, v: [B, H, T, D]; key_pad_mask: [B, T] bool, True = padding."""
+    b, h, t, d = q.shape
+    neg = -1e30
+    scale = 1.0 / math.sqrt(d)
+    if key_pad_mask is None:
+        key_pad_mask = torch.zeros(b, t, dtype=torch.bool, device=q.device)
+    out = torch.empty_like(q)
+    for qs in range(0, t, block_q):
+        q_blk = q[:, :, qs:qs + block_q].float()
+        m = q_blk.new_full(q_blk.shape[:3], neg)
+        l = q_blk.new_zeros(q_blk.shape[:3])
+        acc = torch.zeros_like(q_blk)
+        for ks in range(0, t, block_k):
+            v_b = v[:, :, ks:ks + block_k]
+            s = torch.matmul(q_blk, k[:, :, ks:ks + block_k].float()
+                             .transpose(-1, -2)) * scale
+            s = s.masked_fill(key_pad_mask[:, None, None, ks:ks + block_k],
+                              neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(
+                p.to(v_b.dtype), v_b).float()
+            m = m_new
+        out[:, :, qs:qs + block_q] = (
+            acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    all_masked = key_pad_mask.all(dim=-1)
+    return out.masked_fill(all_masked[:, None, None, None], 0.0)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_pad_mask: Optional[torch.Tensor],
+                   dropout: float = 0.0,
+                   training: bool = False) -> torch.Tensor:
+    """Softmax attention through the [B, H, T, T] weights: padded keys get
+    -inf, and a row whose keys are all padding (NaN weights) gives zeros."""
+    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if key_pad_mask is not None:
+        logits = logits.masked_fill(key_pad_mask[:, None, None, :],
+                                    float('-inf'))
+    weights = torch.softmax(logits, dim=-1)
+    weights = weights.masked_fill(torch.isnan(weights), 0.0)
+    weights = nn.functional.dropout(weights, dropout, training)
+    return torch.matmul(weights, v)
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with torch ``MultiheadAttention``'s parameters (the
+    joint in-projection ``in_proj_weight`` [3d, d] / ``in_proj_bias``, and
+    ``out_proj``) and key-padding masking. Deterministic calls at
+    :func:`attn_blockwise_threshold` frames or more take
+    :func:`blockwise_attention`."""
+
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.1):
+        super().__init__()
+        self.n_heads = n_heads
+        self.dropout = dropout
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = Dense(d_model, d_model)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x: torch.Tensor,
+                key_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, d = x.shape
+        h = self.n_heads
+        x, w, bias = _promoted(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = (nn.functional.linear(x, w, bias)
+                   .reshape(b, t, 3, h, d // h).permute(2, 0, 3, 1, 4))
+        if not self.training and t >= attn_blockwise_threshold():
+            out = blockwise_attention(q, k, v, key_pad_mask)
+        else:
+            out = full_attention(q, k, v, key_pad_mask, self.dropout,
+                                 self.training)
+        return linear(out.transpose(1, 2).reshape(b, t, d), self.out_proj)
+
+
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin`` on x with its parameters promoted with x (a flax Dense)."""
+    x, w, b = _promoted(x, lin.weight, lin.bias)
+    return nn.functional.linear(x, w) + b
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """``norm`` on x with its parameters promoted with x (a flax
+    LayerNorm)."""
+    x, w, b = _promoted(x, norm.weight, norm.bias)
+    return nn.functional.layer_norm(x, norm.normalized_shape, w, b,
+                                    norm.eps)
+
+
+def conv_same(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+    """[B, T, C] conv with the module's padding (torch's ``k//2``), cropped
+    to T frames (an even kernel gives T + 1), its parameters promoted with
+    x (a flax Conv)."""
+    t = x.shape[1]
+    x, w, b = _promoted(x, conv.weight, conv.bias)
+    y = nn.functional.conv1d(x.transpose(1, 2), w,
+                             padding=conv.padding)[:, :, :t]
+    return (y + b[:, None]).transpose(1, 2)
+
+
+class FFTBlock(nn.Module):
+    """Post-norm transformer block with a convolutional feed-forward
+    (reference common_layers.py:148-185)."""
+
+    def __init__(self, d_model: int, n_heads: int, d_fft: int,
+                 conv1_kernel: int, conv2_kernel: int, dropout: float = 0.1):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dropout)
+        self.conv1 = nn.Conv1d(d_model, d_fft, conv1_kernel,
+                               padding=conv1_kernel // 2)
+        self.conv2 = nn.Conv1d(d_fft, d_model, conv2_kernel,
+                               padding=conv2_kernel // 2)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor,
+                key_pad_mask: Optional[torch.Tensor] = None,
+                conv_zero_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """``conv_zero_mask`` [B, T] zeroes frames before each convolution,
+        so a padded sequence gives the convolution outputs of the
+        reference's exact-length run."""
+        x = layer_norm(x + self.drop(self.self_attn(x, key_pad_mask)),
+                        self.norm1)
+        zero = None if conv_zero_mask is None else conv_zero_mask[:, :, None]
+        y = x if zero is None else x.masked_fill(zero, 0.0)
+        y = torch.relu(conv_same(y, self.conv1))
+        if zero is not None:
+            y = y.masked_fill(zero, 0.0)
+        y = conv_same(y, self.conv2)
+        return layer_norm(x + self.drop(y), self.norm2)
+
+
+class ForwardTransformer(nn.Module):
+    """Positional encoding, ``layers`` FFT blocks and a final LayerNorm
+    (reference common_layers.py:188-223)."""
+
+    def __init__(self, d_model: int, d_fft: int, layers: int, heads: int,
+                 conv1_kernel: int, conv2_kernel: int, dropout: float = 0.1):
+        super().__init__()
+        self.pos_encoder = PositionalEncoding(d_model, dropout)
+        self.layers = nn.ModuleList([
+            FFTBlock(d_model, heads, d_fft, conv1_kernel, conv2_kernel,
+                     dropout) for _ in range(layers)])
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor,
+                key_pad_mask: Optional[torch.Tensor] = None,
+                conv_zero_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = self.pos_encoder(x)
+        for layer in self.layers:
+            x = layer(x, key_pad_mask, conv_zero_mask)
+        return layer_norm(x, self.norm)
+
+
+def make_token_pad_mask(x: torch.Tensor) -> torch.Tensor:
+    """[B, N] tokens -> [B, N] bool, True at padding (token id 0)."""
+    return x == 0

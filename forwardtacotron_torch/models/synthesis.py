@@ -1,5 +1,6 @@
 """Synthesis orchestrator (port of forwardtacotron_tpu/models/synthesis.py
-for ForwardTacotron): the two-phase ``generate``, the single-call
+for ForwardTacotron and FastPitch): the two-phase ``generate``, the
+single-call
 ``generate_fused`` and the length-routed ``generate_routed`` (optionally
 vocoding each group with a ``Vocoder``), in float32 or bfloat16.
 
@@ -16,7 +17,8 @@ import torch
 
 from forwardtacotron_torch.ops.length_regulator import expanded_lengths
 from forwardtacotron_torch.utils.device import resolve_device
-from forwardtacotron_torch.utils.vocoder_checkpoints import load_hifigan
+from forwardtacotron_torch.utils.vocoder_checkpoints import (load_hifigan,
+                                                             load_melgan)
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -57,14 +59,16 @@ class Vocoder:
                         dtype: str = 'bfloat16',
                         device: Optional[Union[str, torch.device]] = None
                         ) -> 'Vocoder':
-        """A published generator checkpoint (jik876 HiFi-GAN format,
-        ``config`` its config.json dict). MelGAN is not ported yet."""
+        """A published generator checkpoint: jik876 HiFi-GAN (``config``
+        its config.json dict) or seungwonpark MelGAN (``config`` unused).
+        The generator's plain forward serves, as ``JittedVocoder`` calls
+        the JAX module's ``__call__``."""
         if vocoder_type == 'hifigan':
             return cls(load_hifigan(path, config=config, device=device),
                        dtype=dtype, device=device)
         if vocoder_type == 'melgan':
-            raise NotImplementedError(
-                'MelGAN is not ported yet (ROADMAP.md Queue 1 item 6)')
+            return cls(load_melgan(path, device=device), dtype=dtype,
+                       device=device)
         raise ValueError(f'unknown vocoder_type: {vocoder_type}')
 
     @torch.inference_mode()
@@ -74,11 +78,14 @@ class Vocoder:
 
 
 class TTSInference:
-    """Wraps a ForwardTacotron with the synthesis entry points.
+    """Wraps a ForwardTacotron or a FastPitch with the synthesis entry
+    points.
 
     ``dtype='bfloat16'`` casts every floating parameter and BatchNorm
     statistic to bfloat16, as the JAX package casts its variables; the
-    recurrences and the frame trunk then take the recurrent kernels. The
+    recurrences and the frame trunk then take the recurrent kernels
+    (FastPitch's transformers compute in float32 with the bfloat16
+    weights, as the JAX package's promote them). The
     model is moved (and cast) in place, as ``Module.to`` does. ``device``
     defaults to CUDA and raises when no GPU is present; pass
     ``device='cpu'`` to run on the CPU."""
@@ -128,10 +135,17 @@ class TTSInference:
                        alpha: float = 1.0) -> Dict[str, torch.Tensor]:
         """Serving-mode synthesis at a fixed frame budget ``max_len``:
         series prediction and decode in one call
-        (``ForwardTacotron.generate_combined``), no host read in between.
-        Durations that would exceed the budget are cropped; ``mel_len`` is
-        the uncropped expanded length."""
-        out = self.model.generate_combined(self._tokens(x), max_len, alpha)
+        (``ForwardTacotron.generate_combined``; a model without it, as
+        FastPitch, runs ``predict_series`` then ``generate``), no host read
+        in between. Durations that would exceed the budget are cropped;
+        ``mel_len`` is the uncropped expanded length."""
+        x = self._tokens(x)
+        if hasattr(self.model, 'generate_combined'):
+            out = self.model.generate_combined(x, max_len, alpha)
+        else:
+            s = self.model.predict_series(x, alpha)
+            out = self.model.generate(x, s['dur'], s['pitch'], s['energy'],
+                                      max_len)
         out['mel_len'] = expanded_lengths(out['dur'])
         return out
 

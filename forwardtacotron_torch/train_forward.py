@@ -37,6 +37,11 @@ def main(argv=None):
     from forwardtacotron_torch.utils.paths import Paths
 
     config = read_config(args.config)
+    if config.get('tts_model', 'forward_tacotron') != 'forward_tacotron':
+        raise NotImplementedError(
+            f"training {config['tts_model']} is not ported to PyTorch yet; "
+            'it comes with the multispeaker slice (ROADMAP.md Queue 1, item '
+            '5)')
     paths = Paths.from_config(config)
     assert any(paths.alg.glob('*.npy')), \
         f'No alignment files found in {paths.alg}. Run train_tacotron.py first!'

@@ -11,11 +11,18 @@ the same variables in both packages.
   params/a/b/kernel (2D, [I, O])     -> a.b.weight [O, I]
   params/a/embedding/embedding       -> a.embedding.weight
   params/a/bnorm/{scale,bias}        -> a.bnorm.{weight,bias}
+  params/a/norm1/{scale,bias}        -> a.norm1.{weight,bias} (LayerNorm)
+  params/a/pos_encoder/scale         -> a.pos_encoder.scale
+  params/a/{q,k,v}_proj/kernel [I, O] -> a.in_proj_weight [3O, I], rows
+                                        q, k, v (biases: a.in_proj_bias)
   batch_stats/a/bnorm/{mean,var}     -> a.bnorm.running_{mean,var}
                                         (+ num_batches_tracked = 0)
   params/a/rnn/{fwd,bwd}/{wi,wh}     -> a.rnn.weight_{ih,hh}_l0[_reverse], T
   params/a/rnn/{fwd,bwd}/{bi,bh}     -> a.rnn.bias_{ih,hh}_l0[_reverse]
   list entries 'xs_0'                -> 'xs.0'
+
+The FastPitch ``pos_encoder.pe`` tables, like the ``step`` buffer, have no
+JAX counterpart: the modules fill them.
 
 ``hifigan_from_jax_params`` carries the JAX HiFi-GAN generator's params into
 the port's ``HiFiGANGenerator`` (models/vocoder.py).
@@ -31,6 +38,8 @@ _RNN = {'wi': 'weight_ih', 'wh': 'weight_hh', 'bi': 'bias_ih',
         'bh': 'bias_hh'}
 _LIST_ITEM = re.compile(r'^(.*)_(\d+)$')
 _RNN_LEAF = re.compile(r'^(weight_ih|weight_hh|bias_ih|bias_hh)_l0(_reverse)?$')
+_QKV = ('q_proj', 'k_proj', 'v_proj')
+_IN_PROJ = {'kernel': 'in_proj_weight', 'bias': 'in_proj_bias'}
 
 
 def _flatten(tree: Dict[str, Any], prefix=()):
@@ -51,10 +60,17 @@ def _key(parts, leaf: str) -> str:
 
 def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} (numpy or JAX arrays) -> the
-    port's state_dict entries (every key except the ``step`` buffer)."""
+    port's state_dict entries (every key except the ``step`` buffer and
+    the positional tables)."""
     sd: Dict[str, torch.Tensor] = {}
+    qkv: Dict[str, Dict[str, np.ndarray]] = {}
     for path, arr in _flatten(variables.get('params', {})):
         leaf, parent = path[-1], path[:-1]
+        if parent and parent[-1] in _QKV and leaf in _IN_PROJ:
+            # torch's joint in-projection: rows q, k, v
+            qkv.setdefault(_key(parent[:-1], _IN_PROJ[leaf]), {})[
+                parent[-1]] = arr.T if leaf == 'kernel' else arr
+            continue
         if parent and parent[-1] in ('fwd', 'bwd') and leaf in _RNN:
             suffix = '_l0' if parent[-1] == 'fwd' else '_l0_reverse'
             key = _key(parent[:-1], _RNN[leaf] + suffix)
@@ -62,6 +78,8 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         elif leaf == 'kernel':
             key = _key(parent, 'weight')
             val = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+        elif leaf == 'scale' and parent and parent[-1] == 'pos_encoder':
+            key, val = _key(parent, 'scale'), arr
         elif leaf in ('embedding', 'scale'):
             key, val = _key(parent, 'weight'), arr
         elif leaf == 'bias':
@@ -69,6 +87,9 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f'Unrecognized parameter: {"/".join(path)}')
         sd[key] = torch.tensor(val, dtype=torch.float32)
+    for key, parts in qkv.items():
+        sd[key] = torch.tensor(np.concatenate([parts[n] for n in _QKV]),
+                               dtype=torch.float32)
     for path, arr in _flatten(variables.get('batch_stats', {})):
         leaf = path[-1]
         if leaf not in ('mean', 'var'):
@@ -100,11 +121,16 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]
             else:
                 parts.append(p)
         *mods, leaf = parts
-        if leaf in ('step', 'num_batches_tracked'):
+        if leaf in ('step', 'num_batches_tracked', 'pe'):
             continue
         arr = tensor.detach().cpu().float().numpy()
         rnn = _RNN_LEAF.match(leaf)
-        if rnn:
+        in_proj = {v: k for k, v in _IN_PROJ.items()}.get(leaf)
+        if in_proj:
+            for name, part in zip(_QKV, np.split(arr, 3)):
+                _set_path(variables['params'], mods + [name, in_proj],
+                          part.T if in_proj == 'kernel' else part)
+        elif rnn:
             name = inverse[rnn.group(1)]
             path = mods + ['bwd' if rnn.group(2) else 'fwd', name]
             _set_path(variables['params'], path,
@@ -112,7 +138,8 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]
         elif leaf in ('running_mean', 'running_var'):
             _set_path(variables['batch_stats'], mods + [leaf[len('running_'):]],
                       arr)
-        elif leaf == 'weight' and mods[-1] == 'bnorm':
+        elif leaf == 'scale' or (leaf == 'weight' and arr.ndim == 1):
+            # BatchNorm / LayerNorm gains, the positional encoding's scale
             _set_path(variables['params'], mods + ['scale'], arr)
         elif leaf == 'weight' and mods[-1] == 'embedding':
             _set_path(variables['params'], mods + ['embedding'], arr)

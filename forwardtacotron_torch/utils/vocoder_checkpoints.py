@@ -1,14 +1,18 @@
-"""Published HiFi-GAN generator checkpoints into the port's generator.
+"""Published HiFi-GAN and MelGAN generator checkpoints into the port's
+generators.
 
-Port of the HiFi-GAN half of forwardtacotron_tpu/utils/vocoder_checkpoints.py.
-jik876/hifigan ``generator_*`` files hold the state dict under
-``'generator'``, trained with ``torch.nn.utils.weight_norm`` on every conv:
+Port of forwardtacotron_tpu/utils/vocoder_checkpoints.py. jik876/hifigan
+``generator_*`` files hold the state dict under ``'generator'``,
+seungwonpark/melgan files under ``'model_g'`` (keys ``generator.{i}...``,
+indices of its ``nn.Sequential``); both trained with
+``torch.nn.utils.weight_norm`` on every conv:
 each weight is stored factored as (weight_g, weight_v) or, from newer torch,
 ``parametrizations.weight.original0/original1``. Inference does not need the
 factoring, so it is folded here, W = g * v / ||v|| with the norm over all
 axes but 0 (torch's default dim=0), in numpy float32 as the JAX package
-folds it. The port keeps torch's layouts, so the folded dict loads with
-``load_state_dict`` as it is.
+folds it. The port keeps torch's layouts, so a folded HiFi-GAN dict loads
+with ``load_state_dict`` as it is, and a MelGAN one once its indices are
+renamed (:func:`convert_melgan_state_dict`).
 """
 
 from typing import Dict, Optional, Union
@@ -16,7 +20,8 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
+from forwardtacotron_torch.models.vocoder import (HiFiGANGenerator,
+                                                  MelGANGenerator)
 from forwardtacotron_torch.utils.device import resolve_device
 
 
@@ -68,6 +73,46 @@ def load_hifigan(path: str, config: Optional[dict] = None,
     dev = resolve_device(device)
     model = HiFiGANGenerator.from_config(config or {})
     sd = fold_weight_norm(_load_torch_state(path))
+    model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in sd.items()})
+    return model.to(dev, dtype or torch.float32).eval()
+
+
+# torch Sequential indices in seungwonpark/melgan's Generator.generator
+_MELGAN_UPS = {3: 0, 6: 1, 9: 2, 12: 3}
+_MELGAN_RES = {4: 0, 7: 1, 10: 2, 13: 3}
+
+
+def convert_melgan_state_dict(sd: Dict[str, np.ndarray]
+                              ) -> Dict[str, np.ndarray]:
+    """seungwonpark/melgan Generator state_dict (weight norm folded here)
+    -> the port's ``MelGANGenerator`` state_dict, as numpy arrays."""
+    sd = fold_weight_norm(sd)
+    sd = {k[len('generator.'):] if k.startswith('generator.') else k: v
+          for k, v in sd.items()}
+    names = {'1': 'conv_pre', '16': 'conv_post'}
+    names.update({str(i): f'ups.{j}' for i, j in _MELGAN_UPS.items()})
+    for i, j in _MELGAN_RES.items():
+        for u in range(3):
+            names[f'{i}.blocks.{u}.2'] = f'res.{j}.blocks_conv1.{u}'
+            names[f'{i}.blocks.{u}.4'] = f'res.{j}.blocks_conv2.{u}'
+            names[f'{i}.shortcuts.{u}'] = f'res.{j}.shortcuts.{u}'
+    return {f'{names[k.rsplit(".", 1)[0]]}.{k.rsplit(".", 1)[1]}': v
+            for k, v in sd.items()}
+
+
+def load_melgan(path: str, dtype: Optional[torch.dtype] = None,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> MelGANGenerator:
+    """A published seungwonpark/melgan generator checkpoint as a
+    ``MelGANGenerator`` in eval mode, on ``device`` (CUDA unless told
+    otherwise) in ``dtype`` (float32 unless given). The mel and base
+    channels are read from ``conv_pre``'s weight (80 and 512 in the
+    published files)."""
+    dev = resolve_device(device)
+    sd = convert_melgan_state_dict(_load_torch_state(path))
+    base, mels, _ = sd['conv_pre.weight'].shape
+    model = MelGANGenerator(mel_channels=mels, base_channels=base)
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                            for k, v in sd.items()})
     return model.to(dev, dtype or torch.float32).eval()

@@ -153,3 +153,42 @@ def test_lr_kernel_patterns(name, hit):
     and in a checkout before it, and not row 5's."""
     assert bool(re.search(chip_smoke.LR_ANY_KERNEL, name)) == hit
     assert bool(re.search(chip_smoke.LR_KERNEL, name)) == (name == LR_TILE)
+
+
+def test_gemm_pattern_names_only_products():
+    """``GEMM_KERNEL`` (the channels-major tail's upsampler GEMM in the
+    profiler) matches cuBLAS's and CUTLASS's product kernels, not the
+    copies and elementwise kernels around them."""
+    for name in (GEMM, 'nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN',
+                 'sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x256',
+                 'void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm>'):
+        assert re.search(chip_smoke.GEMM_KERNEL, name), name
+    for name in (COPY, EW, EW2,
+                 'void at::native::(anonymous namespace)::CatArrayBatched'
+                 'Copy<...>', 'void at::native::unrolled_elementwise_kernel'):
+        assert not re.search(chip_smoke.GEMM_KERNEL, name), name
+
+
+def test_melgan_checkpoint_is_the_published_format(tmp_path):
+    """``write_melgan_checkpoint`` writes seungwonpark/melgan's format (the
+    ``Sequential``'s keys, weight-normed, under 'model_g') that
+    ``load_melgan`` reads back as the seeded generator."""
+    import torch
+
+    from forwardtacotron_torch.models.vocoder import MelGANGenerator
+    from forwardtacotron_torch.utils.vocoder_checkpoints import load_melgan
+    path = tmp_path / 'melgan.pt'
+    chip_smoke.write_melgan_checkpoint(torch, path, 8)
+    sd = torch.load(str(path))['model_g']
+    assert {'generator.1.weight_g', 'generator.1.weight_v',
+            'generator.3.weight_v', 'generator.4.blocks.2.2.weight_g',
+            'generator.13.shortcuts.0.bias',
+            'generator.16.weight_v'} <= set(sd)
+    assert len(sd) == 3 * 2 + 4 * (3 + 9 * 3)    # (g, v, bias) per conv
+    torch.manual_seed(chip_smoke.SEED)
+    want = MelGANGenerator(mel_channels=8).eval()
+    got = load_melgan(str(path), device='cpu')
+    mel = torch.randn(1, 6, 8, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        torch.testing.assert_close(got(mel), want(mel), atol=1e-5,
+                                   rtol=1e-4)

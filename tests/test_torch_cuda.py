@@ -1523,3 +1523,103 @@ def test_cbhg_variants_on_card_match_cpu(dev, dtype, fields, counts):
     tol = TOL if dtype == torch.float32 else 5e-2
     _close([got.float().cpu(), got_hw.float().cpu()],
            [want.float(), want_hw.float()], tol)
+
+
+# ------------------------------- FastPitch, MelGAN, the channels-major tail
+
+def _narrow_fast_pitch(dtype):
+    from forwardtacotron_torch.models.fast_pitch import FastPitch
+    torch.manual_seed(0)
+    model = FastPitch(durpred_d_model=16, durpred_layers=1, durpred_d_fft=16,
+                      pitch_d_model=16, pitch_layers=1, pitch_d_fft=16,
+                      energy_d_model=16, energy_layers=1, energy_d_fft=16,
+                      d_model=64, prenet_layers=2, prenet_fft=96,
+                      postnet_layers=2, postnet_fft=96, n_mels=16).eval()
+    with torch.no_grad():
+        model.dur_pred.lin.weight.normal_(0.0, 0.3)
+        model.dur_pred.lin.bias.fill_(2.2)
+    return model
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_fast_pitch_generate_on_card_matches_cpu(dev, dtype):
+    """FastPitch through ``TTSInference.generate`` on the card (one ``lr``
+    launch per decode, at C = d_model) against the CPU path; both compute
+    the transformers in float32, with bf16 weights in bfloat16 (the bf16
+    model tolerance of chip_smoke.py, 5e-2, covers TF32-free cuDNN sums in
+    another order)."""
+    import copy
+
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    model = _narrow_fast_pitch(dtype)
+    x = torch.randint(1, 60, (3, 17), generator=torch.Generator()
+                      .manual_seed(2))
+    x[1, 11:] = 0
+    cpu = TTSInference(copy.deepcopy(model), dtype=dtype, device='cpu')
+    card = TTSInference(copy.deepcopy(model), dtype=dtype, device=dev)
+    want = cpu.generate(x)
+    before = lr.launches
+    got = card.generate(x)
+    torch.cuda.synchronize()
+    assert lr.launches == before + 1
+    assert torch.equal(got['mel_len'].cpu(), want['mel_len'])
+    tol = TOL if dtype == 'float32' else 5e-2
+    _close([got[k].float().cpu() for k in ('mel', 'dur', 'pitch')],
+           [want[k].float() for k in ('mel', 'dur', 'pitch')], tol)
+
+
+def test_melgan_on_card_matches_cpu(dev):
+    """A narrow MelGAN (float32) on the card against the CPU, and
+    ``inference``'s tail pad and crop."""
+    import copy
+
+    from forwardtacotron_torch.models.vocoder import MelGANGenerator
+    torch.manual_seed(0)
+    gen = MelGANGenerator(mel_channels=16, base_channels=64).eval()
+    mel = torch.randn(2, 21, 16, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = gen(mel), gen.inference(mel)
+        card = copy.deepcopy(gen).to(dev)
+        got = card(mel.to(dev)), card.inference(mel.to(dev))
+        torch.cuda.synchronize()
+    assert got[1].shape == (2, 21 * 256)
+    _close([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cm_tail_generator_on_card_matches_per_conv(dev, dtype):
+    """A narrow generator whose last two levels take the channels-major
+    tail on the card (one ``mrf`` launch per tail level, none of
+    ``ups_mrf``) against the same generator per convolution on the
+    card."""
+    import copy
+
+    from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
+    torch.manual_seed(0)
+    gen = HiFiGANGenerator(upsample_initial_channel=128, num_mels=20,
+                           fuse_tail_max_ch=16).eval().to(dev, dtype)
+    plain = copy.deepcopy(gen)
+    plain.fuse_tail_max_ch = 0
+    mel = torch.randn(2, 33, 20, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = plain(mel.to(dev, dtype))
+        before = (mrf.launches, ups_mrf.launches)
+        got = gen(mel.to(dev, dtype))
+        torch.cuda.synchronize()
+    assert (mrf.launches - before[0], ups_mrf.launches - before[1]) == (2, 0)
+    _close([got.float()], [want.float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
+def test_cm_tail_gate_raises_before_any_launch(dev):
+    """A tail with a level of 512 channels, which ``mrf.cu`` does not take:
+    the forward raises before any launch."""
+    from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
+    gen = HiFiGANGenerator(upsample_initial_channel=1024, num_mels=8,
+                           resblock_kernel_sizes=(3,),
+                           resblock_dilation_sizes=((1, 3, 5),),
+                           fuse_tail_max_ch=512).eval().to(dev)
+    before = (mrf.launches, ups_mrf.launches)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match='C=512'):
+        gen(torch.zeros(1, 4, 8, device=dev))
+    assert (mrf.launches, ups_mrf.launches) == before

@@ -7,6 +7,8 @@ the padding is held on the plain twins (on a card the wrappers pad the same
 way before they launch).
 
 - ``HiFiGANGenerator._mrf_fusable`` -> ``mrf.shape_error``;
+- ``HiFiGANGenerator._tail_fusable`` (the channels-major tail) ->
+  ``mrf.shape_error`` for every level of the tail;
 - ``CBHG.front_fusable`` -> ``cbhg.shape_error``;
 - ``CBHG.highways_fusable`` -> ``highway.shape_error``.
 """
@@ -140,6 +142,76 @@ def test_gates_fuse_long_lists(monkeypatch, name):
                 port_gate()
         else:
             assert port_gate() == want
+
+
+# (upsample_rates, upsample_kernel_sizes) of the channels-major tail's
+# grid: v1's, a rate-3 level, a geometry without the polyphase form (k - s
+# odd) and a rate-1 level
+CM_TAIL_RATES = {(8, 8, 2, 2): (16, 16, 4, 4), (4, 3, 2): (8, 5, 4),
+                 (4, 4, 2): (8, 7, 4), (4, 1, 2): (8, 3, 4)}
+
+
+def test_cm_tail_gate_matches_jax(monkeypatch):
+    """On a card (device clause patched), over configs, widths, caps and
+    levels: the channels-major tail's gate admits a tail where the JAX
+    gate does (its backend clause read as a TPU's), and the kernel takes
+    every level of it; on the CPU it admits none."""
+    import jax
+
+    from forwardtacotron_tpu.models.vocoder import \
+        HiFiGANGenerator as JaxHiFiGAN
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'tpu')
+    admitted = refused = 0
+    for (rates, sizes), initial, (krs, dils), cap in itertools.product(
+            CM_TAIL_RATES.items(), (64, 512), MRF_BLOCKS[:2],
+            (16, 64, 256)):
+        cfg = dict(upsample_rates=rates, upsample_kernel_sizes=sizes,
+                   upsample_initial_channel=initial,
+                   resblock_kernel_sizes=krs, resblock_dilation_sizes=dils,
+                   num_mels=8)
+        gen = HiFiGANGenerator(**cfg, fuse_tail_max_ch=cap)
+        jgate = JaxHiFiGAN(**cfg, fuse_tail_max_ch=cap).bind(
+            {})._tail_fusable
+        for level, up in enumerate(gen.ups):
+            c = up.out_channels
+            x = torch.zeros(1, up.in_channels, 4)
+            got = gen._tail_fusable(c, level, x)
+            assert got == jgate(c, level), (rates, initial, krs, cap, level)
+            admitted += got
+            refused += not got
+            if got:
+                assert all(mrf.shape_error(u.out_channels, krs, dils[0])
+                           is None for u in gen.ups[level:])
+    assert admitted and refused
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: False)
+    gen = HiFiGANGenerator(upsample_initial_channel=64, fuse_tail_max_ch=64)
+    assert not gen._tail_fusable(32, 0, torch.zeros(1, 64, 4))
+
+
+def test_cm_tail_gate_raises_where_mrf_refuses(monkeypatch):
+    """A tail that the JAX gate admits with a level of 512 channels, which
+    ``mrf.cu`` does not take: the gate raises ``kernel_gap`` on a card,
+    naming the level, before any launch; a cap that starts the tail below
+    it is admitted."""
+    import jax
+
+    from forwardtacotron_tpu.models.vocoder import \
+        HiFiGANGenerator as JaxHiFiGAN
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'tpu')
+    cfg = dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
+               resblock_dilation_sizes=((1, 3, 5),), num_mels=8)
+    gen = HiFiGANGenerator(**cfg, fuse_tail_max_ch=512)
+    assert JaxHiFiGAN(**cfg, fuse_tail_max_ch=512).bind(
+        {})._tail_fusable(512, 0)
+    assert mrf.shape_error(512, (3,), (1, 3, 5))
+    with pytest.raises(NotImplementedError,
+                       match='tail level 0 .*C=512'):
+        gen._tail_fusable(512, 0, torch.zeros(1, 1024, 4))
+    gen.fuse_tail_max_ch = 256
+    assert not gen._tail_fusable(512, 0, torch.zeros(1, 1024, 4))
+    assert gen._tail_fusable(256, 1, torch.zeros(1, 512, 4))
 
 
 def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
@@ -300,7 +372,10 @@ def test_ups_mrf_padding_is_exact():
      'C=512'),
     (dict(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 34, 4),
           upsample_initial_channel=64, fuse_ups_tail_max_ch=16),
-     'kernel size 34')], ids=['mrf', 'tail'])
+     'kernel size 34'),
+    (dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
+          resblock_dilation_sizes=((1, 3, 5),), fuse_tail_max_ch=512),
+     'C=512')], ids=['mrf', 'tail', 'cm_tail'])
 def test_generator_raises_where_kernel_refuses(monkeypatch, kw, match):
     """The generator's forward on a card (device clause patched) raises at
     the first level the JAX gate admits and the kernel does not take,

@@ -37,7 +37,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
     from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
     from forwardtacotron_torch.utils.device import resolve_device
-    from forwardtacotron_torch.utils.vocoder_checkpoints import load_hifigan
+    from forwardtacotron_torch.utils.vocoder_checkpoints import (load_hifigan,
+                                                                 load_melgan)
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     model = ForwardTacotron(embed_dims=8, series_embed_dims=4,
@@ -64,6 +65,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Vocoder.from_checkpoint('g_00000000')
     with pytest.raises(RuntimeError, match='No CUDA device'):
         load_hifigan('g_00000000')
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        Vocoder.from_checkpoint('melgan.pt', vocoder_type='melgan')
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        load_melgan('melgan.pt')
     assert Vocoder(generator, device='cpu').device.type == 'cpu'
 
 
@@ -72,10 +77,17 @@ def test_bfloat16_and_other_families_raise():
     from forwardtacotron_torch.models.synthesis import TTSInference
     from forwardtacotron_torch.utils.files import read_config
 
+    from forwardtacotron_torch.models.fast_pitch import FastPitch
+
     config = read_config(REPO / 'configs' / 'singlespeaker.yaml')
+    # FastPitch is ported; the multispeaker families still raise, naming
+    # the slice that brings them
     config['tts_model'] = 'fast_pitch'
-    with pytest.raises(NotImplementedError, match='fast_pitch'):
-        init_tts_model(config)
+    assert isinstance(init_tts_model(config), FastPitch)
+    for family in ('multi_forward_tacotron', 'multi_fast_pitch'):
+        config['tts_model'] = family
+        with pytest.raises(NotImplementedError, match=f'{family}.*item 5'):
+            init_tts_model(config)
     # bfloat16 is served since the fused serving path was ported; any other
     # dtype raises, naming the two that are served
     with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):

@@ -279,16 +279,17 @@ def test_fused_levels_keep_their_launch_weights(monkeypatch):
 
 
 def test_tails_not_ported_raise():
-    """Only the channels-major tail is still to port; the phase-stacked
-    tail constructs."""
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        HiFiGANGenerator(fuse_tail_max_ch=32)
+    """Both tails are ported: the channels-major and the phase-stacked tail
+    construct, from the constructor and from a config, and default off as
+    in JAX."""
     for name in ('fuse_tail_max_ch', 'fuse_ups_tail_max_ch'):
         assert HiFiGANGenerator(upsample_initial_channel=16,
                                 **{name: 0}) is not None
-    gen = HiFiGANGenerator(upsample_initial_channel=16,
-                           fuse_ups_tail_max_ch=32)
-    assert gen.fuse_ups_tail_max_ch == 32
+        gen = HiFiGANGenerator(upsample_initial_channel=16, **{name: 32})
+        assert getattr(gen, name) == 32
+        assert getattr(HiFiGANGenerator.from_config({}, **{name: 64}),
+                       name) == 64
+        assert getattr(HiFiGANGenerator(), name) == 0
 
 
 @pytest.mark.parametrize('form', ['weight_norm', 'parametrizations'])
@@ -466,8 +467,151 @@ def test_gen_forward_cli_hifigan(tmp_path):
     assert len(mels) == 1 and not list(exported.glob('*.wav'))
     assert np.load(str(mels[0])).shape == (SMALL_DSP['num_mels'],
                                            len(one) // 8)
-    with pytest.raises(NotImplementedError, match='MelGAN'):
-        gen_forward.main(['--device', 'cpu', '--checkpoint', str(ckpt),
-                          '--input_text', 'hello.', '--output',
-                          str(exported), '--vocoder_checkpoint', str(voc),
-                          'melgan'])
+    # melgan with a published-format generator checkpoint vocodes too
+    from test_torch_melgan import _published, _write
+    melgan = tmp_path / 'melgan.pt'
+    _write(melgan, _published(mel_channels=SMALL_DSP['num_mels']))
+    out2 = tmp_path / 'melgan_wavs'
+    gen_forward.main(['--device', 'cpu', '--checkpoint', str(ckpt),
+                      '--input_text', 'hello there.', '--output', str(out2),
+                      '--vocoder_checkpoint', str(melgan), 'melgan'])
+    rate, wav = wavfile.read(str(out2 / '1_forward_0k_alpha1.0.wav'))
+    assert rate == SMALL_DSP['sample_rate']
+    assert len(wav) == len(one) // 8 * 256
+    assert not list(out2.glob('*.mel'))
+
+
+# ------------------------------------------------- the channels-major tail
+
+@pytest.mark.parametrize('k,s,p', [(16, 8, 4), (4, 2, 1), (8, 4, 2),
+                                   (9, 3, 3), (24, 2, 11), (6, 2, 2)])
+def test_polyphase_comb_matches_jax(k, s, p):
+    """``polyphase_comb`` of the port's upsampler weight (in the JAX
+    layout, ``flax_kernel``) equals the JAX package's, exactly."""
+    from forwardtacotron_tpu.models.vocoder import \
+        polyphase_comb as jax_comb
+    torch.manual_seed(k * s)
+    up = vocoder_mod.TransposedConv1d(5, 3, k, s, padding=p)
+    kernel = up.flax_kernel().detach()
+    comb, dmin, dmax = vocoder_mod.polyphase_comb(kernel, k, s, p)
+    want, wmin, wmax = jax_comb(kernel.numpy(), k, s, p)
+    assert (dmin, dmax) == (wmin, wmax)
+    np.testing.assert_array_equal(comb.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('cfg', [HIFI_V1_NARROW, FUSED_CFG],
+                         ids=['v1_narrow', 'two_levels'])
+def test_polyphase_switch_matches_jax(cfg, monkeypatch):
+    """``POLYPHASE`` on in both packages: the generator against the JAX
+    generator, and against its own transposed convolutions (off, the
+    default)."""
+    from forwardtacotron_tpu.models import vocoder as jax_vocoder
+    assert vocoder_mod.POLYPHASE is False and jax_vocoder.POLYPHASE is False
+    jmodel, variables, port = _jax_generator(cfg, seed=6, n_mels=8)
+    mel = np.random.RandomState(6).randn(2, 11, 8).astype(np.float32)
+    with torch.no_grad():
+        direct = port(torch.from_numpy(mel)).numpy()
+    monkeypatch.setattr(vocoder_mod, 'POLYPHASE', True)
+    monkeypatch.setattr(jax_vocoder, 'POLYPHASE', True)
+    calls = []
+    orig = vocoder_mod.TransposedConv1d._polyphase
+    monkeypatch.setattr(vocoder_mod.TransposedConv1d, '_polyphase',
+                        lambda self, x: (calls.append(1), orig(self, x))[1])
+    want = np.asarray(jmodel.apply(variables, mel))
+    with torch.no_grad():
+        got = port(torch.from_numpy(mel)).numpy()
+    assert len(calls) == len(port.ups)
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=1e-4)
+    np.testing.assert_allclose(got, direct, atol=F32_ATOL, rtol=1e-4)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_up_cm_matches_jax(dtype):
+    """``_up_cm`` (one polyphase GEMM over shifted copies, phases
+    interleaved) against the JAX package's on the same channels-major
+    input, and in float32 against the transposed convolution."""
+    import jax
+    import jax.numpy as jnp
+    cfg = dict(upsample_rates=(4, 3, 2), upsample_kernel_sizes=(8, 5, 4),
+               upsample_initial_channel=32)
+    jmodel, variables, port = _jax_generator(cfg, seed=8, n_mels=8)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    port = port.to(tdt)
+    bound = jmodel.bind(jax.tree.map(lambda a: jnp.asarray(a, jdt),
+                                     variables))
+    rs = np.random.RandomState(8)
+    for level, up in enumerate(port.ups):
+        x = rs.randn(2, up.in_channels, 13).astype(np.float32)
+        want = np.asarray(bound._up_cm(jnp.asarray(x, jdt), level),
+                          np.float32)
+        with torch.no_grad():
+            xt = torch.from_numpy(x).to(tdt)
+            got = port._up_cm(xt, level)
+            direct = up(xt)
+        assert got.shape == direct.shape == want.shape
+        if dtype == 'float32':
+            np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL,
+                                       rtol=0)
+            np.testing.assert_allclose(got.numpy(), direct.numpy(),
+                                       atol=F32_ATOL, rtol=0)
+        else:
+            _close_at_scale(got.float().numpy(), want, BF16_ATOL)
+
+
+# (config, fuse_tail_max_ch, frames, the levels of the tail)
+CM_TAIL_CFGS = {
+    'v1_narrow': (dict(upsample_initial_channel=64), 16, 12, [1, 2, 3]),
+    'rate3': (dict(upsample_rates=(4, 3, 2), upsample_kernel_sizes=(8, 5, 4),
+                   upsample_initial_channel=32), 8, 9, [1, 2])}
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('name', list(CM_TAIL_CFGS))
+def test_channels_major_tail_matches_jax(name, dtype, monkeypatch):
+    """``fuse_tail_max_ch``: the port's generator with its device clause
+    patched (CPU tensors reach ``mrf``, which runs the twin) against the
+    JAX generator under FTT_PALLAS_INTERPRET=1 (``mrf_pallas`` in
+    interpret mode): the same levels take the tail, one ``_up_cm`` and one
+    ``mrf`` call each; in float32 also against the port's per-convolution
+    path."""
+    import jax
+    import jax.numpy as jnp
+
+    from forwardtacotron_tpu.models.vocoder import \
+        HiFiGANGenerator as JaxHiFiGAN
+    cfg, max_ch, t, levels = CM_TAIL_CFGS[name]
+    monkeypatch.setenv('FTT_PALLAS_INTERPRET', '1')
+    jmodel, variables, port = _jax_generator(cfg, seed=9, n_mels=8,
+                                             fuse_tail_max_ch=max_ch)
+    mel = np.random.RandomState(9).randn(2, t, 8).astype(np.float32)
+    port = port.to(getattr(torch, dtype))
+    if dtype == 'bfloat16':
+        jmodel = jmodel.clone(dtype=jnp.bfloat16)
+        variables = jax.tree.map(lambda a: a.astype(jnp.bfloat16), variables)
+    with torch.no_grad():
+        plain = port(torch.from_numpy(mel)).float().numpy()
+    port_up, port_mrf, jax_up, twin = [], [], [], []
+    orig_up, orig_mrf = HiFiGANGenerator._up_cm, HiFiGANGenerator._mrf_fused
+    monkeypatch.setattr(HiFiGANGenerator, '_up_cm', lambda self, x, level: (
+        port_up.append(level), orig_up(self, x, level))[1])
+    monkeypatch.setattr(HiFiGANGenerator, '_mrf_fused',
+                        lambda self, x, level: (port_mrf.append(level),
+                                                orig_mrf(self, x, level))[1])
+    orig_twin = mrf.mrf_plain
+    monkeypatch.setattr(mrf, 'mrf_plain', lambda *a: (
+        twin.append(1), orig_twin(*a))[1])
+    jorig = JaxHiFiGAN._up_cm
+    monkeypatch.setattr(JaxHiFiGAN, '_up_cm', lambda self, x, level: (
+        jax_up.append(level), jorig(self, x, level))[1])
+    want = np.asarray(jax.jit(jmodel.apply)(variables, mel), np.float32)
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(mel)).float().numpy()
+    assert jax_up == port_up == port_mrf == levels
+    assert len(twin) == len(levels)
+    assert got.shape == want.shape == (2, t * port.hop_length)
+    if dtype == 'float32':
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-6)
+    else:
+        _close_at_scale(got, want, BF16_ATOL)
