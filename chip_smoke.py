@@ -112,15 +112,35 @@ Run from the repository root. Phases, each of which must pass:
 14. the float32 train step (the config's default), with the length
     regulator as its only kernel, and the eval step's kernels;
 15. one train step on the card and on the CPU plain path (dropout off):
-    loss and global gradient norm, float32 and bf16.
+    loss and global gradient norm, float32 and bf16;
+16. the multispeaker models at the full width of
+    ``configs/multispeaker.yaml`` with seeded weights and 4 seeded speaker
+    embeddings (256 wide, non-negative, unit norm): rows 6-10 at their new
+    shapes against their twins (row 6 at 768 inputs at serving and at a
+    request, row 7's predictor GRUs at H 128 / 256, row 8 at C 768 and
+    512, rows 9-10's LSTM at I 768 and GRUs at H 128 / 256), timed beside
+    the twin, cuDNN and the bound; MultiForwardTacotron's 4 requests in
+    float32 and bf16 against the CPU path (exact launches, Griffin-Lim)
+    and ``gen_forward --speaker`` on a reference-format checkpoint; its
+    bf16 serving at bench.py's shape with the speakers cycling (exact
+    launches of rows 5-7 a call, audio-s/s, idle share, a slice against
+    the CPU); the bf16 train steps of MultiForwardTacotron, FastPitch
+    (``configs/singlespeaker.yaml``) and MultiFastPitch at batch 32 (exact
+    launches, steps/s, device busy; one float32 and one bf16 step of each
+    against the CPU path, the pitch-condition CE and accuracy included);
+    MultiFastPitch's float32 requests against the CPU and its bf16
+    serving.
 
+``--multispeaker`` runs only the build and phase 16,
 ``--griffinlim-split`` runs only phase 4's split, ``--lstm-times`` only
 the LSTM entries' times (``LSTM_TIMES_SHAPES``, with ``--kernel-parts``
 their parts) and ``--lr-mrf-times`` only row 8's phase (with a fill of
 its output's bytes and the kernel's device time at several tiles of
 frames) and the times of HiFi-GAN v1's MRF levels 2-3 (bf16, batch 128 x 256 frames, ``mrf`` and
-``ups_mrf``); each stops after it and also runs copied into an older
-checkout, to time two trees in one call.
+``ups_mrf``); ``--host-times`` runs only the build and the
+single-speaker f32 and bf16 requests and bf16 train step on the host
+clock (``host_times_phase``); each stops after it and also runs copied
+into an older checkout, to time two trees in one call.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
 build, one line per kernel comparison, the paths' stages, then a JSON line
@@ -133,7 +153,9 @@ tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path),
 levels 2-3), ``chiprun_out/chip_smoke_vocoder_all_profile.txt`` (every
 level fused), ``chiprun_out/chip_smoke_vocoder_tail_profile.txt`` (the
 tail) and ``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train
-step).
+step); phase 16 writes ``chip_smoke_multi_serving_profile.txt``,
+``chip_smoke_multi_fast_pitch_profile.txt`` and
+``chip_smoke_<family>_train_profile.txt`` beside them.
 """
 
 import collections
@@ -453,9 +475,9 @@ def request_tokens(config):
 
 
 def make_model(torch, config):
-    """Full-width ForwardTacotron with seeded random weights, random BN
-    statistics, and a duration head that gives every token
-    FRAMES_PER_TOKEN frames."""
+    """The config's model (ForwardTacotron in configs/singlespeaker.yaml)
+    at full width with seeded random weights, random BN statistics, and a
+    duration head that gives every token FRAMES_PER_TOKEN frames."""
     from forwardtacotron_torch.models.registry import init_tts_model
     torch.manual_seed(SEED)
     model = init_tts_model(config)
@@ -1050,14 +1072,24 @@ SERVING_KERNEL_NAMES = {
 
 
 def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
-               library=None, yardstick=None):
-    """Kernel vs twin on the same bf16 inputs, then CUDA-event times of the
-    kernel, the twin and (where one exists) one library call or, where no
-    single call computes the function, a yardstick chain of calls."""
-    err = compare(torch, name, kernel(*args).float(), plain(*args).float(),
-                  BF16_TOL)
+               library=None, yardstick=None, sweep_blocks=None,
+               plain_reps=REPS):
+    """Kernel vs twin on the same bf16 inputs (``compare`` at BF16_TOL, or
+    ``compare_sweep`` with ``sweep_blocks`` gate blocks), then CUDA-event
+    times of the kernel, the twin (``plain_reps`` runs) and (where one
+    exists) one library call or, where no single call computes the
+    function, a yardstick chain of calls."""
+    got, want = kernel(*args), plain(*args)
+    if sweep_blocks is None:
+        err = compare(torch, name, got.float(), want.float(), BF16_TOL)
+    else:
+        got = got if isinstance(got, (tuple, list)) else [got]
+        want = want if isinstance(want, (tuple, list)) else [want]
+        err = compare_sweep(torch, name, got, want, sweep_blocks)
+    del got, want
     k_ms = time_ms(torch, lambda: kernel(*args))
-    p_ms = time_ms(torch, lambda: plain(*args))
+    p_ms = time_ms(torch, lambda: plain(*args), plain_reps,
+                   min(3, plain_reps))
     l_ms = None if library is None else time_ms(torch, library)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     res = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
@@ -3070,18 +3102,19 @@ def lr_shape_times(torch, gen, label, b, n, t, c, dt_name, per_token,
 
 
 def train_config(config, root, precision, max_step, dropout=True):
-    """configs/singlespeaker.yaml at full width with the data under
-    ``root``, a schedule of ``max_step`` steps at TRAIN_BATCH and no
-    checkpoints between epochs; without ``dropout`` every dropout rate is
-    0 (for comparisons across devices)."""
+    """``config`` at full width (the section of its ``tts_model``) with
+    the data under ``root``, a schedule of ``max_step`` steps at
+    TRAIN_BATCH and no checkpoints between epochs; without ``dropout``
+    every dropout rate is 0 (for comparisons across devices)."""
     cfg = copy.deepcopy(config)
     cfg['data_path'] = str(root / 'data')
     cfg['checkpoint_path'] = str(root / 'ckpt')
-    train = cfg['forward_tacotron']['training']
-    train.update(precision=precision, checkpoint_every=10 ** 9,
-                 schedule=[f'{TRAIN_LR}, {max_step}, {TRAIN_BATCH}'])
+    section = cfg[cfg.get('tts_model', 'forward_tacotron')]
+    section['training'].update(
+        precision=precision, checkpoint_every=10 ** 9,
+        schedule=[f'{TRAIN_LR}, {max_step}, {TRAIN_BATCH}'])
     if not dropout:
-        model = cfg['forward_tacotron']['model']
+        model = section['model']
         for key in model:
             if key.endswith('_dropout'):
                 model[key] = 0.0
@@ -3134,6 +3167,72 @@ def with_targets(batch):
     batch['pitch_target'] = batch['pitch'].copy()
     batch['energy_target'] = batch['energy'].copy()
     return batch
+
+
+HOST_TIME_ROUNDS = 3
+
+
+def host_times_phase(torch, config, tokens, root):
+    """The single-speaker host-clock numbers alone, for a comparison of two
+    checkouts in one call (``--host-times``): each f32 and bf16 request's
+    text->mel (generate_cropped, synchronized; the median of
+    HOST_TIME_ROUNDS rounds over the 4 requests) and the bf16 train step
+    (the mean of TRAIN_TIMED_STEPS steps on one batch after 2 warm-up
+    steps, in each of HOST_TIME_ROUNDS rounds)."""
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.train.state import create_train_state
+
+    out = {}
+    model = make_model(torch, config)
+    for dtype in ('float32', 'bfloat16'):
+        inference = TTSInference(copy.deepcopy(model), dtype=dtype,
+                                 device='cuda')
+        inference.generate_cropped(tokens[0][:8])
+        runs = []
+        for _ in range(HOST_TIME_ROUNDS):
+            for toks in tokens:
+                t0 = time.perf_counter()
+                inference.generate_cropped(toks)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+        per_request = np.median(np.reshape(runs, (HOST_TIME_ROUNDS, -1)),
+                                axis=0)
+        out[f'{dtype}_request_ms'] = [float(v) for v in per_request]
+        log(f'{dtype} requests, text->mel ms (median of '
+            f'{HOST_TIME_ROUNDS}): '
+            + ', '.join(f'{v:.1f}' for v in per_request))
+    del model, inference
+    torch.cuda.empty_cache()
+
+    cfg = train_config(config, root, 'bfloat16', 10 ** 6)
+    paths = write_train_data(cfg)
+    torch.manual_seed(SEED)
+    model = init_tts_model(cfg).cuda()
+    trainer = ForwardTrainer(paths, None, cfg, device='cuda')
+    state = create_train_state(model, trainer.tx)
+    train_cfg = cfg['forward_tacotron']['training']
+    train_set, _ = get_forward_dataloaders(
+        paths, TRAIN_BATCH, bucket_multiple=train_cfg['bucket_multiple'],
+        seed=SEED, **train_cfg['filter'])
+    batch = trainer.device_batch(with_targets(next(iter(train_set))))
+    for _ in range(2):
+        trainer.train_step(state, batch)
+    step_ms = []
+    for _ in range(HOST_TIME_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED_STEPS):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) / TRAIN_TIMED_STEPS * 1e3)
+    out['bf16_step_ms'] = step_ms
+    log('bf16 train step ms (each the mean of '
+        f'{TRAIN_TIMED_STEPS} steps): ' + ', '.join(f'{v:.1f}'
+                                                   for v in step_ms))
+    return out
 
 
 def cudnn_train(torch, cell, in_dim, hidden, x2, backward):
@@ -3605,6 +3704,692 @@ def mrf_times_phase(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------- multispeaker
+
+# configs/multispeaker.yaml at full width: MultiForwardTacotron (predictor
+# GRUs of 128 / 256 / 128 / 64 over 256-wide convolutions, a trunk LSTM of
+# 2 x 256 + 256 = 768 inputs) and MultiFastPitch (transformers of 256 +
+# 256 = 512 channels, predictors of 384 and 392). Speaker embeddings as
+# resemblyzer's are: 256 wide, non-negative, of unit norm; MULTI_SPEAKERS
+# of them, drawn from SEED.
+MULTI_SPEAKERS = 4
+MULTI_EMB_DIMS = 256
+# a plain twin per-step loop at these shapes takes 0.1-0.7 s a call: time
+# it over fewer runs than a kernel
+PLAIN_REPS = 3
+# row 8 at the multispeaker widths: (label, B, N, T, dtype, frames a token
+# or None: 2-9 drawn as the train step's items): C 768 in
+# MultiForwardTacotron's f32 requests and training trunk, C 512 in
+# MultiFastPitch's decode (float32: its transformers compute in float32)
+MULTI_LR_SHAPES = {768: (('multi request f32', 1, 92, 896, 'float32',
+                          FRAMES_PER_TOKEN),
+                         ('multi step bf16', 32, 160, TRAIN_STEP_FRAMES,
+                          'bfloat16', None),
+                         ('multi train f32', 32, 160, 1024, 'float32',
+                          None)),
+                   512: (('MultiFastPitch serving f32', SERVING_BATCH, 81,
+                          256, 'float32', SERVING_FRAMES_PER_TOKEN),
+                         ('MultiFastPitch request f32', 1, 92, 896,
+                          'float32', FRAMES_PER_TOKEN))}
+# the predictor GRUs of the multispeaker serving call that take row 7
+# (H % 128 == 0; energy's H = 64 stays a per-step loop), with the
+# prenet's and postnet's GRUs: 5 launches a call, or a request
+MULTI_GRUS_PER_CALL = 5
+MULTI_TRAIN_STEPS = 10
+# FastPitch and MultiFastPitch: synchronized train steps at TRAIN_BATCH
+FP_TRAIN_STEPS = 2
+# MultiFastPitch bf16 serving: calls timed (one trial)
+MFP_SERVING_CALLS = 2
+
+
+def speaker_table(torch, n=MULTI_SPEAKERS, dims=MULTI_EMB_DIMS):
+    """``n`` speaker embeddings [n, dims] float32 on the CPU, non-negative
+    and of unit norm, from SEED."""
+    e = np.abs(np.random.RandomState(SEED + 20).randn(n, dims))
+    return torch.as_tensor(e / np.linalg.norm(e, axis=1, keepdims=True),
+                           dtype=torch.float32)
+
+
+def multi_config(config, family):
+    cfg = copy.deepcopy(config)
+    cfg['tts_model'] = family
+    return cfg
+
+
+def multi_kernel_phase(torch, mft16) -> dict:
+    """Rows 6-10 at the multispeaker shapes, each against its twin: row 6
+    at I 768 (serving and a request), row 7's predictor GRUs (H 128 and
+    256 from I 256 at the serving shape), row 8 at C 768 and 512, row 9's
+    LSTM at I 768 and its GRUs at H 128 / 256, row 10 at the same shapes;
+    timed beside the twin, cuDNN's bi-LSTM / bi-GRU and the bound."""
+    from forwardtacotron_torch.models import layers
+    from forwardtacotron_torch.ops.hopper import lr_bidir, rnn, rnn_train
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def check(*args, **kw):
+        return bf16_check(*args, plain_reps=PLAIN_REPS, **kw)
+
+    res = {}
+    wi, wh, bi, bh = mft16.lstm.stacked_params()
+    wm = layers.mel_weights(mft16.lstm, mft16.lin)
+    i_dim, h, m = wi.shape[1], wh.shape[1], wm.shape[-1]
+    for label, b, t in (('serving', SERVING_BATCH, SERVING_MAX_LEN),
+                        ('request', 1, 896)):
+        t_run = -(-t // lr_bidir.T_TILE) * lr_bidir.T_TILE
+        x2 = randn(t_run, 2, b, i_dim, scale=0.5)
+        log(f'  lstm_lr_mel {label} T_run={t_run} B={b} I={i_dim} H={h} '
+            f'M={m} (library: cuDNN bi-LSTM at I={i_dim}, without the mel '
+            'stage)')
+        res[f'lstm_lr_mel_{label}'] = dict(check(
+            torch, f'lstm_lr_mel I={i_dim} {label}', rnn.lstm_mel,
+            rnn.lstm_mel_plain, (x2, wi, wh, bi + bh, wm),
+            t_run * 2 * b * 2 * ((i_dim + h) * 4 * h + h * m),
+            2 * (t_run * 2 * b * i_dim + 2 * (i_dim + h) * 4 * h + 2 * 4 * h
+                 + 2 * h * m + t_run * 2 * b * m),
+            cudnn_rnn(torch, 'lstm', i_dim, h, x2)),
+            at=f'{label}: B={b} T_run={t_run} I={i_dim}')
+        log_plan(rnn, 'lstm_mel', x2, h, m)
+        res[f'lstm_lr_mel_{label}']['plan'] = rnn.plan(
+            'lstm_mel', b, t_run, i_dim, h, m, *rnn.device_limits(dev))
+        del x2
+
+    b, n = SERVING_BATCH, 81
+    for name, mod in (('dur_pred', mft16.dur_pred.rnn),
+                      ('pitch_cond_pred', mft16.pitch_cond_pred.rnn),
+                      ('pitch_pred', mft16.pitch_pred.rnn)):
+        wi, wh, bi, bh = mod.stacked_params()
+        i_dim, h = wi.shape[1], wh.shape[1]
+        g = 3 * h
+        x2 = randn(n, 2, b, i_dim, scale=0.5)
+        log(f'  bidir_rnn {name} GRU T={n} B={b} I={i_dim} H={h} (library: '
+            'cuDNN bi-GRU)')
+        res[f'gru_{name}'] = dict(check(
+            torch, f'{name} GRU H={h}', rnn.gru, rnn.gru_plain,
+            (x2, wi, wh, bi, bh), n * 2 * b * 2 * (i_dim + h) * g,
+            2 * (n * 2 * b * i_dim + 2 * (i_dim + h) * g + 4 * g
+                 + n * 2 * b * h), cudnn_rnn(torch, 'gru', i_dim, h, x2)),
+            at=f'serving: B={b} T={n} I={i_dim} H={h}')
+        log_plan(rnn, 'gru', x2, h)
+        del x2
+
+    lr_gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    for c, shapes in MULTI_LR_SHAPES.items():
+        for label, b, n, t, dt_name, per_token in shapes:
+            res[f'lr {label}'] = lr_shape_times(torch, lr_gen, label, b, n,
+                                                t, c, dt_name, per_token)
+
+    b, n, t = TRAIN_BATCH, 160, TRAIN_STEP_FRAMES
+    with torch.no_grad():
+        wi, wh, bi, bh = mft16.lstm.stacked_params()
+    i_dim, h = wi.shape[1], wh.shape[1]
+    x2 = randn(t, 2, b, i_dim, scale=0.5)
+    log(f'  lstm_train T={t} B={b} I={i_dim} H={h} (library: cuDNN bi-LSTM '
+        'forward with autograd)')
+    res['lstm_train'] = dict(check(
+        torch, f'lstm_train I={i_dim} hs, cs', rnn.lstm_train,
+        rnn.lstm_train_plain, (x2, wi, wh, bi + bh),
+        t * 2 * b * 2 * (i_dim + h) * 4 * h,
+        2 * (t * 2 * b * (i_dim + 2 * h) + 2 * (i_dim + h) * 4 * h
+             + 2 * 4 * h), cudnn_train(torch, 'lstm', i_dim, h, x2, False),
+        sweep_blocks=1),
+        at=f'training: B={b} T={t} I={i_dim}')
+    log_plan(rnn, 'lstm_train', x2, h)
+    hs, cs = rnn.lstm_train(x2, wi, wh, bi + bh)
+    g = 4 * h
+    log(f'  lstm_bwd T={t} B={b} I={i_dim} H={h} (library: cuDNN bi-LSTM '
+        'backward)')
+    res['lstm_bwd'] = dict(check(
+        torch, f'lstm_bwd I={i_dim} dgates', rnn_train.lstm_bwd,
+        rnn_train.lstm_bwd_plain,
+        (randn(t, 2, b, h), hs, cs, x2, wi, wh, bi + bh),
+        t * 2 * b * 2 * ((i_dim + h) * g + g * h),
+        2 * (t * 2 * b * (3 * h + i_dim + g) + 2 * (i_dim + h) * g + 2 * g),
+        cudnn_train(torch, 'lstm', i_dim, h, x2, True),
+        sweep_blocks=4), at=f'training: B={b} T={t} I={i_dim}')
+    log_bwd_plan(rnn, rnn_train, 'lstm', x2, h)
+    del x2, hs, cs
+
+    for name, mod in (('dur_pred', mft16.dur_pred.rnn),
+                      ('pitch_pred', mft16.pitch_pred.rnn)):
+        with torch.no_grad():
+            wi, wh, bi, bh = mod.stacked_params()
+        i_dim, h = wi.shape[1], wh.shape[1]
+        g = 3 * h
+        x2 = randn(n, 2, b, i_dim, scale=0.5)
+        log(f'  gru {name} forward T={n} B={b} I={i_dim} H={h}')
+        res[f'gru_train_fwd_{name}'] = dict(check(
+            torch, f'gru {name} H={h} hs', rnn.gru, rnn.gru_plain,
+            (x2, wi, wh, bi, bh), n * 2 * b * 2 * (i_dim + h) * g,
+            2 * (n * 2 * b * (i_dim + h) + 2 * (i_dim + h) * g + 4 * g),
+            cudnn_train(torch, 'gru', i_dim, h, x2, False),
+            sweep_blocks=1), at=f'training: B={b} T={n} I={i_dim} H={h}')
+        hs = rnn.gru(x2, wi, wh, bi, bh)
+        log(f'  gru_bwd {name} T={n} B={b} I={i_dim} H={h} (library: cuDNN '
+            'bi-GRU backward)')
+        res[f'gru_bwd_{name}'] = dict(check(
+            torch, f'gru_bwd {name} H={h} dgx, dgh', rnn_train.gru_bwd,
+            rnn_train.gru_bwd_plain,
+            (randn(n, 2, b, h), hs, x2, wi, wh, bi, bh),
+            n * 2 * b * 2 * ((i_dim + h) * g + g * h),
+            2 * (n * 2 * b * (2 * h + i_dim + 2 * g) + 2 * (i_dim + h) * g
+                 + 4 * g), cudnn_train(torch, 'gru', i_dim, h, x2, True),
+            sweep_blocks=3),
+            at=f'training: B={b} T={n} I={i_dim} H={h}')
+        log_bwd_plan(rnn, rnn_train, 'gru', x2, h)
+        del x2, hs
+    return res
+
+
+def multi_request_phase(torch, model, config, tokens, table, root: Path):
+    """The 4 requests in float32 and bf16 through ``generate_cropped`` with
+    speaker i % MULTI_SPEAKERS, each against the CPU path (the model gates),
+    exact launches per request, Griffin-Lim on the float32 mels; then
+    ``gen_forward --speaker`` on a reference-format checkpoint."""
+    from forwardtacotron_torch import gen_forward
+    from forwardtacotron_torch.dsp.dsp import DSP
+    from forwardtacotron_torch.models.synthesis import TTSInference
+
+    dsp = DSP.from_config(config, device='cuda')
+    n_mels, hop = config['dsp']['num_mels'], config['dsp']['hop_length']
+    res = {}
+    for dtype, tol in (('float32', E2E_MEL_ATOL), ('bfloat16', E2E_BF16_TOL)):
+        cpu = TTSInference(copy.deepcopy(model), dtype=dtype, device='cpu')
+        card = TTSInference(copy.deepcopy(model), dtype=dtype, device='cuda')
+        card.generate_cropped(tokens[0][:8], speaker_emb=table[0])
+        torch.cuda.synchronize()
+        lat, errs, cpu_s = [], [], 0.0
+        for i, toks in enumerate(tokens):
+            semb = table[i % len(table)]
+            reset_counts()
+            t0 = time.perf_counter()
+            out = card.generate_cropped(toks, speaker_emb=semb)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if dtype == 'float32':
+                # the trunk's LR is row 8 at C 768, the recurrences loops
+                expect_counts(f'multispeaker f32 request {i}', read_counts(),
+                              lr=1, pre_highway_stack=2, cbhg_front=1)
+            else:
+                expect_counts(f'multispeaker bf16 request {i}',
+                              read_counts(), gru=MULTI_GRUS_PER_CALL,
+                              lr_bidir=1, lstm_mel=1, pre_highway_stack=2,
+                              cbhg_front=1)
+            frames = FRAMES_PER_TOKEN * len(toks)
+            if out['mel_post'].shape != (n_mels, frames) \
+                    or not np.isfinite(out['mel_post']).all():
+                fail(f'multispeaker {dtype} request {i}: mel_post '
+                     f'{out["mel_post"].shape}')
+            t0 = time.perf_counter()
+            ref = cpu.generate_cropped(toks, speaker_emb=semb)
+            cpu_s += time.perf_counter() - t0
+            err = max(float(np.abs(out[k] - ref[k]).max())
+                      for k in ('mel', 'mel_post'))
+            scale = 1.0 if dtype == 'float32' else max(
+                1.0, float(np.abs(ref['mel_post']).max()))
+            ok = err <= tol * scale
+            log(f'  multispeaker {dtype} request {i} (speaker '
+                f'{i % len(table)}): {len(toks)} tokens -> {frames} frames, '
+                f'text->mel {lat[-1]:.1f} ms; vs the CPU path mel/mel_post '
+                f'max abs err {err:.3e} (tol {tol:g} x {scale:.3g}) '
+                f'{"ok" if ok else "FAIL"}')
+            if not ok:
+                fail(f'multispeaker {dtype} request disagrees with the CPU '
+                     'path')
+            errs.append(err)
+            if dtype == 'float32':
+                reset_counts()
+                t0 = time.perf_counter()
+                wav = dsp.griffinlim(out['mel_post'])
+                torch.cuda.synchronize()
+                expect_counts(f'multispeaker griffinlim {i}', read_counts(),
+                              griffin_lim_iter=32)
+                if wav.shape != (hop * (frames - 1),) \
+                        or not np.isfinite(wav).all():
+                    fail(f'multispeaker request {i}: wav {wav.shape}')
+                log(f'    griffinlim {(time.perf_counter() - t0) * 1e3:.1f} '
+                    'ms')
+        res[dtype] = dict(request_ms=lat, card_vs_cpu_err=max(errs),
+                          cpu_s=cpu_s)
+
+    # gen_forward --speaker on a reference-format checkpoint: the exported
+    # mel is the card's generate_cropped with that speaker's embedding
+    names = [f'speaker{i}' for i in range(len(table))]
+    path = root / 'multi_forward_tacotron.pt'
+    torch.save({'model': model.state_dict(),
+                'config': multi_config(config, 'multi_forward_tacotron'),
+                'speaker_embeddings': {k: e.numpy()
+                                       for k, e in zip(names, table)}},
+               str(path))
+    text = 'ðə kwɪk bɹaʊn fɑks.'
+    gen_forward.main(['--checkpoint', str(path), '--input_text', text,
+                      '--output', str(root / 'mels'), '--speaker', names[2],
+                      '--device', 'cuda', 'hifigan'])
+    got = np.load(str(next((root / 'mels').glob('*.npy'))))
+    # the tokens as gen_forward makes them (no espeak: graphemes)
+    from forwardtacotron_torch.text.cleaners import Cleaner
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+    pre = config['preprocessing']
+    toks = Tokenizer()(Cleaner(pre['cleaner_name'], use_phonemes=False,
+                               lang=pre['language'])(text))
+    card = TTSInference(copy.deepcopy(model), device='cuda')
+    want = card.generate_cropped(toks, speaker_emb=table[2])
+    other = card.generate_cropped(toks, speaker_emb=table[3])
+    err = float(np.abs(got - want['mel_post']).max())
+    moved = float(np.abs(other['mel_post'] - want['mel_post']).max())
+    ok = err <= 1e-5 and moved > 1e-5
+    log(f'  gen_forward --speaker {names[2]}: mel {got.shape}, vs '
+        f'generate_cropped with its embedding max abs err {err:.3e}; '
+        f'another speaker moves it by {moved:.3e} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('gen_forward --speaker did not speak as the chosen speaker')
+    res['gen_forward_speaker_err'] = err
+    return res
+
+
+def multi_serving_phase(torch, model, config, table):
+    """bf16 ``generate_fused`` of MultiForwardTacotron at the serving shape
+    (bench.py's sentences at batch SERVING_BATCH, speakers cycling over the
+    batch, SERVING_FRAMES_PER_TOKEN frames a token, ``max_len``
+    SERVING_MAX_LEN): exact launches per call, the profiler, audio-s/s over
+    SERVING_TRIALS trials of SERVING_ITERS calls, the idle share, and a
+    slice against the CPU path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+
+    hop, sr = config['dsp']['hop_length'], config['dsp']['sample_rate']
+    model = set_frames_per_token(torch, copy.deepcopy(model),
+                                 SERVING_FRAMES_PER_TOKEN)
+    cpu = TTSInference(copy.deepcopy(model), dtype='bfloat16', device='cpu')
+    inference = TTSInference(model, dtype='bfloat16', device='cuda')
+    n_tok = max(len(Tokenizer()(s)) for s in BENCH_SENTENCES)
+    batch = SERVING_BATCH
+    xd = serving_requests(torch, batch)
+    semb = table[torch.arange(batch) % len(table)].cuda()
+
+    def call(xs=xd, ss=semb):
+        return inference.generate_fused(xs, max_len=SERVING_MAX_LEN,
+                                        speaker_emb=ss)
+
+    call(xd[:8], semb[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    log(f'multispeaker serving: first generate_fused call, batch {batch}, '
+        f'max_len {SERVING_MAX_LEN}: {time.perf_counter() - t0:.3f} s')
+    mel_lens = np.minimum(out['mel_len'].cpu().numpy(), SERVING_MAX_LEN)
+    if not (mel_lens == SERVING_FRAMES_PER_TOKEN * n_tok).all():
+        fail(f'multispeaker serving: mel_len {np.unique(mel_lens)}, '
+             f'expected {SERVING_FRAMES_PER_TOKEN * n_tok}')
+    del out
+    reset_counts()
+    out = call()
+    torch.cuda.synchronize()
+    # one call: the pitch-condition, duration and pitch GRUs (H 128, 128,
+    # 256; energy's H 64 is a loop), the prenet and postnet GRUs, LR + LSTM
+    # mel at I 768, both highway stacks, the postnet front
+    expect_counts('multispeaker serving call', read_counts(),
+                  gru=MULTI_GRUS_PER_CALL, lr_bidir=1, lstm_mel=1,
+                  pre_highway_stack=2, cbhg_front=1)
+    launches = read_counts()
+    if out['mel_post'].shape != (batch, SERVING_MAX_LEN,
+                                 config['dsp']['num_mels']) \
+            or not bool(torch.isfinite(out['mel_post']).all()):
+        fail(f'multispeaker serving: bad mel_post '
+             f'{tuple(out["mel_post"].shape)}')
+    del out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    busy_ms = device_profile(
+        prof, 'multispeaker serving call',
+        'chip_smoke_multi_serving_profile.txt',
+        {k: v for k, v in SERVING_KERNEL_NAMES.items() if k != 'gru_xp'})
+    audio_s = int(mel_lens.sum()) * hop / sr
+    rates, walls = [], []
+    for _ in range(SERVING_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVING_ITERS):
+            call()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        walls.append(elapsed / SERVING_ITERS)
+        rates.append(SERVING_ITERS * audio_s / elapsed)
+    wall_ms = statistics.median(walls) * 1e3
+    stats = dict(batch=batch, speakers=len(table), audio_s_per_call=audio_s,
+                 audio_s_per_s=sorted(rates), call_ms=wall_ms,
+                 device_busy_ms=busy_ms, idle=1 - busy_ms / wall_ms)
+    log(f'multispeaker serving: {audio_s:.1f} audio-s per call; '
+        f'{SERVING_TRIALS} trials x {SERVING_ITERS} calls: audio-s/s min '
+        f'{min(rates):.1f} median {statistics.median(rates):.1f} max '
+        f'{max(rates):.1f}; call {wall_ms:.2f} ms wall (median), device '
+        f'busy {busy_ms:.2f} ms (profiled call): idle '
+        f'{100 * stats["idle"]:.1f}%')
+
+    x8, s8 = xd[:FP_CHECK_BATCH], semb[:FP_CHECK_BATCH]
+    got = call(x8, s8)
+    ref = cpu.generate_fused(x8.cpu(), max_len=SERVING_MAX_LEN,
+                             speaker_emb=s8.cpu())
+    if not torch.equal(got['mel_len'].cpu(), ref['mel_len']):
+        fail('multispeaker bf16: mel_len differs between card and CPU')
+    n = int(ref['mel_len'].min())
+    err = max(float((got[k][:, :n].float().cpu() - ref[k][:, :n].float())
+                    .abs().max()) for k in ('mel', 'mel_post'))
+    scale = max(1.0, float(ref['mel_post'][:, :n].float().abs().max()))
+    ok = err <= E2E_BF16_TOL * scale
+    log(f'multispeaker bf16 reference: generate_fused of {FP_CHECK_BATCH} '
+        f'requests (4 speakers) on the card vs the CPU path, mel/mel_post '
+        f'max abs err {err:.3e}, scale {scale:.3e} (tol {E2E_BF16_TOL:g} x '
+        f'scale) {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('multispeaker bf16 serving disagrees with the CPU path')
+    stats['card_vs_cpu_err'] = err
+    return launches, stats
+
+
+def multi_fast_pitch_phase(torch, model, config, tokens, table):
+    """MultiFastPitch: the 4 requests in float32 on the card against the
+    CPU path (one ``lr`` launch at C 512 each), then bf16
+    ``generate_fused`` at the serving shape (MFP_SERVING_CALLS calls timed,
+    one ``lr`` launch a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.models.synthesis import TTSInference
+
+    hop, sr = config['dsp']['hop_length'], config['dsp']['sample_rate']
+    cpu = TTSInference(copy.deepcopy(model), device='cpu')
+    card = TTSInference(copy.deepcopy(model), device='cuda')
+    card.generate_cropped(tokens[0][:8], speaker_emb=table[0])
+    lat, errs = [], []
+    for i, toks in enumerate(tokens):
+        semb = table[i % len(table)]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = card.generate_cropped(toks, speaker_emb=semb)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        expect_counts(f'MultiFastPitch f32 request {i}', read_counts(), lr=1)
+        frames = FRAMES_PER_TOKEN * len(toks)
+        if out['mel_post'].shape != (config['dsp']['num_mels'], frames) \
+                or not np.isfinite(out['mel_post']).all():
+            fail(f'MultiFastPitch request {i}: {out["mel_post"].shape}')
+        ref = cpu.generate_cropped(toks, speaker_emb=semb)
+        err = max(float(np.abs(out[k] - ref[k]).max())
+                  for k in ('mel', 'dur', 'pitch', 'energy'))
+        ok = err <= E2E_MEL_ATOL
+        log(f'  MultiFastPitch f32 request {i}: {len(toks)} tokens -> '
+            f'{frames} frames, text->mel {lat[-1]:.1f} ms; vs the CPU path '
+            f'max abs err {err:.3e} (atol {E2E_MEL_ATOL:g}) '
+            f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            fail('MultiFastPitch float32 request disagrees with the CPU path')
+        errs.append(err)
+    res = {'request_ms': lat, 'card_vs_cpu_err': max(errs)}
+
+    model = set_frames_per_token(torch, copy.deepcopy(model),
+                                 SERVING_FRAMES_PER_TOKEN)
+    inference = TTSInference(model, dtype='bfloat16', device='cuda')
+    xd = serving_requests(torch, SERVING_BATCH)
+    semb = table[torch.arange(SERVING_BATCH) % len(table)].cuda()
+
+    def call():
+        return inference.generate_fused(xd, max_len=SERVING_MAX_LEN,
+                                        speaker_emb=semb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_counts()
+    out = call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    expect_counts('MultiFastPitch serving call', read_counts(), lr=1)
+    mel_lens = np.minimum(out['mel_len'].cpu().numpy(), SERVING_MAX_LEN)
+    if out['mel_post'].shape != (SERVING_BATCH, SERVING_MAX_LEN,
+                                 config['dsp']['num_mels']) \
+            or not bool(torch.isfinite(out['mel_post']).all()):
+        fail('MultiFastPitch serving: bad mel_post')
+    del out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    busy_ms = device_profile(prof, 'MultiFastPitch serving call',
+                             'chip_smoke_multi_fast_pitch_profile.txt',
+                             {'lr': [LR_KERNEL]})
+    audio_s = int(mel_lens.sum()) * hop / sr
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MFP_SERVING_CALLS):
+        call()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / MFP_SERVING_CALLS * 1e3
+    res['serving'] = dict(batch=SERVING_BATCH, first_call_s=first_s,
+                          call_ms=call_ms,
+                          audio_s_per_s=audio_s * 1e3 / call_ms,
+                          device_busy_ms=busy_ms,
+                          idle=1 - busy_ms / call_ms)
+    log(f'MultiFastPitch serving: {audio_s:.1f} audio-s per call, '
+        f'{MFP_SERVING_CALLS} calls: {call_ms:.1f} ms a call, '
+        f'{res["serving"]["audio_s_per_s"]:.1f} audio-s/s; device busy '
+        f'{busy_ms:.1f} ms: idle {100 * res["serving"]["idle"]:.1f}%')
+    return res
+
+
+def write_multi_train_data(cfg, table):
+    """``write_train_data`` with speakers: item i speaks as speaker i %
+    MULTI_SPEAKERS (its embedding the table's row), each speaker's mean
+    embedding, and about a third of the tokens unvoiced (pitch 0, the
+    pitch condition's class 1)."""
+    from forwardtacotron_torch.utils.files import pickle_binary
+    paths = write_train_data(cfg)
+    rs = np.random.RandomState(SEED + 23)
+    names = [f'speaker{i}' for i in range(len(table))]
+    speakers = {}
+    for i, path in enumerate(sorted(paths.alg.glob('*.npy'))):
+        item_id = path.stem
+        speakers[item_id] = names[i % len(names)]
+        np.save(paths.speaker_emb / f'{item_id}.npy',
+                table[i % len(names)].numpy())
+        pitch = np.load(paths.phon_pitch / f'{item_id}.npy')
+        pitch[rs.rand(len(pitch)) < 0.3] = 0.0
+        np.save(paths.phon_pitch / f'{item_id}.npy', pitch)
+    for name, emb in zip(names, table):
+        np.save(paths.mean_speaker_emb / f'{name}.npy', emb.numpy())
+    pickle_binary(speakers, paths.speaker_dict)
+    return paths
+
+
+def family_train_phase(torch, config, family, root, table, steps, want):
+    """``family``'s bf16 train step at TRAIN_BATCH on the synthetic
+    (multispeaker) data: exact launch counts ``want`` per step, the
+    profiler, ``steps`` synchronized steps (steps/s, mel frames/s, the idle
+    share), then one float32 and one bf16 step at CHECK_BATCH on the card
+    against the CPU path (loss, global gradient norm, and for a
+    multispeaker model the pitch-condition CE and accuracy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.models.registry import (init_tts_model,
+                                                       is_multispeaker)
+    from forwardtacotron_torch.train.forward_trainer import (
+        ForwardTrainer, MultiForwardTrainer)
+    from forwardtacotron_torch.train.state import create_train_state
+
+    cfg = train_config(multi_config(config, family), root, 'bfloat16', 100)
+    paths = write_multi_train_data(cfg, table)
+    trainer_cls = MultiForwardTrainer if is_multispeaker(cfg) \
+        else ForwardTrainer
+    torch.manual_seed(SEED)
+    model = init_tts_model(cfg).cuda()
+    trainer = trainer_cls(paths, None, cfg, device='cuda')
+    state = create_train_state(model, trainer.tx)
+    train_cfg = cfg[family]['training']
+    train_set, _ = get_forward_dataloaders(
+        paths, TRAIN_BATCH, bucket_multiple=train_cfg['bucket_multiple'],
+        seed=SEED, **train_cfg['filter'])
+    host = with_targets(next(iter(train_set)))
+    batch = trainer.device_batch(host)
+    frames = int(host['mel_len'].sum())
+    log(f'{family} bf16 train step: batch {len(host["x_len"])}, tokens '
+        f'padded to {host["x"].shape[1]}, frames padded to '
+        f'{host["mel"].shape[1]} ({frames} valid mel frames)')
+    losses = []
+
+    def step():
+        m = trainer.train_step(state, batch)
+        losses.append(m['loss'])
+        return m
+
+    step()
+    torch.cuda.synchronize()
+    reset_counts()
+    m = step()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts(f'{family} bf16 train step', launches, **want)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy_ms = device_profile(
+        prof, f'{family} bf16 train step',
+        f'chip_smoke_{family}_train_profile.txt',
+        {k: v for k, v in TRAIN_KERNEL_NAMES.items() if want.get(k)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        fail(f'{family} bf16 train step: non-finite loss')
+    stats = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                 mel_frames_per_s=frames * 1e3 / step_ms,
+                 device_busy_ms=busy_ms, idle=1 - busy_ms / step_ms,
+                 losses=losses)
+    if 'pitch_cond_loss' in m:
+        stats.update(pitch_cond_loss=float(m['pitch_cond_loss']),
+                     pitch_cond_acc=float(m['pitch_cond_acc']))
+    log(f'{family} bf16 train step: {step_ms:.1f} ms per step over {steps} '
+        f'steps: {stats["steps_per_s"]:.3f} steps/s, '
+        f'{stats["mel_frames_per_s"]:.0f} mel frames/s; device busy '
+        f'{busy_ms:.1f} ms (profiled step): idle {100 * stats["idle"]:.1f}%; '
+        f'losses {", ".join(f"{v:.4f}" for v in losses)}')
+    del state, trainer, model, batch
+    torch.cuda.empty_cache()
+
+    # card vs CPU: one step at CHECK_BATCH, dropout off, f32 and bf16
+    host = check_batch(cfg['dsp']['num_mels'])
+    if is_multispeaker(cfg):
+        host['speaker_emb'] = table[np.arange(CHECK_BATCH)
+                                    % len(table)].numpy()
+        valid = np.arange(host['x'].shape[1])[None] < host['x_len'][:, None]
+        host['pitch'][:, ::3] = 0.0
+        host['pitch_target'] = host['pitch'].copy()
+        host['pitch_cond'] = np.where(
+            valid, np.where(host['pitch'] == 0, 1, 2), 0).astype(np.int64)
+    stats['card_vs_cpu_rel'] = {}
+    keys = ['loss', 'grad_norm'] + (['pitch_cond_loss', 'pitch_cond_acc']
+                                    if is_multispeaker(cfg) else [])
+    for precision, tol in E2E_TRAIN_TOL.items():
+        cfg_p = train_config(multi_config(config, family), root, precision,
+                             1, dropout=False)
+        torch.manual_seed(SEED)
+        model = init_tts_model(cfg_p)
+        got = {}
+        for device in ('cpu', 'cuda'):
+            trainer = trainer_cls(paths, None, cfg_p, device=device)
+            m = trainer.train_step(
+                create_train_state(copy.deepcopy(model).to(device),
+                                   trainer.tx), trainer.device_batch(host))
+            got[device] = [float(m[k]) for k in keys]
+        rel = max(abs(g - c) / max(abs(c), 1e-6)
+                  for g, c in zip(got['cuda'], got['cpu']))
+        ok = rel <= tol
+        log(f'{family} train reference {precision}: B={CHECK_BATCH}: '
+            f'{", ".join(keys)} card {got["cuda"]}, CPU {got["cpu"]}: rel '
+            f'{rel:.3e} (tol {tol:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'{family} {precision} train step disagrees with the CPU '
+                 'path')
+        stats['card_vs_cpu_rel'][precision] = rel
+    return launches, stats
+
+
+def multispeaker_phases(torch, config, tokens) -> dict:
+    """Every multispeaker phase (configs/multispeaker.yaml at full width,
+    MULTI_SPEAKERS seeded speakers): rows 6-10 at the new shapes,
+    MultiForwardTacotron's requests, serving and training, FastPitch's
+    training (configs/singlespeaker.yaml), MultiFastPitch's requests,
+    serving and training."""
+    from forwardtacotron_torch.utils.files import read_config
+    t_all = time.perf_counter()
+    mconfig = read_config(REPO / 'configs' / 'multispeaker.yaml')
+    table = speaker_table(torch)
+    out = {}
+    mft = make_model(torch, multi_config(mconfig,
+                                          'multi_forward_tacotron'))
+    # autograd stays on for cuDNN's training yardsticks; the weights need
+    # no gradient
+    mft16 = copy.deepcopy(mft).cuda().to(torch.bfloat16).requires_grad_(
+        False)
+    t0 = time.perf_counter()
+    log('multispeaker kernels at the new shapes:')
+    out['kernels'] = multi_kernel_phase(torch, mft16)
+    del mft16
+    torch.cuda.empty_cache()
+    out['kernels_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log('multispeaker requests (host clock, synchronized):')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_multi_') as tmp:
+        out['requests'] = multi_request_phase(torch, mft, mconfig, tokens,
+                                              table, Path(tmp))
+    out['requests_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['serving_launches'], out['serving'] = multi_serving_phase(
+        torch, mft, mconfig, table)
+    torch.cuda.empty_cache()
+    out['serving_s'] = time.perf_counter() - t0
+    del mft
+    trains = {'multi_forward_tacotron': (mconfig, MULTI_TRAIN_STEPS, dict(
+        lr=1, gru=MULTI_GRUS_PER_CALL, lstm_train=1,
+        gru_bwd=2 * MULTI_GRUS_PER_CALL, lstm_bwd=2)),
+        'fast_pitch': (config, FP_TRAIN_STEPS, dict(lr=1)),
+        'multi_fast_pitch': (mconfig, FP_TRAIN_STEPS, dict(lr=1))}
+    out['training'] = {}
+    for family, (cfg, steps, want) in trains.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_mtrain_') as tmp:
+            launches, stats = family_train_phase(torch, cfg, family,
+                                                 Path(tmp), table, steps,
+                                                 want)
+        stats['launches'] = launches
+        stats['phase_s'] = time.perf_counter() - t0
+        out['training'][family] = stats
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mfp = make_model(torch, multi_config(mconfig, 'multi_fast_pitch'))
+    log('MultiFastPitch (host clock, synchronized):')
+    out['multi_fast_pitch'] = multi_fast_pitch_phase(torch, mfp, mconfig,
+                                                     tokens, table)
+    del mfp
+    torch.cuda.empty_cache()
+    out['multi_fast_pitch_s'] = time.perf_counter() - t0
+    out['phases_s'] = time.perf_counter() - t_all
+    log(f'multispeaker phases: {out["phases_s"]:.1f} s')
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3650,6 +4435,20 @@ def main() -> None:
 
     config = read_config(REPO / 'configs' / 'singlespeaker.yaml')
     tokens = request_tokens(config)
+    if '--host-times' in sys.argv[1:]:
+        # the single-speaker requests and train step on the host clock,
+        # e.g. beside a parent checkout's in one call
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_host_') as tmp:
+            times = host_times_phase(torch, config, tokens, Path(tmp))
+        log(f'host times: {json.dumps(times)}')
+        log(f'card: {card}')
+        return
+    if '--multispeaker' in sys.argv[1:]:
+        # the multispeaker phases alone
+        multi = multispeaker_phases(torch, config, tokens)
+        log(f'multispeaker: {json.dumps(multi)}')
+        log(f'card: {card}')
+        return
     model = make_model(torch, config)
     if '--griffinlim-split' in sys.argv[1:]:
         # the split alone, e.g. beside a parent checkout's in one call
@@ -3755,6 +4554,34 @@ def main() -> None:
             {f'request_{k}': request16[name][k]
              for k in ('ms', 'plain_ms', 'bound_ms', 'yardstick_ms')})
     training['gru_train_fwd'] = results_train['gru_train_fwd']
+
+    # the multispeaker models (configs/multispeaker.yaml) and FastPitch's
+    # training: rows 6-10 at their new shapes, requests, serving, training
+    multi = multispeaker_phases(torch, config, tokens)
+    mk = multi['kernels']
+    results16['lstm_lr_mel']['multispeaker'] = {
+        'launches_per_serving_call': multi['serving_launches']['lstm_mel'],
+        **{k: mk[f'lstm_lr_mel_{k}'] for k in ('serving', 'request')}}
+    results16['lr_bidir']['multispeaker'] = {
+        'launches_per_serving_call': multi['serving_launches']['lr_bidir']}
+    results16['bidir_rnn']['multispeaker'] = {
+        'launches_per_serving_call': multi['serving_launches']['gru'],
+        **{k: mk[f'gru_{k}'] for k in ('dur_pred', 'pitch_cond_pred',
+                                        'pitch_pred')}}
+    results_train['lr']['multispeaker'] = {
+        k[3:]: {m: v[m] for m in ('device_ms', 'event_ms', 'bound_ms',
+                                  'plain_ms', 'plan') if m in v}
+        for k, v in mk.items() if k.startswith('lr ')}
+    mtrain = multi['training']['multi_forward_tacotron']['launches']
+    results_train['lstm_train']['multispeaker'] = dict(
+        mk['lstm_train'], launches_per_step=mtrain['lstm_train'])
+    results_train['lstm_bwd']['multispeaker'] = dict(
+        mk['lstm_bwd'], launches_per_step=mtrain['lstm_bwd'])
+    results_train['gru_bwd']['multispeaker'] = {
+        'launches_per_step': mtrain['gru_bwd'],
+        **{k: mk[f'gru_bwd_{k}'] for k in ('dur_pred', 'pitch_pred')},
+        **{f'forward_{k}': mk[f'gru_train_fwd_{k}']
+           for k in ('dur_pred', 'pitch_pred')}}
     # row 5 at one request beside its serving numbers
     results16['lr_bidir']['request'] = {
         k: request16['lr_bidir'][k]
@@ -3849,7 +4676,8 @@ def main() -> None:
                                  'tile_sweep_device_ms', 'shapes',
                                  'yardstick_device_ms', 'fill_device_ms',
                                  'request',
-                                 'long_lists', 'new_paths')
+                                 'long_lists', 'new_paths',
+                                 'multispeaker')
                if k in r and r[k] != {}}})
     log(f'griffinlim split: {json.dumps(gl_split)}')
     log(f'serving: {json.dumps(serving)}')
@@ -3859,6 +4687,7 @@ def main() -> None:
     log(f'melgan: {json.dumps(melgan)}')
     log(f'mrf cycle spans: {json.dumps(mrf_cycles)}')
     log(f'training: {json.dumps(training)}')
+    log(f'multispeaker: {json.dumps(multi)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -3,7 +3,8 @@
 Mirrors the repository's root ``gen_forward.py`` on the PyTorch port:
 float32 or bfloat16, one sentence at a time or, with ``--batched``, all
 sentences as one length-routed batch; a ForwardTacotron or FastPitch
-checkpoint; vocoded with Griffin-Lim, or with a HiFi-GAN or MelGAN
+checkpoint, or a multispeaker one in the voice of ``--speaker`` (a name in
+the checkpoint's ``speaker_embeddings``); vocoded with Griffin-Lim, or with a HiFi-GAN or MelGAN
 generator checkpoint on the device (``hifigan|melgan
 --vocoder_checkpoint``), or, without a checkpoint, exported as the
 reference exports mels for an external vocoder (``.mel`` for melgan,
@@ -13,6 +14,8 @@ reference exports mels for an external vocoder (``.mel`` for melgan,
         --input_text "Hello world."
     python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
         --dtype bfloat16 --batched
+    python -m forwardtacotron_torch.gen_forward --checkpoint multi.pt \\
+        --speaker p225
     python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
         --vocoder_checkpoint g_02500000 --vocoder_config config.json hifigan
 
@@ -40,6 +43,8 @@ def main(argv=None):
                         help='duration scale (speech speed)')
     parser.add_argument('--amp', type=float, default=1.0,
                         help='pitch amplification factor')
+    parser.add_argument('--speaker', default=None,
+                        help='speaker name for multispeaker checkpoints')
     parser.add_argument('--batched', action='store_true',
                         help='synthesize all sentences as one padded batch')
     parser.add_argument('--dtype', default='float32',
@@ -70,6 +75,20 @@ def main(argv=None):
     model, checkpoint = init_tts_model_from_checkpoint(args.checkpoint)
     config = checkpoint['config']
     inference = TTSInference(model, dtype=args.dtype, device=args.device)
+    speaker_emb = None
+    if inference.multispeaker:
+        # the reference keeps the speaker table at the checkpoint's top
+        # level (the JAX package's meta)
+        embeddings = checkpoint.get('speaker_embeddings', {})
+        if args.speaker and args.speaker in embeddings:
+            speaker_emb = np.asarray(embeddings[args.speaker], np.float32)
+        elif embeddings:
+            name, speaker_emb = next(iter(embeddings.items()))
+            speaker_emb = np.asarray(speaker_emb, np.float32)
+            print(f'No --speaker given; using "{name}"')
+        else:
+            speaker_emb = np.zeros(model.speaker_emb_dims, np.float32)
+            print('No speaker embeddings in checkpoint; using zeros')
     dsp = DSP.from_config(config, device=args.device)
 
     if args.input_text:
@@ -108,6 +127,8 @@ def main(argv=None):
             x[i, :len(toks)] = toks
         # routed: each sentence decodes (and neural-vocodes) at its own
         # frame bucket
+        if speaker_emb is not None:   # one row per sentence of the batch
+            kwargs['speaker_emb'] = np.tile(speaker_emb, (len(x), 1))
         out = inference.generate_routed(x, vocoder=vocoder, **kwargs)
         mels = [out['mel_post'][i, :int(out['mel_len'][i])].T.float().cpu()
                 .numpy() for i in range(len(sentences))]
@@ -115,6 +136,8 @@ def main(argv=None):
             wavs = [out['wav'][i, :int(out['wav_len'][i])].float().cpu()
                     .numpy() for i in range(len(sentences))]
     else:
+        if speaker_emb is not None:
+            kwargs['speaker_emb'] = speaker_emb
         mels = [inference.generate_cropped(tokenizer(cleaner(s)),
                                            **kwargs)['mel_post']
                 for s in sentences]

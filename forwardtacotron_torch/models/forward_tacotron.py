@@ -56,6 +56,54 @@ class SeriesPredictor(nn.Module):
         return self.head(self.rnn(self.features(x)), alpha)
 
 
+def guard_durations(dur: torch.Tensor) -> torch.Tensor:
+    """If the truncated durations of the whole batch sum to <= 0, every
+    duration becomes 2 frames (reference forward_tacotron.py:176-177)."""
+    total = torch.trunc(dur).to(torch.int64).sum()
+    return torch.where(total <= 0, torch.full_like(dur, 2.0), dur)
+
+
+def decode_frames(model: nn.Module, h: torch.Tensor, dur: torch.Tensor,
+                  pitch: torch.Tensor, energy: torch.Tensor, max_len: int,
+                  mel_lens: Optional[torch.Tensor] = None):
+    """The decode after the prenet, shared by ForwardTacotron and
+    MultiForwardTacotron (``model`` holds pitch_proj, energy_proj, lstm,
+    lin, postnet, post_proj, the strengths and padding_value): the series
+    projections, then the frames.
+
+    Teacher-forced mode (``mel_lens`` given) reproduces the reference's
+    pack_padded decode: the LSTM's backward pass starts at each item's
+    true last frame and its padded frames carry ``padding_value`` into the
+    mel Linear; the postnet sees the batch's longest ``mel_lens`` frames,
+    those beyond it zero, and they come out as ``padding_value``. Generate
+    mode: per-item expanded lengths steer the LSTM and postnet-GRU flips,
+    and frames past them are zeroed so convolution boundaries match the
+    reference's exact-length zero padding."""
+    m = model
+    h = h + conv1d(pitch[:, :, None], m.pitch_proj) * m.pitch_strength
+    h = h + conv1d(energy[:, :, None], m.energy_proj) * m.energy_strength
+    if mel_lens is not None:
+        h = m.lstm(length_regulator(h, dur, max_len), lengths=mel_lens)
+        h = h.masked_fill(make_len_mask(mel_lens, max_len)[:, :, None],
+                          m.padding_value)
+        raw = m.lin(h)
+        batch_max = mel_lens.max()
+        beyond = (torch.arange(max_len, device=h.device)
+                  >= batch_max)[None, :, None]
+        post = m.postnet(raw.masked_fill(beyond, 0.0),
+                         lengths=batch_max.expand(h.shape[0]))
+        mel = raw.masked_fill(beyond, m.padding_value)
+        mel_post = m.post_proj(post).masked_fill(beyond, m.padding_value)
+        return mel, mel_post
+    lengths = expanded_lengths(dur)
+    raw = frame_trunk(h, dur, lengths, max_len, m.lstm, m.lin)
+    tail = make_len_mask(lengths, max_len)[:, :, None]
+    mel = raw.masked_fill(tail, 0.0)
+    post = m.postnet(mel, lengths=lengths)
+    mel_post = m.post_proj(post).masked_fill(tail, 0.0)
+    return mel, mel_post
+
+
 class ForwardTacotron(nn.Module):
 
     def __init__(self, embed_dims: int = 256, series_embed_dims: int = 64,
@@ -120,18 +168,11 @@ class ForwardTacotron(nn.Module):
         return {'mel': mel, 'mel_post': mel_post, 'dur': dur_hat,
                 'pitch': pitch_hat, 'energy': energy_hat}
 
-    @staticmethod
-    def _guard_durations(dur: torch.Tensor) -> torch.Tensor:
-        """If the truncated durations of the whole batch sum to <= 0, every
-        duration becomes 2 frames (reference forward_tacotron.py:176-177)."""
-        total = torch.trunc(dur).to(torch.int64).sum()
-        return torch.where(total <= 0, torch.full_like(dur, 2.0), dur)
-
     def predict_series(self, x: torch.Tensor, alpha: float = 1.0
                        ) -> Dict[str, torch.Tensor]:
         """Phase 1 of generation: durations, pitch and energy from
         tokens."""
-        dur = self._guard_durations(self.dur_pred(x, alpha=alpha)[..., 0])
+        dur = guard_durations(self.dur_pred(x, alpha=alpha)[..., 0])
         return {'dur': dur,
                 'pitch': self.pitch_pred(x)[..., 0],
                 'energy': self.energy_pred(x)[..., 0]}
@@ -157,11 +198,10 @@ class ForwardTacotron(nn.Module):
         entries.append((self.prenet.pre_rnn(self.embedding(x)), None,
                         self.prenet.rnn))
         dur_rnn, pitch_rnn, energy_rnn, h = multi_bigru(entries)
-        dur = self._guard_durations(self.dur_pred.head(dur_rnn, alpha)[..., 0])
+        dur = guard_durations(self.dur_pred.head(dur_rnn, alpha)[..., 0])
         pitch = self.pitch_pred.head(pitch_rnn)[..., 0]
         energy = self.energy_pred.head(energy_rnn)[..., 0]
-        mel, mel_post = self._decode_post_prenet(h, dur, pitch, energy,
-                                                 max_len)
+        mel, mel_post = decode_frames(self, h, dur, pitch, energy, max_len)
         return {'mel': mel, 'mel_post': mel_post, 'dur': dur,
                 'pitch': pitch, 'energy': energy}
 
@@ -169,46 +209,7 @@ class ForwardTacotron(nn.Module):
                 pitch: torch.Tensor, energy: torch.Tensor, max_len: int,
                 mel_lens: Optional[torch.Tensor] = None):
         h = self.prenet(self.embedding(x))
-        return self._decode_post_prenet(h, dur, pitch, energy, max_len,
-                                        mel_lens)
-
-    def _decode_post_prenet(self, h: torch.Tensor, dur: torch.Tensor,
-                            pitch: torch.Tensor, energy: torch.Tensor,
-                            max_len: int,
-                            mel_lens: Optional[torch.Tensor] = None):
-        """Teacher-forced mode (``mel_lens`` given) reproduces the
-        reference's pack_padded decode: the LSTM's backward pass starts at
-        each item's true last frame and its padded frames carry
-        ``padding_value`` into the mel Linear; the postnet sees the batch's
-        longest ``mel_lens`` frames, those beyond it zero, and they come out
-        as ``padding_value``. Generate mode: per-item expanded lengths steer
-        the LSTM and postnet-GRU flips, and frames past them are zeroed so
-        convolution boundaries match the reference's exact-length zero
-        padding."""
-        h = h + conv1d(pitch[:, :, None], self.pitch_proj) * self.pitch_strength
-        h = h + conv1d(energy[:, :, None], self.energy_proj) \
-            * self.energy_strength
-        if mel_lens is not None:
-            h = self.lstm(length_regulator(h, dur, max_len), lengths=mel_lens)
-            h = h.masked_fill(make_len_mask(mel_lens, max_len)[:, :, None],
-                              self.padding_value)
-            raw = self.lin(h)
-            batch_max = mel_lens.max()
-            beyond = (torch.arange(max_len, device=h.device)
-                      >= batch_max)[None, :, None]
-            post = self.postnet(raw.masked_fill(beyond, 0.0),
-                                lengths=batch_max.expand(h.shape[0]))
-            mel = raw.masked_fill(beyond, self.padding_value)
-            mel_post = self.post_proj(post).masked_fill(beyond,
-                                                        self.padding_value)
-            return mel, mel_post
-        lengths = expanded_lengths(dur)
-        raw = frame_trunk(h, dur, lengths, max_len, self.lstm, self.lin)
-        tail = make_len_mask(lengths, max_len)[:, :, None]
-        mel = raw.masked_fill(tail, 0.0)
-        post = self.postnet(mel, lengths=lengths)
-        mel_post = self.post_proj(post).masked_fill(tail, 0.0)
-        return mel, mel_post
+        return decode_frames(self, h, dur, pitch, energy, max_len, mel_lens)
 
     @classmethod
     def from_config(cls, config: Dict[str, Any]) -> 'ForwardTacotron':

@@ -760,7 +760,10 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _table(t: int, d_model: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(sinusoidal_table(t, d_model)).to(device)
+    # made outside inference mode even when an inference call asks first:
+    # training reads the same cached table, and autograd saves it
+    with torch.inference_mode(False):
+        return torch.from_numpy(sinusoidal_table(t, d_model)).to(device)
 
 
 class PositionalEncoding(nn.Module):

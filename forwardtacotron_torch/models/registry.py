@@ -6,23 +6,27 @@ from torch import nn
 
 from forwardtacotron_torch.models.fast_pitch import FastPitch
 from forwardtacotron_torch.models.forward_tacotron import ForwardTacotron
+from forwardtacotron_torch.models.multi_fast_pitch import MultiFastPitch
+from forwardtacotron_torch.models.multi_forward_tacotron import \
+    MultiForwardTacotron
 
-MODEL_REGISTRY = {'forward_tacotron': ForwardTacotron,
-                  'fast_pitch': FastPitch}
+MODEL_REGISTRY = {
+    'forward_tacotron': ForwardTacotron,
+    'fast_pitch': FastPitch,
+    'multi_forward_tacotron': MultiForwardTacotron,
+    'multi_fast_pitch': MultiFastPitch,
+}
 
-# families of the JAX package that a later slice of the port brings
-_LATER = {'multi_forward_tacotron':
-              'the multispeaker slice (ROADMAP.md Queue 1, item 5)',
-          'multi_fast_pitch':
-              'the multispeaker slice (ROADMAP.md Queue 1, item 5)'}
+MULTISPEAKER_MODELS = {'multi_forward_tacotron', 'multi_fast_pitch'}
 
 
 def init_tts_model(config: Dict[str, Any]) -> nn.Module:
     model_type = config.get('tts_model', 'forward_tacotron')
-    if model_type in MODEL_REGISTRY:
-        return MODEL_REGISTRY[model_type].from_config(config)
-    if model_type in _LATER:
-        raise NotImplementedError(
-            f'{model_type} is not ported to PyTorch yet; it comes with '
-            f'{_LATER[model_type]}')
-    raise ValueError(f'Model type not supported: {model_type}!')
+    if model_type not in MODEL_REGISTRY:
+        raise ValueError(f'Model type not supported: {model_type}! '
+                         f'Supported: {sorted(MODEL_REGISTRY)}')
+    return MODEL_REGISTRY[model_type].from_config(config)
+
+
+def is_multispeaker(config: Dict[str, Any]) -> bool:
+    return config.get('tts_model') in MULTISPEAKER_MODELS

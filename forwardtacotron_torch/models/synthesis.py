@@ -1,8 +1,9 @@
 """Synthesis orchestrator (port of forwardtacotron_tpu/models/synthesis.py
-for ForwardTacotron and FastPitch): the two-phase ``generate``, the
-single-call
-``generate_fused`` and the length-routed ``generate_routed`` (optionally
-vocoding each group with a ``Vocoder``), in float32 or bfloat16.
+for ForwardTacotron, FastPitch and their multispeaker variants): the
+two-phase ``generate``, the single-call ``generate_fused`` and the
+length-routed ``generate_routed`` (optionally vocoding each group with a
+``Vocoder``), in float32 or bfloat16; multispeaker models take
+``speaker_emb``.
 
 Two-phase: phase 1 predicts durations, pitch and energy; the host reads the
 expanded frame counts; phase 2 decodes at the frame count rounded up to a
@@ -78,8 +79,8 @@ class Vocoder:
 
 
 class TTSInference:
-    """Wraps a ForwardTacotron or a FastPitch with the synthesis entry
-    points.
+    """Wraps a ForwardTacotron, a FastPitch or a multispeaker variant with
+    the synthesis entry points.
 
     ``dtype='bfloat16'`` casts every floating parameter and BatchNorm
     statistic to bfloat16, as the JAX package casts its variables; the
@@ -88,7 +89,13 @@ class TTSInference:
     weights, as the JAX package's promote them). The
     model is moved (and cast) in place, as ``Module.to`` does. ``device``
     defaults to CUDA and raises when no GPU is present; pass
-    ``device='cpu'`` to run on the CPU."""
+    ``device='cpu'`` to run on the CPU.
+
+    ``multispeaker`` is whether the model has ``speaker_emb_dims``, as the
+    JAX package decides. A multispeaker model's entry points need
+    ``speaker_emb``, [B, D] for a batch or [D] for one request, never
+    broadcast over a batch; the series carry the predicted ``pitch_cond``
+    into the decode. A single-speaker model refuses one."""
 
     def __init__(self, model: torch.nn.Module, dtype: str = 'float32',
                  device: Optional[Union[str, torch.device]] = None):
@@ -97,6 +104,7 @@ class TTSInference:
                 f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device, DTYPES[dtype]).eval()
+        self.multispeaker = hasattr(model, 'speaker_emb_dims')
 
     def _tokens(self, x) -> torch.Tensor:
         """Token ids (a sequence, numpy array or tensor) as a [B, N] long
@@ -105,52 +113,89 @@ class TTSInference:
                             dtype=torch.long, device=self.device)
         return x[None, :] if x.dim() == 1 else x
 
-    def _series(self, x: torch.Tensor, alpha: float,
-                pitch_function: Callable, energy_function: Callable):
-        series = self.model.predict_series(x, alpha)
+    def _speaker(self, speaker_emb) -> Optional[torch.Tensor]:
+        """The speaker embedding as [B, D] on the device (a [D] one as
+        [1, D]); None for a single-speaker model."""
+        if not self.multispeaker:
+            if speaker_emb is not None:
+                raise ValueError('speaker_emb given to a single-speaker '
+                                 'model')
+            return None
+        if speaker_emb is None:
+            raise ValueError('a multispeaker model needs speaker_emb')
+        semb = torch.as_tensor(
+            speaker_emb if torch.is_tensor(speaker_emb)
+            else np.asarray(speaker_emb), device=self.device)
+        return semb[None, :] if semb.dim() == 1 else semb
+
+    def _predict(self, x: torch.Tensor, semb: Optional[torch.Tensor],
+                 alpha: float) -> Dict[str, torch.Tensor]:
+        if semb is None:
+            return self.model.predict_series(x, alpha)
+        return self.model.predict_series(x, semb, alpha)
+
+    def _generate(self, x, semb, series, max_len: int
+                  ) -> Dict[str, torch.Tensor]:
+        """The model's ``generate`` on the series ``(dur, pitch, energy[,
+        pitch_cond])``."""
+        if semb is None:
+            return self.model.generate(x, *series, max_len)
+        dur, pitch, energy, pitch_cond = series
+        return self.model.generate(x, semb, dur, pitch, energy, pitch_cond,
+                                   max_len)
+
+    def _series(self, x: torch.Tensor, semb: Optional[torch.Tensor],
+                alpha: float, pitch_function: Callable,
+                energy_function: Callable):
+        """(dur, pitch, energy[, pitch_cond]) with the user hooks applied
+        to pitch and energy."""
+        series = self._predict(x, semb, alpha)
         pitch = torch.as_tensor(pitch_function(series['pitch']),
                                 device=self.device)
         energy = torch.as_tensor(energy_function(series['energy']),
                                  device=self.device)
-        return series['dur'], pitch, energy
+        out = (series['dur'], pitch, energy)
+        return out if semb is None else out + (series['pitch_cond'],)
 
     @torch.inference_mode()
-    def generate(self, x, alpha: float = 1.0,
+    def generate(self, x, speaker_emb=None, alpha: float = 1.0,
                  pitch_function: Callable = lambda p: p,
                  energy_function: Callable = lambda e: e
                  ) -> Dict[str, torch.Tensor]:
         """Two-phase synthesis of a batch at the bucket of its longest
         item."""
-        x = self._tokens(x)
-        dur, pitch, energy = self._series(x, alpha, pitch_function,
-                                          energy_function)
-        mel_lens = expanded_lengths(dur)
+        x, semb = self._tokens(x), self._speaker(speaker_emb)
+        series = self._series(x, semb, alpha, pitch_function,
+                              energy_function)
+        mel_lens = expanded_lengths(series[0])
         max_len = bucket_frames(int(mel_lens.max()))
-        out = self.model.generate(x, dur, pitch, energy, max_len)
+        out = self._generate(x, semb, series, max_len)
         out['mel_len'] = mel_lens
         return out
 
     @torch.inference_mode()
-    def generate_fused(self, x, max_len: int,
+    def generate_fused(self, x, max_len: int, speaker_emb=None,
                        alpha: float = 1.0) -> Dict[str, torch.Tensor]:
         """Serving-mode synthesis at a fixed frame budget ``max_len``:
         series prediction and decode in one call
         (``ForwardTacotron.generate_combined``; a model without it, as
-        FastPitch, runs ``predict_series`` then ``generate``), no host read
-        in between. Durations that would exceed the budget are cropped;
-        ``mel_len`` is the uncropped expanded length."""
-        x = self._tokens(x)
-        if hasattr(self.model, 'generate_combined'):
+        FastPitch and the multispeaker models, runs ``predict_series`` then
+        ``generate``), no host read in between. Durations that would exceed
+        the budget are cropped; ``mel_len`` is the uncropped expanded
+        length."""
+        x, semb = self._tokens(x), self._speaker(speaker_emb)
+        if semb is None and hasattr(self.model, 'generate_combined'):
             out = self.model.generate_combined(x, max_len, alpha)
         else:
-            s = self.model.predict_series(x, alpha)
-            out = self.model.generate(x, s['dur'], s['pitch'], s['energy'],
-                                      max_len)
+            s = self._predict(x, semb, alpha)
+            series = tuple(s[k] for k in ('dur', 'pitch', 'energy',
+                                          'pitch_cond') if k in s)
+            out = self._generate(x, semb, series, max_len)
         out['mel_len'] = expanded_lengths(out['dur'])
         return out
 
     @torch.inference_mode()
-    def generate_routed(self, x, alpha: float = 1.0,
+    def generate_routed(self, x, speaker_emb=None, alpha: float = 1.0,
                         frame_bucket: int = 128,
                         pitch_function: Callable = lambda p: p,
                         energy_function: Callable = lambda e: e,
@@ -161,19 +206,20 @@ class TTSInference:
         ``frame_bucket``-rounded length, at that group's budget, so short
         requests do not pay the longest one's. Group sizes are padded up to
         a power of two (``bucket_group_size``, repeating the group's first
-        request; the padding is cropped). Outputs come back in request
-        order, mels padded to the largest bucket, with ``mel_len`` capped at
-        each request's bucket.
+        request; the padding is cropped); a multispeaker group takes its
+        speaker rows and ``pitch_cond`` by the same padded index. Outputs
+        come back in request order, mels padded to the largest bucket,
+        with ``mel_len`` capped at each request's bucket.
 
         ``vocoder``: an optional batched [B, T, n_mels] -> [B, T * hop]
         callable (a :class:`Vocoder`). It runs inside the per-bucket loop,
         so each group is vocoded at its own frame budget; the outputs gain
         ``'wav'`` (padded to the largest bucket) and ``'wav_len'`` =
         ``mel_len`` * hop."""
-        x = self._tokens(x)
-        dur, pitch, energy = self._series(x, alpha, pitch_function,
-                                          energy_function)
-        mel_lens = expanded_lengths(dur).cpu().numpy()
+        x, semb = self._tokens(x), self._speaker(speaker_emb)
+        series = self._series(x, semb, alpha, pitch_function,
+                              energy_function)
+        mel_lens = expanded_lengths(series[0]).cpu().numpy()
         buckets = np.array([bucket_frames(int(n), frame_bucket)
                             for n in mel_lens])
         parts, order = [], []
@@ -182,8 +228,8 @@ class TTSInference:
             n_pad = bucket_group_size(len(idx), x.shape[0])
             gi = torch.as_tensor(np.concatenate(
                 [idx, np.full(n_pad - len(idx), idx[0])]), device=self.device)
-            out = self.model.generate(x[gi], dur[gi], pitch[gi], energy[gi],
-                                      int(bucket))
+            out = self._generate(x[gi], None if semb is None else semb[gi],
+                                 [s[gi] for s in series], int(bucket))
             if vocoder is not None:
                 out['wav'] = vocoder(out['mel_post'])
             parts.append({k: v[:len(idx)] for k, v in out.items()})

@@ -1,6 +1,7 @@
 """Training primitives shared by the trainers (the port's copy of
 forwardtacotron_tpu/train/common.py): TTSSession (reference
-trainer/common.py:8-27), Averager (:51-66), the masked L1 loss (:69-92), a
+trainer/common.py:8-27), Averager (:51-66), the masked L1 loss (:69-92),
+the multispeaker models' pitch-condition cross-entropy and accuracy, a
 steps/s timer and the float cast of the mixed-precision step."""
 
 import time
@@ -59,6 +60,28 @@ def masked_l1(x: torch.Tensor, target: torch.Tensor,
     mask = len_mask(lens, x.shape[1])[:, :, None].expand(x.shape)
     loss = torch.sum(torch.abs(x * mask - target * mask))
     return loss / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                         ignore_index: int = 0) -> torch.Tensor:
+    """Token-level cross-entropy that skips the ``ignore_index`` class
+    (reference trainer/multi_forward_trainer.py:34,
+    ``CrossEntropyLoss(ignore_index=0)``): logits [B, N, K], targets
+    [B, N]; the mean over the other tokens, 0 where there are none."""
+    log_probs = torch.log_softmax(logits, dim=-1)
+    picked = torch.gather(log_probs, -1, targets[..., None].long())[..., 0]
+    valid = (targets != ignore_index).float()
+    return -torch.sum(picked * valid) / torch.clamp(torch.sum(valid),
+                                                     min=1.0)
+
+
+def classification_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                            ignore_index: int = 0) -> torch.Tensor:
+    """Share of the non-``ignore_index`` tokens whose argmax class is the
+    target's."""
+    valid = (targets != ignore_index).float()
+    correct = (torch.argmax(logits, dim=-1) == targets).float() * valid
+    return torch.sum(correct) / torch.clamp(torch.sum(valid), min=1.0)
 
 
 class StepTimer:

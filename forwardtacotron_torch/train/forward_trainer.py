@@ -1,8 +1,13 @@
 """Forward-model trainer: schedule sessions, the train step, eval and
 checkpoints.
 
-Port of forwardtacotron_tpu/train/forward_trainer.py (``ForwardTrainer``;
-reference trainer/forward_trainer.py:35-231) for one device. The train step
+Port of forwardtacotron_tpu/train/forward_trainer.py (``ForwardTrainer``
+and ``MultiForwardTrainer``; reference trainer/forward_trainer.py:35-231
+and trainer/multi_forward_trainer.py:42-243) for one device. The trainer
+reads the section of the config's ``tts_model`` (ForwardTacotron,
+FastPitch or a multispeaker model); a multispeaker model's loss adds the
+pitch-condition cross-entropy, and its checkpoints carry the speaker
+table. The train step
 mirrors the JAX package's: with ``precision: bfloat16`` the float32 master
 parameters and the batch's floats are cast to bf16 (``cast_floats``), the
 model runs on the cast parameters through ``torch.func.functional_call``,
@@ -14,8 +19,8 @@ kernels (``train.pallas_rnn: false`` keeps the per-step loops). There is no
 are read with a one-step lag, so the host reads step N-1's scalars while
 step N runs.
 
-Not ported yet: ``MultiForwardTrainer``, the plots and audio of
-``generate_plots``, and data parallelism; the writer is the CSV fallback of
+Not ported yet: the plots and audio of ``generate_plots`` (ROADMAP.md
+Queue 1, item 12) and data parallelism; the writer is the CSV fallback of
 the JAX package's ``make_writer``.
 """
 
@@ -26,21 +31,24 @@ import numpy as np
 import torch
 
 from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+from forwardtacotron_torch.models.registry import is_multispeaker
 from forwardtacotron_torch.ops.hopper.rnn_train import rnn_mode
 from forwardtacotron_torch.train.common import (Averager, StepTimer,
                                                 TTSSession, cast_floats,
+                                                classification_accuracy,
+                                                masked_cross_entropy,
                                                 masked_l1)
 from forwardtacotron_torch.train.state import (TrainState, create_train_state,
                                                make_optimizer,
                                                set_learning_rate)
 from forwardtacotron_torch.utils.checkpoints import save_checkpoint
 from forwardtacotron_torch.utils.device import resolve_device
-from forwardtacotron_torch.utils.files import parse_schedule
+from forwardtacotron_torch.utils.files import parse_schedule, unpickle_binary
 from forwardtacotron_torch.utils.paths import Paths
 
-# what the forward model and its losses read of a collated batch
+# what the forward models and their losses read of a collated batch
 BATCH_KEYS = ('x', 'mel', 'dur', 'mel_len', 'x_len', 'pitch', 'energy',
-              'pitch_target', 'energy_target')
+              'pitch_target', 'energy_target', 'pitch_cond', 'speaker_emb')
 
 
 class CsvWriter:
@@ -62,8 +70,12 @@ class ForwardTrainer:
         self.dsp = dsp
         self.config = config
         self.device = resolve_device(device)
-        self.train_cfg = config['forward_tacotron']['training']
+        self.model_type = config.get('tts_model', 'forward_tacotron')
+        self.train_cfg = config[self.model_type]['training']
+        self.multispeaker = is_multispeaker(config)
         self.writer = CsvWriter(paths.forward_log)
+        # extra top-level entries of every checkpoint (the speaker table)
+        self.checkpoint_meta: Dict[str, Any] = {}
         first_lr = parse_schedule(self.train_cfg['schedule'])[0][0]
         self.tx = make_optimizer(first_lr,
                                  self.train_cfg.get('clip_grad_norm', 1.0))
@@ -141,6 +153,9 @@ class ForwardTrainer:
                              ('Params/batch_size', session.bs),
                              ('Params/learning_rate', session.lr)):
                 self.writer.add_scalar(tag, val, p_step)
+            if 'pitch_cond_loss' in m:
+                self.writer.add_scalar('Pitch_Cond_Loss/train',
+                                       m['pitch_cond_loss'], p_step)
 
         for e in range(1, epochs + 1):
             for i, batch in enumerate(session.train_set, 1):
@@ -194,6 +209,8 @@ class ForwardTrainer:
         dur_w = self.train_cfg['dur_loss_factor']
         pitch_w = self.train_cfg['pitch_loss_factor']
         energy_w = self.train_cfg['energy_loss_factor']
+        cond_w = self.train_cfg.get('pitch_cond_loss_factor', 0.1)
+        multispeaker = self.multispeaker
         mp = self.train_cfg.get('precision', 'float32') == 'bfloat16'
         mode = 'train' if mp and self.train_cfg.get('pallas_rnn', True) \
             else 'off'
@@ -218,8 +235,15 @@ class ForwardTrainer:
             loss = (m1 + m2 + dur_w * dur_loss + pitch_w * pitch_loss
                     + energy_w * energy_loss)
             metrics = {'m1_loss': m1, 'm2_loss': m2, 'dur_loss': dur_loss,
-                       'pitch_loss': pitch_loss, 'energy_loss': energy_loss,
-                       'loss': loss}
+                       'pitch_loss': pitch_loss, 'energy_loss': energy_loss}
+            if multispeaker:
+                ce = masked_cross_entropy(out['pitch_cond'],
+                                          batch['pitch_cond'])
+                loss = loss + cond_w * ce
+                metrics['pitch_cond_loss'] = ce
+                metrics['pitch_cond_acc'] = classification_accuracy(
+                    out['pitch_cond'], batch['pitch_cond'])
+            metrics['loss'] = loss
             return loss, metrics, out
 
         def train_step(state: TrainState,
@@ -268,4 +292,29 @@ class ForwardTrainer:
     def _save(self, state: TrainState, name: str) -> None:
         save_checkpoint(self.paths.forward_checkpoints / name, state.model,
                         self.config, step=state.step,
-                        opt_state=state.opt_state)
+                        opt_state=state.opt_state,
+                        meta=self.checkpoint_meta or None)
+
+
+class MultiForwardTrainer(ForwardTrainer):
+    """The multispeaker trainer (the JAX package's ``MultiForwardTrainer``,
+    reference trainer/multi_forward_trainer.py:35-40,116-119): reads the
+    speaker table and each speaker's mean embedding
+    (``mean_speaker_emb/<speaker>.npy``) and writes them into every
+    checkpoint as its top-level ``speaker_embeddings``, where
+    ``gen_forward --speaker`` finds them. It has no ``generate_plots``:
+    the plots come with ROADMAP.md Queue 1, item 12."""
+
+    def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
+                 device: Optional[Union[str, torch.device]] = None) -> None:
+        super().__init__(paths, dsp, config, device)
+        try:
+            speaker_dict = unpickle_binary(paths.speaker_dict)
+        except FileNotFoundError:
+            return
+        embeddings = {}
+        for speaker in sorted(set(speaker_dict.values())):
+            emb_path = paths.mean_speaker_emb / f'{speaker}.npy'
+            if emb_path.is_file():
+                embeddings[speaker] = np.load(str(emb_path))
+        self.checkpoint_meta = {'speaker_embeddings': embeddings}

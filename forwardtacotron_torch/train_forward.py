@@ -1,4 +1,5 @@
-"""CLI: train ForwardTacotron on the GPU.
+"""CLI: train a forward model (ForwardTacotron, FastPitch or a multispeaker
+model) on the GPU.
 
 Mirrors the repository's root ``train_forward.py`` on the PyTorch port, for
 one device:
@@ -9,9 +10,11 @@ one device:
 It resumes from ``latest_model.pt`` in the config's forward checkpoint
 directory when one is there (weights, BatchNorm statistics, optimizer state
 and step), else starts from seeded random weights, and runs the config's
-schedule. Checkpoints are reference-format ``.pt`` files that
-``python -m forwardtacotron_torch.gen_forward`` loads. ``--force_gta`` (GTA
-mel export) and the multispeaker models are not ported yet.
+schedule of the config's ``tts_model`` section. Checkpoints are
+reference-format ``.pt`` files that ``python -m
+forwardtacotron_torch.gen_forward`` loads; a multispeaker model's carry
+the speaker table (``MultiForwardTrainer``). ``--force_gta`` (GTA mel
+export) is not ported yet.
 """
 
 import argparse
@@ -28,8 +31,10 @@ def main(argv=None):
 
     import torch
 
-    from forwardtacotron_torch.models.registry import init_tts_model
-    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.models.registry import (init_tts_model,
+                                                       is_multispeaker)
+    from forwardtacotron_torch.train.forward_trainer import (
+        ForwardTrainer, MultiForwardTrainer)
     from forwardtacotron_torch.train.state import (create_train_state,
                                                    state_from_checkpoint)
     from forwardtacotron_torch.utils.checkpoints import restore_checkpoint
@@ -37,18 +42,15 @@ def main(argv=None):
     from forwardtacotron_torch.utils.paths import Paths
 
     config = read_config(args.config)
-    if config.get('tts_model', 'forward_tacotron') != 'forward_tacotron':
-        raise NotImplementedError(
-            f"training {config['tts_model']} is not ported to PyTorch yet; "
-            'it comes with the multispeaker slice (ROADMAP.md Queue 1, item '
-            '5)')
     paths = Paths.from_config(config)
     assert any(paths.alg.glob('*.npy')), \
         f'No alignment files found in {paths.alg}. Run train_tacotron.py first!'
 
     torch.manual_seed(args.seed)
     model = init_tts_model(config)
-    trainer = ForwardTrainer(paths, None, config, device=args.device)
+    trainer_cls = MultiForwardTrainer if is_multispeaker(config) \
+        else ForwardTrainer
+    trainer = trainer_cls(paths, None, config, device=args.device)
     model.to(trainer.device)
     ckpt = restore_checkpoint(paths.forward_checkpoints)
     if ckpt is not None:

@@ -9,7 +9,10 @@ the same variables in both packages.
   ----                                 -----
   params/a/b/kernel (3D, [K, I, O])  -> a.b.weight [O, I, K]
   params/a/b/kernel (2D, [I, O])     -> a.b.weight [O, I]
-  params/a/embedding/embedding       -> a.embedding.weight
+  params/a/embedding/embedding       -> a.embedding.weight (also the
+                                        multispeaker predictors'
+                                        pitch_cond_embedding and
+                                        conditional_embedding)
   params/a/bnorm/{scale,bias}        -> a.bnorm.{weight,bias}
   params/a/norm1/{scale,bias}        -> a.norm1.{weight,bias} (LayerNorm)
   params/a/pos_encoder/scale         -> a.pos_encoder.scale
@@ -141,7 +144,7 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]
         elif leaf == 'scale' or (leaf == 'weight' and arr.ndim == 1):
             # BatchNorm / LayerNorm gains, the positional encoding's scale
             _set_path(variables['params'], mods + ['scale'], arr)
-        elif leaf == 'weight' and mods[-1] == 'embedding':
+        elif leaf == 'weight' and mods[-1].endswith('embedding'):
             _set_path(variables['params'], mods + ['embedding'], arr)
         elif leaf == 'weight':
             _set_path(variables['params'], mods + ['kernel'],

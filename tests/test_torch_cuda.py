@@ -1623,3 +1623,177 @@ def test_cm_tail_gate_raises_before_any_launch(dev):
     with torch.no_grad(), pytest.raises(NotImplementedError, match='C=512'):
         gen(torch.zeros(1, 4, 8, device=dev))
     assert (mrf.launches, ups_mrf.launches) == before
+
+
+# ---------------------------------------- the multispeaker models' shapes
+#
+# configs/multispeaker.yaml: the frame trunk's LSTM takes 2 x 256 + 256 =
+# 768 inputs (row 6 at serving and requests, row 9 in training), the
+# predictor GRUs run at H 128 and 256 from 256-wide convolutions (rows 7,
+# 9, 10), and the length regulator copies rows of 768 (the trunk) and 512
+# (MultiFastPitch's decode) channels (row 8).
+
+@pytest.mark.parametrize('b,t', [(1, 65), (17, 1), (4096, 64)])
+def test_lstm_mel_kernel_at_multispeaker_width(dev, b, t):
+    """Row 6 at I 768, H 512, M 80; the plan is printed. At serving's 4096
+    items the 184,320-byte weight slice leaves room for one ring: one
+    consumer warpgroup, where I 512 takes 2."""
+    g = torch.Generator().manual_seed(b + t)
+    i, h, m = 768, 512, 80
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
+    wm = _rand(g, (2, h, m), h ** -0.5, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    plan = rnn.plan('lstm_mel', b, t, i, h, m, *rnn.device_limits(x2.device))
+    print(f'plan lstm_mel B={b} T={t} I={i}: {plan}')
+    if b == 4096:
+        assert plan['warpgroups'] == 1
+        assert rnn.plan('lstm_mel', b, t, 512, h, m, *rnn.device_limits(
+            x2.device))['warpgroups'] == 2
+    before = rnn.launches['lstm_mel']
+    got = rnn.lstm_mel(x2, wi, wh, bi + bh, wm)
+    torch.cuda.synchronize()
+    assert rnn.launches['lstm_mel'] == before + 1
+    _close([got.float()],
+           [rnn.lstm_mel_plain(x2, wi, wh, bi + bh, wm).float()], BF16_TOL)
+
+
+@pytest.mark.parametrize('b,t', [(1, 81), (17, 9), (4096, 81)])
+@pytest.mark.parametrize('h', [128, 256])
+def test_predictor_gru_kernel_at_multispeaker_width(dev, b, t, h):
+    """Row 7 at the predictor GRUs' shapes: I 256, H 128 (duration, pitch
+    condition) and 256 (pitch), up to serving's 4096 x 81 tokens."""
+    g = torch.Generator().manual_seed(b + t + h)
+    wi, wh, bi, bh = _rnn_weights(g, 256, h, 3, dev)
+    x2 = _rand(g, (t, 2, b, 256), 1.0, dev)
+    before = dict(rnn.launches)
+    got = rnn.gru(x2, wi, wh, bi, bh)
+    torch.cuda.synchronize()
+    assert rnn.launches == {**before, 'gru': before['gru'] + 1}
+    _close([got.float()], [rnn.gru_plain(x2, wi, wh, bi, bh).float()],
+           BF16_TOL)
+
+
+@pytest.mark.parametrize('b,n,t,c,dtype', [
+    (1, 92, 896, 768, torch.float32),       # a multispeaker f32 request
+    (32, 160, 928, 768, torch.bfloat16),    # the multispeaker bf16 step
+    (32, 160, 1024, 768, torch.float32),
+    (4096, 81, 256, 512, torch.float32),    # MultiFastPitch serving
+    (1, 92, 896, 512, torch.float32)])
+def test_lr_tile_kernel_at_multispeaker_widths(dev, b, n, t, c, dtype):
+    """Row 8 at C 768 and 512: one launch, exact."""
+    g = torch.Generator().manual_seed(b + n + t + c)
+    reps = torch.randint(2, 10, (b, n), generator=g)
+    ends = torch.cumsum(reps, dim=1).to(dev, torch.int32)
+    x = _rand(g, (b, n, c), 1.0, dev, dtype)
+    before = lr.launches
+    got = lr.length_regulator_expand(x, ends, t)
+    torch.cuda.synchronize()
+    assert lr.launches == before + 1
+    assert torch.equal(got, lr.length_regulator_plain(x, ends, t))
+
+
+@pytest.mark.parametrize('b,t', [(32, 928), (3, 65)])
+def test_lstm_train_and_bwd_at_multispeaker_width(dev, b, t):
+    """Rows 9 and 10's LSTM at I 768, H 512: the forward with cells and the
+    backward sweep (its two launches)."""
+    g = torch.Generator().manual_seed(b + t)
+    i, h = 768, 512
+    wi, wh, bi, bh = _rnn_weights(g, i, h, 4, dev)
+    x2 = _rand(g, (t, 2, b, i), 1.0, dev)
+    before = rnn.launches['lstm_train']
+    hs, cs = rnn.lstm_train(x2, wi, wh, bi + bh)
+    torch.cuda.synchronize()
+    assert rnn.launches['lstm_train'] == before + 1
+    want = rnn.lstm_train_plain(x2, wi, wh, bi + bh)
+    _close([hs.float(), cs.float()], [w.float() for w in want], BF16_TOL)
+    _bwd_matches(dev, 'lstm', t, b, i, h)
+
+
+@pytest.mark.parametrize('b,t', [(32, 160), (3, 65)])
+@pytest.mark.parametrize('h', [128, 256])
+def test_gru_train_and_bwd_at_multispeaker_width(dev, b, t, h):
+    """Rows 9 and 10's predictor GRUs at I 256, H 128 and 256."""
+    g = torch.Generator().manual_seed(b + t + h)
+    wi, wh, bi, bh = _rnn_weights(g, 256, h, 3, dev)
+    x2 = _rand(g, (t, 2, b, 256), 1.0, dev)
+    got = rnn.gru(x2, wi, wh, bi, bh)
+    _close([got.float()], [rnn.gru_plain(x2, wi, wh, bi, bh).float()],
+           BF16_TOL)
+    _bwd_matches(dev, 'gru', t, b, 256, h)
+
+
+def _narrow_multi(family, dtype):
+    """A narrow multispeaker model whose bf16 decode takes rows 5-7: trunk
+    input 2 x 64 + 128 = 256, predictor GRUs of 128."""
+    from forwardtacotron_torch.models.multi_fast_pitch import MultiFastPitch
+    from forwardtacotron_torch.models.multi_forward_tacotron import \
+        MultiForwardTacotron
+    torch.manual_seed(0)
+    if family == 'multi_forward_tacotron':
+        model = MultiForwardTacotron(
+            speaker_emb_dims=128, embed_dims=64, series_embed_dims=16,
+            durpred_conv_dims=32, durpred_rnn_dims=128, pitch_conv_dims=32,
+            pitch_rnn_dims=128, pitch_cond_conv_dims=32,
+            pitch_cond_rnn_dims=128, energy_conv_dims=32, energy_rnn_dims=64,
+            rnn_dims=128, prenet_dims=64, prenet_k=4, postnet_dims=128,
+            postnet_k=4, n_mels=16)
+    else:
+        model = MultiFastPitch(
+            speaker_emb_dims=32, durpred_d_model=16, durpred_layers=1,
+            durpred_d_fft=16, pitch_d_model=16, pitch_layers=1,
+            pitch_d_fft=16, energy_d_model=16, energy_layers=1,
+            energy_d_fft=16, pitch_cond_d_model=16, pitch_cond_layers=1,
+            pitch_cond_d_fft=16, d_model=64, prenet_layers=2, prenet_fft=96,
+            postnet_layers=2, postnet_fft=96, n_mels=16)
+    with torch.no_grad():
+        # in bfloat16 every token lasts 3 frames, so that no duration lies
+        # near a rounding point (card and CPU sum in other orders); in
+        # float32 the durations vary, so requests route to several groups
+        std = 4.0 if family == 'multi_forward_tacotron' else 0.3
+        model.dur_pred.lin.weight.normal_(
+            0.0, std if dtype == 'float32' else 0.0)
+        model.dur_pred.lin.bias.fill_(3.0)
+    return model.eval()
+
+
+@pytest.mark.parametrize('family', ['multi_forward_tacotron',
+                                    'multi_fast_pitch'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_multispeaker_generate_on_card_matches_cpu(dev, family, dtype):
+    """``generate_fused`` and ``generate_routed`` with a speaker per item on
+    the card against the CPU path, with the launches of one call: in bf16
+    MultiForwardTacotron takes row 7 for its three 128-wide predictor GRUs
+    and the postnet GRU (the prenet's, 64 wide, and energy's stay loops),
+    rows 5 + 6 for the trunk; in float32 its trunk and MultiFastPitch's
+    decode take row 8."""
+    import copy
+
+    import numpy as np
+
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    model = _narrow_multi(family, dtype)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randint(1, 60, (3, 17), generator=gen)
+    x[1, 11:] = 0
+    semb = torch.rand(3, model.speaker_emb_dims, generator=gen)
+    cpu = TTSInference(copy.deepcopy(model), dtype=dtype, device='cpu')
+    card = TTSInference(copy.deepcopy(model), dtype=dtype, device=dev)
+    tol = TOL if dtype == 'float32' else 5e-2
+    want = cpu.generate_fused(x, 64, speaker_emb=semb)
+    before = (dict(rnn.launches), lr.launches, lr_bidir.launches)
+    got = card.generate_fused(x, 64, speaker_emb=semb)
+    torch.cuda.synchronize()
+    fused = family == 'multi_forward_tacotron' and dtype == 'bfloat16'
+    assert rnn.launches['gru'] - before[0]['gru'] == (4 if fused else 0)
+    assert rnn.launches['lstm_mel'] - before[0]['lstm_mel'] == int(fused)
+    assert lr_bidir.launches - before[2] == int(fused)
+    assert lr.launches - before[1] == (0 if fused else 1)
+    _close([got[k].float().cpu() for k in ('mel', 'mel_post', 'dur')],
+           [want[k].float() for k in ('mel', 'mel_post', 'dur')], tol)
+    assert torch.equal(got['pitch_cond'].cpu(), want['pitch_cond'])
+    want = cpu.generate_routed(x, speaker_emb=semb, frame_bucket=16)
+    got = card.generate_routed(x, speaker_emb=semb, frame_bucket=16)
+    groups = len(np.unique((want['mel_len'].numpy() + 15) // 16))
+    assert groups > 1 or dtype == 'bfloat16'
+    assert torch.equal(got['mel_len'].cpu(), want['mel_len'])
+    _close([got['mel_post'].float().cpu()], [want['mel_post'].float()], tol)

@@ -578,13 +578,39 @@ def test_gen_forward_fast_pitch_checkpoint(tmp_path, batched):
 
 
 def test_train_forward_refuses_fast_pitch(tmp_path):
-    """Training FastPitch comes with the multispeaker slice: the port's
-    trainer reads only the forward_tacotron section, so
-    ``train_forward`` refuses a FastPitch config before it reads data."""
+    """FastPitch trains on the CPU: ``train_forward`` on a FastPitch config
+    reads its ``fast_pitch`` section (the name is kept from the slice
+    before, when it refused), runs its schedule and writes reference-format
+    checkpoints of the FastPitch schema, which ``gen_forward`` serves."""
     import yaml
+    from torch_training_setup import write_dataset
 
-    from forwardtacotron_torch import train_forward
+    from forwardtacotron_torch import gen_forward, train_forward
+    from forwardtacotron_torch.utils.checkpoints import (
+        checkpoint_step, init_tts_model_from_checkpoint, restore_checkpoint)
+    config = narrow_config()
+    config['data_path'] = str(tmp_path / 'data')
+    config['checkpoint_path'] = str(tmp_path / 'ckpt')
+    train = config['fast_pitch']['training']
+    train.update(schedule=['1e-3, 3, 2'], checkpoint_every=2,
+                 bucket_multiple=8)
+    train['filter'].update(max_mel_len=200, filter_duration_stats=False)
+    paths = write_dataset(config)
     path = tmp_path / 'fp.yaml'
-    path.write_text(yaml.safe_dump(narrow_config()))
-    with pytest.raises(NotImplementedError, match='fast_pitch.*item 5'):
-        train_forward.main(['--config', str(path), '--device', 'cpu'])
+    path.write_text(yaml.safe_dump(config))
+    train_forward.main(['--config', str(path), '--device', 'cpu'])
+    ckpt = restore_checkpoint(paths.forward_checkpoints)
+    assert checkpoint_step(ckpt) == 3 and int(ckpt['optim']['count']) == 3
+    model, _ = init_tts_model_from_checkpoint(
+        paths.forward_checkpoints / 'latest_model.pt')
+    assert isinstance(model, FastPitch)
+    metrics = (paths.forward_log / 'metrics.csv').read_text().splitlines()
+    losses = [float(line.split(',')[2]) for line in metrics
+              if ',Mel_Loss/train,' in line]
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    out = tmp_path / 'out'
+    gen_forward.main(['--checkpoint',
+                      str(paths.forward_checkpoints / 'latest_model.pt'),
+                      '--input_text', 'hello there.', '--output', str(out),
+                      '--device', 'cpu'])
+    assert len(list(out.glob('*.wav'))) == 1

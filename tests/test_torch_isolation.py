@@ -78,16 +78,23 @@ def test_bfloat16_and_other_families_raise():
     from forwardtacotron_torch.utils.files import read_config
 
     from forwardtacotron_torch.models.fast_pitch import FastPitch
+    from forwardtacotron_torch.models.multi_fast_pitch import MultiFastPitch
+    from forwardtacotron_torch.models.multi_forward_tacotron import \
+        MultiForwardTacotron
 
     config = read_config(REPO / 'configs' / 'singlespeaker.yaml')
-    # FastPitch is ported; the multispeaker families still raise, naming
-    # the slice that brings them
     config['tts_model'] = 'fast_pitch'
     assert isinstance(init_tts_model(config), FastPitch)
-    for family in ('multi_forward_tacotron', 'multi_fast_pitch'):
+    # every family of the JAX package is ported: the multispeaker ones
+    # build from configs/multispeaker.yaml, and an unknown family raises
+    config = read_config(REPO / 'configs' / 'multispeaker.yaml')
+    for family, cls in (('multi_forward_tacotron', MultiForwardTacotron),
+                        ('multi_fast_pitch', MultiFastPitch)):
         config['tts_model'] = family
-        with pytest.raises(NotImplementedError, match=f'{family}.*item 5'):
-            init_tts_model(config)
+        assert isinstance(init_tts_model(config), cls)
+    config['tts_model'] = 'tacotron'
+    with pytest.raises(ValueError, match='not supported: tacotron'):
+        init_tts_model(config)
     # bfloat16 is served since the fused serving path was ported; any other
     # dtype raises, naming the two that are served
     with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):

@@ -187,3 +187,201 @@ def write_dataset(config, n_items=8):
         with open(path, 'wb') as f:
             pickle.dump(obj, f)
     return paths
+
+
+# ------------------------------------------------------------ multispeaker
+#
+# Narrow multispeaker models: the trunk LSTM takes 2 * 32 + 64 = 128
+# inputs and the pitch predictor's GRU is 128 wide, so in bfloat16 the JAX
+# gates send them to their kernels (the fused trunk in serving, the
+# trainable cores in training), as at the published widths.
+
+MULTI_NARROW = dict(speaker_emb_dims=64, embed_dims=32, series_embed_dims=16,
+                    durpred_conv_dims=32, durpred_rnn_dims=16,
+                    pitch_conv_dims=32, pitch_rnn_dims=128,
+                    energy_conv_dims=32, energy_rnn_dims=16,
+                    pitch_cond_conv_dims=32, pitch_cond_rnn_dims=16,
+                    pitch_cond_emb_dims=4, prenet_dims=32, prenet_k=2,
+                    prenet_num_highways=1, rnn_dims=128, postnet_dims=32,
+                    postnet_k=2, postnet_num_highways=1,
+                    durpred_dropout=0.0, pitch_dropout=0.0,
+                    energy_dropout=0.0, pitch_cond_dropout=0.0,
+                    prenet_dropout=0.0, postnet_dropout=0.0)
+MULTI_FP_NARROW = dict(speaker_emb_dims=32, durpred_d_model=16,
+                       durpred_n_heads=2, durpred_layers=1,
+                       durpred_d_fft=16, pitch_d_model=16, pitch_n_heads=2,
+                       pitch_layers=1, pitch_d_fft=16, energy_d_model=16,
+                       energy_n_heads=2, energy_layers=1, energy_d_fft=16,
+                       pitch_cond_d_model=16, pitch_cond_n_heads=2,
+                       pitch_cond_layers=1, pitch_cond_d_fft=16, d_model=32,
+                       conv1_kernel=9, conv2_kernel=1, prenet_layers=1,
+                       prenet_heads=2, prenet_fft=48, postnet_layers=1,
+                       postnet_heads=2, postnet_fft=48,
+                       durpred_dropout=0.0, pitch_dropout=0.0,
+                       energy_dropout=0.0, pitch_cond_dropout=0.0,
+                       prenet_dropout=0.0, postnet_dropout=0.0)
+FP_NARROW = {k: v for k, v in MULTI_FP_NARROW.items()
+             if not k.startswith(('speaker', 'pitch_cond'))}
+NARROW_OF = {'multi_forward_tacotron': MULTI_NARROW,
+             'multi_fast_pitch': MULTI_FP_NARROW, 'fast_pitch': FP_NARROW}
+SPEAKERS = ('spk0', 'spk1', 'spk2')
+
+
+def family_config(family, precision, tmp_path):
+    """configs/multispeaker.yaml (configs/singlespeaker.yaml for
+    fast_pitch) with ``family``'s model narrowed, ``precision`` in its
+    training section, a 10-step schedule at batch 3 and the data and
+    checkpoints under ``tmp_path``."""
+    source = 'singlespeaker' if family == 'fast_pitch' else 'multispeaker'
+    config = read_config(f'configs/{source}.yaml')
+    config['tts_model'] = family
+    config['dsp']['num_mels'] = N_MELS
+    config[family]['model'].update(NARROW_OF[family])
+    train = config[family]['training']
+    train['precision'] = precision
+    train['schedule'] = ['1e-3, 10, 3']
+    config['data_path'] = str(tmp_path / 'data')
+    config['checkpoint_path'] = str(tmp_path / 'ckpt')
+    return config
+
+
+def speaker_table(n, dims, seed):
+    """``n`` speaker embeddings [n, dims] like resemblyzer's: non-negative
+    and of unit norm."""
+    e = np.abs(np.random.RandomState(seed).randn(n, dims)).astype(np.float32)
+    return e / np.linalg.norm(e, axis=1, keepdims=True)
+
+
+def make_multi_batch(dims, seed=0):
+    """``make_batch`` plus a speaker embedding per item and the pitch
+    condition (0 at padding, 1 where the pitch is 0, else 2; the first
+    token of every item is unvoiced)."""
+    batch = make_batch(seed)
+    batch['pitch'][:, 0] = 0.0
+    batch['pitch_target'] = batch['pitch'].copy()
+    valid = np.arange(batch['x'].shape[1])[None] < batch['x_len'][:, None]
+    batch['pitch_cond'] = np.where(
+        valid, np.where(batch['pitch'] == 0, 1, 2), 0).astype(np.int64)
+    batch['speaker_emb'] = speaker_table(len(batch['x']), dims, seed + 1)
+    return batch
+
+
+_MODEL_KEYS = ('x', 'dur', 'mel_len', 'pitch', 'energy', 'mel',
+               'speaker_emb', 'pitch_cond')
+
+
+@functools.lru_cache(maxsize=4)
+def _family_model_and_variables(family):
+    import jax
+
+    from forwardtacotron_tpu.models.registry import init_tts_model
+
+    jmodel = init_tts_model(family_config(family, 'float32', Path('unused')))
+    batch = make_multi_batch(NARROW_OF[family].get('speaker_emb_dims', 1))
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {'params': jax.random.PRNGKey(0), 'dropout': jax.random.PRNGKey(1)},
+        {k: batch[k] for k in _MODEL_KEYS}, train=False))
+    return jmodel, _random_variables(shapes, seed=5)
+
+
+def family_models(config):
+    """The JAX model of ``config['tts_model']`` with seeded variables, and
+    a fresh port model with the same weights (missing: only the ``step``
+    buffer and the transformers' positional tables)."""
+    jmodel, variables = _family_model_and_variables(config['tts_model'])
+    tmodel = torch_init_tts_model(config)
+    missing, unexpected = tmodel.load_state_dict(
+        from_jax_variables(variables), strict=False)
+    assert unexpected == [] and all(k == 'step' or k.endswith('.pe')
+                                    for k in missing)
+    return jmodel, variables, tmodel
+
+
+def write_multi_dataset(config, n_items=8):
+    """``write_dataset`` with three speakers: each item's speaker embedding
+    and each speaker's mean embedding, and unvoiced tokens (pitch 0)."""
+    paths = write_dataset(config, n_items)
+    dims = config[config['tts_model']]['model']['speaker_emb_dims']
+    table = speaker_table(len(SPEAKERS), dims, 11)
+    speaker_dict = {}
+    for i in range(n_items):
+        item_id = f'item{i}'
+        speaker_dict[item_id] = SPEAKERS[i % len(SPEAKERS)]
+        np.save(paths.speaker_emb / f'{item_id}.npy', table[i % len(SPEAKERS)])
+        pitch = np.load(paths.phon_pitch / f'{item_id}.npy')
+        pitch[::2] = 0.0
+        np.save(paths.phon_pitch / f'{item_id}.npy', pitch)
+    for s, emb in zip(SPEAKERS, table):
+        np.save(paths.mean_speaker_emb / f'{s}.npy', emb)
+    with open(paths.speaker_dict, 'wb') as f:
+        pickle.dump(speaker_dict, f)
+    return paths
+
+
+def close_at_scale(got, want, atol, mask=None):
+    """|got - want| <= atol x max(1, max |want|), over ``mask`` if given."""
+    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol * scale)
+
+
+def rounding_margin(dur):
+    """The smallest distance of a duration from a rounding point (d + 0.5
+    an integer; negatives clamp to 0)."""
+    frac = np.clip(np.asarray(dur, np.float64), 0, None) % 1.0
+    return float(np.abs(frac - 0.5).min())
+
+
+def teacher_batch(x, semb, seed=9):
+    """A teacher-forced batch for tokens ``x`` (0 = padding) and speakers
+    ``semb``: 1-3 frames a token, every third token unvoiced."""
+    rs = np.random.RandomState(seed)
+    dur = np.where(x > 0, rs.randint(1, 4, x.shape), 0).astype(np.float32)
+    mel_len = dur.sum(1).astype(np.int64)
+    pitch = rs.randn(*x.shape).astype(np.float32)
+    pitch[:, ::3] = 0.0
+    return {'x': x, 'dur': dur, 'mel_len': mel_len, 'pitch': pitch,
+            'energy': rs.rand(*x.shape).astype(np.float32),
+            'pitch_cond': np.where(x > 0, np.where(pitch == 0, 1, 2), 0),
+            'speaker_emb': semb,
+            'mel': np.zeros((len(x), int(mel_len.max()) + 5, N_MELS),
+                            np.float32)}
+
+
+@functools.lru_cache(maxsize=2)
+def full_width_model(family):
+    """``family`` at the full width of configs/multispeaker.yaml from seed
+    0, and its config; made once per process, so a test that changes the
+    model changes a copy."""
+    torch.manual_seed(0)
+    config = read_config('configs/multispeaker.yaml')
+    config['tts_model'] = family
+    return torch_init_tts_model(config), config
+
+
+def jax_forward(jmodel, variables, batch):
+    """The JAX model's teacher-forced ``__call__`` in eval and in training
+    mode, both under one jit: ``{False: outputs, True: (outputs, updated
+    variables)}``."""
+    import jax
+
+    def both(v, b):
+        return (jmodel.apply(v, b, train=False),
+                jmodel.apply(v, b, train=True, mutable=['batch_stats']))
+    want_eval, want_train = jax.jit(both)(variables, batch)
+    return {False: want_eval, True: want_train}
+
+
+# XLA's least optimizing CPU compile: the JAX train steps compile in about
+# two thirds of the time (the computation and its float32 results are the
+# same; only the generated code is less tuned)
+QUICK_COMPILE = {'xla_backend_optimization_level': 0,
+                 'xla_llvm_disable_expensive_passes': True}
+
+
+def run_jax_step(step, *args):
+    """One call of the jitted JAX ``step``, compiled with QUICK_COMPILE."""
+    return step.lower(*args).compile(QUICK_COMPILE)(*args)
