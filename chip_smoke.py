@@ -129,9 +129,28 @@ Run from the repository root. Phases, each of which must pass:
     launches, steps/s, device busy; one float32 and one bf16 step of each
     against the CPU path, the pitch-condition CE and accuracy included);
     MultiFastPitch's float32 requests against the CPU and its bf16
-    serving.
+    serving;
+17. the Tacotron teacher at the full width of
+    ``configs/singlespeaker.yaml``'s ``tacotron`` section with seeded
+    weights: rows 1 and 2 at its four entries (the encoder's CBHG, K 16,
+    C_in 128, C 128, P 128, at 8 x 180 tokens; the postnet's, K 8, C_in
+    80, C 128, P 256, at the GTA export's 8 x 1,000 frames), float32 and
+    bf16, against their twins, timed beside the twin, the yardstick and
+    the bound; one teacher-forced eval forward at r = 1 on the card (2
+    ``pre_highway_stack`` and 2 ``cbhg_front`` launches, nothing else)
+    against the CPU plain path, and one of ``configs/multispeaker.yaml``'s
+    teacher (4 seeded speakers, 400 frames); ``generate`` for the 4 sentences in
+    float32 and bf16 (the same launches); float32 and bf16 train steps at
+    r = 5 (batch 32) and r = 1 (batch 8) on synthetic items (no kernel
+    launches, steps/s, device busy and idle share, a falling loss, a
+    finite gradient for every parameter, the device busy and idle share
+    at r = 5) and one step of each dtype
+    against the CPU path; ``python -m forwardtacotron_torch.train_tacotron``
+    through two short sessions, a resume and ``--force_gta``.
 
-``--multispeaker`` runs only the build and phase 16,
+``--multispeaker`` runs only the build and phase 16, ``--teacher`` only
+the build and phase 17 (there with the device busy and idle share of the
+r = 1 steps too; the default run profiles the r = 5 steps),
 ``--griffinlim-split`` runs only phase 4's split, ``--lstm-times`` only
 the LSTM entries' times (``LSTM_TIMES_SHAPES``, with ``--kernel-parts``
 their parts) and ``--lr-mrf-times`` only row 8's phase (with a fill of
@@ -155,7 +174,8 @@ level fused), ``chiprun_out/chip_smoke_vocoder_tail_profile.txt`` (the
 tail) and ``chiprun_out/chip_smoke_train_profile.txt`` (bf16 train
 step); phase 16 writes ``chip_smoke_multi_serving_profile.txt``,
 ``chip_smoke_multi_fast_pitch_profile.txt`` and
-``chip_smoke_<family>_train_profile.txt`` beside them.
+``chip_smoke_<family>_train_profile.txt`` beside them, phase 17
+``chip_smoke_teacher_<precision>_r<r>_profile.txt``.
 """
 
 import collections
@@ -480,7 +500,13 @@ def make_model(torch, config):
     duration head that gives every token FRAMES_PER_TOKEN frames."""
     from forwardtacotron_torch.models.registry import init_tts_model
     torch.manual_seed(SEED)
-    model = init_tts_model(config)
+    model = random_bn_stats(torch, init_tts_model(config))
+    return set_frames_per_token(torch, model, FRAMES_PER_TOKEN)
+
+
+def random_bn_stats(torch, model):
+    """Seeded random BatchNorm running statistics (init leaves them at 0
+    and 1)."""
     gen = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -488,7 +514,7 @@ def make_model(torch, config):
                 buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
             elif name.endswith('running_var'):
                 buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
-    return set_frames_per_token(torch, model, FRAMES_PER_TOKEN)
+    return model
 
 
 def set_frames_per_token(torch, model, frames: int):
@@ -1073,15 +1099,16 @@ SERVING_KERNEL_NAMES = {
 
 def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
                library=None, yardstick=None, sweep_blocks=None,
-               plain_reps=REPS):
-    """Kernel vs twin on the same bf16 inputs (``compare`` at BF16_TOL, or
+               plain_reps=REPS, tol=BF16_TOL, peak=PEAK_BF16_FLOPS):
+    """Kernel vs twin on the same bf16 inputs (``compare`` at ``tol``, or
     ``compare_sweep`` with ``sweep_blocks`` gate blocks), then CUDA-event
     times of the kernel, the twin (``plain_reps`` runs) and (where one
     exists) one library call or, where no single call computes the
-    function, a yardstick chain of calls."""
+    function, a yardstick chain of calls; the bound at ``peak``. A float32
+    entry passes KERNEL_TOL and PEAK_F32_FLOPS."""
     got, want = kernel(*args), plain(*args)
     if sweep_blocks is None:
-        err = compare(torch, name, got.float(), want.float(), BF16_TOL)
+        err = compare(torch, name, got.float(), want.float(), tol)
     else:
         got = got if isinstance(got, (tuple, list)) else [got]
         want = want if isinstance(want, (tuple, list)) else [want]
@@ -1091,7 +1118,7 @@ def bf16_check(torch, name, kernel, plain, args, flops, nbytes,
     p_ms = time_ms(torch, lambda: plain(*args), plain_reps,
                    min(3, plain_reps))
     l_ms = None if library is None else time_ms(torch, library)
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    b_ms, b_by = bound(flops, nbytes, peak)
     res = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                bound_ms=b_ms, bound_by=b_by)
     extra = ''
@@ -3121,10 +3148,12 @@ def train_config(config, root, precision, max_step, dropout=True):
     return cfg
 
 
-def write_train_data(cfg):
-    """TRAIN_ITEMS synthetic items made from SEED with numpy: 80-160
-    phonemes, 2-9 frames each, random log-mel-like spectrograms, pitch
-    and energy, duration statistics that pass the config's filter."""
+def write_train_data(cfg, n_items=TRAIN_ITEMS, n_val=TRAIN_VAL_ITEMS,
+                     tokens=TRAIN_TOKENS):
+    """``n_items`` synthetic items (the last ``n_val`` for validation) made
+    from SEED with numpy: ``tokens`` (80-160) phonemes, 2-9 frames each,
+    random log-mel-like spectrograms, pitch and energy, duration
+    statistics that pass the config's filter."""
     from forwardtacotron_torch.data.dataset import DurationStats
     from forwardtacotron_torch.text.symbols import phonemes
     from forwardtacotron_torch.utils.files import pickle_binary
@@ -3135,9 +3164,9 @@ def write_train_data(cfg):
     n_mels = cfg['dsp']['num_mels']
     symbols = phonemes[20:60]
     text, stats, items = {}, {}, []
-    for i in range(TRAIN_ITEMS):
+    for i in range(n_items):
         item_id = f'item{i:03d}'
-        n_tok = rs.randint(TRAIN_TOKENS[0], TRAIN_TOKENS[1] + 1)
+        n_tok = rs.randint(tokens[0], tokens[1] + 1)
         text[item_id] = ''.join(rs.choice(list(symbols), n_tok))
         dur = rs.randint(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1,
                          n_tok).astype(np.float32)
@@ -3153,7 +3182,7 @@ def write_train_data(cfg):
                 np.zeros(256, np.float32))
         stats[item_id] = DurationStats(0.9, 0.99, 2, int(dur.max()))
         items.append((item_id, frames))
-    split = TRAIN_ITEMS - TRAIN_VAL_ITEMS
+    split = n_items - n_val
     for obj, path in ((text, paths.text_dict), (stats, paths.duration_stats),
                       ({k: 'speaker' for k in text}, paths.speaker_dict),
                       (items[:split], paths.train_dataset),
@@ -4390,6 +4419,452 @@ def multispeaker_phases(torch, config, tokens) -> dict:
     return out
 
 
+# the Tacotron teacher (configs/singlespeaker.yaml's tacotron section):
+# rows 1-2 at the GTA export's batch and at the encoder's tokens
+TEACHER_BATCH, TEACHER_FRAMES, TEACHER_TOKENS = 8, 1000, 180
+# train steps: (r, batch) as the schedule's first and last sessions; timed
+# steps of each after the counted and the profiled one
+TEACHER_TRAIN = ((5, 32), (1, 8))
+TEACHER_TIMED_STEPS = {5: 2, 1: 1}
+# card vs CPU: the shortest items at r = 5
+TEACHER_CHECK_BATCH, TEACHER_CHECK_R = 4, 5
+TEACHER_GEN_STEPS = 2000
+# the train_tacotron CLI: items of 20-40 phonemes, two short sessions
+# (r, lr, steps, batch)
+TEACHER_CLI_ITEMS, TEACHER_CLI_VAL, TEACHER_CLI_TOKENS = 16, 4, (20, 40)
+TEACHER_CLI_SCHEDULE = ['5, 1e-3, 2, 8', '2, 1e-4, 4, 4']
+# teacher-forced eval forward, card vs CPU (float32, 1000 decoder steps);
+# the multispeaker teacher's at fewer frames
+TEACHER_EVAL_TOL = 1e-4
+TEACHER_MULTI_FRAMES = 400
+
+
+def teacher_model(torch, config):
+    """The teacher at full width from SEED, random BN statistics, eval."""
+    from forwardtacotron_torch.models.tacotron import Tacotron
+    torch.manual_seed(SEED)
+    return random_bn_stats(torch, Tacotron.from_config(config)).eval()
+
+
+def teacher_no_dropout(torch, model):
+    """The teacher's dropout and zoneout off (card vs CPU steps)."""
+    from forwardtacotron_torch.models.tacotron import PreNet
+    for m in model.modules():
+        if isinstance(m, PreNet):
+            m.dropout = 0.0
+        elif isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    model.decoder.zoneout = 0.0
+    return model
+
+
+def teacher_kernel_phase(torch, model) -> dict:
+    """Rows 1 and 2 at the teacher's four entries (the encoder's CBHG at
+    TEACHER_BATCH x TEACHER_TOKENS, the postnet's at TEACHER_BATCH x
+    TEACHER_FRAMES, items ragged), float32 and bf16, each against its
+    twin and timed beside the twin, its yardstick (the residual add and
+    the ``nn.Linear`` chain; the fused cuDNN bank, ``pool_mask`` and
+    cuDNN's proj1) and its bound."""
+    from forwardtacotron_torch.ops.hopper import cbhg, highway
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    res = {}
+    for name, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        m = copy.deepcopy(model).to(dev, dt).requires_grad_(False)
+        f32 = dt == torch.float32
+        kw = dict(tol=KERNEL_TOL, peak=PEAK_F32_FLOPS) if f32 else {}
+        isz = 4 if f32 else 2
+        for entry, mod, t in (('encoder', m.encoder.cbhg, TEACHER_TOKENS),
+                              ('postnet', m.postnet, TEACHER_FRAMES)):
+            b = TEACHER_BATCH
+            c_in = mod.conv1d_bank[0].conv.in_channels
+            k_max, c = mod.K, mod.channels
+            p = mod.conv_project1.conv.out_channels
+            lens = torch.tensor([t - i * (t // (2 * b)) for i in range(b)],
+                                device=dev)
+            mask = (torch.arange(t, device=dev)[None] < lens[:, None]).float()
+            x = (torch.randn(b, t, c_in, generator=gen, device=dev)
+                 * mask[:, :, None]).to(dt)
+            log(f'  teacher {entry} cbhg_front {name} B={b} T={t} '
+                f'C_in={c_in} K={k_max} C={c} P={p} (yardstick: fused '
+                'cuDNN bank, pool_mask, cuDNN proj1)')
+            log(f'    plan: {cbhg.plan(dt, k_max, c_in, c, p)}')
+            sum_k = k_max * (k_max + 1) // 2
+            res[f'cbhg_front_{entry}_{name}'] = bf16_check(
+                torch, f'B={b} T={t}', cbhg.bank_pool_proj,
+                cbhg.bank_pool_proj_plain, mod.front_args(x, mask),
+                2 * b * t * (sum_k * c_in * c + 3 * k_max * c * p),
+                isz * (b * t * c_in + sum_k * c_in * c + 3 * k_max * c * p
+                       + b * t * p) + 4 * (b * t + 2 * k_max * c + 2 * p),
+                yardstick=lambda: mod.conv_project1(cbhg.pool_mask(
+                    mod._bank_fused(x).contiguous(), mask)), **kw)
+            rows, layers_n = b * t, len(mod.highways)
+            log(f'  teacher {entry} pre_highway_stack {name} N={rows} '
+                f'C_in={c_in} C={c} L={layers_n} (yardstick: residual add '
+                '+ nn.Linear chain)')
+            log(f'    plan: {highway.plan(c_in, c)}')
+            a = torch.randn(rows, c_in, generator=gen, device=dev).to(dt)
+            r = torch.randn(rows, c_in, generator=gen, device=dev).to(dt)
+
+            def chain(mod=mod, a=a, r=r):
+                y = mod.pre_highway(a + r)
+                for hw in mod.highways:
+                    y = hw(y)
+                return y
+            res[f'pre_highway_stack_{entry}_{name}'] = bf16_check(
+                torch, f'N={rows}', highway.pre_highway_stack,
+                highway.pre_highway_stack_plain, mod.highway_args(a, r),
+                2 * rows * c_in * c + layers_n * 2 * rows * c * 2 * c,
+                isz * (2 * rows * c_in + c_in * c + layers_n * 2 * c * c
+                       + rows * c) + 4 * layers_n * 2 * c,
+                yardstick=chain, **kw)
+        del m
+        torch.cuda.empty_cache()
+    return res
+
+
+def teacher_eval_phase(torch, model, label, b, n, t,
+                       speaker_emb=None) -> dict:
+    """One teacher-forced eval forward at r = 1 on the card (exactly 2
+    ``pre_highway_stack`` and 2 ``cbhg_front`` launches, no other kernel)
+    and on the CPU plain path, ``b`` items of ``t`` frames and ragged
+    tokens (at most ``n``), with ``speaker_emb`` [b, dims] for a
+    multispeaker teacher: mel, postnet mel and attention within
+    TEACHER_EVAL_TOL of each one's scale."""
+    from forwardtacotron_torch.text.symbols import phonemes
+    rs = np.random.RandomState(SEED + 32)
+    x_lens = np.array([n - i * (n // (2 * b)) for i in range(b)])
+    x = np.zeros((b, n), np.int64)
+    for i, ln in enumerate(x_lens):
+        x[i, :ln] = rs.randint(1, len(phonemes), ln)
+    mel = (rs.randn(b, t, model.n_mels) - 5.0).astype(np.float32)
+    host = {'x': torch.from_numpy(x), 'mel': torch.from_numpy(mel)}
+    if speaker_emb is not None:
+        host['speaker_emb'] = speaker_emb
+    card = copy.deepcopy(model).cuda().eval()
+    batch = {k: v.cuda() for k, v in host.items()}
+    lens = torch.from_numpy(x_lens)
+    with torch.inference_mode():
+        card(batch, r=1, x_lens=lens.cuda())
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = card(batch, r=1, x_lens=lens.cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        expect_counts(label, launches, pre_highway_stack=2, cbhg_front=2)
+        t0 = time.perf_counter()
+        want = copy.deepcopy(model).eval()(host, r=1, x_lens=lens)
+        cpu_s = time.perf_counter() - t0
+    rel = {}
+    for name, g, w in zip(('mel', 'linear', 'attention'), got, want):
+        err = float((g.cpu() - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        rel[name] = err / scale
+        ok = bool(torch.isfinite(g).all()) and err <= TEACHER_EVAL_TOL * scale
+        log(f'{label} {name}: max_abs_err {err:.3e}, scale {scale:.3e} '
+            f'(tol {TEACHER_EVAL_TOL:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'{label} {name} disagrees with the CPU path')
+    log(f'{label}, B={b} T={t}, {n} tokens: {ms:.1f} ms on the card (host '
+        f'clock, synchronized), {cpu_s:.1f} s on the CPU')
+    return dict(ms=ms, launches=launches, card_vs_cpu_rel=rel,
+                cpu_s=cpu_s)
+
+
+def teacher_generate_phase(torch, model, tokens) -> dict:
+    """``generate`` for the 4 sentences (one batch, padded), float32 and
+    bf16: exactly 2 ``pre_highway_stack`` and 2 ``cbhg_front`` launches a
+    call, finite outputs of the step budget's length, the steps each item
+    ran (``n_valid``), the call's time (host clock, synchronized)."""
+    n = max(len(tk) for tk in tokens)
+    x = torch.zeros(len(tokens), n, dtype=torch.long)
+    for i, tk in enumerate(tokens):
+        x[i, :len(tk)] = torch.as_tensor(tk)
+    x = x.cuda()
+    out = {}
+    for name, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        card = copy.deepcopy(model).to('cuda', dt).eval()
+        with torch.inference_mode():
+            card.generate(x, steps=64)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            mel, linear, attn, n_valid = card.generate(
+                x, steps=TEACHER_GEN_STEPS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        expect_counts(f'teacher generate {name}', launches,
+                      pre_highway_stack=2, cbhg_front=2)
+        want = (len(tokens), TEACHER_GEN_STEPS, model.n_mels)
+        if (tuple(mel.shape) != want or tuple(linear.shape) != want
+                or not all(bool(torch.isfinite(a).all())
+                           for a in (mel, linear, attn))):
+            fail(f'teacher generate {name}: outputs {tuple(mel.shape)}, '
+                 f'expected finite {want}')
+        out[name] = dict(ms=ms, n_valid=n_valid.tolist(),
+                         launches=launches)
+        log(f'teacher generate {name}: {len(tokens)} sentences, {n} tokens, '
+            f'{TEACHER_GEN_STEPS} steps budget, n_valid {n_valid.tolist()}: '
+            f'{ms:.1f} ms')
+        del card
+    return out
+
+
+def teacher_train_config(config, root, precision, schedule):
+    """``config`` with the data and checkpoints under ``root`` and the
+    teacher's ``precision`` and ``schedule`` rows."""
+    cfg = copy.deepcopy(config)
+    cfg['data_path'] = str(root / 'data')
+    cfg['checkpoint_path'] = str(root / 'ckpt')
+    cfg['tacotron']['training'].update(precision=precision,
+                                       schedule=schedule)
+    return cfg
+
+
+def teacher_train_phase(torch, config, root, profiled_rs) -> dict:
+    """f32 and bf16 train steps at r = 5 (batch 32) and r = 1 (batch 8) on
+    the synthetic items of ``write_train_data``, one repeated batch each:
+    no kernel launches, the profiler's device busy and the idle share for
+    each r of ``profiled_rs`` (a profiled step of 10^5 device events takes
+    20-60 s), steps/s over TEACHER_TIMED_STEPS synchronized steps, a falling
+    loss, a finite gradient for every parameter (at r = 5); then one step
+    of each
+    dtype on the card against the CPU path (dropout and zoneout off):
+    loss and global gradient norm within E2E_TRAIN_TOL."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from forwardtacotron_torch.data.dataset import (TacoCollator,
+                                                    TacoDataset,
+                                                    get_taco_dataloaders)
+    from forwardtacotron_torch.models.tacotron import Tacotron
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+    from forwardtacotron_torch.train.state import create_train_state
+    from forwardtacotron_torch.train.taco_trainer import TacoTrainer
+    from forwardtacotron_torch.utils.files import unpickle_binary
+
+    paths = write_train_data(teacher_train_config(
+        config, root, 'float32', [f'5, {TRAIN_LR}, 100, 32']))
+    filt = config['tacotron']['training']['filter']
+    out = {}
+    for precision in ('float32', 'bfloat16'):
+        cfg = teacher_train_config(config, root, precision,
+                                   [f'5, {TRAIN_LR}, 100, 32'])
+        for r, bs in TEACHER_TRAIN:
+            label = f'teacher {precision} train step r={r}'
+            torch.manual_seed(SEED)
+            model = Tacotron.from_config(cfg).cuda()
+            trainer = TacoTrainer(paths, None, cfg, device='cuda')
+            state = create_train_state(model, trainer.tx)
+            train_set, _ = get_taco_dataloaders(paths, bs, r,
+                                                bucket_multiple=r,
+                                                seed=SEED, **filt)
+            host = next(iter(train_set))
+            batch = trainer.device_batch(host)
+            gen = torch.Generator(device='cuda').manual_seed(SEED)
+            frames = int(host['mel_len'].sum())
+            log(f'{label}: batch {bs}, tokens padded to {host["x"].shape[1]}, '
+                f'frames padded to {host["mel"].shape[1]} ({frames} valid, '
+                f'{host["mel"].shape[1] // r} decoder steps)')
+            losses = []
+
+            def step():
+                m, _ = trainer.train_step(state, batch, r, gen)
+                losses.append(m['loss'])
+
+            reset_counts()
+            step()
+            torch.cuda.synchronize()
+            launches = read_counts()
+            expect_counts(label, launches)
+            busy_ms = profile_s = None
+            if r in profiled_rs:
+                # device events only: a step is 10^5 of them
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    step()
+                    torch.cuda.synchronize()
+                busy_ms = device_profile(
+                    prof, label,
+                    f'chip_smoke_teacher_{precision}_r{r}_profile.txt', {})
+                profile_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(TEACHER_TIMED_STEPS[r]):
+                step()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / TEACHER_TIMED_STEPS[r] * 1e3
+            losses = [float(v) for v in losses]
+            if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+                fail(f'{label}: losses {losses} do not fall')
+            if r == TEACHER_TRAIN[0][0]:
+                params = state.params()
+                loss = trainer.loss_fn(model.train(), params, batch, r,
+                                       gen)[0]
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True)
+                bad = [k for k, g in zip(params, grads)
+                       if g is None or not bool(torch.isfinite(g).all())]
+                if bad:
+                    fail(f'{label}: no finite gradient for {bad[:5]}')
+                log(f'{label}: every parameter has a finite gradient')
+                del params, loss, grads
+            stats = dict(batch=bs, frames_padded=int(host['mel'].shape[1]),
+                         step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                         mel_frames_per_s=frames * 1e3 / step_ms,
+                         device_busy_ms=busy_ms,
+                         idle=None if busy_ms is None else 1 - busy_ms / step_ms,
+                         profile_s=profile_s, losses=losses)
+            busy = ('device busy not measured' if busy_ms is None else
+                    f'device busy {busy_ms:.1f} ms (profiled step, '
+                    f'{profile_s:.1f} s with the profiler): idle '
+                    f'{100 * stats["idle"]:.1f}%')
+            log(f'{label}: {step_ms:.1f} ms per step over '
+                f'{TEACHER_TIMED_STEPS[r]} steps: {stats["steps_per_s"]:.3f} '
+                f'steps/s, {stats["mel_frames_per_s"]:.0f} mel frames/s; '
+                f'{busy}; losses {", ".join(f"{v:.4f}" for v in losses)}')
+            out[f'{precision}_r{r}'] = stats
+            del state, trainer, model, batch
+            torch.cuda.empty_cache()
+
+    # card vs CPU: the shortest train items at r = 5, dropout off
+    train_items = sorted(unpickle_binary(paths.train_dataset),
+                         key=lambda it: it[1])[:TEACHER_CHECK_BATCH]
+    dataset = TacoDataset(paths, [i for i, _ in train_items],
+                          unpickle_binary(paths.text_dict),
+                          unpickle_binary(paths.speaker_dict), Tokenizer())
+    host = TacoCollator(r=TEACHER_CHECK_R)(
+        [dataset[i] for i in range(len(dataset))])
+    out['card_vs_cpu_rel'] = {}
+    for precision, tol in E2E_TRAIN_TOL.items():
+        cfg = teacher_train_config(config, root, precision,
+                                   [f'5, {TRAIN_LR}, 1, 4'])
+        torch.manual_seed(SEED)
+        model = teacher_no_dropout(torch, Tacotron.from_config(cfg))
+        got = {}
+        for device in ('cpu', 'cuda'):
+            trainer = TacoTrainer(paths, None, cfg, device=device)
+            m, _ = trainer.train_step(
+                create_train_state(copy.deepcopy(model).to(device),
+                                   trainer.tx), trainer.device_batch(host),
+                TEACHER_CHECK_R)
+            got[device] = [float(m['loss']), float(m['grad_norm'])]
+        rel = max(abs(g - c) / max(abs(c), 1e-6)
+                  for g, c in zip(got['cuda'], got['cpu']))
+        ok = rel <= tol
+        log(f'teacher train reference {precision}: B={TEACHER_CHECK_BATCH}, '
+            f'{host["mel"].shape[1]} frames at r={TEACHER_CHECK_R}: loss, '
+            f'grad_norm card {got["cuda"]}, CPU {got["cpu"]}: rel {rel:.3e} '
+            f'(tol {tol:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'teacher {precision} train step disagrees with the CPU '
+                 'path')
+        out['card_vs_cpu_rel'][precision] = rel
+    return out
+
+
+def teacher_cli_phase(torch, config, root) -> dict:
+    """``python -m forwardtacotron_torch.train_tacotron`` on the card:
+    two short sessions to a checkpoint (the extraction after training
+    raises NotImplementedError naming Queue 1 item 10), a resume that
+    restores the step and the optimizer, and ``--force_gta`` writing one
+    finite [n_mels, mel_len] .npy per item."""
+    import yaml
+
+    from forwardtacotron_torch.utils.checkpoints import (checkpoint_step,
+                                                         restore_checkpoint)
+    from forwardtacotron_torch.utils.files import unpickle_binary
+
+    cfg = teacher_train_config(config, root / 'cli', 'float32',
+                               TEACHER_CLI_SCHEDULE)
+    cfg['tacotron']['training']['checkpoint_every'] = 2
+    paths = write_train_data(cfg, TEACHER_CLI_ITEMS, TEACHER_CLI_VAL,
+                             TEACHER_CLI_TOKENS)
+    cfg_path = root / 'cli_config.yaml'
+    cfg_path.write_text(yaml.dump(cfg))
+    cmd = [sys.executable, '-m', 'forwardtacotron_torch.train_tacotron',
+           '--config', str(cfg_path)]
+    last_step = int(TEACHER_CLI_SCHEDULE[-1].split(',')[2])
+    out = {}
+    for run, extra in (('train', []), ('resume', []),
+                       ('force_gta', ['--force_gta'])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + extra, cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        out[f'{run}_s'] = time.perf_counter() - t0
+        log(f'train_tacotron {run}: exit {proc.returncode} in '
+            f'{out[f"{run}_s"]:.1f} s; {proc.stdout.strip()[-300:]!r}')
+        if run == 'force_gta':
+            if proc.returncode != 0:
+                fail(f'train_tacotron --force_gta failed:\n{proc.stderr}')
+            continue
+        if (proc.returncode == 0 or 'Queue 1 item 10' not in proc.stderr
+                or 'NotImplementedError' not in proc.stderr):
+            fail(f'train_tacotron {run}: expected NotImplementedError '
+                 f'naming Queue 1 item 10 after training:\n{proc.stderr}')
+        ckpt = restore_checkpoint(paths.taco_checkpoints)
+        if (ckpt is None or checkpoint_step(ckpt) != last_step
+                or int(ckpt['optim']['count']) != last_step):
+            fail(f'train_tacotron {run}: no checkpoint at step {last_step}')
+        if run == 'resume' and \
+                f'Restored checkpoint at step {last_step}' not in proc.stdout:
+            fail('train_tacotron did not resume from its checkpoint')
+    items = dict(unpickle_binary(paths.train_dataset)
+                 + unpickle_binary(paths.val_dataset))
+    for item_id, mel_len in items.items():
+        gta = np.load(paths.gta / f'{item_id}.npy')
+        if gta.shape != (cfg['dsp']['num_mels'], mel_len) or \
+                not np.isfinite(gta).all():
+            fail(f'--force_gta: {item_id} has {gta.shape}, expected finite '
+                 f'({cfg["dsp"]["num_mels"]}, {mel_len})')
+    out['gta_files'] = len(items)
+    log(f'train_tacotron: two sessions to step {last_step}, a resume, '
+        f'{len(items)} GTA mels')
+    return out
+
+
+def teacher_phases(torch, config, tokens, profiled_rs=(5,)) -> dict:
+    """Every teacher phase, each one's seconds beside it: rows 1-2 at its
+    shapes, the eval forward card vs CPU, ``generate``, the train steps
+    (the profiler at the reduction factors ``profiled_rs``) and the
+    CLI."""
+    from forwardtacotron_torch.utils.files import read_config
+    t_all = time.perf_counter()
+    model = teacher_model(torch, config)
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[f'{name}_s'] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+    log('teacher kernels (rows 1-2 at the teacher\'s shapes):')
+    with torch.inference_mode():
+        timed('kernels', lambda: teacher_kernel_phase(torch, model))
+    timed('eval', lambda: teacher_eval_phase(
+        torch, model, 'teacher eval forward', TEACHER_BATCH, TEACHER_TOKENS,
+        TEACHER_FRAMES))
+    # configs/multispeaker.yaml's teacher: a 256-wide speaker embedding
+    # tiled onto the tokens, MULTI_SPEAKERS items
+    mconfig = read_config(REPO / 'configs' / 'multispeaker.yaml')
+    timed('multispeaker_eval', lambda: teacher_eval_phase(
+        torch, teacher_model(torch, mconfig),
+        'multispeaker teacher eval forward', MULTI_SPEAKERS, TEACHER_TOKENS,
+        TEACHER_MULTI_FRAMES, speaker_table(torch)))
+    timed('generate', lambda: teacher_generate_phase(torch, model, tokens))
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_teacher_') as tmp:
+        timed('training', lambda: teacher_train_phase(
+            torch, config, Path(tmp), profiled_rs))
+        timed('cli', lambda: teacher_cli_phase(torch, config, Path(tmp)))
+    out['phases_s'] = time.perf_counter() - t_all
+    log('teacher phases: ' + ', '.join(
+        f'{k[:-2]} {v:.1f} s' for k, v in out.items() if k.endswith('_s')))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4441,6 +4916,12 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix='chip_smoke_host_') as tmp:
             times = host_times_phase(torch, config, tokens, Path(tmp))
         log(f'host times: {json.dumps(times)}')
+        log(f'card: {card}')
+        return
+    if '--teacher' in sys.argv[1:]:
+        # the teacher's phases alone, every train step profiled
+        teacher = teacher_phases(torch, config, tokens, profiled_rs=(5, 1))
+        log(f'teacher: {json.dumps(teacher)}')
         log(f'card: {card}')
         return
     if '--multispeaker' in sys.argv[1:]:
@@ -4582,6 +5063,17 @@ def main() -> None:
         **{k: mk[f'gru_bwd_{k}'] for k in ('dur_pred', 'pitch_pred')},
         **{f'forward_{k}': mk[f'gru_train_fwd_{k}']
            for k in ('dur_pred', 'pitch_pred')}}
+    # the teacher (configs/singlespeaker.yaml's tacotron section): rows 1
+    # and 2 at its shapes, its eval forward, generate, train steps, CLI
+    teacher = teacher_phases(torch, config, tokens)
+    for row in ('pre_highway_stack', 'cbhg_front'):
+        for name, res in (('f32', results), ('bf16', results16)):
+            res[row]['new_paths'] = {
+                'teacher_generate': teacher['generate'][name]['launches'][row],
+                **{f'teacher_{entry}': teacher['kernels'][f'{row}_{entry}_{name}']
+                   for entry in ('encoder', 'postnet')}}
+        results[row]['new_paths']['teacher_eval_forward'] = \
+            teacher['eval']['launches'][row]
     # row 5 at one request beside its serving numbers
     results16['lr_bidir']['request'] = {
         k: request16['lr_bidir'][k]
@@ -4688,6 +5180,7 @@ def main() -> None:
     log(f'mrf cycle spans: {json.dumps(mrf_cycles)}')
     log(f'training: {json.dumps(training)}')
     log(f'multispeaker: {json.dumps(multi)}')
+    log(f'teacher: {json.dumps(teacher)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,7 +1,8 @@
-"""Data layer of the forward model's training: npy-backed datasets,
-length-binned sampling, bucketed collation and a threaded prefetch loader.
+"""Data layer of the teacher's and the forward models' training: npy-backed
+datasets, length-binned sampling, bucketed collation and a threaded
+prefetch loader.
 
-The port's copy of the forward subset of forwardtacotron_tpu/data/dataset.py
+The port's copy of the training subset of forwardtacotron_tpu/data/dataset.py
 (itself the reference's utils/dataset.py): the same numpy code, so that both
 packages draw the same batches from the same seed. Collators round padded
 lengths up to ``bucket_multiple``, which bounds the shapes a training run
@@ -253,6 +254,24 @@ class DataLoader:
         thread.join()
 
 
+def get_taco_dataloaders(paths: Paths, batch_size: int, r: int,
+                         max_mel_len: int, filter_duration_stats: bool,
+                         min_attention_alignment: float,
+                         min_attention_sharpness: float,
+                         max_consecutive_ones: int, max_duration: int,
+                         bucket_multiple: int = 1,
+                         seed: Optional[int] = None
+                         ) -> Tuple[DataLoader, DataLoader]:
+    """(train, val) loaders of the teacher's items, mels padded to a
+    multiple of ``r``; ``seed`` seeds the training sampler (None draws a
+    fresh order, as the JAX package's factory does)."""
+    return _dataloaders(
+        paths, TacoDataset, TacoCollator(r=r, bucket_multiple=bucket_multiple),
+        batch_size, seed, max_mel_len, filter_duration_stats,
+        min_attention_alignment, min_attention_sharpness,
+        max_consecutive_ones, max_duration)
+
+
 def get_forward_dataloaders(paths: Paths, batch_size: int,
                             max_mel_len: int, filter_duration_stats: bool,
                             min_attention_alignment: float,
@@ -263,24 +282,33 @@ def get_forward_dataloaders(paths: Paths, batch_size: int,
                             ) -> Tuple[DataLoader, DataLoader]:
     """(train, val) loaders; ``seed`` seeds the training sampler (None draws
     a fresh order, as the JAX package's factory does)."""
-    train_data, val_data = _get_filtered_datasets(
-        paths, max_mel_len, filter_duration_stats, min_attention_alignment,
-        min_attention_sharpness, max_consecutive_ones, max_duration)
+    return _dataloaders(
+        paths, ForwardDataset,
+        ForwardCollator(TacoCollator(r=1, bucket_multiple=bucket_multiple)),
+        batch_size, seed, max_mel_len, filter_duration_stats,
+        min_attention_alignment, min_attention_sharpness,
+        max_consecutive_ones, max_duration)
 
+
+def _dataloaders(paths: Paths, dataset_cls, collator, batch_size: int,
+                 seed: Optional[int], *filters) -> Tuple[DataLoader,
+                                                         DataLoader]:
+    """The train loader (length-binned sampler) and the val loader (in
+    order) of ``dataset_cls`` over the filtered splits."""
+    train_data, val_data = _get_filtered_datasets(paths, *filters)
     tokenizer = Tokenizer()
     text_dict = unpickle_binary(paths.text_dict)
     speaker_dict = unpickle_binary(paths.speaker_dict)
     train_ids, train_lens = zip(*train_data)
     val_ids, _ = zip(*val_data)
-
-    collator = ForwardCollator(TacoCollator(r=1, bucket_multiple=bucket_multiple))
     train_set = DataLoader(
-        ForwardDataset(paths, list(train_ids), text_dict, speaker_dict, tokenizer),
+        dataset_cls(paths, list(train_ids), text_dict, speaker_dict,
+                    tokenizer),
         collate_fn=collator, batch_size=batch_size,
         sampler=BinnedLengthSampler(train_lens, batch_size, batch_size * 3,
                                     seed=seed))
     val_set = DataLoader(
-        ForwardDataset(paths, list(val_ids), text_dict, speaker_dict, tokenizer),
+        dataset_cls(paths, list(val_ids), text_dict, speaker_dict, tokenizer),
         collate_fn=collator, batch_size=batch_size)
     return train_set, val_set
 

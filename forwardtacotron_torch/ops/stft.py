@@ -3,8 +3,8 @@ products, and the rfft form for hops that do not divide n_fft.
 
 Port of forwardtacotron_tpu/ops/stft.py: its pair path (the DFT as two
 real matmuls, framing and overlap-add as hop-strided reshapes; requires
-hop | n_fft) and its rfft form (``frame_signal``, ``stft``, ``istft``,
-``griffin_lim``: a gather of frames, ``torch.fft``, an index-add overlap;
+hop | n_fft) and its rfft form (``frame_signal``, ``stft``, ``stft_magnitude``,
+``istft``, ``griffin_lim``: a gather of frames, ``torch.fft``, an index-add overlap;
 any hop, 1-D signals, spectra [bins, n_frames]). Conventions follow
 librosa as the reference uses it:
 center=True with reflect padding, periodic Hann window,
@@ -184,6 +184,12 @@ def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
                                     mode='reflect')[0, 0]
     frames = frame_signal(y, n_fft, hop_length) * window
     return torch.fft.rfft(frames, n=n_fft, dim=-1).T
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: int, center: bool = True) -> torch.Tensor:
+    """|STFT| of a 1-D signal -> [1 + n_fft // 2, n_frames]."""
+    return stft(y, n_fft, hop_length, win_length, center).abs()
 
 
 def istft(spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int,

@@ -22,10 +22,14 @@ the same variables in both packages.
                                         (+ num_batches_tracked = 0)
   params/a/rnn/{fwd,bwd}/{wi,wh}     -> a.rnn.weight_{ih,hh}_l0[_reverse], T
   params/a/rnn/{fwd,bwd}/{bi,bh}     -> a.rnn.bias_{ih,hh}_l0[_reverse]
+  params/a/cell/{wi,wh}              -> a.cell.weight_{ih,hh}, T (the
+                                        teacher's GRU and LSTM cells)
+  params/a/cell/{bi,bh}              -> a.cell.bias_{ih,hh}
   list entries 'xs_0'                -> 'xs.0'
 
-The FastPitch ``pos_encoder.pe`` tables, like the ``step`` buffer, have no
-JAX counterpart: the modules fill them.
+The FastPitch ``pos_encoder.pe`` tables, like the ``step`` buffer and the
+teacher's ``decoder.r`` and ``stop_threshold``, have no JAX counterpart:
+the modules fill them.
 
 ``hifigan_from_jax_params`` carries the JAX HiFi-GAN generator's params into
 the port's ``HiFiGANGenerator`` (models/vocoder.py).
@@ -40,7 +44,10 @@ import torch
 _RNN = {'wi': 'weight_ih', 'wh': 'weight_hh', 'bi': 'bias_ih',
         'bh': 'bias_hh'}
 _LIST_ITEM = re.compile(r'^(.*)_(\d+)$')
-_RNN_LEAF = re.compile(r'^(weight_ih|weight_hh|bias_ih|bias_hh)_l0(_reverse)?$')
+_RNN_LEAF = re.compile(
+    r'^(weight_ih|weight_hh|bias_ih|bias_hh)(_l0(_reverse)?)?$')
+# buffers of the port's modules that the JAX variables do not hold
+_NO_JAX = ('step', 'num_batches_tracked', 'pe', 'r', 'stop_threshold')
 _QKV = ('q_proj', 'k_proj', 'v_proj')
 _IN_PROJ = {'kernel': 'in_proj_weight', 'bias': 'in_proj_bias'}
 
@@ -78,6 +85,10 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             suffix = '_l0' if parent[-1] == 'fwd' else '_l0_reverse'
             key = _key(parent[:-1], _RNN[leaf] + suffix)
             val = arr.T if leaf in ('wi', 'wh') else arr
+        elif leaf in _RNN:
+            # a single cell (GRUCellP, LSTMCellP)
+            key = _key(parent, _RNN[leaf])
+            val = arr.T if leaf in ('wi', 'wh') else arr
         elif leaf == 'kernel':
             key = _key(parent, 'weight')
             val = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
@@ -112,8 +123,8 @@ def _set_path(tree: Dict[str, Any], path, value) -> None:
 def to_jax_variables(state_dict: Dict[str, torch.Tensor]
                      ) -> Dict[str, Dict[str, Any]]:
     """The port's state_dict -> {'params': ..., 'batch_stats': ...} as
-    nested dicts of float32 numpy arrays (``num_batches_tracked`` and the
-    ``step`` buffer have no JAX counterpart)."""
+    nested dicts of float32 numpy arrays (the buffers of ``_NO_JAX`` have
+    no JAX counterpart)."""
     variables: Dict[str, Dict[str, Any]] = {'params': {}, 'batch_stats': {}}
     inverse = {v: k for k, v in _RNN.items()}
     for key, tensor in state_dict.items():
@@ -124,7 +135,7 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]
             else:
                 parts.append(p)
         *mods, leaf = parts
-        if leaf in ('step', 'num_batches_tracked', 'pe'):
+        if leaf in _NO_JAX:
             continue
         arr = tensor.detach().cpu().float().numpy()
         rnn = _RNN_LEAF.match(leaf)
@@ -135,7 +146,10 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]
                           part.T if in_proj == 'kernel' else part)
         elif rnn:
             name = inverse[rnn.group(1)]
-            path = mods + ['bwd' if rnn.group(2) else 'fwd', name]
+            if rnn.group(2) is None:      # a single cell
+                path = mods + [name]
+            else:
+                path = mods + ['bwd' if rnn.group(3) else 'fwd', name]
             _set_path(variables['params'], path,
                       arr.T if name in ('wi', 'wh') else arr)
         elif leaf in ('running_mean', 'running_var'):

@@ -1797,3 +1797,142 @@ def test_multispeaker_generate_on_card_matches_cpu(dev, family, dtype):
     assert groups > 1 or dtype == 'bfloat16'
     assert torch.equal(got['mel_len'].cpu(), want['mel_len'])
     _close([got['mel_post'].float().cpu()], [want['mel_post'].float()], tol)
+
+
+# ------------------------------------------------------------- the teacher
+
+def _narrow_teacher():
+    """A narrow Tacotron teacher (its encoder CBHG 128 wide, as every
+    teacher's; a 128-wide postnet, so both CBHGs take rows 1 and 2) with
+    random BatchNorm statistics."""
+    from forwardtacotron_torch.models.tacotron import Tacotron
+    torch.manual_seed(0)
+    model = Tacotron(embed_dims=32, encoder_dims=128, decoder_dims=64,
+                     lstm_dims=64, postnet_dims=128, encoder_k=8,
+                     postnet_k=4, num_highways=2, n_mels=16,
+                     speaker_emb_dim=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith('running_mean'):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+            elif name.endswith('running_var'):
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    return model.eval()
+
+
+def _teacher_batch():
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randint(1, 60, (3, 23), generator=gen)
+    x[1, 17:] = 0
+    x[2, 9:] = 0
+    return ({'x': x, 'mel': torch.randn(3, 40, 16, generator=gen) - 5.0},
+            torch.tensor([23, 17, 9]))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_teacher_eval_and_generate_on_card_match_cpu(dev, dtype):
+    """The teacher-forced eval forward (ragged tokens) and ``generate`` on
+    the card against the CPU path: 2 ``pre_highway_stack`` and 2
+    ``cbhg_front`` launches each, no recurrent kernel, whatever
+    ``rnn_mode`` is set."""
+    import copy
+
+    model = _narrow_teacher().to(dtype)
+    batch, lens = _teacher_batch()
+    batch['mel'] = batch['mel'].to(dtype)
+    card = copy.deepcopy(model).to(dev)
+    tol = TOL if dtype == torch.float32 else 5e-2
+    with torch.no_grad(), rnn_train.rnn_mode('on'):
+        want = model(batch, r=2, x_lens=lens)
+        want_gen = model.generate(batch['x'], steps=48, chunk=16)
+        before = (highway.launches, cbhg.launches, dict(rnn.launches))
+        got = card({k: v.to(dev) for k, v in batch.items()}, r=2,
+                   x_lens=lens.to(dev))
+        got_gen = card.generate(batch['x'].to(dev), steps=48, chunk=16)
+        torch.cuda.synchronize()
+    assert (highway.launches - before[0], cbhg.launches - before[1]) == (4, 4)
+    assert rnn.launches == before[2]
+    _close([g.float().cpu() for g in got], [w.float() for w in want], tol)
+    _close([g.float().cpu() for g in got_gen[:3]],
+           [w.float() for w in want_gen[:3]], tol)
+    assert torch.equal(got_gen[3].cpu(), want_gen[3])
+
+
+@pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
+def test_teacher_train_step_on_card_matches_cpu(dev, precision, tmp_path):
+    """One TacoTrainer step on the card against the CPU (dropout and
+    zoneout off): loss and global gradient norm within 1e-3 (float32) and
+    5e-2 (bf16) relative; no kernel launches."""
+    import copy
+
+    from forwardtacotron_torch.models.tacotron import PreNet
+    from forwardtacotron_torch.train.state import create_train_state
+    from forwardtacotron_torch.train.taco_trainer import TacoTrainer
+    from forwardtacotron_torch.utils.paths import Paths
+
+    model = _narrow_teacher()
+    for m in model.modules():
+        if isinstance(m, PreNet):
+            m.dropout = 0.0
+        elif isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    model.decoder.zoneout = 0.0
+    config = {'tacotron': {'training': {'schedule': ['2, 1e-3, 1, 3'],
+                                        'precision': precision}}}
+    paths = Paths(tmp_path / 'data', 'teacher', tmp_path / 'ckpt')
+    batch, _ = _teacher_batch()
+    got = {}
+    before = (highway.launches, cbhg.launches, dict(rnn.launches),
+              dict(rnn_train.launches))
+    for device in ('cpu', dev):
+        trainer = TacoTrainer(paths, None, config, device=device)
+        state = create_train_state(copy.deepcopy(model).to(device),
+                                   trainer.tx)
+        m, attn = trainer.train_step(
+            state, {k: v.to(device) for k, v in batch.items()}, 2)
+        got[str(device)] = [float(m['loss']), float(m['grad_norm'])]
+    torch.cuda.synchronize()
+    assert (highway.launches, cbhg.launches, dict(rnn.launches),
+            dict(rnn_train.launches)) == before
+    tol = 1e-3 if precision == 'float32' else 5e-2
+    for g, c in zip(got[str(dev)], got['cpu']):
+        assert abs(g - c) <= tol * abs(c)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('entry', ['encoder', 'postnet'])
+def test_rows_1_2_at_teacher_shapes(dev, dtype, entry):
+    """Rows 1 and 2 at the full-width teacher's CBHGs (encoder: K 16, C_in
+    128, C 128, P 128; postnet: K 8, C_in 80, C 128, P 256), ragged items,
+    against their twins."""
+    from forwardtacotron_torch.models.tacotron import Tacotron
+    from forwardtacotron_torch.utils.files import read_config
+
+    torch.manual_seed(0)
+    config = read_config('configs/singlespeaker.yaml')
+    model = Tacotron.from_config(config).eval().to(dev, dtype)
+    mod = model.encoder.cbhg if entry == 'encoder' else model.postnet
+    c_in = mod.conv1d_bank[0].conv.in_channels
+    gen = torch.Generator().manual_seed(3)
+    b, t = 3, 181
+    mask = torch.ones(b, t)
+    mask[1, 120:] = 0.0
+    mask[2, 7:] = 0.0
+    x = (torch.randn(b, t, c_in, generator=gen) * mask[:, :, None]).to(
+        dev, dtype)
+    mask = mask.to(dev)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    with torch.no_grad():
+        args = mod.front_args(x, mask)
+        got = cbhg.bank_pool_proj(*args)
+        torch.cuda.synchronize()
+        _close([got.float()], [cbhg.bank_pool_proj_plain(*args).float()],
+               tol)
+        a = torch.randn(b * t, c_in, generator=gen).to(dev, dtype)
+        args = mod.highway_args(a, torch.randn(b * t, c_in, generator=gen)
+                                .to(dev, dtype))
+        got = highway.pre_highway_stack(*args)
+        torch.cuda.synchronize()
+        _close([got.float()],
+               [highway.pre_highway_stack_plain(*args).float()], tol)

@@ -31,7 +31,10 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    import yaml
+
+    from forwardtacotron_torch import train_tacotron
     from forwardtacotron_torch.dsp.dsp import DSP
     from forwardtacotron_torch.models.forward_tacotron import ForwardTacotron
     from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
@@ -70,6 +73,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='No CUDA device'):
         load_melgan('melgan.pt')
     assert Vocoder(generator, device='cpu').device.type == 'cpu'
+    # the teacher's trainer and CLI
+    from forwardtacotron_torch.train.taco_trainer import TacoTrainer
+    from forwardtacotron_torch.utils.files import read_config
+    from forwardtacotron_torch.utils.paths import Paths
+
+    config = read_config(REPO / 'configs' / 'singlespeaker.yaml')
+    config['data_path'] = str(tmp_path / 'data')
+    config['checkpoint_path'] = str(tmp_path / 'ckpt')
+    paths = Paths.from_config(config)
+    config_path = tmp_path / 'config.yaml'
+    config_path.write_text(yaml.dump(config))
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        TacoTrainer(paths, None, config)
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        train_tacotron.main(['--config', str(config_path)])
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        train_tacotron.main(['--config', str(config_path), '--force_gta'])
+    assert TacoTrainer(paths, None, config,
+                       device='cpu').device.type == 'cpu'
 
 
 def test_bfloat16_and_other_families_raise():
