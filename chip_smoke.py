@@ -146,11 +146,33 @@ Run from the repository root. Phases, each of which must pass:
     finite gradient for every parameter, the device busy and idle share
     at r = 5) and one step of each dtype
     against the CPU path; ``python -m forwardtacotron_torch.train_tacotron``
-    through two short sessions, a resume and ``--force_gta``.
+    through two short sessions and the extraction after them, a resume
+    and ``--force_gta``;
+18. the data pipeline on a seeded synthetic corpus at 22,050 Hz (96
+    utterances, 32 each at 60, 120 and 180 tokens, ~5.5 frames a token,
+    pre-phonemized text): rows 1 and 2 at one extraction batch (B 32,
+    float32: the encoder's 180 tokens, the postnet's 1,000 frames) against
+    their twins, timed beside the twin, the yardstick and the bound;
+    ``python -m forwardtacotron_torch.preprocess`` with 4 workers (every
+    mel (80, 1 + samples // hop), 4 within 1e-4 relative L2 of the CPU
+    DSP, the splits and pickles; the VoiceEncoder with seeded weights in
+    the published layout through ``$RESEMBLYZER_WEIGHTS``, 8 wavs card vs
+    CPU within 1e-4); ``python -m forwardtacotron_torch.train_tacotron``
+    training a few steps at r = 1 and then extracting (every ``alg/``
+    sums to its mel, one finite pitch and energy a token, nonzero pitch
+    z-normalised, ``duration_stats.pkl`` loads, ``get_forward_dataloaders``
+    yields a batch); in this process, the extraction's launches (exactly 2
+    ``pre_highway_stack`` and 2 ``cbhg_front`` a batch) and time, the
+    postnet's share of a batch, one batch's attention card vs CPU within
+    1e-3 (PreNet dropout off), the native DP (it must load) against the
+    numpy DP on every item and Dijkstra on 4, the DP's time (native, a
+    pool of 4, serial), the targets; then ``--force_align`` and
+    ``--extract_pitch``, each rewriting its files.
 
 ``--multispeaker`` runs only the build and phase 16, ``--teacher`` only
 the build and phase 17 (there with the device busy and idle share of the
-r = 1 steps too; the default run profiles the r = 5 steps),
+r = 5 and r = 1 steps, which the default run does not profile), ``--pipeline``
+only the build and phase 18,
 ``--griffinlim-split`` runs only phase 4's split, ``--lstm-times`` only
 the LSTM entries' times (``LSTM_TIMES_SHAPES``, with ``--kernel-parts``
 their parts) and ``--lr-mrf-times`` only row 8's phase (with a fill of
@@ -4458,31 +4480,34 @@ def teacher_no_dropout(torch, model):
     return model
 
 
-def teacher_kernel_phase(torch, model) -> dict:
+def teacher_kernel_phase(torch, model, b=TEACHER_BATCH, tokens=TEACHER_TOKENS,
+                         frames=TEACHER_FRAMES, dtypes=('f32', 'bf16'),
+                         equal_tokens=False) -> dict:
     """Rows 1 and 2 at the teacher's four entries (the encoder's CBHG at
-    TEACHER_BATCH x TEACHER_TOKENS, the postnet's at TEACHER_BATCH x
-    TEACHER_FRAMES, items ragged), float32 and bf16, each against its
-    twin and timed beside the twin, its yardstick (the residual add and
-    the ``nn.Linear`` chain; the fused cuDNN bank, ``pool_mask`` and
-    cuDNN's proj1) and its bound."""
+    ``b`` x ``tokens``, the postnet's at ``b`` x ``frames``, items ragged;
+    with ``equal_tokens`` every item has ``tokens``, as in an extraction
+    batch), in ``dtypes``, each against its twin and timed beside the
+    twin, its yardstick (the residual add and the ``nn.Linear`` chain; the
+    fused cuDNN bank, ``pool_mask`` and cuDNN's proj1) and its bound."""
     from forwardtacotron_torch.ops.hopper import cbhg, highway
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     res = {}
-    for name, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+    for name in dtypes:
+        dt = {'f32': torch.float32, 'bf16': torch.bfloat16}[name]
         m = copy.deepcopy(model).to(dev, dt).requires_grad_(False)
         f32 = dt == torch.float32
         kw = dict(tol=KERNEL_TOL, peak=PEAK_F32_FLOPS) if f32 else {}
         isz = 4 if f32 else 2
-        for entry, mod, t in (('encoder', m.encoder.cbhg, TEACHER_TOKENS),
-                              ('postnet', m.postnet, TEACHER_FRAMES)):
-            b = TEACHER_BATCH
+        for entry, mod, t in (('encoder', m.encoder.cbhg, tokens),
+                              ('postnet', m.postnet, frames)):
             c_in = mod.conv1d_bank[0].conv.in_channels
             k_max, c = mod.K, mod.channels
             p = mod.conv_project1.conv.out_channels
-            lens = torch.tensor([t - i * (t // (2 * b)) for i in range(b)],
-                                device=dev)
+            lens = torch.tensor([t if equal_tokens and entry == 'encoder'
+                                 else t - i * (t // (2 * b))
+                                 for i in range(b)], device=dev)
             mask = (torch.arange(t, device=dev)[None] < lens[:, None]).float()
             x = (torch.randn(b, t, c_in, generator=gen, device=dev)
                  * mask[:, :, None]).to(dt)
@@ -4767,10 +4792,12 @@ def teacher_train_phase(torch, config, root, profiled_rs) -> dict:
 
 def teacher_cli_phase(torch, config, root) -> dict:
     """``python -m forwardtacotron_torch.train_tacotron`` on the card:
-    two short sessions to a checkpoint (the extraction after training
-    raises NotImplementedError naming Queue 1 item 10), a resume that
-    restores the step and the optimizer, and ``--force_gta`` writing one
-    finite [n_mels, mel_len] .npy per item."""
+    two short sessions to a checkpoint and the extraction after them (an
+    ``alg/`` file summing to its mel and a pitch target for every item,
+    from seeded raw pitch), a resume that restores the step and the
+    optimizer and extracts again,
+    and ``--force_gta`` writing one finite [n_mels, mel_len] .npy per
+    item. Phase 18 runs the whole pipeline."""
     import yaml
 
     from forwardtacotron_torch.utils.checkpoints import (checkpoint_step,
@@ -4780,39 +4807,41 @@ def teacher_cli_phase(torch, config, root) -> dict:
     cfg = teacher_train_config(config, root / 'cli', 'float32',
                                TEACHER_CLI_SCHEDULE)
     cfg['tacotron']['training']['checkpoint_every'] = 2
+    cfg['duration_extraction']['num_workers'] = 0
     paths = write_train_data(cfg, TEACHER_CLI_ITEMS, TEACHER_CLI_VAL,
                              TEACHER_CLI_TOKENS)
     cfg_path = root / 'cli_config.yaml'
     cfg_path.write_text(yaml.dump(cfg))
-    cmd = [sys.executable, '-m', 'forwardtacotron_torch.train_tacotron',
-           '--config', str(cfg_path)]
     last_step = int(TEACHER_CLI_SCHEDULE[-1].split(',')[2])
+    items = dict(unpickle_binary(paths.train_dataset)
+                 + unpickle_binary(paths.val_dataset))
+    rs = np.random.RandomState(SEED + 42)
+    for item_id, mel_len in items.items():
+        np.save(paths.raw_pitch / f'{item_id}.npy',
+                rs.uniform(80, 300, mel_len).astype(np.float32))
     out = {}
     for run, extra in (('train', []), ('resume', []),
                        ('force_gta', ['--force_gta'])):
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd + extra, cwd=REPO, capture_output=True,
-                              text=True, timeout=600)
-        out[f'{run}_s'] = time.perf_counter() - t0
-        log(f'train_tacotron {run}: exit {proc.returncode} in '
-            f'{out[f"{run}_s"]:.1f} s; {proc.stdout.strip()[-300:]!r}')
+        for f in [*paths.alg.glob('*.npy'), *paths.phon_pitch.glob('*.npy')]:
+            f.unlink()
+        out[f'{run}_s'], stdout = run_cli(
+            f'train_tacotron {run}', 'forwardtacotron_torch.train_tacotron',
+            ['--config', str(cfg_path), *extra])
         if run == 'force_gta':
-            if proc.returncode != 0:
-                fail(f'train_tacotron --force_gta failed:\n{proc.stderr}')
             continue
-        if (proc.returncode == 0 or 'Queue 1 item 10' not in proc.stderr
-                or 'NotImplementedError' not in proc.stderr):
-            fail(f'train_tacotron {run}: expected NotImplementedError '
-                 f'naming Queue 1 item 10 after training:\n{proc.stderr}')
+        if run == 'resume' and \
+                f'Restored checkpoint at step {last_step}' not in stdout:
+            fail('train_tacotron did not resume from its checkpoint')
         ckpt = restore_checkpoint(paths.taco_checkpoints)
         if (ckpt is None or checkpoint_step(ckpt) != last_step
                 or int(ckpt['optim']['count']) != last_step):
             fail(f'train_tacotron {run}: no checkpoint at step {last_step}')
-        if run == 'resume' and \
-                f'Restored checkpoint at step {last_step}' not in proc.stdout:
-            fail('train_tacotron did not resume from its checkpoint')
-    items = dict(unpickle_binary(paths.train_dataset)
-                 + unpickle_binary(paths.val_dataset))
+        for item_id, mel_len in items.items():
+            alg = paths.alg / f'{item_id}.npy'
+            if not alg.is_file() or int(np.load(alg).sum()) != mel_len or \
+                    not (paths.phon_pitch / f'{item_id}.npy').is_file():
+                fail(f'train_tacotron {run}: no alg/{item_id}.npy summing '
+                     f'to {mel_len}, or no pitch target')
     for item_id, mel_len in items.items():
         gta = np.load(paths.gta / f'{item_id}.npy')
         if gta.shape != (cfg['dsp']['num_mels'], mel_len) or \
@@ -4820,8 +4849,8 @@ def teacher_cli_phase(torch, config, root) -> dict:
             fail(f'--force_gta: {item_id} has {gta.shape}, expected finite '
                  f'({cfg["dsp"]["num_mels"]}, {mel_len})')
     out['gta_files'] = len(items)
-    log(f'train_tacotron: two sessions to step {last_step}, a resume, '
-        f'{len(items)} GTA mels')
+    log(f'train_tacotron: two sessions to step {last_step} and the '
+        f'extraction, a resume, {len(items)} GTA mels')
     return out
 
 
@@ -4861,6 +4890,451 @@ def teacher_phases(torch, config, tokens, profiled_rs=(5,)) -> dict:
         timed('cli', lambda: teacher_cli_phase(torch, config, Path(tmp)))
     out['phases_s'] = time.perf_counter() - t_all
     log('teacher phases: ' + ', '.join(
+        f'{k[:-2]} {v:.1f} s' for k, v in out.items() if k.endswith('_s')))
+    return out
+
+
+# the data pipeline (phase 18): a seeded synthetic corpus at 22,050 Hz,
+# PIPE_PER_LEN utterances at each token count (one extraction batch of 32
+# per bin), ~5.5 frames a token (LJSpeech's 1.5-11.5 s)
+PIPE_TOKENS = (60, 120, 180)
+PIPE_PER_LEN = 32
+PIPE_FRAMES_PER_TOKEN = 5.5
+PIPE_WORKERS = 4
+PIPE_SPEAKERS = ('spk0', 'spk1', 'spk2')
+
+
+def write_corpus(root: Path, token_lens, per_len: int, sample_rate: int,
+                 hop: int, frames_per_token: float = PIPE_FRAMES_PER_TOKEN,
+                 speakers=None, seed: int = SEED) -> Path:
+    """A seeded synthetic corpus in LJSpeech's layout under ``root``
+    (``wavs/<id>.wav``, 16-bit, and ``metadata.csv``; with ``speakers``,
+    ``ljspeech_multi``'s ``id|speaker|text``, the speakers cycling):
+    ``per_len`` utterances at each token count of ``token_lens``,
+    pre-phonemized text (words of 2-7 phonemes, a full stop), and
+    ``frames_per_token`` hops of audio a token: voiced stretches at
+    100-250 Hz (three harmonics, a slow vibrato), pauses of noise between
+    them, quiet noise before and after (which the start/end trim cuts)."""
+    from scipy.io import wavfile
+
+    from forwardtacotron_torch.text.symbols import phonemes
+
+    rs = np.random.RandomState(seed)
+    letters = [p for p in phonemes[12:82] if p.strip()]
+    wavs = root / 'wavs'
+    wavs.mkdir(parents=True, exist_ok=True)
+    lines = []
+    for n_tok in token_lens:
+        for _ in range(per_len):
+            item_id = f'utt{len(lines):03d}'
+            chars = list(rs.choice(letters, n_tok - 1))
+            pos = int(rs.randint(2, 8))
+            while pos < n_tok - 3:               # word breaks
+                chars[pos] = ' '
+                pos += int(rs.randint(3, 9))
+            text = ''.join(chars) + '.'
+            n = int(frames_per_token * n_tok * hop)
+            t = np.arange(n) / sample_rate
+            f0 = rs.uniform(100, 250) * (
+                1 + 0.05 * np.sin(2 * np.pi * rs.uniform(2, 6) * t))
+            phase = 2 * np.pi * np.cumsum(f0) / sample_rate
+            voice = (np.sin(phase) + 0.5 * np.sin(2 * phase)
+                     + 0.25 * np.sin(3 * phase))
+            gate, pos = np.zeros(n), 0
+            while pos < n:
+                on = int(rs.uniform(0.15, 0.6) * sample_rate)
+                gate[pos:pos + on] = rs.uniform(0.15, 0.35)
+                pos += on + int(rs.uniform(0.04, 0.2) * sample_rate)
+            y = voice * gate + 0.003 * rs.randn(n)
+            pad = [1e-4 * rs.randn(int(rs.uniform(0.1, 0.3) * sample_rate))
+                   for _ in range(2)]
+            y = np.concatenate([pad[0], y, pad[1]])
+            wavfile.write(str(wavs / f'{item_id}.wav'), sample_rate,
+                          (np.clip(y, -1, 1) * 32767).astype(np.int16))
+            speaker = ('' if speakers is None else
+                       f'{speakers[len(lines) % len(speakers)]}|')
+            lines.append(f'{item_id}|{speaker}{text}')
+    (root / 'metadata.csv').write_text('\n'.join(lines) + '\n',
+                                       encoding='utf-8')
+    return root
+
+
+PIPE_VAL = 8
+# the default mode's training: a few steps at r = 1 (r, lr, steps, batch)
+PIPE_SCHEDULE = ['1, 1e-3, 2, 8']
+PIPE_MEL_CHECKS, PIPE_DIJKSTRA_ITEMS, PIPE_EMBED_ITEMS = 4, 4, 8
+PIPE_MEL_TOL = 1e-4          # relative L2, card mel vs the CPU DSP
+PIPE_ATTN_TOL = 1e-3         # one batch's attention, card vs CPU
+PIPE_EMB_TOL = 1e-4          # speaker embedding, card vs CPU
+
+
+def write_voice_encoder_weights(torch, path: Path) -> Path:
+    """Seeded VoiceEncoder weights in the published ``pretrained.pt``
+    layout (the state_dict under 'model_state', with its extra keys)."""
+    from forwardtacotron_torch.models.speaker_encoder import \
+        init_voice_encoder_params
+    state = {k: torch.from_numpy(v)
+             for k, v in init_voice_encoder_params(SEED + 41).items()}
+    state.update(similarity_weight=torch.tensor([10.0]),
+                 similarity_bias=torch.tensor([-5.0]))
+    torch.save({'model_state': state, 'step': 0}, path)
+    return path
+
+
+def run_cli(label: str, module: str, args, env=None):
+    """``python -m <module> <args>`` from the repository root; fails on a
+    non-zero exit. Returns (its wall seconds, its standard output)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+    sec = time.perf_counter() - t0
+    log(f'{label}: exit {proc.returncode} in {sec:.1f} s; '
+        f'{proc.stdout.strip()[-300:]!r}')
+    if proc.returncode != 0:
+        fail(f'{label} failed:\n{proc.stderr[-3000:]}')
+    return sec, proc.stdout
+
+
+def pipeline_preprocess_checks(torch, cfg, root, weights) -> dict:
+    """After ``python -m forwardtacotron_torch.preprocess``: every mel
+    (n_mels, 1 + samples // hop) of its trimmed wav, PIPE_MEL_CHECKS of
+    them within PIPE_MEL_TOL (relative L2) of the CPU DSP, the splits,
+    pickles and embeddings written; the VoiceEncoder (``weights`` through
+    ``$RESEMBLYZER_WEIGHTS`` and ``make_speaker_encoder``) on the card
+    against the CPU on PIPE_EMBED_ITEMS wavs."""
+    import os
+
+    from forwardtacotron_torch.data.preprocess import (
+        HostPreprocessor, MelStatsSpeakerEncoder, make_speaker_encoder)
+    from forwardtacotron_torch.dsp.dsp import DSP
+    from forwardtacotron_torch.utils.files import unpickle_binary
+    from forwardtacotron_torch.utils.paths import Paths
+
+    paths = Paths.from_config(cfg)
+    cpu = DSP.from_config(cfg, device='cpu')
+    host = HostPreprocessor(paths, cfg, {})
+    items = dict(unpickle_binary(paths.train_dataset)
+                 + unpickle_binary(paths.val_dataset))
+    n_all = len(PIPE_TOKENS) * PIPE_PER_LEN
+    speakers = unpickle_binary(paths.speaker_dict)
+    if (len(items) != n_all or len(unpickle_binary(paths.val_dataset))
+            != PIPE_VAL or sorted(unpickle_binary(paths.text_dict))
+            != sorted(items) or sorted(speakers) != sorted(items)):
+        fail(f'preprocess: {len(items)} items in the splits, expected '
+             f'{n_all} with {PIPE_VAL} in val, and matching dicts')
+    wavs = root / 'corpus' / 'wavs'
+    rel = []
+    for k, (item_id, mel_len) in enumerate(sorted(items.items())):
+        y = host.load_trimmed(wavs / f'{item_id}.wav')
+        mel = np.load(paths.mel / f'{item_id}.npy')
+        emb = np.load(paths.speaker_emb / f'{item_id}.npy')
+        want = (cfg['dsp']['num_mels'], 1 + len(y) // cfg['dsp']['hop_length'])
+        if mel.shape != want or mel_len != want[1] or \
+                not np.isfinite(mel).all() or emb.shape != (256,):
+            fail(f'preprocess: {item_id} mel {mel.shape}, expected {want}')
+        if k < PIPE_MEL_CHECKS:
+            ref = cpu.wav_to_mel(y)
+            rel.append(float(np.linalg.norm(mel - ref) / np.linalg.norm(ref)))
+    ok = max(rel) <= PIPE_MEL_TOL
+    log(f'preprocess: {n_all} mels of (80, 1 + samples // hop), '
+        f'{len(items)} in the splits; {PIPE_MEL_CHECKS} mels vs the CPU DSP: '
+        f'rel L2 {max(rel):.3e} (tol {PIPE_MEL_TOL:g}) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('preprocess: card mels disagree with the CPU DSP')
+    for speaker in set(speakers.values()):
+        mean = np.load(paths.mean_speaker_emb / f'{speaker}.npy')
+        if abs(float(np.linalg.norm(mean)) - 1.0) > 1e-5:
+            fail(f'preprocess: mean embedding of {speaker} is not unit')
+
+    old = os.environ.get('RESEMBLYZER_WEIGHTS')
+    os.environ['RESEMBLYZER_WEIGHTS'] = str(weights)
+    try:
+        encoders = {d: make_speaker_encoder(cfg['dsp']['num_mels'], d)
+                    for d in ('cpu', 'cuda')}
+    finally:
+        if old is None:
+            del os.environ['RESEMBLYZER_WEIGHTS']
+        else:
+            os.environ['RESEMBLYZER_WEIGHTS'] = old
+    if any(isinstance(e, MelStatsSpeakerEncoder) for e in encoders.values()):
+        fail('make_speaker_encoder did not take the VoiceEncoder')
+    err, card_s = 0.0, 0.0
+    sr = cfg['dsp']['sample_rate']
+    ids = sorted(items)[::len(items) // PIPE_EMBED_ITEMS][:PIPE_EMBED_ITEMS]
+    encoders['cuda'].embed(None, wav=host.load_trimmed(
+        wavs / f'{ids[0]}.wav'), sample_rate=sr)          # warm-up
+    torch.cuda.synchronize()
+    for item_id in ids:
+        y = host.load_trimmed(wavs / f'{item_id}.wav')
+        t0 = time.perf_counter()
+        got = encoders['cuda'].embed(None, wav=y, sample_rate=sr)
+        card_s += time.perf_counter() - t0
+        want = encoders['cpu'].embed(None, wav=y, sample_rate=sr)
+        err = max(err, float(np.abs(got - want).max()))
+        # the CLI embedded with the same weights on the card
+        err = max(err, float(np.abs(np.load(
+            paths.speaker_emb / f'{item_id}.npy') - want).max()))
+    ok = err <= PIPE_EMB_TOL
+    log(f'speaker encoder (seeded published-layout weights): '
+        f'{PIPE_EMBED_ITEMS} wavs card vs CPU max_abs_err {err:.3e} (tol '
+        f'{PIPE_EMB_TOL:g}) {"ok" if ok else "FAIL"}; '
+        f'{card_s / PIPE_EMBED_ITEMS * 1e3:.1f} ms an utterance with the card '
+        '(its host preprocessing included)')
+    if not ok:
+        fail('speaker encoder: card disagrees with the CPU')
+    return dict(items=len(items), mel_rel_l2=max(rel), emb_max_abs_err=err,
+                emb_ms_per_item=card_s / PIPE_EMBED_ITEMS * 1e3)
+
+
+def pipeline_extraction_phase(torch, cfg) -> dict:
+    """In this process, from the checkpoint the default mode trained: the
+    extraction's launches (exactly 2 ``pre_highway_stack`` and 2
+    ``cbhg_front`` a batch, nothing else) and its time per batch and item,
+    the postnet's share of a batch, one batch's attention on the card
+    against the CPU (PreNet dropout off on both), the native DP against
+    the numpy DP on every item and Dijkstra on PIPE_DIJKSTRA_ITEMS, the
+    DP's time per item (native; the pool of PIPE_WORKERS; serial), the
+    targets' time."""
+    from forwardtacotron_torch.data.dataset import get_binned_taco_dataloader
+    from forwardtacotron_torch.duration import extractor as ext
+    from forwardtacotron_torch.duration.pipeline import \
+        DurationExtractionPipeline
+    from forwardtacotron_torch.duration.targets import extract_pitch_energy
+    from forwardtacotron_torch.models.tacotron import Tacotron
+    from forwardtacotron_torch.native import load_library
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+    from forwardtacotron_torch.utils.checkpoints import restore_checkpoint
+    from forwardtacotron_torch.utils.files import unpickle_binary
+    from forwardtacotron_torch.utils.paths import Paths
+
+    paths = Paths.from_config(cfg)
+    model = Tacotron.from_config(cfg)
+    model.load_state_dict(restore_checkpoint(paths.taco_checkpoints)['model'])
+    dcfg = cfg['duration_extraction']
+    extractor = ext.DurationExtractor(dcfg['silence_threshold'],
+                                      dcfg['silence_prob_shift'])
+    pipe = DurationExtractionPipeline(paths, cfg, extractor)
+    n_batches = len(get_binned_taco_dataloader(paths,
+                                               dcfg['max_batch_size']))
+    n_items = len(PIPE_TOKENS) * PIPE_PER_LEN
+    out = {'batches': n_batches}
+    pipe.extract_attentions(model, dcfg['max_batch_size'],
+                            device='cuda')  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    score = pipe.extract_attentions(model, dcfg['max_batch_size'],
+                                    device='cuda')
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts('extraction', counts,
+                  pre_highway_stack=2 * n_batches, cbhg_front=2 * n_batches)
+    out.update(sharpness=score, s=sec, ms_per_batch=sec / n_batches * 1e3,
+               ms_per_item=sec / n_items * 1e3,
+               launches_per_batch={row: counts[row] / n_batches for row in
+                                   ('pre_highway_stack', 'cbhg_front')})
+    log(f'extraction: {n_batches} batches of <= {dcfg["max_batch_size"]}, '
+        f'{sec:.2f} s: {out["ms_per_batch"]:.1f} ms a batch, '
+        f'{out["ms_per_item"]:.1f} ms an item, {n_items / sec:.1f} items/s, '
+        f'sharpness {score:.4f}')
+
+    # the postnet's share of the longest batch, and card vs CPU on the
+    # shortest, PreNet dropout off on both sides
+    batches = list(get_binned_taco_dataloader(paths, dcfg['max_batch_size']))
+    longest = max(batches, key=lambda b: b['mel'].shape[1])
+    shortest = min(batches, key=lambda b: b['mel'].shape[1])
+    quiet = teacher_no_dropout(torch, copy.deepcopy(model)).eval()
+    with torch.inference_mode():
+        dev_in = {k: torch.as_tensor(longest[k], device='cuda')
+                  for k in ('x', 'mel', 'speaker_emb')}
+        fwd_ms = time_ms(torch, lambda: quiet(dev_in, r=1), reps=3, warmup=1)
+        mel = quiet(dev_in, r=1)[0]
+        post_ms = time_ms(torch, lambda: quiet._post(mel), reps=10)
+        out.update(forward_ms=fwd_ms, postnet_ms=post_ms,
+                   postnet_share=post_ms / fwd_ms,
+                   longest=list(longest['mel'].shape[:2]))
+        log(f'extraction batch {tuple(longest["mel"].shape[:2])}: forward '
+            f'{fwd_ms:.1f} ms, postnet {post_ms:.2f} ms '
+            f'({100 * post_ms / fwd_ms:.2f}%, which a jit that returns only '
+            'the attention drops)')
+        host = {k: torch.as_tensor(shortest[k])
+                for k in ('x', 'mel', 'speaker_emb')}
+        got = quiet({k: v.cuda() for k, v in host.items()}, r=1)[2]
+        t0 = time.perf_counter()
+        want = copy.deepcopy(quiet).cpu()(host, r=1)[2]
+        cpu_s = time.perf_counter() - t0
+    err = float((got.cpu() - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= PIPE_ATTN_TOL
+    log(f'extraction attention card vs CPU, batch '
+        f'{tuple(shortest["mel"].shape[:2])}: max_abs_err {err:.3e} (tol '
+        f'{PIPE_ATTN_TOL:g}) {"ok" if ok else "FAIL"}; CPU {cpu_s:.1f} s')
+    if not ok:
+        fail('extraction attention disagrees with the CPU path')
+    out['attention_card_vs_cpu'] = err
+
+    # the DP: native library, node for node against numpy; Dijkstra on a few
+    if load_library('duration_dp') is None:
+        fail('the native duration DP did not build or load')
+    texts, tok = unpickle_binary(paths.text_dict), Tokenizer()
+    native_s, numpy_s, checked = 0.0, 0.0, 0
+    for k, item_id in enumerate(sorted(texts)):
+        x = np.asarray(tok(texts[item_id]))
+        att, _ = extractor.shifted_attention(
+            x, np.load(paths.mel / f'{item_id}.npy'),
+            np.load(paths.att_pred / f'{item_id}.npy'))
+        w = 1.0 - att
+        t0 = time.perf_counter()
+        native = ext._shortest_monotonic_path_native(w)
+        native_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = ext._shortest_monotonic_path_dp(w)
+        numpy_s += time.perf_counter() - t0
+        if native != plain:
+            fail(f'native DP differs from the numpy DP on {item_id}')
+        if k < PIPE_DIJKSTRA_ITEMS and \
+                ext._shortest_monotonic_path_dijkstra(w) != plain:
+            fail(f'Dijkstra differs from the DP on {item_id}')
+        checked += 1
+    out.update(dp_native_ms_per_item=native_s / checked * 1e3,
+               dp_numpy_ms_per_item=numpy_s / checked * 1e3)
+    for workers in (PIPE_WORKERS, 0):
+        t0 = time.perf_counter()
+        pipe.extract_durations(num_workers=workers)
+        out[f'durations_{workers}_workers_ms_per_item'] = \
+            (time.perf_counter() - t0) / n_items * 1e3
+    t0 = time.perf_counter()
+    extract_pitch_energy(paths, cfg['preprocessing']['pitch_min_freq'],
+                         cfg['preprocessing']['pitch_max_freq'])
+    out['targets_s'] = time.perf_counter() - t0
+    log(f'durations: {checked} items native == numpy DP, '
+        f'{PIPE_DIJKSTRA_ITEMS} == Dijkstra; native '
+        f'{out["dp_native_ms_per_item"]:.2f} ms an item, numpy '
+        f'{out["dp_numpy_ms_per_item"]:.1f}; extract_durations '
+        f'{out[f"durations_{PIPE_WORKERS}_workers_ms_per_item"]:.2f} ms an '
+        f'item with {PIPE_WORKERS} workers, '
+        f'{out["durations_0_workers_ms_per_item"]:.2f} serial; targets '
+        f'{out["targets_s"]:.2f} s')
+    return out
+
+
+def pipeline_target_checks(cfg) -> dict:
+    """The extracted files: every ``alg/<id>.npy`` sums to its mel length;
+    ``phon_pitch`` / ``phon_energy`` one finite value a token, nonzero
+    pitch z-normalised; ``duration_stats.pkl`` loads;
+    ``get_forward_dataloaders`` yields a batch."""
+    from forwardtacotron_torch.data.dataset import (get_forward_dataloaders,
+                                                    load_duration_stats)
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+    from forwardtacotron_torch.utils.files import unpickle_binary
+    from forwardtacotron_torch.utils.paths import Paths
+
+    paths = Paths.from_config(cfg)
+    items = dict(unpickle_binary(paths.train_dataset)
+                 + unpickle_binary(paths.val_dataset))
+    texts, tok = unpickle_binary(paths.text_dict), Tokenizer()
+    pitches = []
+    for item_id, mel_len in items.items():
+        n_tok = len(tok(texts[item_id]))
+        alg = np.load(paths.alg / f'{item_id}.npy')
+        pitch = np.load(paths.phon_pitch / f'{item_id}.npy')
+        energy = np.load(paths.phon_energy / f'{item_id}.npy')
+        if alg.shape != (n_tok,) or int(alg.sum()) != mel_len:
+            fail(f'alg/{item_id}: {alg.shape} summing to {alg.sum()}, '
+                 f'expected ({n_tok},) summing to {mel_len}')
+        if pitch.shape != (n_tok,) or energy.shape != (n_tok,) or \
+                not (np.isfinite(pitch).all() and np.isfinite(energy).all()):
+            fail(f'{item_id}: pitch {pitch.shape}, energy {energy.shape}, '
+                 f'expected finite ({n_tok},)')
+        pitches.append(pitch[pitch != 0])
+    nz = np.concatenate(pitches)
+    if abs(float(nz.mean())) > 1e-3 or abs(float(nz.std()) - 1.0) > 1e-3:
+        fail(f'nonzero pitch not z-normalised: mean {nz.mean()}, std '
+             f'{nz.std()}')
+    stats = load_duration_stats(paths.duration_stats)
+    if sorted(stats) != sorted(items):
+        fail('duration_stats.pkl does not cover every item')
+    filt = dict(cfg['tacotron']['training']['filter'],
+                filter_duration_stats=False)
+    train_set, _ = get_forward_dataloaders(paths, 8, seed=SEED, **filt)
+    batch = next(iter(train_set))
+    if batch['dur'].shape != batch['x'].shape or \
+            not np.isfinite(batch['pitch']).all():
+        fail('get_forward_dataloaders: no batch from the extracted files')
+    log(f'targets: {len(items)} alg files sum to their mels; pitch and '
+        f'energy a token, nonzero pitch mean {nz.mean():.2e} std '
+        f'{nz.std():.6f}; duration_stats {len(stats)} items; a forward '
+        f'batch {tuple(batch["x"].shape)}')
+    return {'nonzero_pitch_mean': float(nz.mean()),
+            'nonzero_pitch_std': float(nz.std())}
+
+
+def pipeline_phase(torch, config) -> dict:
+    """Phase 18: the data pipeline on a seeded synthetic corpus, from wavs
+    to the forward models' targets, through the CLIs a user runs, with
+    rows 1-2 at one extraction batch of 32."""
+    import os
+
+    import yaml
+
+    t_all = time.perf_counter()
+    log('rows 1-2 at one extraction batch (B 32, f32; the encoder\'s tokens '
+        'of equal length):')
+    with torch.inference_mode():
+        out = {'kernels': teacher_kernel_phase(
+            torch, teacher_model(torch, config), b=32,
+            tokens=max(PIPE_TOKENS), frames=TEACHER_FRAMES, dtypes=('f32',),
+            equal_tokens=True)}
+    out['kernels_s'] = time.perf_counter() - t_all
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_pipeline_') as tmp:
+        root = Path(tmp)
+        cfg = copy.deepcopy(config)
+        cfg.update(data_path=str(root / 'data'),
+                   checkpoint_path=str(root / 'ckpt'))
+        cfg['preprocessing'].update(use_phonemes=False,
+                                    cleaner_name='no_cleaners', n_val=PIPE_VAL)
+        cfg['duration_extraction']['num_workers'] = PIPE_WORKERS
+        cfg['tacotron']['training'].update(schedule=PIPE_SCHEDULE,
+                                           checkpoint_every=2)
+        cfg_path = root / 'config.yaml'
+        cfg_path.write_text(yaml.dump(cfg))
+        t0 = time.perf_counter()
+        write_corpus(root / 'corpus', PIPE_TOKENS, PIPE_PER_LEN,
+                     cfg['dsp']['sample_rate'], cfg['dsp']['hop_length'])
+        out['corpus_s'] = time.perf_counter() - t0
+        weights = write_voice_encoder_weights(torch, root / 'pretrained.pt')
+        env = dict(os.environ, RESEMBLYZER_WEIGHTS=str(weights))
+        n_items = len(PIPE_TOKENS) * PIPE_PER_LEN
+        base = ['--config', str(cfg_path)]
+        out['preprocess_s'], _ = run_cli(
+            'preprocess', 'forwardtacotron_torch.preprocess',
+            ['--path', str(root / 'corpus'), '--num_workers',
+             str(PIPE_WORKERS), *base], env)
+        out['preprocess_ms_per_item'] = out['preprocess_s'] / n_items * 1e3
+        out['preprocess'] = pipeline_preprocess_checks(torch, cfg, root,
+                                                       weights)
+        out['train_and_extract_s'], _ = run_cli(
+            'train_tacotron (train, then extract)',
+            'forwardtacotron_torch.train_tacotron', base)
+        out['targets'] = pipeline_target_checks(cfg)
+        out['extraction'] = pipeline_extraction_phase(torch, cfg)
+        torch.cuda.empty_cache()
+        for flag in ('--force_align', '--extract_pitch'):
+            subs = ('alg', 'phon_pitch', 'phon_energy') \
+                if flag == '--force_align' else ('phon_pitch', 'phon_energy')
+            for sub in subs:
+                for f in (root / 'data' / sub).glob('*.npy'):
+                    f.unlink()
+            if flag == '--force_align':
+                (root / 'data' / 'duration_stats.pkl').unlink()
+            out[f'{flag[2:]}_s'], _ = run_cli(
+                f'train_tacotron {flag}',
+                'forwardtacotron_torch.train_tacotron', [*base, flag])
+            pipeline_target_checks(cfg)
+    out['phase_s'] = time.perf_counter() - t_all
+    log('pipeline phase: ' + ', '.join(
         f'{k[:-2]} {v:.1f} s' for k, v in out.items() if k.endswith('_s')))
     return out
 
@@ -4922,6 +5396,12 @@ def main() -> None:
         # the teacher's phases alone, every train step profiled
         teacher = teacher_phases(torch, config, tokens, profiled_rs=(5, 1))
         log(f'teacher: {json.dumps(teacher)}')
+        log(f'card: {card}')
+        return
+    if '--pipeline' in sys.argv[1:]:
+        # the data pipeline's phase alone
+        pipeline = pipeline_phase(torch, config)
+        log(f'pipeline: {json.dumps(pipeline)}')
         log(f'card: {card}')
         return
     if '--multispeaker' in sys.argv[1:]:
@@ -5064,7 +5544,8 @@ def main() -> None:
         **{f'forward_{k}': mk[f'gru_train_fwd_{k}']
            for k in ('dur_pred', 'pitch_pred')}}
     # the teacher (configs/singlespeaker.yaml's tacotron section): rows 1
-    # and 2 at its shapes, its eval forward, generate, train steps, CLI
+    # and 2 at its shapes, its eval forward, generate, train steps, CLI;
+    # no profiled step (each costs 20-60 s; --teacher profiles them)
     teacher = teacher_phases(torch, config, tokens)
     for row in ('pre_highway_stack', 'cbhg_front'):
         for name, res in (('f32', results), ('bf16', results16)):
@@ -5074,6 +5555,14 @@ def main() -> None:
                    for entry in ('encoder', 'postnet')}}
         results[row]['new_paths']['teacher_eval_forward'] = \
             teacher['eval']['launches'][row]
+    # the data pipeline: preprocessing, the speaker encoder, the teacher's
+    # attention extraction (rows 1-2 at B 32), the duration DP, the targets
+    pipeline = pipeline_phase(torch, config)
+    for row in ('pre_highway_stack', 'cbhg_front'):
+        results[row]['new_paths'].update(
+            extraction_batch=pipeline['extraction']['launches_per_batch'][row],
+            **{f'extraction_{entry}_B32': pipeline['kernels'][
+                f'{row}_{entry}_f32'] for entry in ('encoder', 'postnet')})
     # row 5 at one request beside its serving numbers
     results16['lr_bidir']['request'] = {
         k: request16['lr_bidir'][k]
@@ -5181,6 +5670,7 @@ def main() -> None:
     log(f'training: {json.dumps(training)}')
     log(f'multispeaker: {json.dumps(multi)}')
     log(f'teacher: {json.dumps(teacher)}')
+    log(f'pipeline: {json.dumps(pipeline)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

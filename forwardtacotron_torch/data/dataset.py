@@ -1,6 +1,7 @@
-"""Data layer of the teacher's and the forward models' training: npy-backed
-datasets, length-binned sampling, bucketed collation and a threaded
-prefetch loader.
+"""Data layer of the teacher's and the forward models' training and of
+attention extraction: npy-backed datasets, length-binned sampling,
+bucketed collation, a threaded prefetch loader and the binned loader of
+equal-token-length batches.
 
 The port's copy of the training subset of forwardtacotron_tpu/data/dataset.py
 (itself the reference's utils/dataset.py): the same numpy code, so that both
@@ -15,6 +16,7 @@ import queue
 import threading
 from collections import Counter
 from dataclasses import dataclass
+from random import Random
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +25,7 @@ from forwardtacotron_torch.text.tokenizer import Tokenizer
 from forwardtacotron_torch.utils.files import unpickle_binary
 from forwardtacotron_torch.utils.paths import Paths
 
+SHUFFLE_SEED = 42
 PAD_VALUE = -11.5129
 
 
@@ -252,6 +255,57 @@ class DataLoader:
                 raise item
             yield item
         thread.join()
+
+
+class BinnedTacoDataLoader:
+    """Batches of identical token length for padding-free attention
+    extraction (reference utils/dataset.py:152-207): items sorted by token
+    count, each run of equal counts cut into batches of at most
+    ``max_batch_size``, the batches shuffled by ``Random(SHUFFLE_SEED)``,
+    so that the batches and their order are the JAX package's."""
+
+    def __init__(self, paths: Paths, dataset: List[Tuple[str, int]],
+                 max_batch_size: int = 8) -> None:
+        tokenizer = Tokenizer()
+        text_dict = unpickle_binary(paths.text_dict)
+        speaker_dict = unpickle_binary(paths.speaker_dict)
+
+        id_lens = sorted(((item_id, len(tokenizer(text_dict[item_id])))
+                          for item_id, _ in dataset), key=lambda p: p[1])
+        dataset_ids = [i for i, _ in id_lens]
+        lens = np.asarray([n for _, n in id_lens], int)
+
+        split_points = np.where(np.diff(lens, append=0, prepend=0) != 0)[0]
+        indices = list(range(len(dataset_ids)))
+        all_batches = []
+        for a, b in zip(split_points[:-1], split_points[1:]):
+            group = indices[a:b]
+            all_batches.extend(group[i:i + max_batch_size]
+                               for i in range(0, len(group), max_batch_size))
+        Random(SHUFFLE_SEED).shuffle(all_batches)
+
+        self.all_batches = all_batches
+        self.taco_dataset = TacoDataset(paths=paths, dataset_ids=dataset_ids,
+                                        text_dict=text_dict,
+                                        speaker_dict=speaker_dict,
+                                        tokenizer=tokenizer)
+        self.collator = TacoCollator(r=1)
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        for batch in self.all_batches:
+            yield self.collator([self.taco_dataset[i] for i in batch])
+
+    def __len__(self) -> int:
+        return len(self.all_batches)
+
+
+def get_binned_taco_dataloader(paths: Paths, max_batch_size: int = 8
+                               ) -> BinnedTacoDataLoader:
+    """The binned loader over the train and val splits together."""
+    dataset = (unpickle_binary(paths.train_dataset)
+               + unpickle_binary(paths.val_dataset))
+    return BinnedTacoDataLoader(paths=paths, dataset=dataset,
+                                max_batch_size=max_batch_size)
 
 
 def get_taco_dataloaders(paths: Paths, batch_size: int, r: int,

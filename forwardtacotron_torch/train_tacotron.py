@@ -1,32 +1,33 @@
-"""CLI: train the Tacotron teacher on the GPU, or export its
-ground-truth-aligned (GTA) mels.
+"""CLI: train the Tacotron teacher on the GPU and extract the forward
+models' training targets from it.
 
-Mirrors the repository's root ``train_tacotron.py`` on the PyTorch port,
-for one device:
+Mirrors the repository's root ``train_tacotron.py`` (reference
+train_tacotron.py:146-196) on the PyTorch port, for one device:
 
     python -m forwardtacotron_torch.train_tacotron \\
-        --config configs/singlespeaker.yaml [--device cpu] [--force_gta]
+        --config configs/singlespeaker.yaml [--device cpu] \\
+        [--force_align | --force_gta | --extract_pitch]
 
 It resumes from ``latest_model.pt`` in the config's teacher checkpoint
 directory when one is there (weights, BatchNorm statistics, optimizer state
-and step), else starts from seeded random weights. By default it runs the
-config's ``tacotron`` schedule, writing reference-format ``.pt``
-checkpoints; ``--force_gta`` instead writes ``<data>/gta/<id>.npy`` for
-every item, the postnet's mel [n_mels, mel_len] of the teacher-forced eval
-forward at r = 1 (the JAX package's ``_export_gta``).
+and step), else starts from seeded random weights. Modes:
 
-The attention extraction that the JAX package runs after training, and
-``--force_align`` and ``--extract_pitch``, need the duration pipeline
-(ROADMAP.md Queue 1, item 10): until it is ported they raise
-``NotImplementedError`` (after training, in the default mode).
+- default: run the config's ``tacotron`` schedule (reference-format ``.pt``
+  checkpoints), then extract as ``--force_align`` does;
+- ``--force_align``: no training; the teacher's attention for every item
+  (``att_pred/``, on the device, batches of equal token length), the
+  durations from it (``alg/``, a process pool of
+  ``duration_extraction.num_workers``), ``duration_stats.pkl``, then the
+  pitch and energy targets;
+- ``--extract_pitch``: only the targets, ``phon_pitch/`` and
+  ``phon_energy/``, from ``alg/``, ``mel/`` and ``raw_pitch/``;
+- ``--force_gta``: ``<data>/gta/<id>.npy`` for every item, the postnet's
+  mel [n_mels, mel_len] of the teacher-forced eval forward at r = 1.
 """
 
 import argparse
 
 import numpy as np
-
-ITEM_10 = ('needs the duration and pitch pipeline, which the port does not '
-           'have yet (ROADMAP.md Queue 1 item 10)')
 
 
 def export_gta(model, paths, config, device) -> int:
@@ -68,10 +69,6 @@ def main(argv=None):
     parser.add_argument('--force_gta', action='store_true')
     parser.add_argument('--extract_pitch', action='store_true')
     args = parser.parse_args(argv)
-    if args.extract_pitch:
-        raise NotImplementedError(f'--extract_pitch {ITEM_10}')
-    if args.force_align:
-        raise NotImplementedError(f'--force_align {ITEM_10}')
 
     import torch
 
@@ -96,16 +93,51 @@ def main(argv=None):
     else:
         state = create_train_state(model, trainer.tx)
 
+    if args.extract_pitch:
+        extract_pitch(paths, config)
+        return
     if args.force_gta:
         print('Exporting ground-truth-aligned features...')
         n = export_gta(model, paths, config, trainer.device)
         print(f'Wrote {n} GTA mels to {paths.gta}')
         return
-    trainer.train(model, state=state, seed=args.seed)
-    raise NotImplementedError(
-        f'Training finished (checkpoints in {paths.taco_checkpoints}); the '
-        f'attention extraction that follows it {ITEM_10}')
+    if not args.force_align:
+        trainer.train(model, state=state, seed=args.seed)
+    create_align_features(model, paths, config, trainer.device)
+    extract_pitch(paths, config)
 
+
+def create_align_features(model, paths, config, device) -> None:
+    """The teacher's attentions, the durations from them and
+    ``duration_stats.pkl`` (the JAX package's ``_create_align_features``)."""
+    from forwardtacotron_torch.duration.extractor import DurationExtractor
+    from forwardtacotron_torch.duration.pipeline import \
+        DurationExtractionPipeline
+    from forwardtacotron_torch.utils.files import pickle_binary
+
+    cfg = config['duration_extraction']
+    extractor = DurationExtractor(
+        silence_threshold=cfg['silence_threshold'],
+        silence_prob_shift=cfg['silence_prob_shift'])
+    pipe = DurationExtractionPipeline(paths, config, extractor)
+    print('Extracting attention matrices from tacotron...')
+    score = pipe.extract_attentions(model,
+                                    max_batch_size=cfg['max_batch_size'],
+                                    device=device)
+    print(f'Avg attention sharpness: {score:.4f}')
+    n_workers = cfg.get('num_workers', 0)
+    print(f'Extracting durations (num workers={n_workers})...')
+    stats = pipe.extract_durations(num_workers=n_workers)
+    pickle_binary(stats, paths.duration_stats)
+
+
+def extract_pitch(paths, config) -> None:
+    """The per-phoneme pitch and energy targets (``_extract_pitch``)."""
+    from forwardtacotron_torch.duration.targets import extract_pitch_energy
+    print('Extracting pitch/energy targets...')
+    pre = config['preprocessing']
+    extract_pitch_energy(paths, pitch_min_freq=pre['pitch_min_freq'],
+                         pitch_max_freq=pre['pitch_max_freq'])
 
 if __name__ == '__main__':
     main()

@@ -1,11 +1,17 @@
-"""File helpers: YAML configs, pickles and schedule parsing (the port's copy
-of forwardtacotron_tpu/utils/files.py)."""
+"""File helpers: globbing, YAML configs, pickles and schedule parsing (the
+port's copy of forwardtacotron_tpu/utils/files.py)."""
 
 import pickle
 from pathlib import Path
 from typing import Any, Dict, List, Tuple, Union
 
 import yaml
+
+
+def get_files(path: Union[str, Path], extension: str = '.wav') -> List[Path]:
+    """Every file under ``path`` with the given extension, recursively,
+    sorted for determinism."""
+    return sorted(Path(path).expanduser().resolve().rglob(f'*{extension}'))
 
 
 def read_config(path: Union[str, Path]) -> Dict[str, Any]:

@@ -1936,3 +1936,122 @@ def test_rows_1_2_at_teacher_shapes(dev, dtype, entry):
         torch.cuda.synchronize()
         _close([got.float()],
                [highway.pre_highway_stack_plain(*args).float()], tol)
+
+
+@pytest.mark.parametrize('entry,b,t', [('encoder', 32, 180),
+                                       ('postnet', 32, 1000)])
+def test_rows_1_2_at_extraction_batch(dev, entry, b, t):
+    """Rows 1 and 2 at one attention-extraction batch of 32 (the encoder's
+    tokens of equal length, the postnet's frames ragged), float32."""
+    from forwardtacotron_torch.models.tacotron import Tacotron
+    from forwardtacotron_torch.utils.files import read_config
+
+    torch.manual_seed(0)
+    model = Tacotron.from_config(read_config('configs/singlespeaker.yaml'))
+    mod = (model.encoder.cbhg if entry == 'encoder'
+           else model.postnet).eval().to(dev)
+    c_in = mod.conv1d_bank[0].conv.in_channels
+    gen = torch.Generator().manual_seed(4)
+    mask = torch.ones(b, t)
+    if entry == 'postnet':
+        for i in range(b):
+            mask[i, t - 17 * i:] = 0.0
+    x = (torch.randn(b, t, c_in, generator=gen) * mask[:, :, None]).to(dev)
+    with torch.no_grad():
+        args = mod.front_args(x, mask.to(dev))
+        _close([cbhg.bank_pool_proj(*args)],
+               [cbhg.bank_pool_proj_plain(*args)])
+        args = mod.highway_args(
+            torch.randn(b * t, c_in, generator=gen).to(dev),
+            torch.randn(b * t, c_in, generator=gen).to(dev))
+        _close([highway.pre_highway_stack(*args)],
+               [highway.pre_highway_stack_plain(*args)])
+
+
+# ------------------------------------------------------- the data pipeline
+
+def _write_extraction_items(paths, n_mels=16):
+    """6 items in two token-length bins, random mels."""
+    import pickle
+
+    import numpy as np
+
+    from forwardtacotron_torch.text.symbols import phonemes
+
+    rs = np.random.RandomState(0)
+    text_dict, items = {}, []
+    for i in range(6):
+        n_tok = (7, 12)[i % 2]
+        mel_len = 3 * n_tok + i
+        item_id = f'item{i}'
+        text_dict[item_id] = ''.join(rs.choice(phonemes[12:60], n_tok))
+        np.save(paths.mel / f'{item_id}.npy',
+                (rs.randn(n_mels, mel_len) - 5).astype(np.float32))
+        np.save(paths.speaker_emb / f'{item_id}.npy',
+                np.zeros(256, np.float32))
+        items.append((item_id, mel_len))
+    for path, obj in ((paths.text_dict, text_dict),
+                      (paths.speaker_dict, {i: 's' for i, _ in items}),
+                      (paths.train_dataset, items[:4]),
+                      (paths.val_dataset, items[4:])):
+        path.write_bytes(pickle.dumps(obj))
+    return items
+
+
+def test_extract_attentions_on_card_matches_cpu(dev, tmp_path):
+    """``extract_attentions`` with the PreNet's dropout off: the card's
+    ``att_pred`` within 1e-4 of the CPU's, 2 ``pre_highway_stack`` and 2
+    ``cbhg_front`` launches a batch (4 batches: 3 items of each token
+    length in batches of at most 2)."""
+    import numpy as np
+
+    from forwardtacotron_torch.duration.extractor import DurationExtractor
+    from forwardtacotron_torch.duration.pipeline import \
+        DurationExtractionPipeline
+    from forwardtacotron_torch.utils.paths import Paths
+
+    model = _narrow_teacher()
+    model.decoder.prenet.dropout = 0.0
+    att = {}
+    for device in ('cpu', dev):
+        paths = Paths(tmp_path / str(device), 't', tmp_path / 'ckpt')
+        items = _write_extraction_items(paths)
+        before = (highway.launches, cbhg.launches)
+        score = DurationExtractionPipeline(
+            paths, {}, DurationExtractor(-11.0, 0.25)).extract_attentions(
+                model, max_batch_size=2, device=device)
+        att[str(device)] = (score, {i: np.load(paths.att_pred / f'{i}.npy')
+                                    for i, _ in items})
+        if device == dev:
+            assert (highway.launches - before[0],
+                    cbhg.launches - before[1]) == (8, 8)
+    (s_cpu, a_cpu), (s_dev, a_dev) = att['cpu'], att[str(dev)]
+    assert abs(s_cpu - s_dev) <= 1e-4
+    for k, v in a_cpu.items():
+        assert np.abs(a_dev[k] - v).max() <= 1e-4
+
+
+def test_speaker_encoder_and_mel_on_card_match_cpu(dev, tmp_path):
+    """The VoiceEncoder's embedding (seeded weights) and a preprocessed
+    mel on the card against the CPU: 1e-4."""
+    import numpy as np
+
+    from forwardtacotron_torch.dsp.dsp import DSP
+    from forwardtacotron_torch.models.speaker_encoder import (
+        VoiceEncoder, init_voice_encoder_params)
+    from forwardtacotron_torch.utils.files import read_config
+
+    rs = np.random.RandomState(0)
+    t = np.arange(3 * 22050) / 22050
+    wav = (0.3 * np.sin(2 * np.pi * 150 * t)
+           + 0.02 * rs.randn(len(t))).astype(np.float32)
+    params = init_voice_encoder_params(5)
+    embs = [VoiceEncoder(params, device=d).embed_utterance(wav, 22050)
+            for d in ('cpu', dev)]
+    assert np.abs(embs[0] - embs[1]).max() <= 1e-4
+    config = read_config('configs/singlespeaker.yaml')
+    mels = [DSP.from_config(config, device=d).wav_to_mel(wav)
+            for d in ('cpu', dev)]
+    assert mels[1].shape == (80, 1 + len(wav) // 256)
+    assert np.linalg.norm(mels[1] - mels[0]) <= 1e-4 * np.linalg.norm(
+        mels[0])

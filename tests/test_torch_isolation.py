@@ -22,6 +22,9 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'forwardtacotron_tpu'))
 print(len(names), bad)
 assert len(names) >= 20 and not bad, bad
+# the native DP is built at its first use, never at import
+from forwardtacotron_torch.native import build
+assert build._LOADED == {}, build._LOADED
 '''
 
 
@@ -92,6 +95,31 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         train_tacotron.main(['--config', str(config_path), '--force_gta'])
     assert TacoTrainer(paths, None, config,
                        device='cpu').device.type == 'cpu'
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        train_tacotron.main(['--config', str(config_path), '--force_align'])
+    # the data pipeline: preprocessing, the speaker encoder, the extraction
+    from forwardtacotron_torch import preprocess
+    from forwardtacotron_torch.data.preprocess import (Preprocessor,
+                                                       run_preprocessing)
+    from forwardtacotron_torch.duration.extractor import DurationExtractor
+    from forwardtacotron_torch.duration.pipeline import \
+        DurationExtractionPipeline
+    from forwardtacotron_torch.models.speaker_encoder import VoiceEncoder
+
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        preprocess.main(['--path', str(tmp_path), '--config',
+                         str(config_path)])
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        run_preprocessing(config, tmp_path)
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        Preprocessor(paths, config, {})
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        VoiceEncoder()
+    pipe = DurationExtractionPipeline(paths, config,
+                                      DurationExtractor(-11.0, 0.25))
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        pipe.extract_attentions(torch.nn.Linear(1, 1))
+    assert VoiceEncoder(device='cpu').device.type == 'cpu'
 
 
 def test_bfloat16_and_other_families_raise():

@@ -29,7 +29,8 @@ In eval mode the JAX package runs rows 1 and 2 in interpret mode
   reference ``.pt`` loaded with plain ``load_state_dict``;
 - ``get_taco_dataloaders`` against the JAX package's;
 - ``python -m forwardtacotron_torch.train_tacotron --device cpu``: two
-  sessions to a checkpoint, a resume, ``--force_gta``.
+  sessions to a checkpoint and the extraction after them, a resume,
+  ``--force_gta``, ``--force_align``, ``--extract_pitch``.
 
 The JAX decoder scan is compiled with unroll 1 (``DECODER_SCAN_UNROLL``,
 read at trace time) and ``QUICK_COMPILE``, once per dtype.
@@ -533,23 +534,43 @@ def test_taco_dataloaders_match_jax(tmp_path):
     assert len(ids) == 6 and all(b['mel'].shape[1] % 3 == 0 for b in train)
 
 
+def _extraction_files(paths):
+    """{subdirectory: {file name: contents}} of what the extraction
+    writes."""
+    return {sub: {p.name: np.load(p)
+                  for p in sorted(getattr(paths, sub).glob('*.npy'))}
+            for sub in ('att_pred', 'alg', 'phon_pitch', 'phon_energy')}
+
+
 def test_train_tacotron_cli_on_cpu(tmp_path, capsys):
-    """Two sessions to a checkpoint (the extraction after training raises,
-    naming item 10), a resume that only restores, ``--force_gta`` writing
-    one .npy per item equal to the checkpoint's eval forward at r = 1,
-    and the extraction modes raising."""
+    """Two sessions to a checkpoint, then the extraction that follows
+    training (``att_pred/``, ``alg/``, ``duration_stats.pkl``,
+    ``phon_pitch/``, ``phon_energy/`` for every item); a resume that only
+    restores and extracts the same files again; ``--force_gta`` writing one
+    .npy per item equal to the checkpoint's eval forward at r = 1;
+    ``--force_align`` (extraction alone) and ``--extract_pitch`` (the
+    targets alone) rewriting the same files."""
     from forwardtacotron_torch import train_tacotron
-    from forwardtacotron_torch.data.dataset import get_taco_dataloaders
+    from forwardtacotron_torch.data.dataset import (get_taco_dataloaders,
+                                                    load_duration_stats)
     from forwardtacotron_torch.utils.checkpoints import (checkpoint_step,
                                                          restore_checkpoint)
+    from forwardtacotron_torch.utils.files import unpickle_binary
 
     config = teacher_config(tmp_path)
+    config['duration_extraction']['num_workers'] = 0
     paths = write_dataset(config)
+    items = dict(unpickle_binary(paths.train_dataset)
+                 + unpickle_binary(paths.val_dataset))
+    texts = unpickle_binary(paths.text_dict)
+    rs = np.random.RandomState(5)
+    for item_id, mel_len in items.items():
+        np.save(paths.raw_pitch / f'{item_id}.npy',
+                rs.uniform(80, 300, mel_len).astype(np.float32))
     path = tmp_path / 'config.yaml'
     path.write_text(yaml.dump(config))
     argv = ['--config', str(path), '--device', 'cpu']
-    with pytest.raises(NotImplementedError, match='Queue 1 item 10'):
-        train_tacotron.main(argv)
+    train_tacotron.main(argv)
     ckpt = restore_checkpoint(paths.taco_checkpoints)
     assert checkpoint_step(ckpt) == 6
     assert int(ckpt['model']['decoder.r']) == 1
@@ -560,11 +581,24 @@ def test_train_tacotron_cli_on_cpu(tmp_path, capsys):
     tags = {line.split(',')[1] for line in log}
     assert {'Loss/train', 'Loss/val', 'Attention_Score/loc',
             'Attention_Score/sharpness'} <= tags
-    with pytest.raises(NotImplementedError, match='Queue 1 item 10'):
-        train_tacotron.main(argv)
+    files = _extraction_files(paths)
+    for sub, written in files.items():
+        assert sorted(written) == sorted(f'{i}.npy' for i in items), sub
+    for item_id, mel_len in items.items():
+        n_tok = len(texts[item_id])
+        assert files['att_pred'][f'{item_id}.npy'].shape == (mel_len, n_tok)
+        alg = files['alg'][f'{item_id}.npy']
+        assert alg.dtype == np.int64 and alg.sum() == mel_len
+        for sub in ('phon_pitch', 'phon_energy'):
+            target = files[sub][f'{item_id}.npy']
+            assert target.shape == (n_tok,) and np.isfinite(target).all()
+    assert sorted(load_duration_stats(paths.duration_stats)) == sorted(items)
+    assert 'Avg attention sharpness' in capsys.readouterr().out
+    train_tacotron.main(argv)
     assert 'Restored checkpoint at step 6' in capsys.readouterr().out
     assert int(restore_checkpoint(paths.taco_checkpoints)['optim']['count']) \
         == 6
+    _assert_same_files(_extraction_files(paths), files)
     train_tacotron.main(argv + ['--force_gta'])
     written = sorted(p.stem for p in paths.gta.glob('*.npy'))
     assert written == [f'item{i}' for i in range(8)]
@@ -584,6 +618,23 @@ def test_train_tacotron_cli_on_cpu(tmp_path, capsys):
         np.testing.assert_allclose(
             gta, linear[j, :batch['mel_len'][j]].T.numpy(), rtol=0,
             atol=1e-5)
-    for flag in ('--force_align', '--extract_pitch'):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 10'):
-            train_tacotron.main(argv + [flag])
+    # each mode rewrites its files from scratch
+    for flag, subs in (('--force_align', files), ('--extract_pitch',
+                                                  ('phon_pitch',
+                                                   'phon_energy'))):
+        for sub in subs:
+            for p in getattr(paths, sub).glob('*.npy'):
+                p.unlink()
+        train_tacotron.main(argv + [flag])
+        _assert_same_files(_extraction_files(paths), files)
+    assert 'Restored checkpoint at step 6' in capsys.readouterr().out
+    assert restore_checkpoint(paths.taco_checkpoints)['optim']['count'] == 6
+
+
+def _assert_same_files(got, want):
+    assert {k: sorted(v) for k, v in got.items()} == \
+        {k: sorted(v) for k, v in want.items()}
+    for sub, written in want.items():
+        for name, value in written.items():
+            np.testing.assert_array_equal(got[sub][name], value,
+                                          f'{sub}/{name}')
