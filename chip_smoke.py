@@ -167,9 +167,27 @@ Run from the repository root. Phases, each of which must pass:
     1e-3 (PreNet dropout off), the native DP (it must load) against the
     numpy DP on every item and Dijkstra on 4, the DP's time (native, a
     pool of 4, serial), the targets; then ``--force_align`` and
-    ``--extract_pitch``, each rewriting its files.
+    ``--extract_pitch``, each rewriting its files;
+19. data parallelism, on every card there is: ``TTSInference(mesh=)``
+    over each card (the one card listed twice on a one-card machine, so
+    that the pad, the split, each share's launches and the crop all run)
+    with bf16 ``generate_fused`` at the serving batch and at an odd one
+    (4093, which pads) and float32 ``generate`` on the 4 requests, each
+    against one replica on the card (exact launches: every replica runs
+    one replica's kernels; the launches of rows 4, 6 and 7 per card;
+    mel_len exact, mel_post within 3e-2 / 1e-4 of the scale); then a world
+    of ranks (NCCL with one rank a card; on one card, two gloo ranks
+    sharing it) through ``tests/torch_parallel_worker.py``: 3 bf16
+    ``ForwardTrainer`` steps and one float32 ``TacoTrainer`` step (r = 5)
+    at TRAIN_BATCH rows a rank, each rank at its own padded shape, dropout
+    off, against a world of 1 on NCCL taking them on the concatenated
+    global batch (loss and gradient norm within the train steps'
+    card-vs-CPU tolerance, every rank's parameters equal, rows 9-10's
+    launches in each rank, each rank's step wall time); a failed or hung
+    rank (300 s) fails the phase.
 
-``--multispeaker`` runs only the build and phase 16, ``--teacher`` only
+``--multispeaker`` runs only the build and phase 16, ``--data-parallel``
+only the build and phase 19, ``--teacher`` only
 the build and phase 17 (there with the device busy and idle share of the
 r = 5 and r = 1 steps, which the default run does not profile), ``--pipeline``
 only the build and phase 18,
@@ -2273,7 +2291,7 @@ def mrf_cycles_phase(torch):
     from forwardtacotron_torch.ops.hopper import build, mrf, ups_mrf
 
     lib = build.library('mrf', MRF_CYCLES_DEFINES)
-    lib.mrf_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.mrf_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.mrf_cycles.restype = ctypes.c_int
     bound = {}
     for mod, entry in ((mrf, 'mrf_bf16'), (ups_mrf, 'ups_mrf_bf16')):
@@ -2281,6 +2299,7 @@ def mrf_cycles_phase(torch):
         fn.argtypes, fn.restype = real.argtypes, real.restype
         bound[mod] = fn
     dev = torch.device('cuda')
+    dev_index = torch.cuda.current_device()
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     model = seeded_hifigan(torch).to(dev).to(torch.bfloat16)
     krs = model.resblock_kernel_sizes
@@ -2291,10 +2310,10 @@ def mrf_cycles_phase(torch):
     def spans(label, fn):
         fn()
         torch.cuda.synchronize()
-        build.check(lib.mrf_cycles(h, 1), 'mrf_cycles')
+        build.check(lib.mrf_cycles(h, 1, dev_index), 'mrf_cycles')
         fn()
         torch.cuda.synchronize()
-        build.check(lib.mrf_cycles(h, 0), 'mrf_cycles')
+        build.check(lib.mrf_cycles(h, 0, dev_index), 'mrf_cycles')
         total = h[MRF_CYCLE_SPANS.index('kernel_to_output')]
         out = {n: int(h[i]) for i, n in enumerate(MRF_CYCLE_SPANS)}
         log(f'  {label}: ' + ', '.join(
@@ -5339,6 +5358,296 @@ def pipeline_phase(torch, config) -> dict:
     return out
 
 
+# phase 19: data parallelism. Serving: bf16 generate_fused at the serving
+# batch and at an odd one (which pads), f32 generate on the requests, each
+# over a mesh of every card (the one card twice on a one-card machine)
+# against one replica. Training: a world of ranks (NCCL, one a card; on one
+# card two gloo ranks sharing it) takes DP_TRAIN_STEPS bf16 ForwardTrainer
+# steps and one f32 TacoTrainer step at TRAIN_BATCH rows a rank, against a
+# world of 1 on NCCL taking them on the concatenated global batch
+DP_SERVING_BATCHES = (SERVING_BATCH, SERVING_BATCH - 3)
+DP_TRAIN_STEPS = 3
+DP_TEACHER_R = 5
+DP_TIMEOUT_S = 300
+# same card, same kernels; a share is another batch size, so a kernel plan
+# or a cuBLAS product may sum in another order, land on the neighbouring
+# bf16 value and carry it through a recurrence: the bf16 kernel tolerance.
+# float32 requests: the kernel-vs-twin tolerance
+DP_SERVING_TOL = {'bfloat16': 3e-2, 'float32': KERNEL_TOL}
+# rows 9-10 (and row 7's GRU forward) per bf16 train step, per rank
+DP_STEP_LAUNCHES = {'gru': 3, 'lstm_train': 1, 'gru_bwd': 6, 'lstm_bwd': 2}
+
+
+def dp_worker():
+    """tests/torch_parallel_worker.py, the rank program of the
+    data-parallel runs (it imports the port only)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'torch_parallel_worker', REPO / 'tests' / 'torch_parallel_worker.py')
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def spy_card_launches(rnn):
+    """Attribute each rnn.cu launch (rows 4, 6, 7, 9) to its card: a
+    Counter of (mode, card index) filled around ``rnn._launch``, whose own
+    counts stay as they are; returns (counter, undo)."""
+    per_card = collections.Counter()
+    real = rnn._launch
+
+    def spy(name, entry, ptrs, ints, x2, *args, **kwargs):
+        before = rnn.launches[name]
+        out = real(name, entry, ptrs, ints, x2, *args, **kwargs)
+        per_card[(name, x2.device.index)] += rnn.launches[name] - before
+        return out
+    rnn._launch = spy
+    return per_card, lambda: setattr(rnn, '_launch', real)
+
+
+def dp_compare(torch, label, got, want, tol, lengths):
+    """mel_len exactly, mel_post on valid frames within ``tol`` of the
+    scale; returns (max abs error, rows exactly equal)."""
+    if got['mel_post'].shape != want['mel_post'].shape:
+        fail(f'{label}: mel_post {tuple(got["mel_post"].shape)}, one '
+             f'replica {tuple(want["mel_post"].shape)}')
+    if not torch.equal(got['mel_len'], want['mel_len']):
+        fail(f'{label}: mel_len differs from one replica')
+    g, w = got['mel_post'].float(), want['mel_post'].float()
+    frames = torch.arange(g.shape[1], device=g.device)[None, :]
+    valid = (frames < torch.as_tensor(lengths, device=g.device)[:, None])
+    diff = ((g - w).abs() * valid[:, :, None]).amax(dim=(1, 2))
+    err = float(diff.max())
+    scale = max(1.0, float((w.abs() * valid[:, :, None]).max()))
+    same = int((diff == 0).sum())
+    ok = bool(torch.isfinite(g).all()) and err <= tol * scale
+    log(f'{label}: max abs {err:.3e} of scale {scale:.2f} (tol {tol:g}), '
+        f'{same} of {len(diff)} rows equal {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'{label}: the mesh disagrees with one replica')
+    return err, same
+
+
+def dp_serving(torch, model, tokens, devices):
+    """The bf16 serving calls and the f32 requests over the mesh against
+    one replica, with the launches of rows 4, 6 and 7 per card."""
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.ops.hopper import rnn
+    from forwardtacotron_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=devices)
+    n = len(mesh)
+    model16 = set_frames_per_token(
+        torch, copy.deepcopy(model).to(torch.bfloat16),
+        SERVING_FRAMES_PER_TOKEN)
+    out = {'mesh': [str(d) for d in mesh]}
+    per_card, undo = spy_card_launches(rnn)
+    try:
+        for dtype, m in (('bfloat16', model16), ('float32', model)):
+            one = TTSInference(copy.deepcopy(m), dtype=dtype, device='cuda')
+            dp = TTSInference(copy.deepcopy(m), dtype=dtype, mesh=mesh)
+            if dtype == 'bfloat16':
+                calls = [(f'bf16 generate_fused, batch {b}',
+                          serving_requests(torch, b)) for b in
+                         DP_SERVING_BATCHES]
+            else:
+                x = np.zeros((len(tokens), max(map(len, tokens))), np.int64)
+                for i, t in enumerate(tokens):
+                    x[i, :len(t)] = t
+                calls = [(f'f32 generate, {len(tokens)} requests',
+                          torch.as_tensor(x, device='cuda'))]
+            for label, x in calls:
+                def run(inf):
+                    if dtype == 'bfloat16':
+                        return inf.generate_fused(x, max_len=SERVING_MAX_LEN)
+                    return inf.generate(x)
+                run(dp), run(one)          # warm-up on every card
+                torch.cuda.synchronize()
+                times = {}
+                for name, inf in (('one', one), ('mesh', dp)):
+                    reset_counts()
+                    per_card.clear()
+                    t0 = time.perf_counter()
+                    res = run(inf)
+                    torch.cuda.synchronize()
+                    times[name] = (time.perf_counter() - t0) * 1e3
+                    counts, cards = read_counts(), dict(per_card)
+                    if name == 'one':
+                        want, one_counts = res, counts
+                if res['mel_post'].shape[0] != len(x):
+                    fail(f'{label}: {res["mel_post"].shape[0]} rows, '
+                         f'{len(x)} requests')
+                # every replica runs the one-replica call's kernels
+                expect_counts(f'{label} over {n} replicas', counts,
+                              **{k: n * v for k, v in one_counts.items()})
+                lengths = np.minimum(want['mel_len'].cpu().numpy(),
+                                     want['mel_post'].shape[1])
+                err, same = dp_compare(torch, label, res, want,
+                                       DP_SERVING_TOL[dtype], lengths)
+                by_card = collections.defaultdict(dict)
+                for (mode, card), c in cards.items():
+                    if c:
+                        by_card[f'cuda:{card}'][mode] = c
+                log(f'{label}: one replica {times["one"]:.1f} ms, mesh '
+                    f'{times["mesh"]:.1f} ms (host clock, synchronized); '
+                    f'rnn.cu launches per card {dict(by_card)}')
+                out[label] = dict(one_ms=times['one'], mesh_ms=times['mesh'],
+                                  max_abs_err=err, rows_equal=same,
+                                  rows=len(x), launches=counts,
+                                  rnn_launches_per_card=dict(by_card))
+            del one, dp
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+    return out
+
+
+def dp_jobs(torch, config, world, root):
+    """The bf16 ForwardTrainer job and the f32 TacoTrainer job for a
+    ``world`` of ranks (TRAIN_BATCH rows each, dropout off; their paths
+    under ``root``) and the same jobs on the concatenated global batch."""
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.models.tacotron import Tacotron
+
+    worker = dp_worker()
+    n_mels = config['dsp']['num_mels']
+    out, ref = [], []
+    for kind in ('forward', 'taco'):
+        if kind == 'forward':
+            cfg = train_config(config, root / kind, 'bfloat16',
+                               DP_TRAIN_STEPS, dropout=False)
+            torch.manual_seed(SEED)
+            model = init_tts_model(cfg)
+            multiple, steps = 32, DP_TRAIN_STEPS
+        else:
+            cfg = teacher_train_config(
+                config, root / kind, 'float32',
+                [f'{DP_TEACHER_R}, {TRAIN_LR}, 1, {TRAIN_BATCH}'])
+            torch.manual_seed(SEED)
+            model = Tacotron.from_config(cfg)
+            multiple, steps = 8 * DP_TEACHER_R, 2
+        items = worker.make_items(world * TRAIN_BATCH, SEED + world, n_mels,
+                                  tokens=TRAIN_TOKENS, frames=TRAIN_FRAMES)
+        batches, global_batch = worker.rank_batches(items, world, multiple)
+        job = {'trainer': kind, 'config': cfg, 'r': DP_TEACHER_R,
+               'steps': steps, 'state_dict': model.state_dict()}
+        out.append(dict(job, batches=batches))
+        ref.append(dict(job, batches=[global_batch]))
+    return out, ref
+
+
+def dp_step_check(worker, label, got, want, tol, mp):
+    """One rank's first step against the global batch's: loss and gradient
+    norm within ``tol`` relative, the BatchNorm statistics within ``tol``
+    of the scale, the parameters as the CPU tests hold a step
+    (``worker.step_difference``: bf16 a mean difference of at most LR /
+    10, float32 at most 0.5% of the elements 1e-5 relative + LR / 100
+    apart and none 2 LR)."""
+    rel = max(abs(got['metrics'][k] - want['metrics'][k])
+              / abs(want['metrics'][k]) for k in ('loss', 'grad_norm'))
+    stat_err, param = worker.step_difference(got['state'], want['state'],
+                                             TRAIN_LR, mp)
+    ok = rel <= tol and stat_err <= tol and param <= (0.1 if mp else 5e-3)
+    log(f'{label}: loss / grad norm {got["metrics"]["loss"]:.6f} / '
+        f'{got["metrics"]["grad_norm"]:.6f}, global batch '
+        f'{want["metrics"]["loss"]:.6f} / {want["metrics"]["grad_norm"]:.6f}:'
+        f' rel {rel:.3e}; BN statistics {stat_err:.3e} (tol {tol:g}); '
+        + (f'mean parameter difference {param:.3f} LR (tol 0.1)' if mp else
+           f'{param:.2e} of the parameters apart (tol 5e-3)')
+        + f' {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'{label}: the ranks\' step disagrees with the global batch\'s')
+    return dict(rel=rel, bn_stat_err=stat_err, param_diff=param)
+
+
+def dp_training(torch, config, card):
+    """The ranks' steps against the global batch's, rows 9-10 per rank."""
+    n_cards = torch.cuda.device_count()
+    worker = dp_worker()
+    if n_cards > 1:
+        world, form = n_cards, f'NCCL, one rank on each of {n_cards} cards'
+        job = {'backend': 'cuda', 'device': 'cuda'}
+    else:
+        world, form = 2, 'gloo, two ranks sharing cuda:0'
+        job = {'backend': 'cpu', 'device': 'cuda:0'}
+    log(f'data-parallel training: {form}, against a world of 1 on NCCL')
+    out = {'form': form, 'world': world}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_') as tmp:
+        jobs, refs = dp_jobs(torch, config, world, Path(tmp))
+        runs = {}
+        for name, spec in (('ranks', dict(job, jobs=jobs)),
+                           ('global', {'backend': 'cuda', 'device': 'cuda',
+                                       'jobs': refs})):
+            sub = Path(tmp) / name
+            sub.mkdir()
+            t0 = time.perf_counter()
+            runs[name] = worker.launch(spec, sub, timeout=DP_TIMEOUT_S)
+            out[f'{name}_run_s'] = time.perf_counter() - t0
+    for i, (kind, precision) in enumerate((('forward', 'bfloat16'),
+                                           ('taco', 'float32'))):
+        label = f'{kind} {precision}'
+        ranks = [r[i] for r in runs['ranks']]
+        want = runs['global'][0][i]
+        for r, res in enumerate(ranks[1:], 1):
+            for key, value in ranks[0]['state'].items():
+                if not torch.equal(res['state'][key], value):
+                    fail(f'{label}: rank {r} holds another {key} than '
+                         'rank 0 after the step')
+        check = dp_step_check(
+            worker, f'{label}, {world} ranks vs global batch', ranks[0],
+            want, E2E_TRAIN_TOL[precision], precision == 'bfloat16')
+        steps = len(ranks[0]['times'])
+        expect = ({k: v * steps for k, v in DP_STEP_LAUNCHES.items()}
+                  if kind == 'forward' else {})
+        for r, res in enumerate(ranks):
+            expect_counts(f'{label} rank {r} ({res["device"]})',
+                          res['launches'], **expect)
+        for r, res in enumerate(ranks + [want]):
+            who = f'rank {r}' if r < world else 'global batch, 1 rank'
+            log(f'{label} {who}: step wall ms '
+                + ', '.join(f'{t * 1e3:.1f}' for t in res['times'])
+                + f' ({card})')
+        out[label] = dict(
+            check, steps=steps, launches_per_rank=[r['launches'] for r in
+                                                   ranks],
+            step_ms_per_rank=[[t * 1e3 for t in r['times']] for r in ranks],
+            global_step_ms=[t * 1e3 for t in want['times']],
+            shapes=[[list(s) for s in r['shape']] for r in ranks])
+    return out
+
+
+def dp_launches(dp: dict, modes) -> dict:
+    """The launches of ``modes`` in phase 19: per card for each bf16
+    serving call, per rank for the bf16 train steps."""
+    out = {}
+    for label, res in dp['serving'].items():
+        if label.startswith('bf16'):
+            out[label + ', per card'] = {
+                card: {m: c[m] for m in modes if m in c}
+                for card, c in res['rnn_launches_per_card'].items()}
+    train = dp['training']['forward bfloat16']
+    out[f'{train["steps"]} bf16 train steps, per rank'] = [
+        {m: r[m] for m in modes} for r in train['launches_per_rank']]
+    return out
+
+
+def data_parallel_phase(torch, model, config, tokens, card) -> dict:
+    """Phase 19 (``--data-parallel`` alone)."""
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devices = ([f'cuda:{i}' for i in range(n_cards)] if n_cards > 1
+               else ['cuda:0', 'cuda:0'])
+    log(f'data parallel: {n_cards} card(s) visible; serving mesh {devices}'
+        + ('' if n_cards > 1 else ' (the one card twice)'))
+    out = {'cards': n_cards, 'serving': dp_serving(torch, model.cuda(),
+                                                   tokens, devices)}
+    torch.cuda.empty_cache()
+    out['training'] = dp_training(torch, config, card)
+    out['phase_s'] = time.perf_counter() - t0
+    log(f'data-parallel phase: {out["phase_s"]:.1f} s')
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -5402,6 +5711,13 @@ def main() -> None:
         # the data pipeline's phase alone
         pipeline = pipeline_phase(torch, config)
         log(f'pipeline: {json.dumps(pipeline)}')
+        log(f'card: {card}')
+        return
+    if '--data-parallel' in sys.argv[1:]:
+        # the data-parallel phase alone
+        dp = data_parallel_phase(torch, make_model(torch, config), config,
+                                 tokens, card)
+        log(f'data parallel: {json.dumps(dp)}')
         log(f'card: {card}')
         return
     if '--multispeaker' in sys.argv[1:]:
@@ -5563,6 +5879,18 @@ def main() -> None:
             extraction_batch=pipeline['extraction']['launches_per_batch'][row],
             **{f'extraction_{entry}_B32': pipeline['kernels'][
                 f'{row}_{entry}_f32'] for entry in ('encoder', 'postnet')})
+    # data parallelism: the mesh's serving calls and the ranks' train steps
+    torch.cuda.empty_cache()
+    dp = data_parallel_phase(torch, make_model(torch, config), config,
+                             tokens, card)
+    for res, row, modes in ((results16, 'gru_from_xp', ('gru_xp',)),
+                            (results16, 'lstm_lr_mel', ('lstm_mel',)),
+                            (results16, 'bidir_rnn', ('gru',)),
+                            (results_train, 'lstm_train',
+                             ('lstm_train', 'gru')),
+                            (results_train, 'gru_bwd', ('gru_bwd',)),
+                            (results_train, 'lstm_bwd', ('lstm_bwd',))):
+        res[row]['data_parallel'] = dp_launches(dp, modes)
     # row 5 at one request beside its serving numbers
     results16['lr_bidir']['request'] = {
         k: request16['lr_bidir'][k]
@@ -5658,7 +5986,7 @@ def main() -> None:
                                  'yardstick_device_ms', 'fill_device_ms',
                                  'request',
                                  'long_lists', 'new_paths',
-                                 'multispeaker')
+                                 'multispeaker', 'data_parallel')
                if k in r and r[k] != {}}})
     log(f'griffinlim split: {json.dumps(gl_split)}')
     log(f'serving: {json.dumps(serving)}')
@@ -5671,6 +5999,7 @@ def main() -> None:
     log(f'multispeaker: {json.dumps(multi)}')
     log(f'teacher: {json.dumps(teacher)}')
     log(f'pipeline: {json.dumps(pipeline)}')
+    log(f'data parallel: {json.dumps(dp)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

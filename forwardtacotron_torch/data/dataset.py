@@ -308,22 +308,63 @@ def get_binned_taco_dataloader(paths: Paths, max_batch_size: int = 8
                                 max_batch_size=max_batch_size)
 
 
+def shard_for_host(data: List[Tuple[str, int]], process_index: int,
+                   process_count: int) -> List[Tuple[str, int]]:
+    """This process's share of (id, length) items for data parallelism,
+    balanced by length: sorted by length descending (ties by id) and dealt
+    serpentine (0..P-1, P-1..0, ...), so the ranks' frame totals differ by
+    at most one longest item. Each rank then bins its own share."""
+    if process_count <= 1:
+        return data
+    order = sorted(range(len(data)), key=lambda i: (-data[i][1], data[i][0]))
+    mine = []
+    for rank, idx in enumerate(order):
+        block, pos = divmod(rank, process_count)
+        host = pos if block % 2 == 0 else process_count - 1 - pos
+        if host == process_index:
+            mine.append(data[idx])
+    return mine
+
+
+# the token-axis keys of a collated batch; 'mel' is the frame axis
+TOKEN_KEYS = ('x', 'dur', 'pitch', 'energy', 'pitch_cond')
+
+
+def pad_to(batch: Dict[str, Any], n_tokens: int,
+           n_frames: int) -> Dict[str, Any]:
+    """A collated batch padded further, as the collators pad, to
+    ``n_tokens`` tokens and ``n_frames`` mel frames: the common shape of
+    the ranks' batches in a data-parallel step."""
+    out = dict(batch)
+    for key in TOKEN_KEYS:
+        if key in out:
+            v = out[key]
+            out[key] = np.pad(v, ((0, 0), (0, n_tokens - v.shape[1])))
+    mel = out['mel']
+    out['mel'] = np.pad(mel, ((0, 0), (0, n_frames - mel.shape[1]), (0, 0)),
+                        constant_values=PAD_VALUE)
+    return out
+
+
 def get_taco_dataloaders(paths: Paths, batch_size: int, r: int,
                          max_mel_len: int, filter_duration_stats: bool,
                          min_attention_alignment: float,
                          min_attention_sharpness: float,
                          max_consecutive_ones: int, max_duration: int,
                          bucket_multiple: int = 1,
-                         seed: Optional[int] = None
+                         seed: Optional[int] = None,
+                         process_index: int = 0, process_count: int = 1
                          ) -> Tuple[DataLoader, DataLoader]:
     """(train, val) loaders of the teacher's items, mels padded to a
     multiple of ``r``; ``seed`` seeds the training sampler (None draws a
-    fresh order, as the JAX package's factory does)."""
+    fresh order, as the JAX package's factory does). The train loader
+    holds this process's share (``shard_for_host``), the val loader
+    every item."""
     return _dataloaders(
         paths, TacoDataset, TacoCollator(r=r, bucket_multiple=bucket_multiple),
-        batch_size, seed, max_mel_len, filter_duration_stats,
-        min_attention_alignment, min_attention_sharpness,
-        max_consecutive_ones, max_duration)
+        batch_size, seed, (process_index, process_count), max_mel_len,
+        filter_duration_stats, min_attention_alignment,
+        min_attention_sharpness, max_consecutive_ones, max_duration)
 
 
 def get_forward_dataloaders(paths: Paths, batch_size: int,
@@ -332,24 +373,29 @@ def get_forward_dataloaders(paths: Paths, batch_size: int,
                             min_attention_sharpness: float,
                             max_consecutive_ones: int, max_duration: int,
                             bucket_multiple: int = 1,
-                            seed: Optional[int] = None
+                            seed: Optional[int] = None,
+                            process_index: int = 0, process_count: int = 1
                             ) -> Tuple[DataLoader, DataLoader]:
     """(train, val) loaders; ``seed`` seeds the training sampler (None draws
-    a fresh order, as the JAX package's factory does)."""
+    a fresh order, as the JAX package's factory does). The train loader
+    holds this process's share (``shard_for_host``), the val loader every
+    item."""
     return _dataloaders(
         paths, ForwardDataset,
         ForwardCollator(TacoCollator(r=1, bucket_multiple=bucket_multiple)),
-        batch_size, seed, max_mel_len, filter_duration_stats,
-        min_attention_alignment, min_attention_sharpness,
-        max_consecutive_ones, max_duration)
+        batch_size, seed, (process_index, process_count), max_mel_len,
+        filter_duration_stats, min_attention_alignment,
+        min_attention_sharpness, max_consecutive_ones, max_duration)
 
 
 def _dataloaders(paths: Paths, dataset_cls, collator, batch_size: int,
-                 seed: Optional[int], *filters) -> Tuple[DataLoader,
-                                                         DataLoader]:
-    """The train loader (length-binned sampler) and the val loader (in
-    order) of ``dataset_cls`` over the filtered splits."""
+                 seed: Optional[int], process: Tuple[int, int],
+                 *filters) -> Tuple[DataLoader, DataLoader]:
+    """The train loader (length-binned sampler over the process's share)
+    and the val loader (in order) of ``dataset_cls`` over the filtered
+    splits."""
     train_data, val_data = _get_filtered_datasets(paths, *filters)
+    train_data = shard_for_host(train_data, *process)
     tokenizer = Tokenizer()
     text_dict = unpickle_binary(paths.text_dict)
     speaker_dict = unpickle_binary(paths.speaker_dict)

@@ -18,6 +18,12 @@ reference exports mels for an external vocoder (``.mel`` for melgan,
         --speaker p225
     python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
         --vocoder_checkpoint g_02500000 --vocoder_config config.json hifigan
+    python -m forwardtacotron_torch.gen_forward --checkpoint model.pt \\
+        --dtype bfloat16 --batched --data_parallel
+
+``--data_parallel`` splits each batch over every visible card, one
+replica of the model each (``TTSInference(mesh=)``; with ``--device cpu``
+the devices torch counts for the CPU, one).
 
 ``--checkpoint`` is a reference-format ``.pt``. Text is cleaned with the
 checkpoint's cleaner; without an espeak phonemizer it is treated as
@@ -53,6 +59,8 @@ def main(argv=None):
                              'recurrent kernels')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
+    parser.add_argument('--data_parallel', action='store_true',
+                        help='shard the batch over all visible devices')
     parser.add_argument('vocoder', nargs='?', default='griffinlim',
                         choices=['griffinlim', 'melgan', 'hifigan'])
     parser.add_argument('--vocoder_checkpoint', default=None,
@@ -67,6 +75,7 @@ def main(argv=None):
 
     from forwardtacotron_torch.dsp.dsp import DSP
     from forwardtacotron_torch.models.synthesis import TTSInference, Vocoder
+    from forwardtacotron_torch.parallel.mesh import make_mesh, visible_devices
     from forwardtacotron_torch.text.cleaners import Cleaner
     from forwardtacotron_torch.text.tokenizer import Tokenizer
     from forwardtacotron_torch.utils.checkpoints import (
@@ -74,7 +83,12 @@ def main(argv=None):
 
     model, checkpoint = init_tts_model_from_checkpoint(args.checkpoint)
     config = checkpoint['config']
-    inference = TTSInference(model, dtype=args.dtype, device=args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh(devices=visible_devices(
+            torch.device(args.device).type))
+    inference = TTSInference(model, dtype=args.dtype, device=args.device,
+                             mesh=mesh)
     speaker_emb = None
     if inference.multispeaker:
         # the reference keeps the speaker table at the checkpoint's top

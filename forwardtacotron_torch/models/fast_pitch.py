@@ -21,6 +21,7 @@ from forwardtacotron_torch.models.layers import (Conv, ForwardTransformer,
                                                  make_token_pad_mask)
 from forwardtacotron_torch.ops.length_regulator import (expanded_lengths,
                                                         length_regulator)
+from forwardtacotron_torch.parallel.mesh import global_max
 from forwardtacotron_torch.text.symbols import phonemes
 
 PAD_VALUE = -11.5129
@@ -107,7 +108,7 @@ class FastPitch(nn.Module):
         pitch_hat = self.pitch_pred(x, pad_mask)[..., 0]
         energy_hat = self.energy_pred(x, pad_mask)[..., 0]
         beyond = (torch.arange(max_len, device=x.device)[None, :]
-                  >= mel_lens.max()).expand(x.shape[0], -1)
+                  >= global_max(mel_lens.max())).expand(x.shape[0], -1)
         mel = self._decode(x, batch['dur'], batch['pitch'], batch['energy'],
                            max_len, pad_mask,
                            make_len_mask(mel_lens, max_len), beyond)

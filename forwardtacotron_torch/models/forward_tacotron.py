@@ -21,6 +21,7 @@ from forwardtacotron_torch.models.layers import (CBHG, BatchNormConv, BiGRU,
                                                  multi_bigru)
 from forwardtacotron_torch.ops.length_regulator import (expanded_lengths,
                                                         length_regulator)
+from forwardtacotron_torch.parallel.mesh import global_max
 from forwardtacotron_torch.text.symbols import phonemes
 
 PAD_VALUE = -11.5129
@@ -74,8 +75,9 @@ def decode_frames(model: nn.Module, h: torch.Tensor, dur: torch.Tensor,
     Teacher-forced mode (``mel_lens`` given) reproduces the reference's
     pack_padded decode: the LSTM's backward pass starts at each item's
     true last frame and its padded frames carry ``padding_value`` into the
-    mel Linear; the postnet sees the batch's longest ``mel_lens`` frames,
-    those beyond it zero, and they come out as ``padding_value``. Generate
+    mel Linear; the postnet sees the batch's longest ``mel_lens`` frames
+    (the global batch's in a data-parallel step), those beyond it zero,
+    and they come out as ``padding_value``. Generate
     mode: per-item expanded lengths steer the LSTM and postnet-GRU flips,
     and frames past them are zeroed so convolution boundaries match the
     reference's exact-length zero padding."""
@@ -87,7 +89,7 @@ def decode_frames(model: nn.Module, h: torch.Tensor, dur: torch.Tensor,
         h = h.masked_fill(make_len_mask(mel_lens, max_len)[:, :, None],
                           m.padding_value)
         raw = m.lin(h)
-        batch_max = mel_lens.max()
+        batch_max = global_max(mel_lens.max())
         beyond = (torch.arange(max_len, device=h.device)
                   >= batch_max)[None, :, None]
         post = m.postnet(raw.masked_fill(beyond, 0.0),

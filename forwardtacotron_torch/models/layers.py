@@ -36,6 +36,7 @@ from forwardtacotron_torch.ops.hopper import cbhg as cbhg_ops
 from forwardtacotron_torch.ops.hopper import highway as highway_ops
 from forwardtacotron_torch.ops.length_regulator import (duration_spans,
                                                         length_regulator)
+from forwardtacotron_torch.parallel.mesh import data_parallel, global_sum_grad
 
 BN_EPS = 1e-5
 # flax's BatchNorm momentum: running = 0.9 * running + 0.1 * batch
@@ -88,10 +89,21 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     frame (padding included) in float32, the biased variance
     E[x^2] - E[x]^2 clipped at 0, the output in x's dtype; the running
     statistics move by momentum 0.9 with that biased variance (torch's
-    BatchNorm1d uses 0.1 and the unbiased one)."""
+    BatchNorm1d uses 0.1 and the unbiased one). In a data-parallel step the
+    statistics cover every rank's frames: the sums and the count go
+    through one differentiable all-reduce, so every rank normalizes alike
+    and keeps the same running statistics."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 1))
-    var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
+    if data_parallel():
+        c = xf.shape[-1]
+        stats = global_sum_grad(torch.cat([
+            xf.sum(dim=(0, 1)), (xf * xf).sum(dim=(0, 1)),
+            xf.new_full((1,), float(xf.shape[0] * xf.shape[1]))]))
+        mean, mean_sq = stats[:c] / stats[-1], stats[c:2 * c] / stats[-1]
+    else:
+        mean = xf.mean(dim=(0, 1))
+        mean_sq = (xf * xf).mean(dim=(0, 1))
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     y = (xf - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight.float()) \
         + bn.bias.float()
     with torch.no_grad():

@@ -31,6 +31,7 @@ from forwardtacotron_torch.models.layers import (Conv, ForwardTransformer,
 from forwardtacotron_torch.models.multi_forward_tacotron import tile_speaker
 from forwardtacotron_torch.ops.length_regulator import (expanded_lengths,
                                                         length_regulator)
+from forwardtacotron_torch.parallel.mesh import global_max
 from forwardtacotron_torch.text.symbols import phonemes
 
 
@@ -158,7 +159,7 @@ class MultiFastPitch(nn.Module):
         pitch_cond_hat = self.pitch_cond_pred(x, semb, pad_mask)
         energy_hat = self.energy_pred(x, semb, pad_mask)[..., 0]
         beyond = (torch.arange(max_len, device=x.device)[None, :]
-                  >= mel_lens.max()).expand(x.shape[0], -1)
+                  >= global_max(mel_lens.max())).expand(x.shape[0], -1)
         mel = self._decode(x, semb, batch['dur'], batch['pitch'],
                            batch['energy'], max_len, pad_mask,
                            make_len_mask(mel_lens, max_len), beyond)

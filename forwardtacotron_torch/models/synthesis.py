@@ -8,10 +8,22 @@ length-routed ``generate_routed`` (optionally vocoding each group with a
 Two-phase: phase 1 predicts durations, pitch and energy; the host reads the
 expanded frame counts; phase 2 decodes at the frame count rounded up to a
 bucket, so each decode sees the same padded length as in the JAX package.
+
+Data parallel (``mesh=``): one replica of the model on each device of the
+mesh; every call pads its batch to a multiple of the replicas (repeating
+row 0), launches each replica on its share in turn on its device's current
+stream, gathers the shares on the first device and crops the padding
+(the JAX package's ``_shard`` and ``_crop``). The two-phase entry points
+read the whole batch's expanded lengths once, so every share decodes at
+the same bucket. One difference from the JAX package remains: the
+all-zero duration guard (``guard_durations``) sums over each share, where
+the JAX package's sharded graph sums over the whole batch.
 """
 
+import contextlib
+import copy
 import math
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -95,16 +107,27 @@ class TTSInference:
     JAX package decides. A multispeaker model's entry points need
     ``speaker_emb``, [B, D] for a batch or [D] for one request, never
     broadcast over a batch; the series carry the predicted ``pitch_cond``
-    into the decode. A single-speaker model refuses one."""
+    into the decode. A single-speaker model refuses one.
+
+    ``mesh``: a sequence of devices (``parallel.mesh.make_mesh``) for data
+    parallel serving, one replica each (the model itself on the first, in
+    place of ``device``); outputs come back on the first. A mesh of one
+    device is the plain path on that device."""
 
     def __init__(self, model: torch.nn.Module, dtype: str = 'float32',
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[Sequence[Union[str, torch.device]]] = None):
         if dtype not in DTYPES:
             raise ValueError(
                 f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
-        self.device = resolve_device(device)
+        devices = [resolve_device(d) for d in mesh or (device,)]
+        self.device = devices[0]
         self.model = model.to(self.device, DTYPES[dtype]).eval()
         self.multispeaker = hasattr(model, 'speaker_emb_dims')
+        # (device, model) of each replica; the model's weight-dependent
+        # caches (prepared launch weights) are per replica
+        self.replicas = [(self.device, self.model)] + [
+            (d, copy.deepcopy(self.model).to(d)) for d in devices[1:]]
 
     def _tokens(self, x) -> torch.Tensor:
         """Token ids (a sequence, numpy array or tensor) as a [B, N] long
@@ -128,28 +151,66 @@ class TTSInference:
             else np.asarray(speaker_emb), device=self.device)
         return semb[None, :] if semb.dim() == 1 else semb
 
-    def _predict(self, x: torch.Tensor, semb: Optional[torch.Tensor],
+    def _sharded(self, fn: Callable, *batch) -> Dict[str, torch.Tensor]:
+        """``fn(model, *shares)`` on every replica, each with its share of
+        the rows of the ``batch`` tensors (None passes as None), launched
+        in turn without waiting; the outputs joined on the first device.
+        With one replica, ``fn(model, *batch)`` as it is."""
+        if len(self.replicas) == 1:
+            return fn(self.model, *batch)
+        n = len(self.replicas)
+        b = batch[0].shape[0]
+        pad = (-b) % n
+
+        def shares(t):
+            if t is None:
+                return [None] * n
+            if pad:
+                t = torch.cat([t, t[:1].expand(pad, *t.shape[1:])])
+            return t.chunk(n)
+        parts = []
+        for (dev, model), args in zip(self.replicas,
+                                      zip(*map(shares, batch))):
+            with (torch.cuda.device(dev) if dev.type == 'cuda'
+                  else contextlib.nullcontext()):
+                parts.append(fn(model, *(None if a is None
+                                         else a.to(dev, non_blocking=True)
+                                         for a in args)))
+        return {k: torch.cat([p[k].to(self.device) for p in parts])[:b]
+                for k in parts[0]}
+
+    @staticmethod
+    def _predict(model, x: torch.Tensor, semb: Optional[torch.Tensor],
                  alpha: float) -> Dict[str, torch.Tensor]:
         if semb is None:
-            return self.model.predict_series(x, alpha)
-        return self.model.predict_series(x, semb, alpha)
+            return model.predict_series(x, alpha)
+        return model.predict_series(x, semb, alpha)
 
-    def _generate(self, x, semb, series, max_len: int
+    @staticmethod
+    def _generate(model, x, semb, series, max_len: int
                   ) -> Dict[str, torch.Tensor]:
         """The model's ``generate`` on the series ``(dur, pitch, energy[,
         pitch_cond])``."""
         if semb is None:
-            return self.model.generate(x, *series, max_len)
+            return model.generate(x, *series, max_len)
         dur, pitch, energy, pitch_cond = series
-        return self.model.generate(x, semb, dur, pitch, energy, pitch_cond,
-                                   max_len)
+        return model.generate(x, semb, dur, pitch, energy, pitch_cond,
+                              max_len)
+
+    def _decode(self, x, semb, series, max_len: int
+                ) -> Dict[str, torch.Tensor]:
+        """``_generate`` over the replicas."""
+        return self._sharded(
+            lambda m, xs, ss, *ser: self._generate(m, xs, ss, ser, max_len),
+            x, semb, *series)
 
     def _series(self, x: torch.Tensor, semb: Optional[torch.Tensor],
                 alpha: float, pitch_function: Callable,
                 energy_function: Callable):
-        """(dur, pitch, energy[, pitch_cond]) with the user hooks applied
-        to pitch and energy."""
-        series = self._predict(x, semb, alpha)
+        """(dur, pitch, energy[, pitch_cond]) of the whole batch with the
+        user hooks applied to pitch and energy."""
+        series = self._sharded(
+            lambda m, xs, ss: self._predict(m, xs, ss, alpha), x, semb)
         pitch = torch.as_tensor(pitch_function(series['pitch']),
                                 device=self.device)
         energy = torch.as_tensor(energy_function(series['energy']),
@@ -169,7 +230,7 @@ class TTSInference:
                               energy_function)
         mel_lens = expanded_lengths(series[0])
         max_len = bucket_frames(int(mel_lens.max()))
-        out = self._generate(x, semb, series, max_len)
+        out = self._decode(x, semb, series, max_len)
         out['mel_len'] = mel_lens
         return out
 
@@ -183,16 +244,18 @@ class TTSInference:
         ``generate``), no host read in between. Durations that would exceed
         the budget are cropped; ``mel_len`` is the uncropped expanded
         length."""
-        x, semb = self._tokens(x), self._speaker(speaker_emb)
-        if semb is None and hasattr(self.model, 'generate_combined'):
-            out = self.model.generate_combined(x, max_len, alpha)
-        else:
-            s = self._predict(x, semb, alpha)
-            series = tuple(s[k] for k in ('dur', 'pitch', 'energy',
-                                          'pitch_cond') if k in s)
-            out = self._generate(x, semb, series, max_len)
-        out['mel_len'] = expanded_lengths(out['dur'])
-        return out
+        def fused(model, x, semb):
+            if semb is None and hasattr(model, 'generate_combined'):
+                out = model.generate_combined(x, max_len, alpha)
+            else:
+                s = self._predict(model, x, semb, alpha)
+                series = tuple(s[k] for k in ('dur', 'pitch', 'energy',
+                                              'pitch_cond') if k in s)
+                out = self._generate(model, x, semb, series, max_len)
+            out['mel_len'] = expanded_lengths(out['dur'])
+            return out
+        return self._sharded(fused, self._tokens(x),
+                             self._speaker(speaker_emb))
 
     @torch.inference_mode()
     def generate_routed(self, x, speaker_emb=None, alpha: float = 1.0,
@@ -207,7 +270,9 @@ class TTSInference:
         requests do not pay the longest one's. Group sizes are padded up to
         a power of two (``bucket_group_size``, repeating the group's first
         request; the padding is cropped); a multispeaker group takes its
-        speaker rows and ``pitch_cond`` by the same padded index. Outputs
+        speaker rows and ``pitch_cond`` by the same padded index. With a
+        mesh, the series and each group's decode are split over the
+        replicas. Outputs
         come back in request order, mels padded to the largest bucket,
         with ``mel_len`` capped at each request's bucket.
 
@@ -228,8 +293,8 @@ class TTSInference:
             n_pad = bucket_group_size(len(idx), x.shape[0])
             gi = torch.as_tensor(np.concatenate(
                 [idx, np.full(n_pad - len(idx), idx[0])]), device=self.device)
-            out = self._generate(x[gi], None if semb is None else semb[gi],
-                                 [s[gi] for s in series], int(bucket))
+            out = self._decode(x[gi], None if semb is None else semb[gi],
+                               [s[gi] for s in series], int(bucket))
             if vocoder is not None:
                 out['wav'] = vocoder(out['mel_post'])
             parts.append({k: v[:len(idx)] for k, v in out.items()})

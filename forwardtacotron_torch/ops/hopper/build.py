@@ -4,8 +4,9 @@ Each ``.cu`` source beside this file has a plain C interface and includes no
 PyTorch header, so ``nvcc`` compiles it in seconds into a shared library that
 ``ctypes`` loads; the wrappers pass ``tensor.data_ptr()`` and the current
 stream as integers. Libraries are built at first use into ``_build/`` next to
-this file, named by a hash of their source and flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is built or imported when this
+this file, named by a hash of their source, the shared headers (``*.cuh``)
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused. Nothing is built or imported when this
 module is imported.
 
 Target: ``sm_90a`` (H100). A failed build raises; there is no fallback.
@@ -54,7 +55,8 @@ def _flags(defines: Sequence[str]) -> List[str]:
 
 
 def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
-    src = (SRC_DIR / f'{name}.cu').read_bytes()
+    src = (SRC_DIR / f'{name}.cu').read_bytes() + b''.join(
+        p.read_bytes() for p in sorted(SRC_DIR.glob('*.cuh')))
     flags = ' '.join(_flags(defines))
     digest = hashlib.sha1(src + flags.encode()).hexdigest()
     return BUILD_DIR / f'{name}-{digest[:12]}.so'

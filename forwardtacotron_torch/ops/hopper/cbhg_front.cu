@@ -76,6 +76,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -234,7 +236,8 @@ int launch_f32(const float* x, const float* mask, const float* bank_w,
                const float* proj_bias, float* out, int B, int T, int c_in,
                int c, int p, int K, int ki, int n_ci, int device,
                cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (c_in % 4 || c % 4 || ki % 4 || ki <= 0 || n_ci != (c_in + ki - 1) / ki)
     return (int)cudaErrorInvalidValue;
@@ -652,7 +655,8 @@ cbhg_front_mma_kernel(const FrontArgs a) {
 }
 
 int launch_bf16(FrontArgs a, int B, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   // the plan of ops/hopper/cbhg.py::plan: ki a multiple of 16 covering
   // c_in in n_ci chunks, rows of whole 16-byte vectors, 2..4 stages

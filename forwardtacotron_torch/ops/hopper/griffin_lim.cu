@@ -77,6 +77,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int BN = 128, BK = 32, THREADS = 256, STAGES = 4;
@@ -411,7 +413,8 @@ extern "C" int gl_iter_f32(const float* spec_re, const float* spec_im, const flo
                            const float* win, float* frames, float* out_re, float* out_im,
                            float* rb_re, float* rb_im, int B, int F, int bins, int n_fft,
                            int hop, float c, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (n_fft % hop || bins != n_fft / 2 + 1 || F < 2 * (n_fft / hop))
     return (int)cudaErrorInvalidValue;

@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -207,7 +209,8 @@ template <bool PRE>
 int launch_f32(const float* a, const float* res, const float* pre_w,
                const float* w, const float* b, float* out, int n, int c_in,
                int c, int n_layers, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   switch (tile_rows(c_in > c ? c_in : c)) {
 #define HIGHWAY_ROWS(R)                                                   \
@@ -567,7 +570,8 @@ int launch_mma(const HighwayArgs& a, cudaStream_t stream) {
 template <bool PRE>
 int launch_bf16(const HighwayArgs& a, int mt, int nt, int device,
                 cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (a.c_in_p % KS || a.c_in_p < a.c_in || a.cp % 128 || a.cp < a.c
       || a.c_in % 4 || a.c % 4 || a.c <= 0 || a.stages < MIN_STAGES

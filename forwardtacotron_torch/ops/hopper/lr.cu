@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -137,7 +139,8 @@ lr_tile_kernel(const uint4* __restrict__ x,   // [B, N, row_vecs]
 extern "C" int lr_expand(const void* x, const int* ends, void* out, int B,
                          int N, int T, int row_bytes, int tile, int device,
                          cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || N < 1 || T < 1 || row_bytes < 16 || row_bytes % 16 ||
       tile < 1 || tile > MAX_TILE)

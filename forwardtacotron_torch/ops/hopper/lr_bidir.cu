@@ -19,6 +19,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -61,7 +63,8 @@ lr_bidir_kernel(const uint4* __restrict__ x,   // [B, N, row_vecs]
 // row_bytes = C * element size, a multiple of 16. Returns a cudaError_t.
 extern "C" int lr_bidir(const void* x, const int* ends, void* out, int B, int N, int T,
                         int row_bytes, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (row_bytes % 16) return (int)cudaErrorInvalidValue;
   const long rows = (long)T * 2 * B;

@@ -119,6 +119,8 @@
 
 #include <type_traits>
 
+#include "device_guard.cuh"
+
 // Cycle spans, compiled in only with -DMRF_CYCLES (chip_smoke.py builds
 // a second copy of this library with it for its "mrf cycle spans" lines):
 // the clock64() cycles thread 0 of CTA (0, 0) (the producer spans: the
@@ -1096,7 +1098,8 @@ bool set_plan(Params& p, int c, int cs, int t_tile, int stages, bool ups) {
 template <typename K>
 int start(K kernel, const Params& p, int threads, long tiles, int batch,
           int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (tiles * p.n > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1251,8 +1254,11 @@ extern "C" int ups_mrf_bf16(const void* x, void* out, const void* up_w,
 }
 
 #ifdef MRF_CYCLES
-// The cycle spans (CycleSpan order) into h, or (reset) set them to 0.
-extern "C" int mrf_cycles(unsigned long long* h, int reset) {
+// The cycle spans (CycleSpan order) of `device` into h, or (reset) set
+// them to 0.
+extern "C" int mrf_cycles(unsigned long long* h, int reset, int device) {
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (reset) {
     unsigned long long z[CY_SPANS] = {0};
     return (int)cudaMemcpyToSymbol(g_cycles, z, sizeof(z));

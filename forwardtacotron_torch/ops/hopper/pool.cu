@@ -95,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -179,7 +181,8 @@ pool_mask_kernel(const T* __restrict__ x,         // [B, T, kc]
 template <typename T>
 int pool_mask_launch(const T* x, const float* mask, T* out, int B, int t_len,
                      int kc, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   constexpr int V = 16 / sizeof(T);
   const bool vec = kc % V == 0;
@@ -351,7 +354,8 @@ pool_proj1_kernel(const float* __restrict__ x,     // [B, T, kc]
 int pool_proj1_f32_launch(const float* x, const float* mask, const float* wt,
                           float* out, int B, int t_len, int kc, int p,
                           int p_pad, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (kc % KCH || p_pad % F32_PT || p > p_pad) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(pool_proj1_kernel,
@@ -743,7 +747,8 @@ int mma_launch(MmaParams& p, const void* x, int smem, int device, cudaStream_t s
 int pool_proj1_bf16_launch(const bf16* x, const float* mask, const bf16* wpk, bf16* out, int B,
                            int t_len, int kc, int p, int n, int n_blocks, int stages,
                            int smem, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const long nv = (long)B * (t_len + 1);
   const long tiles = (nv + PM - 1) / PM;

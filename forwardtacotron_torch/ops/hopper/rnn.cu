@@ -126,6 +126,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -705,7 +707,8 @@ int make_map(CUtensorMap* map, const void* base, int cols, long long rows, int b
 template <int MODE, int UNIT, int MCOLS>
 int launch_step(StepParams& p, const void* x, int wgs, int smem, int device,
                 cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (p.B + TILE - 1) / TILE;
   if (p.H % UNIT || p.I % 16 || p.P < MIN_STAGES || p.P > MAX_STAGES || p.R < 1 ||

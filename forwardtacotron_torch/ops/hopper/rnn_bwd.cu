@@ -100,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -714,9 +716,7 @@ int step_map(CUtensorMap* map, const void* base, int T, int B, int W, int bb, in
 }
 
 int device_limits(int device, int* n_sm, int* max_smem) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
@@ -726,6 +726,8 @@ int device_limits(int device, int* n_sm, int* max_smem) {
 template <bool LSTM>
 int launch_gates(GateParams& p, const void* x, const void* hs, const void* wpk, int stages,
                  int smem, int device, cudaStream_t stream) {
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   int n_sm = 0, max_smem = 0;
   int st = device_limits(device, &n_sm, &max_smem);
   if (st) return st;
@@ -763,6 +765,8 @@ int launch_gates(GateParams& p, const void* x, const void* hs, const void* wpk, 
 template <bool LSTM>
 int launch_sweep(SweepParams& p, const void* exch, int stages, int groups, int smem, int device,
                  cudaStream_t stream) {
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   int n_sm = 0, max_smem = 0;
   int st = device_limits(device, &n_sm, &max_smem);
   if (st) return st;

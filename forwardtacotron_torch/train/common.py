@@ -2,7 +2,12 @@
 forwardtacotron_tpu/train/common.py): TTSSession (reference
 trainer/common.py:8-27), Averager (:51-66), the masked L1 loss (:69-92),
 the multispeaker models' pitch-condition cross-entropy and accuracy, a
-steps/s timer and the float cast of the mixed-precision step."""
+steps/s timer and the float cast of the mixed-precision step.
+
+In a data-parallel step (``parallel.mesh``) each loss divides this rank's
+sum by the element count summed over the ranks, so the ranks' losses sum
+to the loss of the concatenated global batch, as in the JAX package's
+multi-process step; in one process the count is this rank's alone."""
 
 import time
 from typing import Any, Dict, Optional
@@ -10,6 +15,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from forwardtacotron_torch.models.layers import make_len_mask
+from forwardtacotron_torch.parallel.mesh import global_sum
 
 
 class TTSSession:
@@ -59,7 +65,7 @@ def masked_l1(x: torch.Tensor, target: torch.Tensor,
         x, target = x[:, :, None], target[:, :, None]
     mask = len_mask(lens, x.shape[1])[:, :, None].expand(x.shape)
     loss = torch.sum(torch.abs(x * mask - target * mask))
-    return loss / torch.clamp(torch.sum(mask), min=1.0)
+    return loss / torch.clamp(global_sum(torch.sum(mask)), min=1.0)
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -71,8 +77,8 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     log_probs = torch.log_softmax(logits, dim=-1)
     picked = torch.gather(log_probs, -1, targets[..., None].long())[..., 0]
     valid = (targets != ignore_index).float()
-    return -torch.sum(picked * valid) / torch.clamp(torch.sum(valid),
-                                                     min=1.0)
+    return -torch.sum(picked * valid) / torch.clamp(
+        global_sum(torch.sum(valid)), min=1.0)
 
 
 def classification_accuracy(logits: torch.Tensor, targets: torch.Tensor,
@@ -81,7 +87,8 @@ def classification_accuracy(logits: torch.Tensor, targets: torch.Tensor,
     target's."""
     valid = (targets != ignore_index).float()
     correct = (torch.argmax(logits, dim=-1) == targets).float() * valid
-    return torch.sum(correct) / torch.clamp(torch.sum(valid), min=1.0)
+    return torch.sum(correct) / torch.clamp(global_sum(torch.sum(valid)),
+                                            min=1.0)
 
 
 class StepTimer:

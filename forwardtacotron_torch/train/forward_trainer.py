@@ -3,7 +3,8 @@ checkpoints.
 
 Port of forwardtacotron_tpu/train/forward_trainer.py (``ForwardTrainer``
 and ``MultiForwardTrainer``; reference trainer/forward_trainer.py:35-231
-and trainer/multi_forward_trainer.py:42-243) for one device. The trainer
+and trainer/multi_forward_trainer.py:42-243), on one device or data
+parallel over the ranks of a process group (``parallel.mesh``). The trainer
 reads the section of the config's ``tts_model`` (ForwardTacotron,
 FastPitch or a multispeaker model); a multispeaker model's loss adds the
 pitch-condition cross-entropy, and its checkpoints carry the speaker
@@ -19,9 +20,23 @@ kernels (``train.pallas_rnn: false`` keeps the per-step loops). There is no
 are read with a one-step lag, so the host reads step N-1's scalars while
 step N runs.
 
+Data parallel (one process per card, ``torchrun``): each rank loads its
+length-balanced share of the training items (``shard_for_host``) and
+steps on its own batches; a step is the single-process step on the
+concatenation of the ranks' batches. Before each step the ranks pad their
+batches to a common shape (the largest token and frame counts over the
+ranks), since BatchNorm's statistics cover padding; the losses and
+BatchNorm reduce over the ranks and the gradients are summed before the
+clip (``parallel.mesh``). Every rank takes the same number of steps an
+epoch, the smallest batch count over the ranks, so none waits alone in a
+collective. Evaluation splits each validation batch over the ranks
+(padded to a multiple of them, as the JAX package pads for its devices).
+The logged metrics are global; only rank 0 prints, writes the CSV log and
+saves checkpoints.
+
 Not ported yet: the plots and audio of ``generate_plots`` (ROADMAP.md
-Queue 1, item 12) and data parallelism; the writer is the CSV fallback of
-the JAX package's ``make_writer``.
+Queue 1, item 12); the writer is the CSV fallback of the JAX package's
+``make_writer``.
 """
 
 import sys
@@ -30,9 +45,15 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+from forwardtacotron_torch.data.dataset import (get_forward_dataloaders,
+                                                pad_to)
 from forwardtacotron_torch.models.registry import is_multispeaker
 from forwardtacotron_torch.ops.hopper.rnn_train import rnn_mode
+from forwardtacotron_torch.parallel.mesh import (host_max, host_min,
+                                                 pad_batch_to_devices,
+                                                 process_count,
+                                                 process_index, shard_batch,
+                                                 sum_gradients, sum_metrics)
 from forwardtacotron_torch.train.common import (Averager, StepTimer,
                                                 TTSSession, cast_floats,
                                                 classification_accuracy,
@@ -46,20 +67,39 @@ from forwardtacotron_torch.utils.device import resolve_device
 from forwardtacotron_torch.utils.files import parse_schedule, unpickle_binary
 from forwardtacotron_torch.utils.paths import Paths
 
+# the dropout and zoneout streams of rank r start from seed + r * this
+RANK_SEED_STRIDE = 1000003
 # what the forward models and their losses read of a collated batch
 BATCH_KEYS = ('x', 'mel', 'dur', 'mel_len', 'x_len', 'pitch', 'energy',
               'pitch_target', 'energy_target', 'pitch_cond', 'speaker_emb')
 
 
 class CsvWriter:
-    """Scalars appended to ``metrics.csv`` as ``step,tag,value`` lines."""
+    """Scalars appended to ``metrics.csv`` as ``step,tag,value`` lines, by
+    rank 0 alone."""
 
     def __init__(self, log_dir) -> None:
         self._path = log_dir / 'metrics.csv'
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:
+        if process_index() != 0:
+            return
         with open(self._path, 'a') as f:
             f.write(f'{step},{tag},{float(value)}\n')
+
+
+def common_shape(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """``batch`` padded to the largest token and frame counts over the
+    ranks (unchanged in one process)."""
+    n_tok, n_frames = host_max([batch['x'].shape[1], batch['mel'].shape[1]])
+    if (n_tok, n_frames) == (batch['x'].shape[1], batch['mel'].shape[1]):
+        return batch
+    return pad_to(batch, n_tok, n_frames)
+
+
+def steps_per_epoch(train_set) -> int:
+    """The batches every rank takes an epoch: the fewest over the ranks."""
+    return host_min([len(train_set)])[0]
 
 
 class ForwardTrainer:
@@ -98,7 +138,8 @@ class ForwardTrainer:
             train_set, val_set = get_forward_dataloaders(
                 paths=self.paths, batch_size=bs,
                 bucket_multiple=self.train_cfg.get('bucket_multiple', 32),
-                **self.train_cfg['filter'])
+                process_index=process_index(),
+                process_count=process_count(), **self.train_cfg['filter'])
             session = TTSSession(index=i, r=1, lr=lr, max_step=max_step,
                                  bs=bs, train_set=train_set, val_set=val_set)
             state = self.train_session(state, session, seed)
@@ -112,18 +153,22 @@ class ForwardTrainer:
                       seed: int = 0) -> TrainState:
         current_step = state.step
         training_steps = session.max_step - current_step
-        total_iters = len(session.train_set)
+        total_iters = steps_per_epoch(session.train_set)
         epochs = training_steps // max(total_iters, 1) + 1
-        print(f'| Steps: {training_steps // 1000}k | Batch Size: {session.bs} '
-              f'| Learning Rate: {session.lr} | Device: {self.device} |')
+        rank = process_index()
+        show = rank == 0
+        if show:
+            print(f'| Steps: {training_steps // 1000}k | Batch Size: '
+                  f'{session.bs} | Learning Rate: {session.lr} | Device: '
+                  f'{self.device} | Ranks: {process_count()} |')
         state = set_learning_rate(state, session.lr)
         # dropout draws from torch's generator (the JAX package's
-        # jax.random bits cannot be reproduced)
-        torch.manual_seed(seed + current_step)
+        # jax.random bits cannot be reproduced), each rank its own stream
+        torch.manual_seed(seed + current_step + RANK_SEED_STRIDE * rank)
         m_loss_avg, dur_loss_avg, pitch_loss_avg = (Averager(), Averager(),
                                                     Averager())
         timer = StepTimer()
-        rs = np.random.RandomState(seed)
+        rs = np.random.RandomState(seed + RANK_SEED_STRIDE * rank)
         pitch_zoneout = self.train_cfg.get('pitch_zoneout', 0.0)
         energy_zoneout = self.train_cfg.get('energy_zoneout', 0.0)
 
@@ -138,14 +183,15 @@ class ForwardTrainer:
             m_loss_avg.add(m['m1_loss'] + m['m2_loss'])
             dur_loss_avg.add(m['dur_loss'])
             pitch_loss_avg.add(m['pitch_loss'])
-            sys.stdout.write(
-                f'\r| Epoch: {p_e}/{epochs} ({p_i}/{total_iters}) '
-                f'| Mel Loss: {m_loss_avg.get():#.4} '
-                f'| Dur Loss: {dur_loss_avg.get():#.4} '
-                f'| Pitch Loss: {pitch_loss_avg.get():#.4} '
-                f'| {timer.steps_per_second():#.2} steps/s '
-                f'| Step: {p_step // 1000}k | ')
-            sys.stdout.flush()
+            if show:
+                sys.stdout.write(
+                    f'\r| Epoch: {p_e}/{epochs} ({p_i}/{total_iters}) '
+                    f'| Mel Loss: {m_loss_avg.get():#.4} '
+                    f'| Dur Loss: {dur_loss_avg.get():#.4} '
+                    f'| Pitch Loss: {pitch_loss_avg.get():#.4} '
+                    f'| {timer.steps_per_second():#.2} steps/s '
+                    f'| Step: {p_step // 1000}k | ')
+                sys.stdout.flush()
             for tag, val in (('Mel_Loss/train', m_loss_avg.get()),
                              ('Pitch_Loss/train', m['pitch_loss']),
                              ('Energy_Loss/train', m['energy_loss']),
@@ -159,7 +205,9 @@ class ForwardTrainer:
 
         for e in range(1, epochs + 1):
             for i, batch in enumerate(session.train_set, 1):
-                batch = dict(batch)
+                if i > total_iters:
+                    break
+                batch = common_shape(dict(batch))
                 # zoneout: mask the conditioning inputs, keep clean loss
                 # targets (reference trainer/forward_trainer.py:73-79)
                 batch['pitch_target'] = batch['pitch'].copy()
@@ -193,7 +241,8 @@ class ForwardTrainer:
             m_loss_avg.reset()
             pitch_loss_avg.reset()
             timer.reset()
-            print(' ')
+            if show:
+                print(' ')
             if state.step >= session.max_step:
                 break
         return state
@@ -205,7 +254,9 @@ class ForwardTrainer:
         metrics, outputs) runs the model on ``params`` (cast to bf16 in
         mixed precision); train_step(state, batch) takes one optimizer
         step, updates ``state`` in place and returns the step's metrics as
-        device scalars."""
+        device scalars. Data parallel, ``loss_fn`` gives this rank's share
+        of the global losses; train_step sums the gradients and the
+        metrics over the ranks, so every rank takes the same update."""
         dur_w = self.train_cfg['dur_loss_factor']
         pitch_w = self.train_cfg['pitch_loss_factor']
         energy_w = self.train_cfg['energy_loss_factor']
@@ -250,9 +301,9 @@ class ForwardTrainer:
                        batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             params = state.params()
             loss, metrics, _ = loss_fn(state.model.train(), params, batch)
-            grads = torch.autograd.grad(loss, list(params.values()),
-                                        allow_unused=True)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            grads = sum_gradients(torch.autograd.grad(
+                loss, list(params.values()), allow_unused=True))
+            metrics = sum_metrics({k: v.detach() for k, v in metrics.items()})
             metrics['grad_norm'] = tx.step(params, dict(zip(params, grads)),
                                            state.opt_state)
             state.step += 1
@@ -275,14 +326,22 @@ class ForwardTrainer:
                                      batch['x_len'])}
 
     def evaluate(self, model: torch.nn.Module, val_set) -> Dict[str, float]:
+        """The mean over the validation batches of each eval loss; each
+        batch is split over the ranks (the JAX package's padded, sharded
+        batch)."""
         sums: Dict[str, float] = {}
         n = 0
+        n_ranks = process_count()
         for batch in val_set:
             batch = dict(batch)
             batch['pitch_target'] = batch['pitch']
             batch['energy_target'] = batch['energy']
-            for k, v in self.eval_step(model,
-                                       self.device_batch(batch)).items():
+            batch = pad_batch_to_devices(
+                {k: batch[k] for k in BATCH_KEYS if k in batch},
+                range(n_ranks))
+            metrics = sum_metrics(self.eval_step(
+                model, shard_batch(batch, self.device)))
+            for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
         return {k: v / max(n, 1) for k, v in sums.items()}
@@ -290,6 +349,8 @@ class ForwardTrainer:
     # ------------------------------------------------------------- artifacts
 
     def _save(self, state: TrainState, name: str) -> None:
+        if process_index() != 0:
+            return
         save_checkpoint(self.paths.forward_checkpoints / name, state.model,
                         self.config, step=state.step,
                         opt_state=state.opt_state,

@@ -2,7 +2,10 @@
 checkpoints.
 
 Port of forwardtacotron_tpu/train/taco_trainer.py (reference
-trainer/taco_trainer.py:34-187) for one device. Each schedule row (r, lr,
+trainer/taco_trainer.py:34-187), on one device or data parallel over the
+ranks of a process group as ``ForwardTrainer`` is (its module docstring
+gives the rules; the plain L1 means are taken over the global batch,
+``parallel.mesh.global_mean``). Each schedule row (r, lr,
 max_step, batch size) is a session with its own loaders, whose mels are
 padded to a multiple of its reduction factor r. The loss is the plain
 (unmasked) L1 of the decoder's mel and of the postnet's output against the
@@ -20,8 +23,8 @@ with the losses, read with a one-step lag so that the host reads step
 N-1's while step N runs.
 
 Not ported yet: the plots and audio of ``generate_plots`` (ROADMAP.md
-Queue 1, item 12) and data parallelism; the writer is the CSV fallback of
-the JAX package's ``make_writer``.
+Queue 1, item 12); the writer is the CSV fallback of the JAX package's
+``make_writer``.
 """
 
 import sys
@@ -32,7 +35,15 @@ import torch
 from forwardtacotron_torch.data.dataset import get_taco_dataloaders
 from forwardtacotron_torch.train.common import (Averager, StepTimer,
                                                 TTSSession, cast_floats)
-from forwardtacotron_torch.train.forward_trainer import CsvWriter
+from forwardtacotron_torch.parallel.mesh import (global_mean, host_sum,
+                                                 pad_batch_to_devices,
+                                                 process_count,
+                                                 process_index, shard_batch,
+                                                 sum_gradients, sum_metrics)
+from forwardtacotron_torch.train.forward_trainer import (RANK_SEED_STRIDE,
+                                                         CsvWriter,
+                                                         common_shape,
+                                                         steps_per_epoch)
 from forwardtacotron_torch.train.state import (TrainState, create_train_state,
                                                make_optimizer,
                                                set_learning_rate)
@@ -49,9 +60,10 @@ BATCH_KEYS = ('x', 'mel', 'mel_len', 'x_len', 'speaker_emb')
 def l1_losses(mel_out: torch.Tensor, linear: torch.Tensor,
               target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(m1, m2): mean |mel_out - target| and mean |linear - target| over
-    every element, padding included (the reference's plain L1)."""
-    return (torch.mean(torch.abs(mel_out - target)),
-            torch.mean(torch.abs(linear - target)))
+    every element, padding included (the reference's plain L1); data
+    parallel, this rank's shares of the global batch's means."""
+    return (global_mean(torch.abs(mel_out - target)),
+            global_mean(torch.abs(linear - target)))
 
 
 class TacoTrainer:
@@ -87,7 +99,8 @@ class TacoTrainer:
             train_set, val_set = get_taco_dataloaders(
                 paths=self.paths, batch_size=bs, r=r,
                 bucket_multiple=self.train_cfg.get('bucket_multiple', 1) * r,
-                **self.train_cfg['filter'])
+                process_index=process_index(),
+                process_count=process_count(), **self.train_cfg['filter'])
             session = TTSSession(index=i, r=r, lr=lr, max_step=max_step,
                                  bs=bs, train_set=train_set, val_set=val_set)
             state = self.train_session(state, session, seed)
@@ -101,17 +114,22 @@ class TacoTrainer:
                       seed: int = 0) -> TrainState:
         current_step = state.step
         training_steps = session.max_step - current_step
-        total_iters = len(session.train_set)
+        total_iters = steps_per_epoch(session.train_set)
         epochs = training_steps // max(total_iters, 1) + 1
-        print(f'| Steps: {training_steps // 1000}k | Batch Size: {session.bs} '
-              f'| Learning Rate: {session.lr} | Outputs/Step (r): '
-              f'{session.r} | Device: {self.device} |')
+        show = process_index() == 0
+        if show:
+            print(f'| Steps: {training_steps // 1000}k | Batch Size: '
+                  f'{session.bs} | Learning Rate: {session.lr} | Outputs/Step '
+                  f'(r): {session.r} | Device: {self.device} | Ranks: '
+                  f'{process_count()} |')
         state = set_learning_rate(state, session.lr)
         with torch.no_grad():
             state.model.decoder.r.fill_(session.r)
-        torch.manual_seed(seed + current_step)
+        # each rank draws its own dropout and zoneout
+        rank_seed = seed + current_step + RANK_SEED_STRIDE * process_index()
+        torch.manual_seed(rank_seed)
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(seed + current_step)
+        generator.manual_seed(rank_seed)
         loss_avg, timer = Averager(), StepTimer()
 
         # metrics are read with a one-step lag: reading step N's scalars
@@ -125,23 +143,30 @@ class TacoTrainer:
             loss_avg.add(loss)
             loc_score, sharp_score = attention_score(
                 attn.float().cpu().numpy(), mel_len, r=session.r)
-            for tag, val in (('Attention_Score/loc', loc_score.mean()),
+            # the scores' means over the global batch
+            loc_sum, sharp_sum, n_items = host_sum(
+                [loc_score.sum(), sharp_score.sum(), len(loc_score)])
+            for tag, val in (('Attention_Score/loc', loc_sum / n_items),
                              ('Attention_Score/sharpness',
-                              sharp_score.mean()),
+                              sharp_sum / n_items),
                              ('Loss/train', loss),
                              ('Params/batch_size', session.bs),
                              ('Params/reduction_factor', session.r),
                              ('Params/learning_rate', session.lr)):
                 self.writer.add_scalar(tag, val, p_step)
-            sys.stdout.write(
-                f'\r| Epoch: {p_e}/{epochs} ({p_i}/{total_iters}) '
-                f'| Loss: {loss_avg.get():#.4} '
-                f'| {timer.steps_per_second():#.2} steps/s '
-                f'| Step: {p_step // 1000}k | ')
-            sys.stdout.flush()
+            if show:
+                sys.stdout.write(
+                    f'\r| Epoch: {p_e}/{epochs} ({p_i}/{total_iters}) '
+                    f'| Loss: {loss_avg.get():#.4} '
+                    f'| {timer.steps_per_second():#.2} steps/s '
+                    f'| Step: {p_step // 1000}k | ')
+                sys.stdout.flush()
 
         for e in range(1, epochs + 1):
             for i, batch in enumerate(session.train_set, 1):
+                if i > total_iters:
+                    break
+                batch = common_shape(batch)
                 metrics, attn = self.train_step(
                     state, self.device_batch(batch), session.r, generator)
                 step += 1
@@ -163,7 +188,8 @@ class TacoTrainer:
             self._save(state, 'latest_model.pt')
             loss_avg.reset()
             timer.reset()
-            print(' ')
+            if show:
+                print(' ')
             if state.step >= session.max_step:
                 break
         return state
@@ -192,13 +218,15 @@ class TacoTrainer:
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """One optimizer step; updates ``state`` in place and returns the
         step's metrics (device scalars, with the global gradient norm
-        before clipping) and its attention [B, T // r, N]."""
+        before clipping) and its attention [B, T // r, N]. Data parallel,
+        the gradients and the metrics are summed over the ranks (each
+        rank's loss is its share of the global loss)."""
         params = state.params()
         loss, metrics, attn = self.loss_fn(state.model.train(), params,
                                            batch, r, generator)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = sum_gradients(torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True))
+        metrics = sum_metrics({k: v.detach() for k, v in metrics.items()})
         metrics['grad_norm'] = self.tx.step(params, dict(zip(params, grads)),
                                             state.opt_state)
         state.step += 1
@@ -214,17 +242,26 @@ class TacoTrainer:
         return m1 + m2
 
     def evaluate(self, model: torch.nn.Module, val_set, r: int) -> float:
+        """The mean eval loss over the validation batches whose frames are
+        a multiple of r; each batch is split over the ranks (the JAX
+        package's padded, sharded batch)."""
         total, n = 0.0, 0
         for batch in val_set:
             if batch['mel'].shape[1] % r != 0:
                 continue
-            total += float(self.eval_loss(model, self.device_batch(batch), r))
+            batch = pad_batch_to_devices(
+                {k: batch[k] for k in BATCH_KEYS if k in batch},
+                range(process_count()))
+            total += float(sum_metrics({'loss': self.eval_loss(
+                model, shard_batch(batch, self.device), r)})['loss'])
             n += 1
         return total / max(n, 1)
 
     # ------------------------------------------------------------- artifacts
 
     def _save(self, state: TrainState, name: str) -> None:
+        if process_index() != 0:
+            return
         save_checkpoint(self.paths.taco_checkpoints / name, state.model,
                         self.config, step=state.step,
                         opt_state=state.opt_state)

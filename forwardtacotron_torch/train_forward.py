@@ -1,11 +1,18 @@
 """CLI: train a forward model (ForwardTacotron, FastPitch or a multispeaker
 model) on the GPU.
 
-Mirrors the repository's root ``train_forward.py`` on the PyTorch port, for
-one device:
+Mirrors the repository's root ``train_forward.py`` on the PyTorch port, on
+one device or data parallel with one process per card:
 
     python -m forwardtacotron_torch.train_forward \\
         --config configs/singlespeaker.yaml [--device cpu]
+    torchrun --nproc_per_node 4 -m forwardtacotron_torch.train_forward \\
+        --config configs/singlespeaker.yaml
+
+Under ``torchrun`` (``python -m torch.distributed.run``) each rank joins
+the process group (NCCL on ``cuda:LOCAL_RANK``; gloo with ``--device
+cpu``), takes its share of the training items and steps on the global
+batch (``train.forward_trainer``); the config's batch size is per rank.
 
 It resumes from ``latest_model.pt`` in the config's forward checkpoint
 directory when one is there (weights, BatchNorm statistics, optimizer state
@@ -33,6 +40,8 @@ def main(argv=None):
 
     from forwardtacotron_torch.models.registry import (init_tts_model,
                                                        is_multispeaker)
+    from forwardtacotron_torch.parallel.mesh import (initialize_distributed,
+                                                     rank_device, replicate)
     from forwardtacotron_torch.train.forward_trainer import (
         ForwardTrainer, MultiForwardTrainer)
     from forwardtacotron_torch.train.state import (create_train_state,
@@ -41,6 +50,7 @@ def main(argv=None):
     from forwardtacotron_torch.utils.files import read_config
     from forwardtacotron_torch.utils.paths import Paths
 
+    distributed = initialize_distributed(args.device)
     config = read_config(args.config)
     paths = Paths.from_config(config)
     assert any(paths.alg.glob('*.npy')), \
@@ -50,7 +60,8 @@ def main(argv=None):
     model = init_tts_model(config)
     trainer_cls = MultiForwardTrainer if is_multispeaker(config) \
         else ForwardTrainer
-    trainer = trainer_cls(paths, None, config, device=args.device)
+    trainer = trainer_cls(paths, None, config,
+                          device=rank_device(args.device))
     model.to(trainer.device)
     ckpt = restore_checkpoint(paths.forward_checkpoints)
     if ckpt is not None:
@@ -58,7 +69,10 @@ def main(argv=None):
         print(f'Restored checkpoint at step {state.step}')
     else:
         state = create_train_state(model, trainer.tx)
+    replicate(model)
     trainer.train(model, state=state, seed=args.seed)
+    if distributed:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == '__main__':

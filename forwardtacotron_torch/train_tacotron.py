@@ -2,11 +2,19 @@
 models' training targets from it.
 
 Mirrors the repository's root ``train_tacotron.py`` (reference
-train_tacotron.py:146-196) on the PyTorch port, for one device:
+train_tacotron.py:146-196) on the PyTorch port, on one device or, for
+training, data parallel with one process per card:
 
     python -m forwardtacotron_torch.train_tacotron \\
         --config configs/singlespeaker.yaml [--device cpu] \\
         [--force_align | --force_gta | --extract_pitch]
+    torchrun --nproc_per_node 4 -m forwardtacotron_torch.train_tacotron \\
+        --config configs/singlespeaker.yaml
+
+Under ``torchrun`` the default mode trains data parallel
+(``train.taco_trainer``), then rank 0 alone extracts while the other
+ranks stop; the extraction modes (``--force_align``, ``--extract_pitch``,
+``--force_gta``) train nothing and are refused there.
 
 It resumes from ``latest_model.pt`` in the config's teacher checkpoint
 directory when one is there (weights, BatchNorm statistics, optimizer state
@@ -73,6 +81,10 @@ def main(argv=None):
     import torch
 
     from forwardtacotron_torch.models.tacotron import Tacotron
+    from forwardtacotron_torch.parallel.mesh import (initialize_distributed,
+                                                     process_count,
+                                                     process_index,
+                                                     rank_device, replicate)
     from forwardtacotron_torch.train.state import (create_train_state,
                                                    state_from_checkpoint)
     from forwardtacotron_torch.train.taco_trainer import TacoTrainer
@@ -80,11 +92,18 @@ def main(argv=None):
     from forwardtacotron_torch.utils.files import read_config
     from forwardtacotron_torch.utils.paths import Paths
 
+    distributed = initialize_distributed(args.device)
+    if process_count() > 1 and (args.force_align or args.force_gta
+                                or args.extract_pitch):
+        torch.distributed.destroy_process_group()
+        parser.error('--force_align, --force_gta and --extract_pitch run in '
+                     'one process: start them without torchrun')
     config = read_config(args.config)
     paths = Paths.from_config(config)
     torch.manual_seed(args.seed)
     model = Tacotron.from_config(config)
-    trainer = TacoTrainer(paths, None, config, device=args.device)
+    trainer = TacoTrainer(paths, None, config,
+                          device=rank_device(args.device))
     model.to(trainer.device)
     ckpt = restore_checkpoint(paths.taco_checkpoints)
     if ckpt is not None:
@@ -102,7 +121,14 @@ def main(argv=None):
         print(f'Wrote {n} GTA mels to {paths.gta}')
         return
     if not args.force_align:
+        replicate(model)
         trainer.train(model, state=state, seed=args.seed)
+    if distributed:
+        # the extraction runs on rank 0 alone, outside the process group
+        rank = process_index()
+        torch.distributed.destroy_process_group()
+        if rank != 0:
+            return
     create_align_features(model, paths, config, trainer.device)
     extract_pitch(paths, config)
 

@@ -2055,3 +2055,129 @@ def test_speaker_encoder_and_mel_on_card_match_cpu(dev, tmp_path):
     assert mels[1].shape == (80, 1 + len(wav) // 256)
     assert np.linalg.norm(mels[1] - mels[0]) <= 1e-4 * np.linalg.norm(
         mels[0])
+
+
+# ------------------------------------------------------ data parallelism
+
+
+def _dp_mesh():
+    """Every card, or the one card twice (replicas that share it)."""
+    from forwardtacotron_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    return make_mesh(devices=[f'cuda:{i}' for i in range(n)] if n > 1
+                     else ['cuda:0', 'cuda:0'])
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_data_parallel_serving_split_on_card(dev, dtype):
+    """TTSInference over the mesh against one replica: a 7-row batch
+    (padded to a multiple of the replicas), ``generate`` and
+    ``generate_fused``; every replica launches one replica's recurrent
+    kernels (bf16: rows 4-7), mel_len exact, mel_post within the kernels'
+    tolerance of the scale (the shares are other batch sizes, so a plan or
+    a product may sum in another order)."""
+    import copy
+
+    from forwardtacotron_torch.models.forward_tacotron import \
+        ForwardTacotron
+    from forwardtacotron_torch.models.synthesis import TTSInference
+
+    torch.manual_seed(0)
+    model = ForwardTacotron(
+        embed_dims=128, series_embed_dims=16, durpred_conv_dims=32,
+        durpred_rnn_dims=32, pitch_conv_dims=32, pitch_rnn_dims=64,
+        energy_conv_dims=32, energy_rnn_dims=32, rnn_dims=128,
+        prenet_dims=128, prenet_k=4, prenet_num_highways=2, postnet_dims=128,
+        postnet_k=4, postnet_num_highways=2, n_mels=16).eval()
+    with torch.no_grad():
+        model.dur_pred.lin.weight.zero_()
+        model.dur_pred.lin.bias.fill_(3.0)
+    mesh = _dp_mesh()
+    one = TTSInference(copy.deepcopy(model), dtype=dtype, device='cuda')
+    dp = TTSInference(copy.deepcopy(model), dtype=dtype, mesh=mesh)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randint(1, 60, (7, 20), generator=g)
+    for i in range(7):
+        x[i, 20 - 2 * i:] = 0
+    tol = BF16_TOL if dtype == 'bfloat16' else TOL
+    for entry, kwargs in (('generate', {}),
+                          ('generate_fused', {'max_len': 64})):
+        before = dict(rnn.launches)
+        want = getattr(one, entry)(x, **kwargs)
+        torch.cuda.synchronize()
+        per_call = {k: rnn.launches[k] - before[k] for k in before}
+        before = dict(rnn.launches)
+        got = getattr(dp, entry)(x, **kwargs)
+        torch.cuda.synchronize()
+        assert {k: rnn.launches[k] - before[k] for k in before} == {
+            k: len(mesh) * v for k, v in per_call.items()}
+        if dtype == 'bfloat16':
+            assert per_call['gru_xp' if entry == 'generate_fused'
+                            else 'gru'] > 0
+        assert got['mel_post'].device == torch.device('cuda', 0)
+        assert torch.equal(got['mel_len'], want['mel_len'])
+        assert got['mel_post'].shape == want['mel_post'].shape == (
+            7, got['mel_post'].shape[1], 16)
+        _close([got['mel_post'].float()], [want['mel_post'].float()], tol)
+
+
+def test_data_parallel_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """Two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card)
+    take a bf16 ForwardTrainer step, each on its own rows at its own
+    padded shape, against one process on the global batch on the card:
+    every rank ends with the same parameters, the loss and gradient norm
+    within 5e-2, the updates a tenth of the learning rate on average, the
+    trainable recurrences (rows 9-10) launched in each rank."""
+    from torch_parallel_worker import (launch, make_items, rank_batches,
+                                       train_steps)
+    from torch_training_setup import N_MELS, narrow_config
+
+    from forwardtacotron_torch.models.registry import init_tts_model
+
+    config = narrow_config('bfloat16', tmp_path)
+    torch.manual_seed(0)
+    batches, global_batch = rank_batches(make_items(8, 1, N_MELS), 2)
+    job = {'trainer': 'forward', 'config': config, 'backend': 'cpu',
+           'device': 'cuda:0', 'batches': batches,
+           'state_dict': init_tts_model(config).state_dict()}
+    ranks = launch(job, tmp_path, timeout=300)
+    for key, value in ranks[0]['state'].items():
+        assert torch.equal(ranks[1]['state'][key], value), key
+    for res in ranks:
+        assert res['launches']['lstm_train'] == 1
+        assert res['launches']['gru_bwd'] > 0 and res['launches']['lstm_bwd']
+    (want,), state, _ = train_steps(job, global_batch, 'cuda:0')
+    got = ranks[0]['metrics']
+    for key in ('loss', 'grad_norm'):
+        assert abs(got[key] - want[key]) <= 5e-2 * abs(want[key]), key
+    diffs = [(ranks[0]['state'][k].float() - v.float()).abs().flatten()
+             for k, v in state.items() if v.is_floating_point()
+             and not k.endswith(('running_mean', 'running_var', 'step'))]
+    assert float(torch.cat(diffs).mean()) <= 0.1 * 1e-3
+
+
+def test_data_parallel_kernel_keeps_callers_device(dev):
+    """One host thread serving two cards: a kernel launched on cuda:0
+    while cuda:1 is current runs on cuda:0 and leaves cuda:1 current (each
+    extern "C" entry's DeviceGuard). Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two cards')
+    g = torch.Generator().manual_seed(3)
+    h = 256
+    _, wh, _, bh = _rnn_weights(g, 16, h, 3, dev)
+    xp2 = _rand(g, (9, 2, 3, 3 * h), 1.0, dev)
+    args = [torch.randn(s, generator=g).to('cuda:0') for s in
+            ((33, 80), (33, 80), (80, 128), (4, 128, 256), (4, 256))]
+    with torch.cuda.device(1):
+        assert torch.cuda.current_device() == 1
+        got_rnn = rnn.gru_xp(xp2, wh, bh)
+        assert torch.cuda.current_device() == 1
+        got_hw = highway.pre_highway_stack(*args)
+        assert torch.cuda.current_device() == 1
+        after = torch.zeros(1, device='cuda')
+    assert after.device == torch.device('cuda', 1)
+    torch.cuda.synchronize(0)
+    assert got_rnn.device == torch.device('cuda', 0)
+    _close([got_rnn.float()], [rnn.gru_xp_plain(xp2, wh, bh).float()],
+           BF16_TOL)
+    _close([got_hw], [highway.pre_highway_stack_plain(*args)])
