@@ -142,9 +142,8 @@ Run from the repository root. Phases, each of which must pass:
     teacher (4 seeded speakers, 400 frames); ``generate`` for the 4 sentences in
     float32 and bf16 (the same launches); float32 and bf16 train steps at
     r = 5 (batch 32) and r = 1 (batch 8) on synthetic items (no kernel
-    launches, steps/s, device busy and idle share, a falling loss, a
-    finite gradient for every parameter, the device busy and idle share
-    at r = 5) and one step of each dtype
+    launches, steps/s, a falling loss, a finite gradient for every
+    parameter) and one step of each dtype
     against the CPU path; ``python -m forwardtacotron_torch.train_tacotron``
     through two short sessions and the extraction after them, a resume
     and ``--force_gta``;
@@ -186,10 +185,32 @@ Run from the repository root. Phases, each of which must pass:
     launches in each rank, each rank's step wall time); a failed or hung
     rank (300 s) fails the phase.
 
+20. the remaining utils and entry points at full width: (a)
+    ``python -m forwardtacotron_torch.train_forward --force_gta`` from a
+    port checkpoint on 20 items of phase 13's kind (one (80, mel_len)
+    file each), ``export_gta`` in this process (exactly 2
+    ``pre_highway_stack``, 1 ``cbhg_front`` and 1 ``lr`` a batch, the
+    time a batch), the validation batch's files against the CPU plain
+    path; (b) ForwardTacotron, MultiForwardTacotron and the teacher written
+    as the JAX package's native ``.ckpt`` with an Adam state and read
+    back bit-equal, ``gen_forward`` from the ``.ckpt`` giving the ``.pt``'s
+    mel, one bf16 train step resumed from a lone ``latest_model.ckpt``
+    bit-equal to one from ``latest_model.pt``; (c) the ``plot_outputs``
+    of ForwardTrainer, MultiForwardTrainer (configs/multispeaker.yaml, 3
+    speakers) and TacoTrainer (r = 5) on the card against the CPU (mels
+    within 1e-3, Griffin-Lim's spectral convergence within 1%, exact
+    launches, the writer taken), then 2 bf16 steps with a plot after each
+    bit-equal to 2 without; (d) ``utils.profiler.trace`` around one
+    float32 request in an ``annotate`` span (the trace names the span and
+    rows 1, 2 and 8) and ``device_memory_stats``; (e) the notebook
+    ``Synthesizer`` on the ``.ckpt`` against the CPU, with Griffin-Lim and
+    with phase 11's seeded HiFi-GAN v1 checkpoint.
+
 ``--multispeaker`` runs only the build and phase 16, ``--data-parallel``
-only the build and phase 19, ``--teacher`` only
-the build and phase 17 (there with the device busy and idle share of the
-r = 5 and r = 1 steps, which the default run does not profile), ``--pipeline``
+only the build and phase 19, ``--entry-points`` only the build and phase
+20, ``--teacher`` only
+the build and phase 17 (there with the device busy and idle share of
+every train step, which the default run does not profile), ``--pipeline``
 only the build and phase 18,
 ``--griffinlim-split`` runs only phase 4's split, ``--lstm-times`` only
 the LSTM entries' times (``LSTM_TIMES_SHAPES``, with ``--kernel-parts``
@@ -221,6 +242,7 @@ step); phase 16 writes ``chip_smoke_multi_serving_profile.txt``,
 import collections
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -4254,13 +4276,13 @@ def multi_fast_pitch_phase(torch, model, config, tokens, table):
     return res
 
 
-def write_multi_train_data(cfg, table):
-    """``write_train_data`` with speakers: item i speaks as speaker i %
-    MULTI_SPEAKERS (its embedding the table's row), each speaker's mean
-    embedding, and about a third of the tokens unvoiced (pitch 0, the
-    pitch condition's class 1)."""
+def write_multi_train_data(cfg, table, **items):
+    """``write_train_data`` (of ``items``) with speakers: item i speaks as
+    speaker i % len(table) (its embedding the table's row), each
+    speaker's mean embedding, and about a third of the tokens unvoiced
+    (pitch 0, the pitch condition's class 1)."""
     from forwardtacotron_torch.utils.files import pickle_binary
-    paths = write_train_data(cfg)
+    paths = write_train_data(cfg, **items)
     rs = np.random.RandomState(SEED + 23)
     names = [f'speaker{i}' for i in range(len(table))]
     speakers = {}
@@ -4464,9 +4486,10 @@ def multispeaker_phases(torch, config, tokens) -> dict:
 # rows 1-2 at the GTA export's batch and at the encoder's tokens
 TEACHER_BATCH, TEACHER_FRAMES, TEACHER_TOKENS = 8, 1000, 180
 # train steps: (r, batch) as the schedule's first and last sessions; timed
-# steps of each after the counted and the profiled one
+# steps of each after the counted one (and, with --teacher, the profiled
+# one)
 TEACHER_TRAIN = ((5, 32), (1, 8))
-TEACHER_TIMED_STEPS = {5: 2, 1: 1}
+TEACHER_TIMED_STEPS = {5: 1, 1: 1}
 # card vs CPU: the shortest items at r = 5
 TEACHER_CHECK_BATCH, TEACHER_CHECK_R = 4, 5
 TEACHER_GEN_STEPS = 2000
@@ -4669,12 +4692,12 @@ def teacher_train_config(config, root, precision, schedule):
     return cfg
 
 
-def teacher_train_phase(torch, config, root, profiled_rs) -> dict:
+def teacher_train_phase(torch, config, root, profiled) -> dict:
     """f32 and bf16 train steps at r = 5 (batch 32) and r = 1 (batch 8) on
     the synthetic items of ``write_train_data``, one repeated batch each:
     no kernel launches, the profiler's device busy and the idle share for
-    each r of ``profiled_rs`` (a profiled step of 10^5 device events takes
-    20-60 s), steps/s over TEACHER_TIMED_STEPS synchronized steps, a falling
+    each (precision, r) of ``profiled`` (a profiled step of 10^5 device
+    events takes 20-60 s), steps/s over TEACHER_TIMED_STEPS synchronized steps, a falling
     loss, a finite gradient for every parameter (at r = 5); then one step
     of each
     dtype on the card against the CPU path (dropout and zoneout off):
@@ -4725,7 +4748,7 @@ def teacher_train_phase(torch, config, root, profiled_rs) -> dict:
             launches = read_counts()
             expect_counts(label, launches)
             busy_ms = profile_s = None
-            if r in profiled_rs:
+            if (precision, r) in profiled:
                 # device events only: a step is 10^5 of them
                 t0 = time.perf_counter()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4873,10 +4896,11 @@ def teacher_cli_phase(torch, config, root) -> dict:
     return out
 
 
-def teacher_phases(torch, config, tokens, profiled_rs=(5,)) -> dict:
+def teacher_phases(torch, config, tokens,
+                   profiled=()) -> dict:
     """Every teacher phase, each one's seconds beside it: rows 1-2 at its
     shapes, the eval forward card vs CPU, ``generate``, the train steps
-    (the profiler at the reduction factors ``profiled_rs``) and the
+    (the profiler at the (precision, r) pairs of ``profiled``) and the
     CLI."""
     from forwardtacotron_torch.utils.files import read_config
     t_all = time.perf_counter()
@@ -4905,7 +4929,7 @@ def teacher_phases(torch, config, tokens, profiled_rs=(5,)) -> dict:
     timed('generate', lambda: teacher_generate_phase(torch, model, tokens))
     with tempfile.TemporaryDirectory(prefix='chip_smoke_teacher_') as tmp:
         timed('training', lambda: teacher_train_phase(
-            torch, config, Path(tmp), profiled_rs))
+            torch, config, Path(tmp), profiled))
         timed('cli', lambda: teacher_cli_phase(torch, config, Path(tmp)))
     out['phases_s'] = time.perf_counter() - t_all
     log('teacher phases: ' + ', '.join(
@@ -5648,6 +5672,600 @@ def data_parallel_phase(torch, model, config, tokens, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------ entry points
+#
+# phase 20: the remaining utils and entry points. The GTA
+# export runs on items of the training phase's kind (80-160 tokens, 2-9
+# frames each), cut to ENTRY_ITEMS of which ENTRY_VAL_ITEMS validate: 3
+# batches (8, 8, 4)
+ENTRY_ITEMS, ENTRY_VAL_ITEMS = 20, 4
+GTA_BATCH = 8
+# the plots (each of the first validation item): timed on items of the
+# training phase's kind, what a trainer plots every plot_every steps, and
+# held against the CPU on items of PLOT_TOKENS phonemes (the CPU reference
+# of the three trainers at the training phase's lengths takes ~40 s);
+# PLOT_SPEAKERS speakers for MultiForwardTrainer, the teacher at its
+# schedule's first r; PLOT_STEPS bf16 steps at PLOT_BATCH with a plot
+# after each against the same steps without, on the short items
+PLOT_ITEMS, PLOT_VAL_ITEMS, PLOT_TOKENS = 16, 4, (12, 24)
+PLOT_SPEAKERS = 3
+PLOT_STEPS, PLOT_BATCH = 2, 8
+# the sentence of the checkpoint and Synthesizer checks (pre-phonemized)
+ENTRY_TEXT = 'ðə kwɪk bɹaʊn fɑks dʒʌmps oʊvɚ ðə leɪzi dɑɡ.'
+# what the trace of one float32 request must name: an annotate span and
+# the kernels of rows 1, 2 and 8
+TRACE_SPAN = 'chip_smoke_request'
+TRACE_KERNELS = ('highway_kernel', 'cbhg_front_kernel', LR_KERNEL)
+
+
+def entry_config(config, root, family=None):
+    """``config`` (or configs/multispeaker.yaml's ``family``) at full width
+    with its data and checkpoints under ``root``, bf16 training at
+    PLOT_BATCH, one schedule row of PLOT_STEPS steps, no plots or
+    checkpoints between epochs."""
+    from forwardtacotron_torch.utils.files import read_config
+    if family is not None:
+        config = multi_config(
+            read_config(REPO / 'configs' / 'multispeaker.yaml'), family)
+    cfg = train_config(config, root, 'bfloat16', PLOT_STEPS)
+    section = cfg[cfg.get('tts_model', 'forward_tacotron')]['training']
+    section.update(plot_every=10 ** 9,
+                   schedule=[f'{TRAIN_LR}, {PLOT_STEPS}, {PLOT_BATCH}'])
+    return cfg
+
+
+def gta_export_phase(torch, config, root) -> dict:
+    """(a) ``train_forward --force_gta`` from a port checkpoint: one
+    (n_mels, mel_len) file per item; in this process ``export_gta``'s
+    launches (2 ``pre_highway_stack``, 1 ``cbhg_front``, 1 ``lr`` a batch,
+    nothing else) and time; the first validation batch's files against
+    the CPU plain path."""
+    import yaml
+
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.train_forward import export_gta
+    from forwardtacotron_torch.utils.checkpoints import save_checkpoint
+    from forwardtacotron_torch.utils.files import unpickle_binary
+
+    cfg = entry_config(config, root)
+    paths = write_train_data(cfg, ENTRY_ITEMS, ENTRY_VAL_ITEMS)
+    model = make_model(torch, cfg)
+    save_checkpoint(paths.forward_checkpoints / 'latest_model.pt', model,
+                    cfg, step=0)
+    cfg_path = root / 'gta_config.yaml'
+    cfg_path.write_text(yaml.dump(cfg))
+    out = {}
+    out['cli_s'], _ = run_cli('train_forward --force_gta',
+                              'forwardtacotron_torch.train_forward',
+                              ['--config', str(cfg_path), '--force_gta'])
+    items = dict(unpickle_binary(paths.train_dataset)
+                 + unpickle_binary(paths.val_dataset))
+    n_mels = cfg['dsp']['num_mels']
+    files = {p.stem: np.load(p) for p in paths.gta.glob('*.npy')}
+    bad = [k for k, n in items.items()
+           if k not in files or files[k].shape != (n_mels, n)
+           or not np.isfinite(files[k]).all()]
+    log(f'train_forward --force_gta: {len(files)} files for {len(items)} '
+        f'items{"" if not bad else f"; wrong: {bad}"}')
+    if bad or len(files) != len(items):
+        fail('train_forward --force_gta: a file is missing or wrong')
+
+    n_batches = sum(-(-n // GTA_BATCH) for n in (
+        ENTRY_ITEMS - ENTRY_VAL_ITEMS, ENTRY_VAL_ITEMS))
+    model.cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    written = export_gta(model, paths, cfg, 'cuda')
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts(f'export_gta, {n_batches} batches', counts,
+                  pre_highway_stack=2 * n_batches, cbhg_front=n_batches,
+                  lr=n_batches)
+    if written != len(items):
+        fail(f'export_gta wrote {written} of {len(items)} items')
+    out.update(batches=n_batches, ms_per_batch=sec * 1e3 / n_batches,
+               launches_per_batch={k: v / n_batches
+                                   for k, v in counts.items() if v})
+    log(f'export_gta: {out["ms_per_batch"]:.1f} ms a batch (host clock, '
+        f'synchronized; the first call in this process)')
+
+    filters = cfg['forward_tacotron']['training']['filter']
+    _, val_set = get_forward_dataloaders(paths, GTA_BATCH, **filters)
+    batch = next(iter(val_set))
+    cpu = copy.deepcopy(model).cpu().eval()
+    with torch.inference_mode():
+        ref = cpu({k: torch.as_tensor(v) for k, v in batch.items()
+                   if isinstance(v, np.ndarray)})['mel_post'].numpy()
+    errs = []
+    for j, item_id in enumerate(batch['item_id']):
+        want = ref[j, :int(batch['mel_len'][j])].T
+        errs.append(float(np.abs(files[item_id] - want).max())
+                    / max(1.0, float(np.abs(want).max())))
+    out['cpu_rel_err'] = max(errs)
+    ok = out['cpu_rel_err'] <= E2E_MEL_ATOL
+    log(f'GTA files of a validation batch vs the CPU plain path: max err '
+        f'{out["cpu_rel_err"]:.3e} of the scale (<= {E2E_MEL_ATOL:g}) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('the GTA export disagrees with the CPU plain path')
+    return out
+
+
+def seeded_opt_state(torch, model, cfg_section, step):
+    """A train state of ``model`` at ``step`` whose Adam moments hold one
+    update on seeded gradients (what a checkpoint carries)."""
+    from forwardtacotron_torch.train.state import (create_train_state,
+                                                   make_optimizer)
+    tx = make_optimizer(TRAIN_LR,
+                        cfg_section['training'].get('clip_grad_norm', 1.0))
+    state = create_train_state(model, tx, step=step)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    params = state.params()
+    tx.step(params, {k: torch.randn(p.shape, generator=gen).to(p.device)
+                     for k, p in params.items()}, state.opt_state)
+    return state
+
+
+def same_tree(torch, a, b) -> bool:
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and \
+            a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            same_tree(torch, a[k], b[k]) for k in a)
+    return bool(np.array_equal(a, b))
+
+
+def native_checkpoint_phase(torch, config, root) -> dict:
+    """(b) ForwardTacotron, MultiForwardTacotron and the teacher written as
+    the JAX package's ``.ckpt`` and read back: state and optimizer state
+    bit-equal (the teacher's r from its schedule row); ``gen_forward``'s
+    mel from the ``.ckpt`` equal to the ``.pt``'s; one bf16 train step
+    resumed from a lone ``latest_model.ckpt`` bit-equal to one resumed
+    from ``latest_model.pt``."""
+    from forwardtacotron_torch import gen_forward
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.train.state import state_from_checkpoint
+    from forwardtacotron_torch.utils.checkpoints import (
+        load_checkpoint, restore_checkpoint, save_checkpoint,
+        save_native_checkpoint)
+    from forwardtacotron_torch.utils.files import read_config
+    from forwardtacotron_torch.utils.paths import Paths
+
+    step = 5
+    multi = multi_config(read_config(REPO / 'configs' / 'multispeaker.yaml'),
+                         'multi_forward_tacotron')
+    table = speaker_table(torch, PLOT_SPEAKERS)
+    cases = (('forward_tacotron', config, make_model(torch, config), None),
+             ('multi_forward_tacotron', multi, random_bn_stats(
+                 torch, init_tts_model(multi)),
+              {'speaker_embeddings': {f'speaker{i}': e.numpy()
+                                      for i, e in enumerate(table)}}),
+             ('tacotron', config, teacher_model(torch, config), None))
+    out, states = {}, {}
+    for name, cfg, model, meta in cases:
+        section = cfg['tacotron' if name == 'tacotron' else name]
+        state = seeded_opt_state(torch, model, section, step)
+        with torch.no_grad():
+            model.step.fill_(step)
+            if name == 'tacotron':      # the schedule's row at this step
+                model.decoder.r.fill_(int(
+                    section['training']['schedule'][0].split(',')[0]))
+        path = root / f'{name}.ckpt'
+        t0 = time.perf_counter()
+        save_native_checkpoint(path, model, cfg, step=step,
+                               opt_state=state.opt_state, meta=meta)
+        t1 = time.perf_counter()
+        ckpt = load_checkpoint(path)
+        t2 = time.perf_counter()
+        ok = (same_tree(torch, ckpt['model'], model.state_dict())
+              and same_tree(torch, ckpt['optim'], state.opt_state)
+              and ckpt['config'] == cfg
+              and (meta is None or same_tree(
+                  torch, ckpt['speaker_embeddings'],
+                  meta['speaker_embeddings'])))
+        out[name] = dict(mb=path.stat().st_size / 2 ** 20,
+                         save_s=t1 - t0, load_s=t2 - t1)
+        log(f'{name}: .ckpt of {out[name]["mb"]:.1f} MiB written in '
+            f'{t1 - t0:.2f} s, read in {t2 - t1:.2f} s; state and optimizer '
+            f'state bit-equal: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'{name}: the .ckpt does not read back what was written')
+        states[name] = (model, state)
+
+    # gen_forward from the .pt and from the .ckpt of the same model
+    model, state = states['forward_tacotron']
+    save_checkpoint(root / 'forward_tacotron.pt', model, config, step=step,
+                    opt_state=state.opt_state)
+    mels = {}
+    for suffix in ('pt', 'ckpt'):
+        gen_forward.main(['--checkpoint', str(root / f'forward_tacotron.'
+                                              f'{suffix}'),
+                          '--input_text', ENTRY_TEXT, '--output',
+                          str(root / f'mels_{suffix}'), '--device', 'cuda',
+                          'hifigan'])
+        files = sorted((root / f'mels_{suffix}').glob('*.npy'))
+        mels[suffix] = np.load(files[0]) if len(files) == 1 else None
+    ok = mels['pt'] is not None and mels['ckpt'] is not None and \
+        np.array_equal(mels['pt'], mels['ckpt'])
+    log(f'gen_forward: the .ckpt\'s mel {"equals" if ok else "differs from"} '
+        f'the .pt\'s ({None if mels["pt"] is None else mels["pt"].shape})')
+    if not ok:
+        fail('gen_forward: a .ckpt and a .pt of one model give other mels')
+
+    # one bf16 train step resumed from a lone .ckpt and from the .pt (the
+    # files above, of this model at this step with this optimizer state)
+    cfg = entry_config(config, root / 'resume')
+    paths = write_train_data(cfg, PLOT_ITEMS, PLOT_VAL_ITEMS, PLOT_TOKENS)
+    for kind in ('pt', 'ckpt'):
+        Path(cfg['checkpoint_path'], kind).mkdir(parents=True)
+        os.link(root / f'forward_tacotron.{kind}',
+                Path(cfg['checkpoint_path'], kind, f'latest_model.{kind}'))
+    train_cfg = cfg['forward_tacotron']['training']
+    train_set, _ = get_forward_dataloaders(
+        paths, PLOT_BATCH, bucket_multiple=train_cfg['bucket_multiple'],
+        seed=SEED, **train_cfg['filter'])
+    host = with_targets(next(iter(train_set)))
+    after = {}
+    deterministic = torch.backends.cudnn.deterministic
+    # cuDNN's deterministic algorithms: two runs can be bit-equal at all
+    torch.backends.cudnn.deterministic = True
+    # one model for both: each resume loads every parameter and buffer
+    fresh = init_tts_model(cfg).cuda()
+    for kind in ('pt', 'ckpt'):
+        ckpt = restore_checkpoint(Path(cfg['checkpoint_path'], kind))
+        trainer = ForwardTrainer(Paths.from_config(cfg), None, cfg,
+                                 device='cuda')
+        resumed = state_from_checkpoint(fresh, trainer.tx, ckpt)
+        torch.manual_seed(SEED)
+        trainer.train_step(resumed, trainer.device_batch(host))
+        after[kind] = ({k: v.detach().cpu() for k, v in
+                        fresh.state_dict().items()}, resumed.opt_state,
+                       resumed.step)
+    torch.backends.cudnn.deterministic = deterministic
+    ok = after['pt'][2] == after['ckpt'][2] == step + 1 and all(
+        same_tree(torch, a, b) for a, b in zip(after['pt'][:2],
+                                               after['ckpt'][:2]))
+    log(f'one bf16 train step resumed from latest_model.ckpt vs from '
+        f'latest_model.pt: parameters, statistics and optimizer state '
+        f'bit-equal: {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('a step resumed from the .ckpt differs from one from the .pt')
+    return out
+
+
+def spectral_convergence(torch, dsp, mel, wav) -> float:
+    """||STFT magnitude of wav - the magnitude Griffin-Lim targets|| over
+    the target's norm (float64 on the CPU)."""
+    from forwardtacotron_torch.ops.stft import stft_pair
+    target = dsp._mel_to_stft(torch.exp(torch.as_tensor(
+        mel, dtype=torch.float32, device=dsp.device))).cpu().double()
+    re_, im_ = stft_pair(torch.as_tensor(wav, dtype=torch.float32),
+                         dsp.n_fft, dsp.hop_length, dsp.win_length)
+    mag = torch.sqrt(re_ * re_ + im_ * im_).double()[:target.shape[1]].T
+    return float(torch.linalg.norm(mag - target) / torch.linalg.norm(target))
+
+
+def audio_sources(torch, name, arrays, cpu_trainer) -> dict:
+    """The mel each plot's Griffin-Lim audio was made from, on the CPU:
+    the forward trainers' plotted mels; the teacher's postnet output (its
+    eval forward again, not a plot)."""
+    if name != 'teacher':
+        return {'Ground_Truth_Aligned/audio':
+                arrays['mel']['Ground_Truth_Aligned/generated'],
+                'Generated/audio': arrays['mel']['Generated/mel']}
+    trainer, state, session, _ = cpu_trainer
+    sample = {k: v[:1] if isinstance(v, np.ndarray) else v
+              for k, v in session.val_sample.items()}
+    with torch.no_grad():
+        _, linear, _ = state.model.eval()(trainer.device_batch(sample),
+                                          session.r)
+    mel_len = int(sample['mel_len'][0])
+    return {'Generated/teacher_forced_audio':
+            linear[0, :mel_len].T.float().numpy()}
+
+
+def plot_trainers(torch, config, root, device, models=None):
+    """The three trainers of the plots on ``device``, each with its session
+    of the first schedule row: on seeded weights, or on copies of
+    ``models`` (name -> model)."""
+    from forwardtacotron_torch.data.dataset import (get_forward_dataloaders,
+                                                    get_taco_dataloaders)
+    from forwardtacotron_torch.dsp.dsp import DSP
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.train.common import TTSSession
+    from forwardtacotron_torch.train.forward_trainer import (
+        ForwardTrainer, MultiForwardTrainer)
+    from forwardtacotron_torch.train.state import create_train_state
+    from forwardtacotron_torch.train.taco_trainer import TacoTrainer
+    from forwardtacotron_torch.utils.paths import Paths
+
+    out = {}
+    for name, family in (('forward', None),
+                         ('multi', 'multi_forward_tacotron'),
+                         ('teacher', None)):
+        cfg = entry_config(config, root / name, family)
+        paths = Paths.from_config(cfg)
+        torch.manual_seed(SEED)
+        dsp = DSP.from_config(cfg, device=device)
+        if models is not None:     # the models, or copies on another device
+            model = models[name]
+            if next(model.parameters()).device.type != \
+                    torch.device(device).type:
+                model = copy.deepcopy(model)
+        elif name == 'teacher':
+            model = teacher_model(torch, cfg)
+        else:
+            model = set_frames_per_token(torch, random_bn_stats(
+                torch, init_tts_model(cfg)), FRAMES_PER_TOKEN)
+        model = model.to(device)
+        if name == 'teacher':
+            trainer = TacoTrainer(paths, dsp, cfg, device=device)
+            r = int(cfg['tacotron']['training']['schedule'][0].split(',')[0])
+            train_set, val_set = get_taco_dataloaders(
+                paths, PLOT_BATCH, r=r, **cfg['tacotron']['training'][
+                    'filter'])
+        else:
+            cls = MultiForwardTrainer if family else ForwardTrainer
+            trainer = cls(paths, dsp, cfg, device=device)
+            r = 1
+            train_set, val_set = get_forward_dataloaders(
+                paths, PLOT_BATCH, seed=SEED,
+                **cfg[cfg.get('tts_model', 'forward_tacotron')]['training'][
+                    'filter'])
+        session = TTSSession(1, r, TRAIN_LR, PLOT_STEPS, PLOT_BATCH,
+                             train_set, val_set)
+        out[name] = (trainer, create_train_state(model.train(), trainer.tx),
+                     session, dsp)
+    return out
+
+
+def plots_phase(torch, config, root) -> dict:
+    """(c) The three trainers' ``plot_outputs`` on the card: timed at the
+    training phase's lengths, and against the CPU at PLOT_TOKENS (mels
+    within E2E_MEL_ATOL of the scale, Griffin-Lim's spectral convergence
+    within SC_REL_TOL), exact launches in both, the writer taken; then
+    PLOT_STEPS bf16 ForwardTrainer steps with a plot after each against
+    the same steps without plots, bit-equal."""
+    from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_torch.train.state import create_train_state
+
+    table = speaker_table(torch, PLOT_SPEAKERS)
+    for sub, tokens in (('short', PLOT_TOKENS), ('long', TRAIN_TOKENS)):
+        write_train_data(entry_config(config, root / sub / 'forward'),
+                         PLOT_ITEMS, PLOT_VAL_ITEMS, tokens)
+        write_multi_train_data(
+            entry_config(config, root / sub / 'multi',
+                         'multi_forward_tacotron'),
+            table, n_items=PLOT_ITEMS, n_val=PLOT_VAL_ITEMS, tokens=tokens)
+        write_train_data(entry_config(config, root / sub / 'teacher'),
+                         PLOT_ITEMS, PLOT_VAL_ITEMS, tokens)
+    card = plot_trainers(torch, config, root / 'short', 'cuda')
+    models = {name: run[1].model for name, run in card.items()}
+    cpu = plot_trainers(torch, config, root / 'short', 'cpu', models)
+    timed = plot_trainers(torch, config, root / 'long', 'cuda', models)
+    # plot_outputs' launches: the GTA eval forward and each generation 2
+    # pre_highway_stack, 1 cbhg_front, 1 lr; the teacher's forward 2 and 2;
+    # 32 griffin_lim_iter per Griffin-Lim call
+    want = {'forward': dict(pre_highway_stack=4, cbhg_front=2, lr=2,
+                            griffin_lim_iter=64),
+            'multi': dict(pre_highway_stack=4 + 2 * PLOT_SPEAKERS,
+                          cbhg_front=2 + PLOT_SPEAKERS,
+                          lr=2 + PLOT_SPEAKERS, griffin_lim_iter=64),
+            'teacher': dict(pre_highway_stack=2, cbhg_front=2,
+                            griffin_lim_iter=32)}
+    out = {}
+    for name, (trainer, state, session, dsp) in card.items():
+        # the short plot is also the timed plot's warm-up
+        reset_counts()
+        got = trainer.plot_outputs(state, session)
+        expect_counts(f'{name} plot_outputs at {PLOT_TOKENS} tokens',
+                      read_counts(), **want[name])
+        t_trainer, t_state, t_session, _ = timed[name]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        t_trainer.plot_outputs(t_state, t_session)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        frames = int(t_session.val_sample['mel_len'][0])
+        expect_counts(f'{name} plot_outputs of {frames} frames', counts,
+                      **want[name])
+        c_trainer, c_state, c_session, c_dsp = cpu[name]
+        ref = c_trainer.plot_outputs(c_state, c_session)
+        mel_err, sc = 0.0, {}
+        for kind in ('mel', 'pitch', 'attention'):
+            if sorted(got.get(kind, {})) != sorted(ref.get(kind, {})):
+                fail(f'{name} plots: card and CPU give other {kind} tags')
+            for tag, arr in ref.get(kind, {}).items():
+                if got[kind][tag].shape != arr.shape:
+                    fail(f'{name} plot {tag}: shape {got[kind][tag].shape} '
+                         f'on the card, {arr.shape} on the CPU')
+                mel_err = max(mel_err, float(np.abs(got[kind][tag] - arr).max())
+                              / max(1.0, float(np.abs(arr).max())))
+        for tag, mel in audio_sources(torch, name, ref, cpu[name]).items():
+            sc[tag] = (spectral_convergence(torch, c_dsp, mel,
+                                            got['audio'][tag]),
+                       spectral_convergence(torch, c_dsp, mel,
+                                            ref['audio'][tag]))
+        ok = mel_err <= E2E_MEL_ATOL and sorted(sc) == sorted(
+            ref['audio']) and all(abs(v[0] - v[1]) <= SC_REL_TOL * v[1]
+                                  for v in sc.values()) and all(
+            got['audio'][t].shape == ref['audio'][t].shape
+            and np.isfinite(got['audio'][t]).all() for t in ref['audio'])
+        out[name] = dict(ms=ms, frames=frames,
+                         compared_frames=int(session.val_sample['mel_len'][0]),
+                         mel_rel_err=mel_err,
+                         launches={k: v for k, v in counts.items() if v},
+                         spectral_convergence=sc,
+                         writer=type(trainer.writer).__name__)
+        log(f'{name} plot_outputs: {ms:.1f} ms on the card at {frames} '
+            f'frames; at {out[name]["compared_frames"]} frames, arrays vs '
+            f'the CPU: max err {mel_err:.3e} of the scale; Griffin-Lim '
+            f'spectral convergence (card, CPU) {sc}; writer '
+            f'{out[name]["writer"]} {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'{name} plots disagree with the CPU plain path')
+
+    # PLOT_STEPS bf16 steps with a plot after each vs without plots (the
+    # short items), each run from the same weights and the same batches,
+    # on cuDNN's deterministic algorithms (two runs can be bit-equal at all)
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.train.common import TTSSession
+    trainer, _, _, dsp = card['forward']
+    cfg = trainer.config
+    train_cfg = cfg['forward_tacotron']['training']
+    after = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for plot_every in (10 ** 9, 1):
+        train_cfg['plot_every'] = plot_every
+        model = make_model(torch, cfg).cuda()
+        run = ForwardTrainer(trainer.paths, dsp, cfg, device='cuda')
+        state = create_train_state(model, run.tx)
+        session = TTSSession(1, 1, TRAIN_LR, PLOT_STEPS, PLOT_BATCH,
+                             *get_forward_dataloaders(
+                                 trainer.paths, PLOT_BATCH, seed=SEED,
+                                 **train_cfg['filter']))
+        t0 = time.perf_counter()
+        run.train_session(state, session, seed=SEED)
+        torch.cuda.synchronize()
+        after[plot_every] = ({k: v.detach().cpu() for k, v in
+                              model.state_dict().items()}, state.opt_state,
+                             state.step, time.perf_counter() - t0)
+    torch.backends.cudnn.deterministic = deterministic
+    ok = after[1][2] == after[10 ** 9][2] == PLOT_STEPS and all(
+        same_tree(torch, a, b) for a, b in zip(after[1][:2],
+                                               after[10 ** 9][:2]))
+    out['plot_every_1_s'], out['no_plots_s'] = after[1][3], after[10 ** 9][3]
+    log(f'{PLOT_STEPS} bf16 steps with a plot after each '
+        f'({after[1][3]:.1f} s) vs without ({after[10 ** 9][3]:.1f} s): '
+        f'parameters, statistics and optimizer state bit-equal: '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('plots changed training')
+    return out
+
+
+def profiler_phase(torch, config, root) -> dict:
+    """(d) ``utils.profiler.trace`` around one float32 request in an
+    ``annotate`` span: the trace file must name the span and the kernels
+    of rows 1, 2 and 8 (the run is repeated up to PROFILE_ATTEMPTS times,
+    as the profiler can drop records late in a run);
+    ``device_memory_stats`` gives the three keys, peak >= in use > 0."""
+    from forwardtacotron_torch.models.synthesis import TTSInference
+    from forwardtacotron_torch.text.tokenizer import Tokenizer
+    from forwardtacotron_torch.utils.profiler import (annotate,
+                                                      device_memory_stats,
+                                                      trace)
+
+    inference = TTSInference(make_model(torch, config), device='cuda')
+    tokens = Tokenizer()(ENTRY_TEXT)
+    inference.generate_cropped(tokens)
+    torch.cuda.synchronize()
+    out = {}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        log_dir = root / f'trace{attempt}'
+        with trace(log_dir):
+            with annotate(TRACE_SPAN):
+                inference.generate_cropped(tokens)
+            torch.cuda.synchronize()
+        files = list(log_dir.glob('*.pt.trace.json'))
+        if len(files) != 1:
+            fail(f'profiler trace: {len(files)} trace files in {log_dir}')
+        names = {e.get('name', '') for e in
+                 json.loads(files[0].read_text()).get('traceEvents', [])}
+        missing = [k for k in (TRACE_SPAN,) + TRACE_KERNELS
+                   if not any(k in n for n in names)]
+        out.update(trace_mb=files[0].stat().st_size / 2 ** 20,
+                   attempts=attempt, events=len(names))
+        if not missing:
+            break
+    log(f'profiler trace of one f32 request: {out["trace_mb"]:.2f} MiB, '
+        f'{out["events"]} event names, attempt {out["attempts"]}; missing '
+        f'{missing or "none"}')
+    if missing:
+        fail(f'the profiler trace does not name {missing}')
+    stats = device_memory_stats()
+    out['memory'] = stats
+    ok = stats is not None and sorted(stats) == [
+        'bytes_in_use', 'bytes_limit', 'peak_bytes_in_use'] and \
+        stats['peak_bytes_in_use'] >= stats['bytes_in_use'] > 0 and \
+        device_memory_stats('cpu') is None
+    log(f'device_memory_stats: {stats} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('device_memory_stats')
+    return out
+
+
+def synthesizer_phase(torch, config, root) -> dict:
+    """(e) ``Synthesizer`` on a ``.ckpt`` (written in (b)) on the card: the
+    mel against the CPU's, the Griffin-Lim wav finite and (frames - 1) x
+    hop samples long; again with phase 11's seeded HiFi-GAN v1 checkpoint
+    as ``vocoder_checkpoint``, frames x hop samples."""
+    from forwardtacotron_torch.notebook_utils.synthesize import Synthesizer
+
+    ckpt = str(root / 'forward_tacotron.ckpt')
+    hop = config['dsp']['hop_length']
+    synth = Synthesizer(ckpt, device='cuda')
+    mel = synth.synthesize_mel(ENTRY_TEXT)
+    ref = Synthesizer(ckpt, device='cpu').synthesize_mel(ENTRY_TEXT)
+    err = float(np.abs(mel - ref).max()) / max(1.0, float(np.abs(ref).max()))
+    t0 = time.perf_counter()
+    wav = synth(ENTRY_TEXT)
+    torch.cuda.synchronize()
+    gl_ms = (time.perf_counter() - t0) * 1e3
+    write_hifigan_checkpoint(torch, root / 'g_00000000')
+    neural = Synthesizer(ckpt, vocoder_checkpoint=str(root / 'g_00000000'),
+                         device='cuda')
+    t0 = time.perf_counter()
+    wav_v = neural(ENTRY_TEXT)
+    torch.cuda.synchronize()
+    voc_ms = (time.perf_counter() - t0) * 1e3
+    # HiFi-GAN gives a hop per frame, Griffin-Lim's inverse STFT a hop
+    # per frame after the first
+    n = mel.shape[1] * hop
+    ok = (err <= E2E_MEL_ATOL and mel.shape == ref.shape
+          and wav.shape == (n - hop,) and wav_v.shape == (n,)
+          and np.isfinite(wav).all() and np.isfinite(wav_v).all())
+    out = dict(frames=mel.shape[1], mel_rel_err=err, griffinlim_ms=gl_ms,
+               hifigan_ms=voc_ms)
+    log(f'Synthesizer: {mel.shape[1]} frames, mel vs the CPU max err '
+        f'{err:.3e} of the scale; text -> wav {gl_ms:.1f} ms Griffin-Lim, '
+        f'{voc_ms:.1f} ms HiFi-GAN v1 (f32), {wav.shape[0]} and '
+        f'{wav_v.shape[0]} samples {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('Synthesizer')
+    return out
+
+
+def entry_points_phase(torch, config) -> dict:
+    """Phase 20 (``--entry-points`` alone)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_entry_') as tmp:
+        root = Path(tmp)
+        for name, fn, sub in (
+                ('gta', gta_export_phase, 'gta'),
+                ('checkpoints', native_checkpoint_phase, 'ckpt'),
+                ('plots', plots_phase, 'plots'),
+                ('profiler', profiler_phase, 'profile'),
+                ('synthesizer', synthesizer_phase, 'ckpt')):
+            log(f'({name}):')
+            (root / sub).mkdir(exist_ok=True)
+            t1 = time.perf_counter()
+            out[name] = fn(torch, config, root / sub)
+            out[name]['phase_s'] = time.perf_counter() - t1
+    out['phase_s'] = time.perf_counter() - t0
+    log(f'entry-points phase: {out["phase_s"]:.1f} s')
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -5703,7 +6321,8 @@ def main() -> None:
         return
     if '--teacher' in sys.argv[1:]:
         # the teacher's phases alone, every train step profiled
-        teacher = teacher_phases(torch, config, tokens, profiled_rs=(5, 1))
+        teacher = teacher_phases(torch, config, tokens, profiled=tuple(
+            (p, r) for p in ('float32', 'bfloat16') for r, _ in TEACHER_TRAIN))
         log(f'teacher: {json.dumps(teacher)}')
         log(f'card: {card}')
         return
@@ -5718,6 +6337,12 @@ def main() -> None:
         dp = data_parallel_phase(torch, make_model(torch, config), config,
                                  tokens, card)
         log(f'data parallel: {json.dumps(dp)}')
+        log(f'card: {card}')
+        return
+    if '--entry-points' in sys.argv[1:]:
+        # the utils and entry points' phase alone
+        entry = entry_points_phase(torch, config)
+        log(f'entry points: {json.dumps(entry)}')
         log(f'card: {card}')
         return
     if '--multispeaker' in sys.argv[1:]:
@@ -5861,7 +6486,8 @@ def main() -> None:
            for k in ('dur_pred', 'pitch_pred')}}
     # the teacher (configs/singlespeaker.yaml's tacotron section): rows 1
     # and 2 at its shapes, its eval forward, generate, train steps, CLI;
-    # no profiled step (each costs 20-60 s; --teacher profiles them)
+    # no profiled step (each costs 20-60 s; --teacher profiles both
+    # precisions at both r)
     teacher = teacher_phases(torch, config, tokens)
     for row in ('pre_highway_stack', 'cbhg_front'):
         for name, res in (('f32', results), ('bf16', results16)):
@@ -5891,19 +6517,32 @@ def main() -> None:
                             (results_train, 'gru_bwd', ('gru_bwd',)),
                             (results_train, 'lstm_bwd', ('lstm_bwd',))):
         res[row]['data_parallel'] = dp_launches(dp, modes)
+    # the remaining utils and entry points: the GTA export, the native
+    # checkpoints, the trainers' plots, the profiler, the Synthesizer
+    torch.cuda.empty_cache()
+    entry = entry_points_phase(torch, config)
+    plots = entry['plots']
+    for res, row in ((results, 'pre_highway_stack'), (results, 'cbhg_front'),
+                     (results, 'griffin_lim_iter'), (results_train, 'lr')):
+        new = res[row].setdefault('new_paths', {})
+        if row in entry['gta']['launches_per_batch']:
+            new['gta_export_batch'] = entry['gta']['launches_per_batch'][row]
+        for name in ('forward', 'multi', 'teacher'):
+            if row in plots[name]['launches']:
+                new[f'{name}_plot'] = plots[name]['launches'][row]
     # row 5 at one request beside its serving numbers
     results16['lr_bidir']['request'] = {
         k: request16['lr_bidir'][k]
         for k in ('ms', 'plain_ms', 'bound_ms', 'event_ms', 'device_ms',
                   'graph_ms', 'host_us', 'launches_profiled')}
     # rows 8 and 14 on the paths of FastPitch and the channels-major tail
-    results_train['lr']['new_paths'] = {
+    results_train['lr'].setdefault('new_paths', {}).update({
         'fast_pitch_f32_request': fast_pitch['lr_launches_per_request'],
         'fast_pitch_serving_call': 1,
         'fast_pitch_melgan_routed_group': 1,
         'C256': {k: {m: v[m] for m in ('device_ms', 'event_ms', 'bound_ms',
                                         'plain_ms', 'plan')}
-                 for k, v in fp_lr.items()}}
+                 for k, v in fp_lr.items()}})
     results_voc['mrf']['new_paths'] = {
         'cm_tail_f32_request': voc_request['cm_tail'],
         'cm_tail_bf16_routed': voc_routed['cm_tail']}
@@ -6000,6 +6639,7 @@ def main() -> None:
     log(f'teacher: {json.dumps(teacher)}')
     log(f'pipeline: {json.dumps(pipeline)}')
     log(f'data parallel: {json.dumps(dp)}')
+    log(f'entry points: {json.dumps(entry)}')
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -25,7 +25,8 @@ reference exports mels for an external vocoder (``.mel`` for melgan,
 replica of the model each (``TTSInference(mesh=)``; with ``--device cpu``
 the devices torch counts for the CPU, one).
 
-``--checkpoint`` is a reference-format ``.pt``. Text is cleaned with the
+``--checkpoint`` is a reference-format ``.pt`` or the JAX package's native
+``.ckpt`` (its speaker table in the meta). Text is cleaned with the
 checkpoint's cleaner; without an espeak phonemizer it is treated as
 pre-phonemized.
 """
@@ -41,7 +42,8 @@ import torch
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Generate speech from text')
     parser.add_argument('--checkpoint', required=True,
-                        help='reference-format .pt checkpoint')
+                        help='reference-format .pt or native .ckpt '
+                             'checkpoint')
     parser.add_argument('--input_text', default=None)
     parser.add_argument('--text_file', default='sentences.txt')
     parser.add_argument('--output', default='model_output')

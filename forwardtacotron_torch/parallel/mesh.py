@@ -10,13 +10,16 @@ ranks, and the gradients are summed over the ranks before the clip and
 Adam. Every helper here is the identity when no process group exists or
 its world is 1, so one process runs exactly as before; in a larger world
 they are collectives, and every rank must reach them in the same order
-(the trainers' steps, evaluation and the teacher-forced forward do).
+(the trainers' steps, evaluation and the teacher-forced forward do). Work
+that one rank does alone (rank 0's plots) runs under ``local()``, where
+the helpers are the identity again.
 
 Serving runs one process that holds a replica of the model on each device
 of a "mesh", here a plain list of devices (``make_mesh``), and splits a
 request batch over them (``TTSInference(mesh=)``).
 """
 
+import contextlib
 import datetime
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -73,9 +76,27 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+# how many ``local()`` blocks this process is in
+_local_depth = 0
+
+
+@contextlib.contextmanager
+def local():
+    """The block runs as if this process were alone: ``data_parallel()``
+    is False in it, so the collective helpers are the identity and no
+    rank waits for a collective that only this one reaches."""
+    global _local_depth
+    _local_depth += 1
+    try:
+        yield
+    finally:
+        _local_depth -= 1
+
+
 def data_parallel() -> bool:
-    """True in a process group of more than one rank."""
-    return process_count() > 1
+    """True in a process group of more than one rank, outside
+    ``local()``."""
+    return process_count() > 1 and not _local_depth
 
 
 # --------------------------------------------------------------- serving

@@ -31,14 +31,23 @@ clip (``parallel.mesh``). Every rank takes the same number of steps an
 epoch, the smallest batch count over the ranks, so none waits alone in a
 collective. Evaluation splits each validation batch over the ranks
 (padded to a multiple of them, as the JAX package pads for its devices).
-The logged metrics are global; only rank 0 prints, writes the CSV log and
+The logged metrics are global; only rank 0 prints, writes the log and
 saves checkpoints.
 
-Not ported yet: the plots and audio of ``generate_plots`` (ROADMAP.md
-Queue 1, item 12); the writer is the CSV fallback of the JAX package's
-``make_writer``.
+The log goes through ``make_writer``, at the first write: TensorBoard's
+``SummaryWriter`` when torch can import it, else ``metrics.csv``
+(``CsvWriter``, which drops figures and audio). Every ``plot_every`` steps rank 0 writes the plots of
+the JAX package's ``generate_plots``: ``plot_outputs`` computes their
+arrays (the teacher-forced, ground-truth-aligned mel of the first
+validation item, the free-running generation's mel and pitch, a
+multispeaker model's generations for the configured speakers, Griffin-Lim
+audio of both mels) and lets any error through; ``generate_plots`` hands
+them to the writer and, as the reference does, never stops training for
+an error. A plot leaves training as it was: the model's mode is restored
+and the random number generators are forked around it.
 """
 
+import contextlib
 import sys
 from typing import Any, Dict, Optional, Union
 
@@ -48,8 +57,9 @@ import torch
 from forwardtacotron_torch.data.dataset import (get_forward_dataloaders,
                                                 pad_to)
 from forwardtacotron_torch.models.registry import is_multispeaker
+from forwardtacotron_torch.models.synthesis import TTSInference
 from forwardtacotron_torch.ops.hopper.rnn_train import rnn_mode
-from forwardtacotron_torch.parallel.mesh import (host_max, host_min,
+from forwardtacotron_torch.parallel.mesh import (host_max, host_min, local,
                                                  pad_batch_to_devices,
                                                  process_count,
                                                  process_index, shard_batch,
@@ -64,6 +74,9 @@ from forwardtacotron_torch.train.state import (TrainState, create_train_state,
                                                set_learning_rate)
 from forwardtacotron_torch.utils.checkpoints import save_checkpoint
 from forwardtacotron_torch.utils.device import resolve_device
+from forwardtacotron_torch.utils.display import (ignore_exception,
+                                                 plot_attention, plot_mel,
+                                                 plot_pitch)
 from forwardtacotron_torch.utils.files import parse_schedule, unpickle_binary
 from forwardtacotron_torch.utils.paths import Paths
 
@@ -76,7 +89,7 @@ BATCH_KEYS = ('x', 'mel', 'dur', 'mel_len', 'x_len', 'pitch', 'energy',
 
 class CsvWriter:
     """Scalars appended to ``metrics.csv`` as ``step,tag,value`` lines, by
-    rank 0 alone."""
+    rank 0 alone; figures and audio are dropped."""
 
     def __init__(self, log_dir) -> None:
         self._path = log_dir / 'metrics.csv'
@@ -86,6 +99,77 @@ class CsvWriter:
             return
         with open(self._path, 'a') as f:
             f.write(f'{step},{tag},{float(value)}\n')
+
+    def add_figure(self, *args, **kwargs) -> None:
+        pass
+
+    def add_audio(self, *args, **kwargs) -> None:
+        pass
+
+
+def make_writer(log_dir):
+    """TensorBoard's ``SummaryWriter`` on rank 0 when torch can import it,
+    else the CSV writer (the JAX package's ``make_writer``); other ranks
+    write nothing."""
+    if process_index() == 0:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:     # no tensorboard package
+            pass
+        else:
+            return SummaryWriter(log_dir=str(log_dir))
+    return CsvWriter(log_dir)
+
+
+class LazyWriter:
+    """A trainer's ``writer``: ``make_writer(self.log_dir)`` at its first
+    use, so a trainer that never logs (the GTA export, a step alone)
+    imports no TensorBoard and writes no file."""
+
+    _writer = None
+
+    @property
+    def writer(self):
+        if self._writer is None:
+            self._writer = make_writer(self.log_dir)
+        return self._writer
+
+
+PLOTTERS = {'mel': plot_mel, 'pitch': plot_pitch,
+            'attention': plot_attention}
+
+
+def write_plots(writer, arrays: Dict[str, Dict[str, np.ndarray]], step: int,
+                sample_rate: Optional[int]) -> None:
+    """A trainer's ``plot_outputs`` ({kind: {tag: array}}, kinds 'mel',
+    'pitch', 'attention' and 'audio') as the writer's figures and audio;
+    nothing for the CSV writer, which drops them (so no figure is drawn
+    where matplotlib is missing)."""
+    if isinstance(writer, CsvWriter):
+        return
+    for kind, plot in PLOTTERS.items():
+        for tag, arr in arrays.get(kind, {}).items():
+            writer.add_figure(tag, plot(arr), step)
+    for tag, wav in arrays.get('audio', {}).items():
+        writer.add_audio(tag, torch.tensor(wav)[None, :], step,
+                         sample_rate=sample_rate)
+
+
+@contextlib.contextmanager
+def plotting(model: torch.nn.Module, device: torch.device):
+    """The model in eval mode without autograd for a plot, with the random
+    number generators of the CPU and of ``device`` forked and the model's
+    mode restored after it: training goes on as if no plot were made.
+    Only rank 0 plots, so the block runs ``local()``: its forward issues
+    no collective that the other ranks would have to match."""
+    was_training = model.training
+    with torch.random.fork_rng(
+            devices=[device] if device.type == 'cuda' else []), \
+            torch.no_grad(), local():
+        try:
+            yield model.eval()
+        finally:
+            model.train(was_training)
 
 
 def common_shape(batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -102,7 +186,7 @@ def steps_per_epoch(train_set) -> int:
     return host_min([len(train_set)])[0]
 
 
-class ForwardTrainer:
+class ForwardTrainer(LazyWriter):
 
     def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None) -> None:
@@ -113,7 +197,7 @@ class ForwardTrainer:
         self.model_type = config.get('tts_model', 'forward_tacotron')
         self.train_cfg = config[self.model_type]['training']
         self.multispeaker = is_multispeaker(config)
-        self.writer = CsvWriter(paths.forward_log)
+        self.log_dir = paths.forward_log
         # extra top-level entries of every checkpoint (the speaker table)
         self.checkpoint_meta: Dict[str, Any] = {}
         first_lr = parse_schedule(self.train_cfg['schedule'])[0][0]
@@ -228,6 +312,8 @@ class ForwardTrainer:
 
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(state, f'forward_step{step // 1000}k.pt')
+                if step % self.train_cfg['plot_every'] == 0 and show:
+                    self.generate_plots(state, session)
                 if step >= session.max_step:
                     break
 
@@ -348,6 +434,51 @@ class ForwardTrainer:
 
     # ------------------------------------------------------------- artifacts
 
+    def plot_sample(self, session: TTSSession) -> Dict[str, Any]:
+        """The first item of the session's first validation batch."""
+        sample = {k: v[:1] if isinstance(v, np.ndarray) else v
+                  for k, v in session.val_sample.items()}
+        sample['pitch_target'] = sample['pitch']
+        sample['energy_target'] = sample['energy']
+        return sample
+
+    def plot_outputs(self, state: TrainState, session: TTSSession
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+        """The arrays of the JAX package's ``generate_plots`` at this step,
+        {kind: {tag: array}}: the ground-truth-aligned (teacher-forced,
+        eval mode) mel of the first validation item beside its target,
+        the free-running ``generate_cropped`` mel and pitch of its tokens
+        (padding included, as the JAX package passes them) in float32,
+        and Griffin-Lim audio of both mels when the trainer has a DSP.
+        Errors go through."""
+        sample = self.plot_sample(session)
+        mel_len = int(sample['mel_len'][0])
+        with plotting(state.model, self.device) as model:
+            out = model(self.device_batch(sample))
+            gta = out['mel_post'][0, :mel_len].T.float().cpu().numpy()
+            kwargs = {}
+            if self.multispeaker:
+                kwargs['speaker_emb'] = sample['speaker_emb'][:1]
+            gen = TTSInference(model, device=self.device).generate_cropped(
+                sample['x'][0], **kwargs)
+            arrays = {'mel': {'Ground_Truth_Aligned/generated': gta,
+                              'Ground_Truth_Aligned/target':
+                                  np.asarray(sample['mel'])[0, :mel_len].T,
+                              'Generated/mel': gen['mel_post']},
+                      'pitch': {'Generated/pitch': gen['pitch']}}
+            if self.dsp is not None:
+                arrays['audio'] = {
+                    'Ground_Truth_Aligned/audio': self.dsp.griffinlim(gta),
+                    'Generated/audio': self.dsp.griffinlim(gen['mel_post'])}
+        return arrays
+
+    @ignore_exception
+    def generate_plots(self, state: TrainState, session: TTSSession) -> None:
+        """``plot_outputs`` to the writer; an error is printed and
+        training goes on (reference utils/decorators.py:6-15)."""
+        write_plots(self.writer, self.plot_outputs(state, session),
+                    state.step, getattr(self.dsp, 'sample_rate', None))
+
     def _save(self, state: TrainState, name: str) -> None:
         if process_index() != 0:
             return
@@ -363,8 +494,10 @@ class MultiForwardTrainer(ForwardTrainer):
     speaker table and each speaker's mean embedding
     (``mean_speaker_emb/<speaker>.npy``) and writes them into every
     checkpoint as its top-level ``speaker_embeddings``, where
-    ``gen_forward --speaker`` finds them. It has no ``generate_plots``:
-    the plots come with ROADMAP.md Queue 1, item 12."""
+    ``gen_forward --speaker`` finds them. Its plots add a generation of the
+    first validation item's tokens in the voice of each speaker of
+    ``plot_speakers`` (reference trainer/multi_forward_trainer.py:
+    217-243)."""
 
     def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None) -> None:
@@ -379,3 +512,33 @@ class MultiForwardTrainer(ForwardTrainer):
             if emb_path.is_file():
                 embeddings[speaker] = np.load(str(emb_path))
         self.checkpoint_meta = {'speaker_embeddings': embeddings}
+
+    def plot_speakers(self) -> list:
+        """The speakers of the plots, as the JAX package picks them: the
+        training section's ``plot_speakers`` that the table holds, then
+        the table's others while its stopping test lets them in (it
+        compares the list with itself, so with ``plot_n_speakers`` > 0
+        every speaker of the table)."""
+        embeddings = self.checkpoint_meta.get('speaker_embeddings', {})
+        wanted = list(self.train_cfg.get('plot_speakers', []))
+        n_extra = int(self.train_cfg.get('plot_n_speakers', 0))
+        for speaker in embeddings:
+            if len(wanted) >= len(set(wanted)) + n_extra:
+                break
+            if speaker not in wanted:
+                wanted.append(speaker)
+        return [s for s in wanted if s in embeddings]
+
+    def plot_outputs(self, state: TrainState, session: TTSSession
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+        arrays = super().plot_outputs(state, session)
+        embeddings = self.checkpoint_meta.get('speaker_embeddings', {})
+        x = self.plot_sample(session)['x'][0]
+        with plotting(state.model, self.device) as model:
+            inference = TTSInference(model, device=self.device)
+            for speaker in self.plot_speakers():
+                arrays['mel'][f'Generated_Speakers/{speaker}'] = \
+                    inference.generate_cropped(
+                        x, speaker_emb=np.asarray(embeddings[speaker]))[
+                            'mel_post']
+        return arrays

@@ -20,16 +20,18 @@ trainer's device seeded with ``seed`` + the session's first step; the
 CBHGs' dropout from torch's default generator, seeded the same. The
 attention's location and sharpness scores (``utils.metrics``) are written
 with the losses, read with a one-step lag so that the host reads step
-N-1's while step N runs.
-
-Not ported yet: the plots and audio of ``generate_plots`` (ROADMAP.md
-Queue 1, item 12); the writer is the CSV fallback of the JAX package's
-``make_writer``.
+N-1's while step N runs. The log goes through ``make_writer`` at the
+first write (TensorBoard, else ``metrics.csv``); every ``plot_every`` steps (default
+1000) rank 0 writes the plots of the JAX package's ``generate_plots``
+(``plot_outputs``: the teacher-forced eval forward of the first validation
+item at the session's r, its attention, mel and target, Griffin-Lim audio
+of its postnet output), as ``ForwardTrainer`` does.
 """
 
 import sys
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from forwardtacotron_torch.data.dataset import get_taco_dataloaders
@@ -41,14 +43,17 @@ from forwardtacotron_torch.parallel.mesh import (global_mean, host_sum,
                                                  process_index, shard_batch,
                                                  sum_gradients, sum_metrics)
 from forwardtacotron_torch.train.forward_trainer import (RANK_SEED_STRIDE,
-                                                         CsvWriter,
+                                                         LazyWriter,
                                                          common_shape,
-                                                         steps_per_epoch)
+                                                         plotting,
+                                                         steps_per_epoch,
+                                                         write_plots)
 from forwardtacotron_torch.train.state import (TrainState, create_train_state,
                                                make_optimizer,
                                                set_learning_rate)
 from forwardtacotron_torch.utils.checkpoints import save_checkpoint
 from forwardtacotron_torch.utils.device import resolve_device
+from forwardtacotron_torch.utils.display import ignore_exception
 from forwardtacotron_torch.utils.files import parse_schedule
 from forwardtacotron_torch.utils.metrics import attention_score
 from forwardtacotron_torch.utils.paths import Paths
@@ -66,7 +71,7 @@ def l1_losses(mel_out: torch.Tensor, linear: torch.Tensor,
             global_mean(torch.abs(linear - target)))
 
 
-class TacoTrainer:
+class TacoTrainer(LazyWriter):
 
     def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None) -> None:
@@ -77,7 +82,7 @@ class TacoTrainer:
         self.train_cfg = config['tacotron']['training']
         self.mixed_precision = \
             self.train_cfg.get('precision', 'float32') == 'bfloat16'
-        self.writer = CsvWriter(paths.taco_log)
+        self.log_dir = paths.taco_log
         first_lr = parse_schedule(self.train_cfg['schedule'])[0][1]
         self.tx = make_optimizer(first_lr,
                                  self.train_cfg.get('clip_grad_norm', 1.0))
@@ -175,6 +180,9 @@ class TacoTrainer:
                 pending = (step, metrics, attn, batch['mel_len'], e, i)
                 timer.tick()
 
+                if step % self.train_cfg.get('plot_every', 1000) == 0 \
+                        and show:
+                    self.generate_plots(state, session)
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(state, f'taco_step{step // 1000}k.pt')
                 if step >= session.max_step:
@@ -258,6 +266,37 @@ class TacoTrainer:
         return total / max(n, 1)
 
     # ------------------------------------------------------------- artifacts
+
+    def plot_outputs(self, state: TrainState, session: TTSSession
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+        """The arrays of the JAX package's ``generate_plots`` at this step,
+        {kind: {tag: array}}: the teacher-forced eval forward of the first
+        validation item at the session's r, its attention [mel_len // r,
+        N], mel and target [n_mels, mel_len], and Griffin-Lim audio of its
+        postnet output when the trainer has a DSP. Errors go through."""
+        sample = {k: v[:1] if isinstance(v, np.ndarray) else v
+                  for k, v in session.val_sample.items()}
+        mel_len = int(sample['mel_len'][0])
+        with plotting(state.model, self.device) as model:
+            mel_out, linear, attn = (
+                a[0].float().cpu().numpy()
+                for a in model(self.device_batch(sample), session.r))
+            arrays = {'attention': {'Attention/teacher_forced':
+                                    attn[:mel_len // session.r]},
+                      'mel': {'Mel/teacher_forced': mel_out[:mel_len].T,
+                              'Mel/target':
+                                  np.asarray(sample['mel'])[0, :mel_len].T}}
+            if self.dsp is not None:
+                arrays['audio'] = {'Generated/teacher_forced_audio':
+                                   self.dsp.griffinlim(linear[:mel_len].T)}
+        return arrays
+
+    @ignore_exception
+    def generate_plots(self, state: TrainState, session: TTSSession) -> None:
+        """``plot_outputs`` to the writer; an error is printed and
+        training goes on."""
+        write_plots(self.writer, self.plot_outputs(state, session),
+                    state.step, getattr(self.dsp, 'sample_rate', None))
 
     def _save(self, state: TrainState, name: str) -> None:
         if process_index() != 0:

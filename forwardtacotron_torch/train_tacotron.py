@@ -17,8 +17,10 @@ ranks stop; the extraction modes (``--force_align``, ``--extract_pitch``,
 ``--force_gta``) train nothing and are refused there.
 
 It resumes from ``latest_model.pt`` in the config's teacher checkpoint
-directory when one is there (weights, BatchNorm statistics, optimizer state
-and step), else starts from seeded random weights. Modes:
+directory, or from the JAX package's ``latest_model.ckpt`` when only that
+is there (weights, BatchNorm statistics, optimizer state and step; r from
+the schedule row at that step), else starts from seeded random weights.
+The trainer's plots get Griffin-Lim audio from the config's DSP. Modes:
 
 - default: run the config's ``tacotron`` schedule (reference-format ``.pt``
   checkpoints), then extract as ``--force_align`` does;
@@ -80,6 +82,7 @@ def main(argv=None):
 
     import torch
 
+    from forwardtacotron_torch.dsp.dsp import DSP
     from forwardtacotron_torch.models.tacotron import Tacotron
     from forwardtacotron_torch.parallel.mesh import (initialize_distributed,
                                                      process_count,
@@ -102,8 +105,9 @@ def main(argv=None):
     paths = Paths.from_config(config)
     torch.manual_seed(args.seed)
     model = Tacotron.from_config(config)
-    trainer = TacoTrainer(paths, None, config,
-                          device=rank_device(args.device))
+    device = rank_device(args.device)
+    trainer = TacoTrainer(paths, DSP.from_config(config, device=device),
+                          config, device=device)
     model.to(trainer.device)
     ckpt = restore_checkpoint(paths.taco_checkpoints)
     if ckpt is not None:

@@ -1,9 +1,10 @@
 """Weights and BatchNorm statistics between the two packages' layouts, both
-ways: ``from_jax_variables`` (JAX variables -> PyTorch state_dict, the
-inverse of the JAX package's ``convert_state_dict``,
-forwardtacotron_tpu/utils/convert.py) and ``to_jax_variables`` (its
-inverse), for the modules the port has, so that a train step can start from
-the same variables in both packages.
+ways: ``from_jax_variables`` (JAX variables -> PyTorch state_dict) and
+``convert_state_dict`` (its inverse, the port's copy of the JAX package's
+forwardtacotron_tpu/utils/convert.py, with ``validate_against``), for the
+modules the port has: a train step starts from the same variables in both
+packages, and the port reads and writes the JAX package's ``.ckpt``
+(``utils.checkpoints``).
 
   flax                                 torch
   ----                                 -----
@@ -36,7 +37,7 @@ the port's ``HiFiGANGenerator`` (models/vocoder.py).
 """
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -44,10 +45,6 @@ import torch
 _RNN = {'wi': 'weight_ih', 'wh': 'weight_hh', 'bi': 'bias_ih',
         'bh': 'bias_hh'}
 _LIST_ITEM = re.compile(r'^(.*)_(\d+)$')
-_RNN_LEAF = re.compile(
-    r'^(weight_ih|weight_hh|bias_ih|bias_hh)(_l0(_reverse)?)?$')
-# buffers of the port's modules that the JAX variables do not hold
-_NO_JAX = ('step', 'num_batches_tracked', 'pe', 'r', 'stop_threshold')
 _QKV = ('q_proj', 'k_proj', 'v_proj')
 _IN_PROJ = {'kernel': 'in_proj_weight', 'bias': 'in_proj_bias'}
 
@@ -123,51 +120,157 @@ def _set_path(tree: Dict[str, Any], path, value) -> None:
 def to_jax_variables(state_dict: Dict[str, torch.Tensor]
                      ) -> Dict[str, Dict[str, Any]]:
     """The port's state_dict -> {'params': ..., 'batch_stats': ...} as
-    nested dicts of float32 numpy arrays (the buffers of ``_NO_JAX`` have
-    no JAX counterpart)."""
-    variables: Dict[str, Dict[str, Any]] = {'params': {}, 'batch_stats': {}}
-    inverse = {v: k for k, v in _RNN.items()}
-    for key, tensor in state_dict.items():
-        parts = []
-        for p in key.split('.'):
-            if p.isdigit():
-                parts[-1] += f'_{p}'
-            else:
-                parts.append(p)
-        *mods, leaf = parts
-        if leaf in _NO_JAX:
-            continue
-        arr = tensor.detach().cpu().float().numpy()
-        rnn = _RNN_LEAF.match(leaf)
-        in_proj = {v: k for k, v in _IN_PROJ.items()}.get(leaf)
-        if in_proj:
-            for name, part in zip(_QKV, np.split(arr, 3)):
-                _set_path(variables['params'], mods + [name, in_proj],
-                          part.T if in_proj == 'kernel' else part)
-        elif rnn:
-            name = inverse[rnn.group(1)]
-            if rnn.group(2) is None:      # a single cell
-                path = mods + [name]
-            else:
-                path = mods + ['bwd' if rnn.group(3) else 'fwd', name]
-            _set_path(variables['params'], path,
-                      arr.T if name in ('wi', 'wh') else arr)
-        elif leaf in ('running_mean', 'running_var'):
-            _set_path(variables['batch_stats'], mods + [leaf[len('running_'):]],
-                      arr)
-        elif leaf == 'scale' or (leaf == 'weight' and arr.ndim == 1):
-            # BatchNorm / LayerNorm gains, the positional encoding's scale
-            _set_path(variables['params'], mods + ['scale'], arr)
-        elif leaf == 'weight' and mods[-1].endswith('embedding'):
-            _set_path(variables['params'], mods + ['embedding'], arr)
-        elif leaf == 'weight':
-            _set_path(variables['params'], mods + ['kernel'],
-                      arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T)
-        elif leaf == 'bias':
-            _set_path(variables['params'], mods + ['bias'], arr)
-        else:
-            raise ValueError(f'Unrecognized state_dict entry: {key}')
+    nested dicts of float32 numpy arrays (``convert_state_dict`` without
+    the buffers that have no JAX counterpart)."""
+    variables, _ = convert_state_dict(
+        {k: v.detach().cpu().float() if v.is_floating_point() else v
+         for k, v in state_dict.items()})
+    variables.setdefault('batch_stats', {})
     return variables
+
+
+# ------------------------------------------- the JAX package's converter
+#
+# A copy of forwardtacotron_tpu/utils/convert.py:35-169 (the torch -> flax
+# direction and its tree check), on numpy.
+
+RNN_SEQ_KEYS = {'weight_ih': 'wi', 'weight_hh': 'wh',
+                'bias_ih': 'bi', 'bias_hh': 'bh'}
+
+
+def _merge_digit_parts(parts: List[str]) -> List[str]:
+    merged = []
+    for p in parts:
+        if p.isdigit() and merged:
+            merged[-1] = f'{merged[-1]}_{p}'
+        else:
+            merged.append(p)
+    return merged
+
+
+def convert_state_dict(state_dict: Dict[str, Any]
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A (reference or port) state_dict -> ({'params': ...,
+    'batch_stats': ...}, aux buffers): the JAX variable tree, with the
+    ``step``, ``r`` and ``stop_threshold`` buffers in the aux dict by their
+    state_dict keys (``num_batches_tracked`` and ``pe`` are dropped)."""
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    aux: Dict[str, np.ndarray] = {}
+
+    for key, tensor in state_dict.items():
+        arr = np.asarray(tensor.detach().cpu().numpy()
+                         if hasattr(tensor, 'detach') else tensor)
+        parts = _merge_digit_parts(key.split('.'))
+        leaf = parts[-1]
+        prefix = parts[:-1]
+
+        if leaf in ('num_batches_tracked', 'pe'):
+            continue
+        if leaf in ('step', 'r', 'stop_threshold'):
+            aux[key] = arr
+            continue
+
+        # sequence RNN: weight_ih_l0, bias_hh_l0_reverse, ...
+        handled = False
+        for torch_name, flax_name in RNN_SEQ_KEYS.items():
+            if leaf.startswith(torch_name + '_l'):
+                direction = 'bwd' if leaf.endswith('_reverse') else 'fwd'
+                val = arr.T if flax_name in ('wi', 'wh') else arr
+                _set_path(params, prefix + [direction, flax_name], val)
+                handled = True
+                break
+            if leaf == torch_name:  # GRUCell / LSTMCell (no _l0 suffix)
+                val = arr.T if flax_name in ('wi', 'wh') else arr
+                _set_path(params, prefix + [flax_name], val)
+                handled = True
+                break
+        if handled:
+            continue
+
+        if leaf == 'in_proj_weight':
+            q, k, v = np.split(arr, 3, axis=0)
+            for name, w in (('q_proj', q), ('k_proj', k), ('v_proj', v)):
+                _set_path(params, prefix + [name, 'kernel'], w.T)
+            continue
+        if leaf == 'in_proj_bias':
+            q, k, v = np.split(arr, 3, axis=0)
+            for name, b in (('q_proj', q), ('k_proj', k), ('v_proj', v)):
+                _set_path(params, prefix + [name, 'bias'], b)
+            continue
+
+        if leaf == 'running_mean':
+            _set_path(batch_stats, prefix + ['mean'], arr)
+            continue
+        if leaf == 'running_var':
+            _set_path(batch_stats, prefix + ['var'], arr)
+            continue
+
+        if leaf == 'weight':
+            if arr.ndim == 3:        # Conv1d [O, I, K] -> [K, I, O]
+                _set_path(params, prefix + ['kernel'], arr.transpose(2, 1, 0))
+            elif arr.ndim == 2:
+                if prefix and prefix[-1].endswith('embedding'):
+                    _set_path(params, prefix + ['embedding'], arr)
+                else:                # Linear [O, I] -> [I, O]
+                    _set_path(params, prefix + ['kernel'], arr.T)
+            else:                    # BatchNorm / LayerNorm gain
+                _set_path(params, prefix + ['scale'], arr)
+            continue
+        if leaf == 'bias':
+            _set_path(params, prefix + ['bias'], arr)
+            continue
+        if leaf == 'scale':          # PositionalEncoding learned scale
+            _set_path(params, prefix + ['scale'], arr)
+            continue
+
+        raise ValueError(f'Unrecognized state_dict key: {key} '
+                         f'(shape {arr.shape})')
+
+    variables: Dict[str, Any] = {'params': params}
+    if batch_stats:
+        variables['batch_stats'] = batch_stats
+    return variables, aux
+
+
+def _tree_paths(tree: Dict, prefix=()) -> Dict[tuple, tuple]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tree_paths(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = tuple(np.shape(v))
+    return out
+
+
+def validate_against(variables: Dict[str, Any],
+                     reference_variables: Dict[str, Any]) -> None:
+    """Raise with a readable diff if a converted tree does not match a
+    reference tree (a fresh JAX ``model.init``'s) in structure and
+    shapes."""
+    for col in reference_variables:
+        got = _tree_paths(variables.get(col, {}))
+        want = _tree_paths(_to_plain_dict(reference_variables[col]))
+        missing = sorted(set(want) - set(got))
+        unexpected = sorted(set(got) - set(want))
+        mismatched = sorted(p for p in set(got) & set(want)
+                            if got[p] != want[p])
+        if missing or unexpected or mismatched:
+            msg = [f'Converted tree mismatch in collection {col!r}:']
+            for p in missing[:20]:
+                msg.append(f'  missing:    {"/".join(p)} {want[p]}')
+            for p in unexpected[:20]:
+                msg.append(f'  unexpected: {"/".join(p)} {got[p]}')
+            for p in mismatched[:20]:
+                msg.append(f'  shape:      {"/".join(p)} got {got[p]} '
+                           f'want {want[p]}')
+            raise ValueError('\n'.join(msg))
+
+
+def _to_plain_dict(tree) -> Dict:
+    if hasattr(tree, 'items'):
+        return {k: _to_plain_dict(v) for k, v in tree.items()}
+    return tree
 
 
 def hifigan_from_jax_params(params: Dict[str, Any]

@@ -1,5 +1,6 @@
 """File helpers: globbing, YAML configs, pickles and schedule parsing (the
-port's copy of forwardtacotron_tpu/utils/files.py)."""
+port's copy of forwardtacotron_tpu/utils/files.py; reference
+utils/files.py)."""
 
 import pickle
 from pathlib import Path
@@ -17,6 +18,11 @@ def get_files(path: Union[str, Path], extension: str = '.wav') -> List[Path]:
 def read_config(path: Union[str, Path]) -> Dict[str, Any]:
     with open(str(path), 'r', encoding='utf-8') as f:
         return yaml.load(f, Loader=yaml.FullLoader)
+
+
+def save_config(config: Dict[str, Any], path: Union[str, Path]) -> None:
+    with open(str(path), 'w+', encoding='utf-8') as f:
+        yaml.dump(config, f, default_flow_style=False)
 
 
 def pickle_binary(data: Any, file: Union[str, Path]) -> None:

@@ -2146,7 +2146,7 @@ def test_data_parallel_two_gloo_ranks_on_one_card(dev, tmp_path):
     for res in ranks:
         assert res['launches']['lstm_train'] == 1
         assert res['launches']['gru_bwd'] > 0 and res['launches']['lstm_bwd']
-    (want,), state, _ = train_steps(job, global_batch, 'cuda:0')
+    (want,), state, _, _ = train_steps(job, global_batch, 'cuda:0')
     got = ranks[0]['metrics']
     for key in ('loss', 'grad_norm'):
         assert abs(got[key] - want[key]) <= 5e-2 * abs(want[key]), key
@@ -2181,3 +2181,101 @@ def test_data_parallel_kernel_keeps_callers_device(dev):
     _close([got_rnn.float()], [rnn.gru_xp_plain(xp2, wh, bh).float()],
            BF16_TOL)
     _close([got_hw], [highway.pre_highway_stack_plain(*args)])
+
+
+def _entry_setup(tmp_path):
+    """The narrow ForwardTacotron of tests/torch_training_setup.py with
+    seeded weights (dropout and pitch zoneout on) and its synthetic
+    dataset: 6 training and 2 validation items."""
+    from torch_training_setup import narrow_config, write_dataset
+
+    from forwardtacotron_torch.models.registry import init_tts_model
+
+    config = narrow_config('float32', tmp_path)
+    section = config['forward_tacotron']
+    section['training']['filter']['filter_duration_stats'] = False
+    section['training']['pitch_zoneout'] = 0.2
+    for key in section['model']:
+        if key.endswith('_dropout'):
+            section['model'][key] = 0.3
+    paths = write_dataset(config)
+    torch.manual_seed(0)
+    return config, paths, init_tts_model(config)
+
+
+def test_export_gta_launches_on_card(dev, tmp_path):
+    """``export_gta`` on the card (one training and one validation batch
+    of 8): per batch a ``pre_highway_stack`` launch for each CBHG, a
+    ``cbhg_front`` launch for each whose front the JAX gate fuses (at
+    these widths both CBHGs'; at full width the postnet's alone) and one
+    ``lr``, nothing else; every file within 1e-4 of the CPU export's
+    scale."""
+    import copy
+
+    import numpy as np
+
+    from forwardtacotron_torch.models.layers import CBHG
+    from forwardtacotron_torch.train_forward import export_gta
+
+    config, paths, model = _entry_setup(tmp_path)
+    cpu_model = copy.deepcopy(model)
+    cbhgs = [m for m in model.modules() if isinstance(m, CBHG)]
+    before = (highway.launches, cbhg.launches, lr.launches,
+              griffin_lim.launches, dict(rnn.launches))
+    assert export_gta(model, paths, config, dev) == 8
+    torch.cuda.synchronize()
+    assert (highway.launches, cbhg.launches, lr.launches,
+            griffin_lim.launches, dict(rnn.launches)) == (
+        before[0] + 2 * sum(m.highways_fusable for m in cbhgs),
+        before[1] + 2 * sum(m.front_fusable for m in cbhgs),
+        before[2] + 2, before[3], before[4])
+    card = {p.stem: np.load(p) for p in paths.gta.glob('*.npy')}
+    export_gta(cpu_model, paths, config, 'cpu')
+    for item_id, got in card.items():
+        want = np.load(paths.gta / f'{item_id}.npy')
+        assert got.shape == want.shape
+        scale = max(1.0, float(np.abs(want).max()))
+        assert float(np.abs(got - want).max()) <= TOL * scale, item_id
+
+
+def test_plots_leave_training_alone_on_card(dev, tmp_path, monkeypatch):
+    """3 steps on the card with a plot after each against 3 without
+    (dropout and zoneout on; cuDNN's deterministic algorithms, so that two
+    runs can be bit-equal at all): parameters, BatchNorm statistics and
+    optimizer state bit-equal; every plot made."""
+    from forwardtacotron_torch.data.dataset import get_forward_dataloaders
+    from forwardtacotron_torch.dsp.dsp import DSP
+    from forwardtacotron_torch.models.registry import init_tts_model
+    from forwardtacotron_torch.train import forward_trainer
+    from forwardtacotron_torch.train.common import TTSSession
+    from forwardtacotron_torch.train.state import create_train_state
+
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    config, paths, _ = _entry_setup(tmp_path)
+    section = config['forward_tacotron']['training']
+    plotted = []
+    real = forward_trainer.write_plots
+    monkeypatch.setattr(forward_trainer, 'write_plots',
+                        lambda *a: plotted.append(a[2]) or real(*a))
+    dsp = DSP.from_config(config, device=dev)
+    runs = {}
+    for plot_every in (10 ** 9, 1):
+        section['plot_every'] = plot_every
+        torch.manual_seed(0)
+        model = init_tts_model(config).to(dev)
+        trainer = forward_trainer.ForwardTrainer(paths, dsp, config,
+                                                 device=dev)
+        state = create_train_state(model, trainer.tx)
+        session = TTSSession(1, 1, 1e-3, 3, 3, *get_forward_dataloaders(
+            paths, 3, seed=0, **section['filter']))
+        trainer.train_session(state, session, seed=0)
+        runs[plot_every] = (state, {k: v.detach().cpu() for k, v in
+                                    model.state_dict().items()})
+    assert plotted == [1, 2, 3]
+    (s0, sd0), (s1, sd1) = runs[10 ** 9], runs[1]
+    assert s0.step == s1.step == 3 and sorted(sd0) == sorted(sd1)
+    for k in sd0:
+        assert torch.equal(sd0[k], sd1[k]), k
+    for name in ('mu', 'nu'):
+        for k, v in s0.opt_state[name].items():
+            assert torch.equal(v, s1.opt_state[name][k]), (name, k)

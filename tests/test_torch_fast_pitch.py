@@ -31,6 +31,8 @@ from forwardtacotron_torch.utils.convert import (from_jax_variables,
                                                  to_jax_variables)
 from forwardtacotron_torch.utils.files import read_config
 
+from torch_training_setup import no_tensorboard  # noqa: F401 (a fixture)
+
 SCHEMA = Path('tests/resources/reference_state_dict_schema.json')
 F32_ATOL, BF16_ATOL = 1e-5, 8e-2
 N_MELS = 16
@@ -577,6 +579,7 @@ def test_gen_forward_fast_pitch_checkpoint(tmp_path, batched):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.usefixtures('no_tensorboard')
 def test_train_forward_refuses_fast_pitch(tmp_path):
     """FastPitch trains on the CPU: ``train_forward`` on a FastPitch config
     reads its ``fast_pitch`` section (the name is kept from the slice

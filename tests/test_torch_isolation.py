@@ -179,3 +179,75 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         train_forward.main(['--config', str(config_path)])
     assert ForwardTrainer(paths, None, config,
                           device='cpu').device.type == 'cpu'
+
+
+_IMPORT_NEW = r'''
+import importlib, sys
+for name in ('forwardtacotron_torch.utils.msgpack',
+             'forwardtacotron_torch.utils.checkpoints',
+             'forwardtacotron_torch.utils.convert',
+             'forwardtacotron_torch.utils.display',
+             'forwardtacotron_torch.utils.profiler',
+             'forwardtacotron_torch.utils.files',
+             'forwardtacotron_torch.notebook_utils.synthesize',
+             'forwardtacotron_torch.train.forward_trainer',
+             'forwardtacotron_torch.train.taco_trainer',
+             'forwardtacotron_torch.train_forward',
+             'forwardtacotron_torch.train_tacotron',
+             'forwardtacotron_torch.gen_forward', 'chip_smoke'):
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'flax', 'msgpack', 'tensorboard', 'matplotlib',
+    'forwardtacotron_tpu') or m.startswith('torch.utils.tensorboard'))
+assert not bad, bad
+'''
+
+
+def test_new_modules_import_no_jax_msgpack_tensorboard_or_matplotlib():
+    """The checkpoint codec, the trainers' writers and plots, the profiler
+    and the Synthesizer import none of these at import time (the card's
+    machine has none of them); they load TensorBoard and matplotlib only
+    where a writer or a figure is made."""
+    proc = subprocess.run([sys.executable, '-c', _IMPORT_NEW], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``Synthesizer``, ``export_gta`` and ``train_forward --force_gta``
+    resolve their device first: without CUDA they raise unless given the
+    CPU."""
+    import numpy as np
+    import yaml
+
+    from forwardtacotron_torch import train_forward
+    from forwardtacotron_torch.models.forward_tacotron import ForwardTacotron
+    from forwardtacotron_torch.notebook_utils.synthesize import Synthesizer
+    from forwardtacotron_torch.train_forward import export_gta
+    from forwardtacotron_torch.utils.files import read_config
+    from forwardtacotron_torch.utils.paths import Paths
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    config = read_config(REPO / 'configs' / 'singlespeaker.yaml')
+    config['data_path'] = str(tmp_path / 'data')
+    config['checkpoint_path'] = str(tmp_path / 'ckpt')
+    paths = Paths.from_config(config)
+    np.save(paths.alg / 'item.npy', np.ones(3, np.float32))
+    config_path = tmp_path / 'config.yaml'
+    config_path.write_text(yaml.dump(config))
+    model = ForwardTacotron(embed_dims=8, series_embed_dims=4,
+                            durpred_conv_dims=8, durpred_rnn_dims=4,
+                            pitch_conv_dims=8, pitch_rnn_dims=4,
+                            energy_conv_dims=8, energy_rnn_dims=4,
+                            rnn_dims=8, prenet_dims=8, prenet_k=2,
+                            postnet_dims=8, postnet_k=2, n_mels=8)
+    for device in (None, 'cuda'):
+        with pytest.raises(RuntimeError, match='No CUDA device'):
+            Synthesizer(str(tmp_path / 'missing.pt'), device=device)
+        with pytest.raises(RuntimeError, match='No CUDA device'):
+            export_gta(model, paths, config, device)
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        train_forward.main(['--config', str(config_path), '--force_gta'])
+    # given the CPU, the Synthesizer goes on to read its checkpoint
+    with pytest.raises(FileNotFoundError):
+        Synthesizer(str(tmp_path / 'missing.pt'), device='cpu')

@@ -32,9 +32,9 @@ from forwardtacotron_torch.train.forward_trainer import (ForwardTrainer,
 from forwardtacotron_torch.train.state import create_train_state
 from forwardtacotron_torch.utils.convert import from_jax_variables
 
-from torch_training_setup import (  # noqa: F401 (jax_kernels: a fixture)
+from torch_training_setup import (  # noqa: F401 (jax_kernels, no_tensorboard: fixtures)
     LOSSES, NARROW_OF, SPEAKERS, family_config, family_models, jax_kernels,
-    make_multi_batch, paths_of, run_jax_step, scaled_close,
+    make_multi_batch, no_tensorboard, paths_of, run_jax_step, scaled_close,
     write_multi_dataset)
 
 
@@ -153,6 +153,7 @@ def test_optimizer_step_matches_jax_trainer(jax_kernels, tmp_path, family,
         assert n_far <= 5e-3 * n_all, (n_far, n_all)
 
 
+@pytest.mark.usefixtures('no_tensorboard')
 @pytest.mark.parametrize('family', ['multi_forward_tacotron',
                                     'multi_fast_pitch'])
 def test_multispeaker_train_forward_runs_resumes_and_serves(tmp_path, family):

@@ -24,7 +24,10 @@ rank fails its test and every rank is killed):
   forwardtacotron_torch.train_forward --device cpu`` on the synthetic data
   set: rank 0 alone writes the checkpoints and the log, with the
   one-process run's names and step, and one process resumes from them;
-  ``train_tacotron``'s extraction modes refuse a world of 2.
+  ``train_tacotron``'s extraction modes refuse a world of 2;
+- rank 0's plots (``plot_every: 1``, ``ForwardTrainer`` and
+  ``MultiForwardTrainer``): 2 steps of 2 ranks with a plot after each end
+  bit-equal to the same 2 steps without plots, on every rank.
 """
 
 import os
@@ -43,10 +46,9 @@ from forwardtacotron_torch.utils.files import read_config
 from torch_parallel_worker import (REPO, launch, make_items,
                                    rank_batches, run_ranks, step_difference,
                                    train_steps)
-from torch_training_setup import (LOSSES, N_MELS, both_models,
-                                  family_config, family_models,
-                                  narrow_config, run_jax_step, scaled_close,
-                                  write_dataset)
+from torch_training_setup import (  # noqa: F401 (no_tensorboard: a fixture)
+    LOSSES, N_MELS, both_models, family_config, family_models, narrow_config,
+    no_tensorboard, run_jax_step, scaled_close, write_dataset)
 
 LR = 1e-3
 F32_TOL, BF16_TOL = 1e-4, 5e-2
@@ -140,7 +142,7 @@ def test_forward_trainer_ranks_match_jax_mesh_step(tmp_path, jax_mesh_step,
                      key)
     assert_step_close(got['state'], want_state, False, 'jax')
     # the port's one-process step on the global batch
-    (metrics,), state, _ = train_steps(job, global_batch, 'cpu')
+    (metrics,), state, _, _ = train_steps(job, global_batch, 'cpu')
     for key in LOSSES + ('loss',):
         scaled_close(np.float32(got['metrics'][key]), metrics[key], F32_TOL, 1.0, key)
     assert got['metrics']['grad_norm'] == pytest.approx(
@@ -175,7 +177,7 @@ def test_two_ranks_match_one_process(tmp_path, kind):
     results = launch(job, tmp_path)
     assert_ranks_agree(results)
     got = results[0]
-    (metrics,), state, _ = train_steps(job, global_batch, 'cpu')
+    (metrics,), state, _, _ = train_steps(job, global_batch, 'cpu')
     mp = kind == 'forward_bf16'
     for key in metrics:
         if key != 'grad_norm':
@@ -184,6 +186,33 @@ def test_two_ranks_match_one_process(tmp_path, kind):
     assert got['metrics']['grad_norm'] == pytest.approx(
         metrics['grad_norm'], rel=5e-2 if mp else 1e-5)
     assert_step_close(got['state'], state, mp, kind)
+
+
+@pytest.mark.parametrize('kind', ['forward', 'multi'])
+def test_rank_zero_plots_leave_the_ranks_alone(tmp_path, kind):
+    """Only rank 0 plots, and its teacher-forced forward must issue no
+    collective that the other rank would have to match: with
+    ``plot_every: 1`` both ranks finish (a stray collective hangs them
+    into the timeout or shifts every later one) with the parameters,
+    BatchNorm statistics and metrics of the run without plots, bit for
+    bit."""
+    if kind == 'forward':
+        job, _, _ = _forward_job(tmp_path, 'float32', 2)
+    else:
+        config = family_config('multi_forward_tacotron', 'float32', tmp_path)
+        _, _, tmodel = family_models(config)
+        dims = config['multi_forward_tacotron']['model']['speaker_emb_dims']
+        batches, _ = shares(make_items(4, 3, N_MELS, speaker_dims=dims), 2)
+        job = {'trainer': 'multi', 'config': config, 'device': 'cpu',
+               'state_dict': tmodel.state_dict(), 'batches': batches}
+    job['steps'] = 2
+    results = launch({'jobs': [job, dict(job, plot_every=1)],
+                      'device': 'cpu'}, tmp_path, timeout=120)
+    for without, with_plots in results:
+        assert with_plots['step_metrics'] == without['step_metrics']
+        for key, value in without['last_state'].items():
+            assert torch.equal(with_plots['last_state'][key], value), key
+    assert_ranks_agree([r[1] for r in results])
 
 
 def _torchrun(args, tmp_path, timeout=240):
@@ -206,6 +235,7 @@ def _torchrun(args, tmp_path, timeout=240):
     return proc.returncode, log.read_text()
 
 
+@pytest.mark.usefixtures('no_tensorboard')
 def test_train_forward_under_torchrun_checkpoints_once_and_resumes(
         tmp_path, capsys):
     from forwardtacotron_torch import train_forward

@@ -56,8 +56,9 @@ from forwardtacotron_torch.utils.convert import (from_jax_variables,
 from forwardtacotron_torch.utils.files import read_config
 from forwardtacotron_torch.utils.paths import Paths
 
-from torch_training_setup import (N_MELS, QUICK_COMPILE, _random_variables,
-                                  scaled_close, write_dataset)
+from torch_training_setup import (  # noqa: F401 (no_tensorboard: a fixture)
+    N_MELS, QUICK_COMPILE, _random_variables, no_tensorboard, scaled_close,
+    write_dataset)
 
 REPO = Path(__file__).resolve().parent.parent
 NARROW = dict(embed_dims=16, encoder_dims=128, decoder_dims=32,
@@ -542,6 +543,7 @@ def _extraction_files(paths):
             for sub in ('att_pred', 'alg', 'phon_pitch', 'phon_energy')}
 
 
+@pytest.mark.usefixtures('no_tensorboard')
 def test_train_tacotron_cli_on_cpu(tmp_path, capsys):
     """Two sessions to a checkpoint, then the extraction that follows
     training (``att_pred/``, ``alg/``, ``duration_stats.pkl``,

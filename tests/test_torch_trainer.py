@@ -35,9 +35,9 @@ from forwardtacotron_torch.train.state import create_train_state
 from forwardtacotron_torch.utils.convert import from_jax_variables
 from forwardtacotron_torch.utils.files import read_config
 
-from torch_training_setup import (  # noqa: F401 (jax_kernels: a fixture)
-    LOSSES, both_models, jax_kernels, make_batch, narrow_config, paths_of,
-    scaled_close, write_dataset)
+from torch_training_setup import (  # noqa: F401 (jax_kernels, no_tensorboard: fixtures)
+    LOSSES, both_models, jax_kernels, make_batch, narrow_config,
+    no_tensorboard, paths_of, scaled_close, write_dataset)
 
 
 @pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
@@ -100,6 +100,7 @@ def test_optimizer_step_matches_jax_trainer(jax_kernels, tmp_path,
         assert n_far <= 5e-3 * n_all, (n_far, n_all)
 
 
+@pytest.mark.usefixtures('no_tensorboard')
 def test_trainer_runs_checkpoints_resumes_and_serves(tmp_path):
     import yaml
 

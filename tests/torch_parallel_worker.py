@@ -10,14 +10,16 @@ MASTER_PORT). A job (``torch.save``d by ``launch``) names a trainer
 rank's batch (numpy, each padded to its own shape), the device ('cpu',
 'cuda' for each rank's card, or one named card that every rank shares),
 the process group's 'backend' device (gloo for 'cpu', NCCL for 'cuda';
-default: the device), the teacher's r and the number of steps; or it holds
-a list of such 'jobs', run in turn in one process group. The rank joins
-the group through ``initialize_distributed`` (twice: the second call must
-be a no-op), pads each batch to the ranks' common shape, takes the steps
-with the trainer's ``train_step`` and saves, for each job, the first
-step's metrics and state_dict, every step's metrics and wall seconds and
-the recurrent kernels' launch counts to ``<out prefix><rank>.pt``. It
-imports the port only.
+default: the device), the teacher's r, the number of steps and
+'plot_every' (rank 0 alone takes the trainer's ``plot_outputs`` of its
+batch's first item after every so many steps, as the training loops do);
+or it holds a list of such 'jobs', run in turn in one process group. The
+rank joins the group through ``initialize_distributed`` (twice: the second
+call must be a no-op), pads each batch to the ranks' common shape, takes
+the steps with the trainer's ``train_step`` and saves, for each job, the
+first step's metrics and state_dict, the last step's state_dict, every
+step's metrics and wall seconds and the recurrent kernels' launch counts
+to ``<out prefix><rank>.pt``. It imports the port only.
 """
 
 import os
@@ -144,11 +146,15 @@ def make_trainer(job, device):
 
 
 def train_steps(job, batch, device):
-    """The job's steps on ``batch`` (numpy, at the ranks' common shape):
-    (each step's metrics as floats, the state_dict on the CPU after the
-    first step, each step's wall seconds)."""
+    """The job's steps on ``batch`` (numpy, at the ranks' common shape),
+    with rank 0's plots of the job's 'plot_every': (each step's metrics as
+    floats, the state_dict on the CPU after the first step, each step's
+    wall seconds, the state_dict on the CPU after the last step)."""
+    from types import SimpleNamespace
+
     import torch
 
+    from forwardtacotron_torch.parallel.mesh import process_index
     from forwardtacotron_torch.train.state import create_train_state
 
     trainer, model = make_trainer(job, device)
@@ -159,7 +165,9 @@ def train_steps(job, batch, device):
         batch['energy_target'] = batch['energy'].copy()
     dev_batch = trainer.device_batch(batch)
     metrics, times, first = [], [], None
-    for _ in range(job.get('steps', 1)):
+    plot_every = job.get('plot_every', 0)
+    plot_session = SimpleNamespace(val_sample=batch, r=job.get('r'))
+    for step in range(1, job.get('steps', 1) + 1):
         t0 = time.perf_counter()
         if job['trainer'] == 'taco':
             m, _ = trainer.train_step(state, dev_batch, job['r'])
@@ -170,7 +178,12 @@ def train_steps(job, batch, device):
         if first is None:
             first = {k: v.detach().cpu().clone()
                      for k, v in model.state_dict().items()}
-    return metrics, first, times
+        if plot_every and step % plot_every == 0 and process_index() == 0:
+            arrays = trainer.plot_outputs(state, plot_session)
+            assert arrays['mel'], 'a plot without mels'
+    last = {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}
+    return metrics, first, times, last
 
 
 def main(job_path: str, out_prefix: str) -> None:
@@ -202,9 +215,10 @@ def main(job_path: str, out_prefix: str) -> None:
             for key in counts:
                 counts[key] = 0
         batch = common_shape(sub['batches'][rank])
-        metrics, state, times = train_steps(sub, batch, device)
+        metrics, state, times, last = train_steps(sub, batch, device)
         results.append({
             'metrics': metrics[0], 'step_metrics': metrics, 'state': state,
+            'last_state': last,
             'times': times, 'world': world, 'device': str(device),
             'shape': (batch['x'].shape, batch['mel'].shape),
             'launches': {**rnn.launches, **rnn_train.launches}})

@@ -5,7 +5,9 @@ collated batch, the JAX package's trainable RNN kernels in interpret mode
 on the CPU, and the synthetic dataset of tests/test_forward_trainer.py."""
 
 import functools
+import os
 import pickle
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -74,6 +76,26 @@ def jax_kernels(monkeypatch):
         jax_rnn_train, 'bidir_rnn_trainable_sharded',
         functools.partial(jax_rnn_train.bidir_rnn_trainable_sharded,
                           interpret=True))
+
+
+@pytest.fixture()
+def no_tensorboard(monkeypatch, tmp_path_factory):
+    """TensorBoard made unimportable in this process and in the processes
+    the test starts (a ``tensorboard`` package first on PYTHONPATH that
+    raises ImportError), so the trainers' ``make_writer`` takes the CSV
+    writer and writes ``metrics.csv``."""
+    shim = tmp_path_factory.mktemp('no_tensorboard')
+    (shim / 'tensorboard').mkdir()
+    (shim / 'tensorboard' / '__init__.py').write_text(
+        "raise ImportError('tensorboard is hidden from this test')\n")
+    monkeypatch.setenv('PYTHONPATH', os.pathsep.join(
+        [str(shim)] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    for name in list(sys.modules):
+        if name.split('.')[0] == 'tensorboard' \
+                or name.startswith('torch.utils.tensorboard'):
+            monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, 'tensorboard', None)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
 
 
 def _random_variables(shapes, seed):
