@@ -41,7 +41,9 @@ Run from the repository root. Phases, each of which must pass:
 6. the bfloat16 serving path as ``bench.py`` shapes it: its 8 sentences
    tiled to batch 4096, 3 frames per token, ``max_len`` 256, routed to
    16-frame buckets, through ``TTSInference.generate_fused``: launch counts
-   per call, the profiler, audio-s/s over trials and the device idle share;
+   per call, the profiler, audio-s/s over trials, the device idle share and
+   the roofline of the median rate (``utils/flops.py``: achieved TFLOP/s,
+   mfu and hbm_util against the bf16 peak, arithmetic intensity, bound);
 7. the bfloat16 two-phase path: the 4 requests through ``generate_cropped``
    and as one batch through ``generate_routed``, with launch counts;
 8. a bfloat16 reference: one small batch through ``generate_fused`` on the
@@ -106,9 +108,9 @@ Run from the repository root. Phases, each of which must pass:
 13. the bf16 mixed-precision train step of ``configs/singlespeaker.yaml``
     at full width and batch 32 on 64 synthetic items written to a
     temporary directory: exact launch counts per step, the profiler,
-    steps/s, mel frames/s and the idle share over steps on one repeated
-    batch (whose loss must fall), then ``ForwardTrainer.train`` to a
-    checkpoint that ``gen_forward`` loads;
+    steps/s, mel frames/s, the idle share and the roofline over steps on
+    one repeated batch (whose loss must fall), then
+    ``ForwardTrainer.train`` to a checkpoint that ``gen_forward`` loads;
 14. the float32 train step (the config's default), with the length
     regulator as its only kernel, and the eval step's kernels;
 15. one train step on the card and on the CPU plain path (dropout off):
@@ -223,8 +225,11 @@ clock (``host_times_phase``); each stops after it and also runs copied
 into an older checkout, to time two trees in one call.
 
 Printed, in order: the card's name and power limit (nvidia-smi), the
-build, one line per kernel comparison, the paths' stages, then a JSON line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+card's peak figures (``chip spec: h100 for <device>``; any card but an H100
+SXM fails the run), the build, one line per kernel comparison, the paths'
+stages (with the ``serving roofline`` and ``bf16 train step roofline``
+lines), then a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
+"device": {...}}``.
 Any failure exits non-zero without the last line, as does a machine without
 a CUDA device or a directory without the repository. The profiler's kernel
 tables go to ``chiprun_out/chip_smoke_profile.txt`` (float32 path),
@@ -255,6 +260,15 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+if not (REPO / 'forwardtacotron_torch').is_dir():
+    sys.exit(f'chip_smoke: FAIL: {REPO} does not hold the repository '
+             '(forwardtacotron_torch/ is missing)')
+
+from forwardtacotron_torch.utils.flops import (  # noqa: E402
+    CHIP_SPECS, chip_spec, forward_tacotron_activation_bytes,
+    forward_tacotron_generate_flops, forward_tacotron_param_bytes,
+    forward_tacotron_train_flops, roofline_report)
+
 SEED = 0
 # every token lasts this many frames: the longest of the 4 requests is
 # ~10 s of audio, and the postnet sees ~900 frames (above the TPU kernel's
@@ -262,10 +276,12 @@ SEED = 0
 FRAMES_PER_TOKEN = 9
 SENTENCES = 4
 REPS = 20
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
-# device memory bandwidth; the kernels here are float32 FMA kernels
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, utils/flops.py): float32 outside the
+# tensor cores, device memory bandwidth; the kernels here are float32 FMA
+# kernels
+H100 = CHIP_SPECS['h100']
+PEAK_F32_FLOPS = H100.flops_f32
+PEAK_BYTES = H100.hbm_gbps
 # kernel vs twin, float32 with different summation orders: max abs error
 # over max(1, max |twin|) (a relative error at the output's scale)
 KERNEL_TOL = 1e-4
@@ -275,9 +291,9 @@ SC_REL_TOL = 0.01
 # full model on card vs CPU plain path, mel max abs error
 E2E_MEL_ATOL = 1e-3
 # TF32 tensor-core peak (dense), for the 3xTF32 bound of griffin_lim.cu
-PEAK_TF32_FLOPS = 495e12
+PEAK_TF32_FLOPS = H100.flops_tf32
 # bf16 tensor-core peak (dense), for the bounds of the bf16 kernels
-PEAK_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS = H100.flops_bf16
 # bf16 kernel vs twin: both round at the same points, but a float32 sum in
 # another order can land on the neighbouring bf16 value (2^-8 relative) and
 # a recurrence carries it on: max abs error over max(1, max |twin|); inside
@@ -464,6 +480,21 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes \
         else 'bytes'
+
+
+def roofline(name, flops, nbytes, seconds):
+    """The roofline (utils/flops.py, against the H100's bf16 peak) of
+    ``flops`` and ``nbytes`` of work done in ``seconds``, logged as one
+    line with the card's name and power limit; returns the report with the
+    work and the time beside it."""
+    roof = roofline_report(flops, nbytes, seconds, H100, dtype='bf16')
+    log(f'{name} roofline: achieved {roof["achieved_tflops"]:.2f} TFLOP/s, '
+        f'mfu {roof["mfu"]:.4f}, hbm_util {roof["hbm_util"]:.4f}, '
+        f'intensity {roof["arithmetic_intensity"]:.1f} FLOP/B (bf16 ridge '
+        f'{roof["ridge_intensity"]:.1f}), bound {roof["bound"]} '
+        f'({flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB in '
+        f'{seconds * 1e3:.2f} ms); card: {nvidia_smi()}')
+    return dict(roof, tflop=flops / 1e12, gb=nbytes / 1e9, ms=seconds * 1e3)
 
 
 def compare(torch, name, got, want, tol=KERNEL_TOL):
@@ -1523,6 +1554,17 @@ def serving_phase(torch, model, config):
         f'{max(rates):.1f}; iteration {wall_ms:.2f} ms wall (median), '
         f'device busy {busy_ms:.2f} ms (profiled iteration): idle '
         f'{100 * stats["idle"]:.1f}%')
+    # as bench.py counts it: each group decodes its padded bucket of frames
+    # from the padded token width; the weights are read once per call
+    iter_flops = sum(forward_tacotron_generate_flops(
+        config, len(xg), xg.shape[1], bk) for xg, bk, _ in groups)
+    iter_bytes = sum(forward_tacotron_activation_bytes(
+        config, len(xg), xg.shape[1], bk, dtype_bytes=2)
+        + forward_tacotron_param_bytes(config, dtype_bytes=2)
+        for xg, bk, _ in groups)
+    stats['roofline'] = roofline(
+        'serving', iter_flops, iter_bytes,
+        stats['audio_s_per_iter'] / statistics.median(rates))
     return launches, stats
 
 
@@ -3566,6 +3608,17 @@ def train_bf16_phase(torch, config, root):
         f'{stats["mel_frames_per_s"]:.0f} mel frames/s; device busy '
         f'{busy_ms:.1f} ms (profiled step): idle {100 * stats["idle"]:.1f}%; '
         f'peak memory {peak_gb:.2f} GiB')
+    # as scripts/bench_train.py counts it: the forward and backward
+    # activations ~3x one pass, f32 weights read and gradients written once
+    n_tok, n_frames = host['x'].shape[1], host['mel'].shape[1]
+    stats['roofline'] = roofline(
+        'bf16 train step',
+        forward_tacotron_train_flops(cfg, len(host['x_len']), n_tok,
+                                     n_frames),
+        3 * forward_tacotron_activation_bytes(
+            cfg, len(host['x_len']), n_tok, n_frames, dtype_bytes=2)
+        + 2 * forward_tacotron_param_bytes(cfg, dtype_bytes=4),
+        step_ms / 1e3)
     log(f'bf16 train losses on one repeated batch: '
         f'{", ".join(f"{v:.4f}" for v in losses)}')
     if not (np.isfinite(losses).all()
@@ -6273,10 +6326,6 @@ def main() -> None:
         fail('PyTorch is not installed')
     if not torch.cuda.is_available():
         fail('no CUDA device: this script measures the port on a GPU')
-    if not (REPO / 'forwardtacotron_torch').is_dir():
-        fail(f'{REPO} does not hold the repository (forwardtacotron_torch/ '
-             'is missing)')
-    sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6288,6 +6337,11 @@ def main() -> None:
     log(f'card: {card}')
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'device {torch.cuda.get_device_name(0)}')
+    try:
+        spec = chip_spec(torch.device('cuda'))
+    except ValueError as e:
+        fail(str(e))
+    log(f'chip spec: {spec.name} for {torch.cuda.get_device_name(0)}')
     if '--lstm-times' in sys.argv[1:]:
         # the LSTM entries' times alone, e.g. beside a parent checkout's
         with torch.inference_mode():

@@ -2279,3 +2279,18 @@ def test_plots_leave_training_alone_on_card(dev, tmp_path, monkeypatch):
     for name in ('mu', 'nu'):
         for k, v in s0.opt_state[name].items():
             assert torch.equal(v, s1.opt_state[name][k]), (name, k)
+
+
+def test_chip_spec_names_the_card(dev):
+    """The card is an H100 SXM, and chip_smoke.py's peaks are its spec's."""
+    import chip_smoke
+    from forwardtacotron_torch.utils.flops import chip_spec
+
+    spec = chip_spec(dev)
+    assert spec.name == 'h100'
+    assert (spec.flops_f32, spec.flops_tf32, spec.flops_bf16,
+            spec.hbm_gbps) == (chip_smoke.PEAK_F32_FLOPS,
+                               chip_smoke.PEAK_TF32_FLOPS,
+                               chip_smoke.PEAK_BF16_FLOPS,
+                               chip_smoke.PEAK_BYTES) == (67e12, 495e12,
+                                                          989e12, 3.35e12)

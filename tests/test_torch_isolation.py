@@ -189,6 +189,7 @@ for name in ('forwardtacotron_torch.utils.msgpack',
              'forwardtacotron_torch.utils.display',
              'forwardtacotron_torch.utils.profiler',
              'forwardtacotron_torch.utils.files',
+             'forwardtacotron_torch.utils.flops',
              'forwardtacotron_torch.notebook_utils.synthesize',
              'forwardtacotron_torch.train.forward_trainer',
              'forwardtacotron_torch.train.taco_trainer',
