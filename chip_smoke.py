@@ -2234,6 +2234,82 @@ def mrf_long_lists_phase(torch, n_frames) -> dict:
     return res
 
 
+# shapes the JAX generator sends to its Pallas kernels past the kernels'
+# first limits (Queue 3, settled in tests/test_torch_mrf_gaps.py): a level
+# of 1-tap convolutions with 40 dilations; tail levels whose upsamplers
+# reach past IN_HALO input rows (34 and 66 taps), and one of C_in = 2 C + 1
+MRF_GAP_LEVELS = (('one-tap level, 40 dilations', 32, (1,),
+                   tuple(range(1, 41))),)
+UPS_GAP_LEVELS = (('34 taps', 1, 2, 34, 64, 32),
+                  ('66 taps', 2, 2, 66, 64, 32),
+                  ('C_in = 2 C + 1', 1, 2, 4, 65, 32))
+GAP_BATCH, GAP_SAMPLES = 8, 16384
+
+
+def mrf_gap_shapes_phase(torch) -> dict:
+    """``mrf`` and ``ups_mrf`` against their twins at MRF_GAP_LEVELS and
+    UPS_GAP_LEVELS (HiFi-GAN's kernel sizes 3/7/11 and dilations 1/3/5 for
+    the tail levels), float32 and bf16, GAP_BATCH items of GAP_SAMPLES
+    output samples, each timed beside its twin. Returns {'mrf': {label:
+    {dtype: result}}, 'ups_mrf': {...}}."""
+    from forwardtacotron_torch.ops.hopper import mrf, ups_mrf
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    res = {'mrf': {}, 'ups_mrf': {}}
+
+    def randn(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def branch_weights(c, krs, n_units, dtype, bias_dtype):
+        return tuple(w for kr in krs for _ in range(2)
+                     for w in (randn((n_units, c, kr * c), (kr * c) ** -0.5,
+                                     dtype),
+                               randn((n_units, c, 1), 0.1, bias_dtype)))
+
+    def check(kind, label, dtype, run, plain, counter, at):
+        before = counter()
+        got = run()
+        if counter() != before + 1:
+            fail(f'{kind} {label}: no launch')
+        name = str(dtype).replace('torch.', '')
+        err = compare(torch, f'{kind} {label} ({name})', got.float(),
+                      plain().float(),
+                      KERNEL_TOL if dtype == torch.float32 else BF16_TOL)
+        k_ms, p_ms = time_ms(torch, run), time_ms(torch, plain, reps=3)
+        log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({at})')
+        res[kind].setdefault(label, {})[name] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, at=at)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, c, krs, dils in MRF_GAP_LEVELS:
+            x = randn((GAP_BATCH, c, GAP_SAMPLES), 1.0, dtype)
+            weights = branch_weights(c, krs, len(dils), dtype, dtype)
+            prep = mrf.prepare(weights, krs, dils)
+            check('mrf', label, dtype,
+                  lambda: mrf.mrf(x, weights, krs, dils, prepared=prep),
+                  lambda: mrf.mrf_plain(x, weights, krs, dils),
+                  lambda: mrf.launches,
+                  f'B={GAP_BATCH} C={c} T={GAP_SAMPLES} kernel sizes {krs}, '
+                  f'{len(dils)} dilations')
+        for label, s_in, s_up, k, c_in, c in UPS_GAP_LEVELS:
+            t_ps = GAP_SAMPLES // (s_in * s_up)
+            x = randn((GAP_BATCH, s_in * c_in, t_ps), 1.0, dtype)
+            up_w = randn((k, c, c_in), (k * c_in / s_up) ** -0.5, dtype)
+            up_b = randn((c,), 0.1, torch.float32)
+            weights = branch_weights(c, (3, 7, 11), 3, dtype, torch.float32)
+            args = (x, up_w, up_b, weights, s_in, s_up, (3, 7, 11),
+                    (1, 3, 5), t_ps - 5)
+            prep = ups_mrf.prepare(*args[1:8])
+            check('ups_mrf', label, dtype,
+                  lambda: ups_mrf.ups_mrf(*args, prepared=prep),
+                  lambda: ups_mrf.ups_mrf_plain(*args),
+                  lambda: ups_mrf.launches,
+                  f'B={GAP_BATCH} s_in={s_in} s_up={s_up} k_up={k} '
+                  f'C_in={c_in} C={c} T_ps={t_ps}')
+    return res
+
+
 def sum_levels(parts):
     """Per-level results summed over the levels: the largest error, the
     first level's bound_by, every time summed."""
@@ -6469,6 +6545,9 @@ def main() -> None:
         results_voc.update(ups_kernel_phase(torch, n_frames))
         for name, r in mrf_long_lists_phase(torch, n_frames).items():
             results_voc[name]['long_lists'] = r
+        log('mrf and ups_mrf at the shapes past their first limits:')
+        for name, r in mrf_gap_shapes_phase(torch).items():
+            results_voc[name]['gap_shapes'] = r
         log('mrf cycle spans (bf16, thread 0 of CTA (0, 0), one launch):')
         mrf_cycles = mrf_cycles_phase(torch)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_vocoder_') as tmp:
@@ -6678,7 +6757,7 @@ def main() -> None:
                                  'tile_sweep_device_ms', 'shapes',
                                  'yardstick_device_ms', 'fill_device_ms',
                                  'request',
-                                 'long_lists', 'new_paths',
+                                 'long_lists', 'gap_shapes', 'new_paths',
                                  'multispeaker', 'data_parallel')
                if k in r and r[k] != {}}})
     log(f'griffinlim split: {json.dumps(gl_split)}')

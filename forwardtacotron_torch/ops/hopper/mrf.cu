@@ -103,12 +103,13 @@
 //   - The f32 branch sum of the tile's own rows lives in shared memory
 //     ([t_tile, CS + 1]); the last convolution of each branch adds to it in
 //     its epilogue, and the tile's output is stored from it once.
-//   - ups_mrf: the input tile ([TW / s_up + 17 rows, C_in] in sample order,
-//     leaky applied) shares its bytes with src, ybuf and the sum, which are
-//     dead while the upsample runs; u is computed once into ubuf (one
-//     product per output phase of the stride) and copied into cur at each
-//     branch's start. Any rate with s_in * s_up <= 4, any k_up whose taps
-//     reach at most IN_HALO input rows.
+//   - ups_mrf: the input tile ([TW / s_up + 2 in_halo + 1 rows, C_in] in
+//     sample order, leaky applied) shares its bytes with src, ybuf and the
+//     sum, which are dead while the upsample runs; u is computed once into
+//     ubuf (one product per output phase of the stride) and copied into cur
+//     at each branch's start. Any rate with s_in * s_up <= 4, any k_up: the
+//     tile's halo, in_halo, is IN_HALO input rows or the farthest tap's
+//     reach where that is more.
 // The launch plan (CS, t_tile, ring stages, the shared-memory carve) comes
 // from the wrapper (mrf.py ``plan``, which needs no card); the entries
 // recompute the carve and refuse a plan that does not fit.
@@ -148,12 +149,18 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int HALO = 64;
-constexpr int IN_HALO = 8;      // input rows of halo on each side of the tile
+// input rows of halo on each side of the ups_mrf tile, at least
+constexpr int IN_HALO = 8;
+// input channels (padded) the ups_mrf tile takes at most
+constexpr int MAX_C_IN = 1024;
 // The level's branches (kernel sizes) and units (dilations) travel in the
 // launch's parameter block (Params, ~1.7 KB of the 4 KB a launch takes).
 // Every unit of a kernel size of at least 2 adds at least 2 samples to its
 // branch's span, which the halo bounds: HALO / 2 units; branches are held
-// to the same count (mrf.py MAX_BRANCHES, MAX_UNITS).
+// to the same count (mrf.py MAX_BRANCHES, MAX_UNITS). A 1-tap convolution
+// reads no neighbour, so its dilation never matters: a level whose kernel
+// sizes are all 1 may have any number of units, of which p.dils holds the
+// first MAX_UNITS (unit_dil).
 constexpr int MAX_BRANCHES = HALO / 2;
 constexpr int MAX_UNITS = HALO / 2;
 constexpr int MIN_STAGES = 2;
@@ -239,9 +246,15 @@ struct Params {
   // ups_mrf only
   const void* up_w;       // f32: [k_up, C, C_in], taps reversed
   const float* up_b;      // [C]
-  int c_in, s_in, s_up, k_up, t_valid, in_rows;
+  int c_in, s_in, s_up, k_up, t_valid, in_halo, in_rows;
   Carve cv;
 };
+
+// unit u's dilation in a branch of kernel size kr (1 for a 1-tap
+// convolution, whose units may outnumber p.dils)
+__device__ __forceinline__ int unit_dil(const Params& p, int kr, int u) {
+  return kr > 1 ? p.dils[u] : 1;
+}
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
@@ -883,7 +896,7 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
     // leaky applied, 0 outside [0, s_in * t_valid)
     const int s = p.s_up, ci = p.c_in;
     const int ldi = MMA ? p.in_rows : ci + PAD;
-    const int in0 = floordiv(pos0, s) - IN_HALO;
+    const int in0 = floordiv(pos0, s) - p.in_halo;
     T* tin = src;
     const T* x = static_cast<const T*>(p.x) + (size_t)b * p.s_in * ci * p.t;
     // a thread takes VEC channels of a row: independent loads, coalesced
@@ -943,7 +956,8 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
       // the rows this branch reads, VEC channels of a row per thread:
       // independent loads, coalesced across the warp's rows, 16-byte stores
       int span = 0;
-      for (int u = 0; u < p.n_units; ++u) span += (kr / 2) * (p.dils[u] + 1);
+      for (int u = 0; u < p.n_units; ++u)
+        span += (kr / 2) * (unit_dil(p, kr, u) + 1);
       const int r_lo = HALO - span, rows = p.t_tile + 2 * span;
       const T* x = static_cast<const T*>(p.x) + (size_t)b * c * p.t;
       const int n_x = (gathers ? c : cs) / VEC * rows;
@@ -964,9 +978,10 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
     SPAN_END(CY_BRANCH_START, t_branch, tid == 0);
     // span still to come after each convolution of this branch
     int rest = 0;
-    for (int u = 0; u < p.n_units; ++u) rest += (kr / 2) * (p.dils[u] + 1);
+    for (int u = 0; u < p.n_units; ++u)
+      rest += (kr / 2) * (unit_dil(p, kr, u) + 1);
     for (int u = 0; u < p.n_units; ++u) {
-      const int d = p.dils[u];
+      const int d = unit_dil(p, kr, u);
       const size_t wo = (size_t)u * c * kr * c;
       for (int half = 0; half < 2; ++half) {
         const bool first = half == 0;
@@ -1059,10 +1074,11 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 // not take.
 bool set_branches(Params& p, const void* const* wb, const int* krs, int n_br,
                   const int* dils, int n_units) {
-  if (n_br < 1 || n_br > MAX_BRANCHES || n_units < 1 || n_units > MAX_UNITS)
-    return false;
+  if (n_br < 1 || n_br > MAX_BRANCHES || n_units < 1) return false;
   for (int u = 0; u < n_units; ++u)
     if (dils[u] < 1) return false;
+  for (int i = 0; i < n_br; ++i)
+    if (krs[i] > 1 && n_units > MAX_UNITS) return false;
   for (int i = 0; i < n_br; ++i) {
     int span = 0;
     for (int u = 0; u < n_units; ++u) span += (krs[i] / 2) * (dils[u] + 1);
@@ -1070,7 +1086,7 @@ bool set_branches(Params& p, const void* const* wb, const int* krs, int n_br,
     p.br[i] = Branch{wb[4 * i], wb[4 * i + 1], wb[4 * i + 2], wb[4 * i + 3],
                      krs[i]};
   }
-  for (int u = 0; u < n_units; ++u) p.dils[u] = dils[u];
+  for (int u = 0; u < n_units && u < MAX_UNITS; ++u) p.dils[u] = dils[u];
   p.n_br = n_br;
   p.n_units = n_units;
   return true;
@@ -1167,20 +1183,23 @@ int launch_ups(const void* x, void* out, const void* up_w, const float* up_b,
   Params p = {};
   const int s_out = s_in * s_up;
   if (s_in < 1 || s_up < 2 || s_out > 4 || k_up < s_up || (k_up - s_up) % 2 ||
-      k_up > 32 || c_in < 16 || c_in > 512 ||
+      c_in < 16 || c_in > MAX_C_IN ||
       (c_in < KC ? KC % c_in : c_in % KC) || t_tile % s_out)
     return (int)cudaErrorInvalidValue;
-  // every tap reaches at most IN_HALO input rows away
+  // the input rows the farthest tap reaches away from its output's own
+  // input sample (ups_mrf.py tap_reach), held by the tile's halo
   const int pad_up = k_up - 1 - (k_up - s_up) / 2;
-  if (pad_up > IN_HALO * s_up || s_up - 1 + k_up - 1 - pad_up > IN_HALO * s_up)
-    return (int)cudaErrorInvalidValue;
+  const int reach = max((pad_up + s_up - 1) / s_up,
+                        (s_up - 1 + k_up - 1 - pad_up) / s_up);
   p.c_in = c_in;
   p.s_in = s_in;
   p.s_up = s_up;
   p.k_up = k_up;
-  // the window's input rows (at least one 64-row tile) and IN_HALO + 1
+  p.in_halo = max(IN_HALO, reach);
+  // the window's input rows (at least one 64-row tile) and in_halo + 1
   // more on each side
-  p.in_rows = max((t_tile + 2 * HALO + s_up - 1) / s_up, 64) + 2 * IN_HALO + 1;
+  p.in_rows =
+      max((t_tile + 2 * HALO + s_up - 1) / s_up, 64) + 2 * p.in_halo + 1;
   if (!set_branches(p, wb, krs, n_br, dils, n_units) ||
       !set_plan<T>(p, c, cs, t_tile, stages, true) || batch < 1 ||
       batch > 65535 || t_ps < 1 || t_valid < 0 || t_valid > t_ps ||

@@ -44,12 +44,15 @@ KC = 64
 MIN_STAGES, MAX_STAGES = 2, 8
 # bf16: bytes of zeros before the window buffers (64 rows of a plane)
 GUARD = 1024
-# rows of input halo on each side of the ups_mrf input tile
+# rows of input halo on each side of the ups_mrf input tile, at least (more
+# where the upsampler's taps reach farther: ups_mrf.in_halo)
 IN_HALO = 8
 # the kernel sizes (branches) and dilations (units per branch) a level's
 # launch parameters hold: every unit of a kernel size of at least 2 adds at
 # least 2 samples to its branch's span, so the halo holds HALO / 2 of them;
-# branches are held to the same count
+# branches are held to the same count. A 1-tap convolution reads no
+# neighbour, so a level whose kernel sizes are all 1 takes any number of
+# units (the kernel needs no dilation of theirs).
 MAX_BRANCHES = MAX_UNITS = HALO // 2
 # threads per CTA: bf16 two consumer warpgroups and a producer warp, f32
 # 512 FMA threads
@@ -131,20 +134,20 @@ def level_error(c: int, krs: Sequence[int],
             or max(branch_span(k, dils) for k in krs) > HALO:
         return (f'kernel sizes whose span fits the {HALO}-sample halo only, '
                 f'got {tuple(krs)}, {tuple(dils)}')
-    if len(krs) > MAX_BRANCHES or len(dils) > MAX_UNITS:
-        return (f'at most {MAX_BRANCHES} kernel sizes and {MAX_UNITS} '
-                f'dilations (the halo holds {HALO // 2} units of a kernel '
-                f'size of at least 2; the launch parameters hold as many '
-                f'kernel sizes, and as many units of 1-tap convolutions), '
-                f'got {len(krs)} kernel sizes and {len(dils)} dilations')
+    # (the halo clause above already holds a kernel size of 2 or more to
+    # MAX_UNITS dilations)
+    if len(krs) > MAX_BRANCHES:
+        return (f'at most {MAX_BRANCHES} kernel sizes (the launch parameters '
+                f'hold as many), got {len(krs)} kernel sizes')
     return None
 
 
 def plan(dtype: torch.dtype, c: int, krs: Sequence[int],
          dils: Sequence[int], c_in: int = 0, s_out: int = 1, s_up: int = 1,
-         smem_limit: Optional[int] = None) -> dict:
+         smem_limit: Optional[int] = None, in_halo: int = IN_HALO) -> dict:
     """The launch plan of one level of ``c`` channels (``c_in`` > 0: behind
-    an upsample by ``s_up`` into ``s_out`` output phases, ``ups_mrf``). The
+    an upsample by ``s_up`` into ``s_out`` output phases, ``ups_mrf``, whose
+    input tile has ``in_halo`` rows of halo on each side). The
     widest channel slice (the fewest CTAs per cluster: wgmma's N and the
     f32 threads' work) with the largest time tile of at least
     MIN_PREFERRED_TILE samples, else the same without that floor, whose
@@ -167,7 +170,7 @@ def plan(dtype: torch.dtype, c: int, krs: Sequence[int],
         if cs > c_pad or c_pad // cs > MAX_CLUSTER or t_tile % s_out:
             continue
         tw = t_tile + 2 * HALO
-        in_rows = (max(-(-tw // s_up), 64) + 2 * IN_HALO + 1) if c_in else 0
+        in_rows = (max(-(-tw // s_up), 64) + 2 * in_halo + 1) if c_in else 0
         st = MIN_STAGES if elt == 2 else 0
         v = carve(elt, c_pad, cs, t_tile, st, ci_pad, in_rows)
         smallest = min(smallest or v['total'], v['total'])
@@ -179,7 +182,8 @@ def plan(dtype: torch.dtype, c: int, krs: Sequence[int],
             v = carve(elt, c_pad, cs, t_tile, st, ci_pad, in_rows)
         return {'dtype': dtype, 'c': c, 'c_pad': c_pad, 'c_in': c_in,
                 'c_in_pad': ci_pad, 'cs': cs, 'cluster': c_pad // cs,
-                't_tile': t_tile, 'tw': tw, 'in_rows': in_rows,
+                't_tile': t_tile, 'tw': tw,
+                'in_halo': in_halo if c_in else 0, 'in_rows': in_rows,
                 'stages': st, 'smem': v['total'], 'carve': v,
                 'threads': THREADS[dtype],
                 'acc_regs': 3 * cs // 2 if elt == 2 else 32}

@@ -19,11 +19,11 @@ import torch.nn.functional as F
 from forwardtacotron_torch.ops.hopper import build
 from forwardtacotron_torch.ops.hopper import mrf as mrf_ops
 
-# the kernel's limits: phases out of one level (the JAX gate's), upsampler
-# taps (each reaches at most IN_HALO input rows) and input channels per
-# output channel (every level of HiFi-GAN v1 and v2 halves the channels)
+# the kernel's limits: phases out of one level (the JAX gate's) and input
+# channels, padded (mrf.cu MAX_C_IN); the input tile's halo is IN_HALO rows,
+# or the farthest upsampler tap's reach where that is more (in_halo)
 MAX_PHASES = 4
-MAX_K_UP = 32
+MAX_IN_CHANNELS = 1024
 IN_HALO = mrf_ops.IN_HALO
 
 # launches of the CUDA kernel since the count was last set to 0
@@ -62,18 +62,23 @@ def tap_reach(s_up: int, k_up: int) -> int:
     return max(-((-pad_up) // s_up), (s_up - 1 + k_up - 1 - pad_up) // s_up)
 
 
-def level_error(s_in: int, s_up: int, c_in: int, c: int,
+def in_halo(s_up: int, k_up: int) -> int:
+    """Input rows of halo the kernel's input tile keeps on each side:
+    IN_HALO, or :func:`tap_reach` where the taps reach farther."""
+    return max(IN_HALO, tap_reach(s_up, k_up))
+
+
+def level_error(s_in: int, s_up: int, c_in: int,
                 k_up: int) -> Optional[str]:
     """Why no plan can take the upsample of this level, or None."""
     if s_up < 2 or s_in < 1 or s_in * s_up > MAX_PHASES:
         return (f'upsample rate {s_up} after {s_in} phases: the kernel takes '
                 f'rates of at least 2 and at most {MAX_PHASES} phases out')
-    if k_up < s_up or (k_up - s_up) % 2 or k_up > MAX_K_UP \
-            or tap_reach(s_up, k_up) > IN_HALO:
+    if k_up < s_up or (k_up - s_up) % 2:
         return (f'upsampler kernel size {k_up} at rate {s_up}: the kernel '
-                f'takes k - s even and k <= {MAX_K_UP}')
-    if not 0 < c_in <= 2 * c:
-        return (f'C_in={c_in} for C={c}: the kernel takes at most 2 * C '
+                f'takes k >= s with k - s even')
+    if not 0 < c_in or mrf_ops.padded_in_channels(c_in) > MAX_IN_CHANNELS:
+        return (f'C_in={c_in}: the kernel takes 1 to {MAX_IN_CHANNELS} '
                 'input channels')
     return None
 
@@ -84,11 +89,12 @@ def plan(dtype: torch.dtype, s_in: int, s_up: int, c_in: int, c: int,
     """The launch plan of one level of the tail (``mrf.plan`` with the
     upsample's input tile and kept output); raises ValueError with the
     reason where none fits. Needs no card."""
-    err = level_error(s_in, s_up, c_in, c, k_up)
+    err = level_error(s_in, s_up, c_in, k_up)
     if err:
         raise ValueError(err)
     return mrf_ops.plan(dtype, c, krs, dils, c_in=c_in, s_out=s_in * s_up,
-                        s_up=s_up, smem_limit=smem_limit)
+                        s_up=s_up, smem_limit=smem_limit,
+                        in_halo=in_halo(s_up, k_up))
 
 
 def shape_error(s_in: int, s_up: int, c_in: int, c: int, k_up: int,

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_layers import _port, _random_bn
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models import layers
 from forwardtacotron_torch.ops.hopper import cbhg, highway

@@ -45,6 +45,7 @@ from forwardtacotron_torch.utils.convert import (convert_state_dict,
                                                  validate_against)
 from forwardtacotron_torch.utils.files import read_config
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (  # noqa: F401 (no_tensorboard: a fixture)
     LOSSES, N_MELS, QUICK_COMPILE, _random_variables, both_models,
     family_config, family_models, make_batch, make_multi_batch, narrow_config,

@@ -15,6 +15,7 @@ import re
 import types
 
 import pytest
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 import chip_smoke
 

@@ -22,6 +22,7 @@ import itertools
 
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops.hopper import (cbhg, griffin_lim, highway, lr,
                                               lr_bidir, mrf, rnn, rnn_train,
@@ -202,7 +203,7 @@ def test_gates_raise_where_kernels_refuse(dev):
     """Where the JAX package's gates send a part to a Pallas kernel and the
     CUDA kernel does not take its shape, the forward raises on the card
     rather than run plain operations: an MRF level of 512 channels, a tail
-    level whose upsampler has 34 taps. A CBHG front projecting to 320 columns,
+    level of 512 channels. A CBHG front projecting to 320 columns,
     which the front kernel once refused, now launches it and matches the
     CPU."""
     from forwardtacotron_torch.models.layers import CBHG
@@ -222,9 +223,12 @@ def test_gates_raise_where_kernels_refuse(dev):
                             resblock_kernel_sizes=(3,),
                             resblock_dilation_sizes=((1, 3, 5),),
                             fuse_mrf_max_ch=512), 'C=512'),
-                      (dict(upsample_kernel_sizes=(16, 16, 34, 4),
-                            upsample_initial_channel=128,
-                            fuse_ups_tail_max_ch=32), 'kernel size 34')):
+                      (dict(upsample_rates=(2, 2),
+                            upsample_kernel_sizes=(4, 4),
+                            upsample_initial_channel=1024,
+                            resblock_kernel_sizes=(3,),
+                            resblock_dilation_sizes=((1, 3, 5),),
+                            fuse_ups_tail_max_ch=512), 'C=512')):
         gen = HiFiGANGenerator(num_mels=8, **kw).eval().to(dev)
         with torch.no_grad(), pytest.raises(NotImplementedError,
                                             match=match):
@@ -1204,6 +1208,24 @@ def test_mrf_kernel_raises_on_unsupported_shapes(dev):
     assert mrf.launches == before
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c,krs,n_units', [(32, (1,), 40), (128, (1, 1), 33)])
+def test_mrf_kernel_one_tap_many_dilations(dev, dtype, c, krs, n_units):
+    """A level of 1-tap convolutions (span 0) with more than 32 dilations,
+    which the JAX gate sends to its Pallas kernel: one launch, against the
+    twin, at one CTA per tile and in a cluster."""
+    g = torch.Generator().manual_seed(n_units)
+    dils = tuple(range(1, n_units + 1))
+    x, weights = _mrf_inputs(g, 2, c, 400, dev, dtype, krs=krs,
+                             units=n_units)
+    before = mrf.launches
+    got = mrf.mrf(x, weights, krs, dils)
+    torch.cuda.synchronize()
+    assert mrf.launches == before + 1
+    _close([got.float()], [mrf.mrf_plain(x, weights, krs, dils).float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
 def _ups_inputs(g, b, s_in, s_up, k, c_in, c, t_ps, dev, dtype):
     """A phase-stacked level's x, upsampler, bias (float32) and MRF weights
     (float32 biases) on the card."""
@@ -1275,14 +1297,40 @@ def test_ups_mrf_kernel_long_lists(dev, dtype):
                TOL if dtype == torch.float32 else BF16_TOL)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,s_in,s_up,k,c_in,c,t_ps,t_valid', [
+    (2, 1, 2, 34, 64, 32, 300, 297),    # 34 taps, reaching 9 input rows
+    (1, 2, 2, 66, 64, 32, 301, 290),    # 66 taps, reaching 17
+    (1, 1, 4, 36, 32, 16, 200, 200),    # 36 taps at rate 4
+    (2, 1, 2, 4, 33, 16, 257, 250),     # C_in = 2 C + 1, padded to 64
+    (1, 2, 2, 4, 65, 32, 300, 300)])    # C_in = 2 C + 1, padded to 128
+def test_ups_mrf_kernel_wide_upsamplers_and_odd_inputs(
+        dev, dtype, b, s_in, s_up, k, c_in, c, t_ps, t_valid):
+    """Tail levels the JAX gate sends to its Pallas kernel past the old
+    limits: upsamplers of more than 32 taps (the input tile's halo grows to
+    the taps' reach) and C_in = 2 C + 1 (a generator whose channels are odd
+    before a level): one launch, against the twin."""
+    g = torch.Generator().manual_seed(k + c_in)
+    args = (*_ups_inputs(g, b, s_in, s_up, k, c_in, c, t_ps, dev, dtype),
+            s_in, s_up, (3, 7, 11), (1, 3, 5), t_valid)
+    before = ups_mrf.launches
+    got = ups_mrf.ups_mrf(*args)
+    torch.cuda.synchronize()
+    assert ups_mrf.launches == before + 1
+    assert not got[..., t_valid:].any()
+    _close([got.float()], [ups_mrf.ups_mrf_plain(*args).float()],
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
 def test_ups_mrf_kernel_raises_on_unsupported_shapes(dev):
-    """Levels the kernel cannot take raise on the card: an upsampler of 34
-    taps, more than 2 C input channels, a rate of 8, a float16 input."""
+    """Levels the kernel cannot take raise on the card: an upsampler with
+    k - s odd, more than 1,024 input channels, a rate of 8, a float16
+    input."""
     g = torch.Generator().manual_seed(4)
     before = ups_mrf.launches
     for (s_in, s_up, k, c_in, c), match in (
-            ((1, 2, 34, 64, 32), 'kernel size 34'),
-            ((1, 2, 4, 256, 64), 'C_in'),
+            ((1, 2, 5, 64, 32), 'kernel size 5'),
+            ((1, 2, 4, 1088, 64), 'C_in'),
             ((1, 8, 16, 64, 32), 'rate')):
         args = _ups_inputs(g, 1, s_in, s_up, k, c_in, c, 40, dev,
                            torch.bfloat16)

@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.dsp.dsp import DSP, LOG_MEL_FLOOR, resample
 from forwardtacotron_torch.dsp.pitch import (YinPitchExtractor,

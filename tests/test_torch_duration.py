@@ -44,6 +44,8 @@ from forwardtacotron_torch.duration.pipeline import (
 from forwardtacotron_torch.text.symbols import phonemes
 from forwardtacotron_torch.utils.paths import Paths
 
+from torch_cpu import (  # noqa: F401 (torch_one_thread: a fixture)
+    subprocess_env, torch_one_thread)
 from torch_training_setup import N_MELS
 
 REPO = Path(__file__).resolve().parent.parent
@@ -353,5 +355,6 @@ def test_pipeline_workers_import_no_torch():
     code = ('import sys; import forwardtacotron_torch.duration.pipeline; '
             'assert "torch" not in sys.modules')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
-                          capture_output=True, text=True, timeout=60)
+                          capture_output=True, text=True, timeout=60,
+                          env=subprocess_env())
     assert proc.returncode == 0, proc.stderr

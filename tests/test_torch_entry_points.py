@@ -26,6 +26,7 @@ import yaml
 
 from forwardtacotron_torch.utils.checkpoints import save_checkpoint
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (QUICK_COMPILE, both_models, family_config,
                                   family_models, narrow_config, scaled_close,
                                   speaker_table, write_dataset)

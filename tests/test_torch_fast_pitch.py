@@ -31,6 +31,7 @@ from forwardtacotron_torch.utils.convert import (from_jax_variables,
                                                  to_jax_variables)
 from forwardtacotron_torch.utils.files import read_config
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import no_tensorboard  # noqa: F401 (a fixture)
 
 SCHEMA = Path('tests/resources/reference_state_dict_schema.json')

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
+from torch_cpu import (  # noqa: F401 (torch_one_thread: a fixture)
+    subprocess_env, torch_one_thread)
 
 from forwardtacotron_torch.models.forward_tacotron import ForwardTacotron
 from forwardtacotron_torch.utils import flops
@@ -174,7 +176,8 @@ def test_module_imports_torch_only_in_chip_spec():
     code = ('import sys, forwardtacotron_torch.utils.flops; '
             'assert "torch" not in sys.modules')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env=subprocess_env())
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
@@ -192,23 +195,17 @@ def test_every_jax_module_has_a_counterpart():
 @pytest.fixture(scope='module')
 def mid():
     """The port's ForwardTacotron at MID_MODEL (f32, CPU, seeded) and the
-    inputs of tests/test_flops.py: b 4, n 32, t 128. Run on one intra-op
-    thread: the per-step recurrences are thousands of tiny ops, which a
-    thread pool slows ~50x when test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        config = _config('mid')
-        torch.manual_seed(0)
-        model = ForwardTacotron.from_config(config)
-        rs = np.random.RandomState(0)
-        b, n = 4, 32
-        yield config, model, {
-            'x': torch.as_tensor(rs.randint(1, 100, (b, n))),
-            'pitch': torch.as_tensor(rs.randn(b, n).astype(np.float32)),
-            'energy': torch.as_tensor(rs.rand(b, n).astype(np.float32))}
-    finally:
-        torch.set_num_threads(threads)
+    inputs of tests/test_flops.py: b 4, n 32, t 128. It runs on one
+    intra-op thread, as every port test does (tests/torch_cpu.py)."""
+    config = _config('mid')
+    torch.manual_seed(0)
+    model = ForwardTacotron.from_config(config)
+    rs = np.random.RandomState(0)
+    b, n = 4, 32
+    return config, model, {
+        'x': torch.as_tensor(rs.randint(1, 100, (b, n))),
+        'pitch': torch.as_tensor(rs.randn(b, n).astype(np.float32)),
+        'energy': torch.as_tensor(rs.rand(b, n).astype(np.float32))}
 
 
 def _counted(fn):

@@ -14,6 +14,7 @@ reads, so they agree with the twins up to the order of float32 sums
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops.hopper import cbhg, highway
 

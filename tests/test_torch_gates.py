@@ -18,6 +18,7 @@ import itertools
 import pytest
 import torch
 import torch.nn.functional as F
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models import vocoder as vocoder_mod
 from forwardtacotron_torch.models.layers import CBHG
@@ -95,13 +96,13 @@ def test_mrf_gate_admits_only_kernel_shapes(monkeypatch):
 
 # (kernel sizes, dilations, the kernel takes them) past HiFi-GAN's three
 # and three: within the halo, past it, and 33 dilations of 1-tap
-# convolutions (span 0: the JAX gates admit them, the kernel's launch
-# parameters hold 32 units)
+# convolutions (span 0: the JAX gates admit them, and the kernel takes any
+# number of units of a 1-tap convolution, which needs no dilation)
 LONG_BLOCKS = {'10_kernel_sizes': (tuple(range(2, 12)), (1, 3, 5), True),
                '9_dilations': ((3, 5), (1, 2) * 4 + (1,), True),
                '12_by_9': ((3,) * 12, (1,) * 9, True),
                'past_halo': ((3,) * 10, (1,) * 33, False),
-               '33_one_tap_units': ((1,), (1,) * 33, False)}
+               '33_one_tap_units': ((1,), (1,) * 33, True)}
 
 
 @pytest.mark.parametrize('name', list(LONG_BLOCKS))
@@ -370,9 +371,10 @@ def test_ups_mrf_padding_is_exact():
     (dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
           resblock_dilation_sizes=((1, 3, 5),), fuse_mrf_max_ch=512),
      'C=512'),
-    (dict(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 34, 4),
-          upsample_initial_channel=64, fuse_ups_tail_max_ch=16),
-     'kernel size 34'),
+    (dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+          upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
+          resblock_dilation_sizes=((1, 3, 5),), fuse_ups_tail_max_ch=512),
+     'tail level 0 .*C=512'),
     (dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
           resblock_dilation_sizes=((1, 3, 5),), fuse_tail_max_ch=512),
      'C=512')], ids=['mrf', 'tail', 'cm_tail'])

@@ -8,6 +8,8 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_cpu import (  # noqa: F401 (torch_one_thread: a fixture)
+    subprocess_env, torch_one_thread)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -30,7 +32,8 @@ assert build._LOADED == {}, build._LOADED
 
 def test_port_and_chip_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env=subprocess_env())
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
@@ -210,7 +213,8 @@ def test_new_modules_import_no_jax_msgpack_tensorboard_or_matplotlib():
     machine has none of them); they load TensorBoard and matplotlib only
     where a writer or a figure is made."""
     proc = subprocess.run([sys.executable, '-c', _IMPORT_NEW], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env=subprocess_env())
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

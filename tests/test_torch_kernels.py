@@ -14,6 +14,7 @@ stops at R = 9), it is held against the JAX pair path.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops.hopper import cbhg, griffin_lim, highway
 

@@ -7,6 +7,7 @@ Tolerance: float32, atol 1e-5 / rtol 1e-4.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models import layers
 from forwardtacotron_torch.utils.convert import from_jax_variables

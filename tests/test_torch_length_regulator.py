@@ -4,6 +4,7 @@
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops import length_regulator as lr
 

@@ -12,6 +12,7 @@ running sum and the JAX einsum give the same bits.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops import length_regulator as port_lr
 from forwardtacotron_torch.ops.hopper import lr

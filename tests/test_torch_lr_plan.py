@@ -17,6 +17,7 @@ Pallas kernel's custom VJP on the same cases.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops import length_regulator as port_lr
 from forwardtacotron_torch.ops.hopper import lr

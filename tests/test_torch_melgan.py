@@ -17,6 +17,7 @@ import pytest
 import torch
 from test_torch_slice import SMALL_DSP
 from test_vocoder import TorchMelGAN, TorchMelGANResStack
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models import vocoder as vocoder_mod
 from forwardtacotron_torch.models.synthesis import Vocoder

@@ -15,6 +15,7 @@ import itertools
 import pytest
 import torch
 import torch.nn.functional as F
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops.hopper import mrf, ups_mrf
 
@@ -51,10 +52,11 @@ def _check_plan(pl, dtype, c, c_in=0, s_out=1, s_up=1):
         assert pl['stages'] == 0 and pl['threads'] == 512
     if c_in:
         assert pl['c_in_pad'] >= c_in and pl['c_in_pad'] % 16 == 0
-        # the input tile: the window's input rows and IN_HALO + 1 more
-        # on each side (walked below)
+        # the input tile: the window's input rows and in_halo + 1 more on
+        # each side (walked below), in_halo IN_HALO or the taps' reach
+        assert pl['in_halo'] >= ups_mrf.IN_HALO
         assert pl['in_rows'] == max(-(-pl['tw'] // s_up), 64) \
-            + 2 * ups_mrf.IN_HALO + 1
+            + 2 * pl['in_halo'] + 1
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -63,12 +65,13 @@ def _check_plan(pl, dtype, c, c_in=0, s_out=1, s_up=1):
     (KRS, DILS), ((4, 6), (1, 2)), ((2, 3, 4, 5, 6, 7, 3, 5), (1,) * 8),
     ((2,), (31,)), ((65,), (1,)), (tuple(range(2, 12)), DILS),
     ((3,) * 12, (1,) * 9), ((3, 5), (1, 2) * 4 + (1,)), ((3,), (1,) * 32),
-    ((3,) * 32, (1,)), ((1,), (1,) * 32)])
+    ((3,) * 32, (1,)), ((1,), (1,) * 32), ((1,), (1,) * 256)])
 def test_mrf_plan_fits(dtype, c, krs, dils):
     """Every width of 8 to 256 channels, odd and even kernel sizes, up to
-    32 kernel sizes and 32 dilations, spans up to the halo: a plan within
-    the H100's shared memory per block and the accumulator budget, with a
-    ring of at least MIN_STAGES stages in bf16; ``shape_error`` passes."""
+    32 kernel sizes and 32 dilations, spans up to the halo, and 256
+    dilations of 1-tap convolutions: a plan within the H100's shared
+    memory per block and the accumulator budget, with a ring of at least
+    MIN_STAGES stages in bf16; ``shape_error`` passes."""
     pl = mrf.plan(dtype, c, krs, dils)
     _check_plan(pl, dtype, c)
     assert mrf.shape_error(c, krs, dils) is None
@@ -78,13 +81,20 @@ def test_mrf_plan_fits(dtype, c, krs, dils):
 @pytest.mark.parametrize('s_in,s_up', [(1, 2), (2, 2), (1, 3), (1, 4)])
 @pytest.mark.parametrize('c', WIDTHS)
 def test_ups_plan_fits(dtype, s_in, s_up, c):
-    """Rates 2, 3 and 4 with s_in * s_up <= 4, C_in = 2 C, the largest and
-    smallest upsampler the kernel takes at each rate."""
-    for k_up in (s_up + 2 * ((32 - s_up) // 2), s_up):
-        pl = ups_mrf.plan(dtype, s_in, s_up, 2 * c, c, k_up, KRS, DILS)
-        _check_plan(pl, dtype, c, 2 * c, s_in * s_up, s_up)
-        assert ups_mrf.shape_error(s_in, s_up, 2 * c, c, k_up, KRS,
-                                   DILS) is None
+    """Rates 2, 3 and 4 with s_in * s_up <= 4, C_in = 2 C and, below 256
+    channels, 2 C + 1 (at 256, 513 input channels overflow the float32
+    carve); at each rate the smallest upsampler, one of 32 taps or fewer
+    and the first whose taps reach past IN_HALO input rows (the tile's
+    halo grows)."""
+    wide = next(k for k in range(s_up, 200, 2)
+                if ups_mrf.tap_reach(s_up, k) > ups_mrf.IN_HALO)
+    for k_up in (s_up + 2 * ((32 - s_up) // 2), s_up, wide):
+        for c_in in (2 * c, 2 * c + 1) if c < 256 else (2 * c,):
+            pl = ups_mrf.plan(dtype, s_in, s_up, c_in, c, k_up, KRS, DILS)
+            _check_plan(pl, dtype, c, c_in, s_in * s_up, s_up)
+            assert pl['in_halo'] == ups_mrf.in_halo(s_up, k_up)
+            assert ups_mrf.shape_error(s_in, s_up, c_in, c, k_up, KRS,
+                                       DILS) is None
 
 
 def test_plans_at_hifigan_levels():
@@ -103,27 +113,30 @@ def test_plans_at_hifigan_levels():
 
 
 def test_plans_refuse():
-    """C past the cap, more than 32 kernel sizes or (1-tap convolutions,
-    whose span is 0) dilations, a span past the halo (where more than 32
-    dilations of a kernel size of 2 or more land), another dtype, an upsampler whose taps reach past the input
-    tile's halo, C_in above 2 C, more than 4 phases, and a shared memory
-    that holds fewer ring stages than the kernel needs: each raises with
-    its reason, and ``shape_error`` reports it."""
+    """C past the cap, more than 32 kernel sizes, a span past the halo
+    (where more than 32 dilations of a kernel size of 2 or more land, also
+    beside 1-tap convolutions), another dtype, an
+    upsampler with k - s odd, C_in past the kernel's 1,024, more than 4
+    phases, and a shared memory that holds fewer ring stages than the
+    kernel needs: each raises with its reason, and ``shape_error`` reports
+    it. (A level of 1-tap convolutions only takes any number of
+    dilations, an upsampler any reach and C_in any width up to 1,024:
+    tests/test_torch_mrf_gaps.py.)"""
     with pytest.raises(ValueError, match='C=512'):
         mrf.plan(torch.bfloat16, 512, KRS, DILS)
     assert 'C=512' in mrf.shape_error(512, KRS, DILS)
     assert 'at most 32 kernel sizes' in mrf.shape_error(64, (3,) * 33, DILS)
-    assert 'at most 32 kernel sizes' in mrf.shape_error(64, (1,), (1,) * 33)
     assert 'halo' in mrf.shape_error(64, (2,), (1,) * 33)
+    assert 'halo' in mrf.shape_error(64, (1, 2), (1,) * 33)
     assert 'halo' in mrf.shape_error(64, KRS, (1,) * 9)
     assert 'at least one' in mrf.shape_error(64, (), DILS)
     assert 'halo' in mrf.shape_error(64, (13,), DILS)
     assert 'halo' in mrf.shape_error(64, (2,), (64,))
     with pytest.raises(ValueError, match='float32 or bfloat16'):
         mrf.plan(torch.float16, 64, KRS, DILS)
-    assert 'kernel size 34' in ups_mrf.shape_error(1, 2, 64, 32, 34, KRS,
-                                                   DILS)
-    assert 'C_in=256' in ups_mrf.shape_error(1, 2, 256, 64, 4, KRS, DILS)
+    assert 'kernel size 5' in ups_mrf.shape_error(1, 2, 64, 32, 5, KRS,
+                                                  DILS)
+    assert 'C_in=1025' in ups_mrf.shape_error(1, 2, 1025, 64, 4, KRS, DILS)
     assert 'rate 8' in ups_mrf.shape_error(1, 8, 64, 32, 16, KRS, DILS)
     assert 'phases' in ups_mrf.shape_error(2, 3, 64, 32, 5, KRS, DILS)
     # two ring stages of [64, 64] bf16 are 16,384 bytes: a limit that
@@ -359,14 +372,16 @@ def test_mrf_stage_walk_matches_twin(c, t, krs, dils):
 @pytest.mark.parametrize('s_in,s_up,k_up,c_in,c,t_ps,t_valid', [
     (1, 2, 4, 128, 64, 150, 150), (2, 2, 4, 64, 32, 97, 90),
     (1, 3, 9, 32, 16, 101, 101), (1, 4, 32, 32, 16, 50, 47),
-    (1, 2, 24, 64, 32, 80, 80)])
+    (1, 2, 24, 64, 32, 80, 80), (1, 2, 34, 32, 16, 60, 60),
+    (2, 2, 66, 32, 16, 70, 66)])
 def test_ups_stage_walk_matches_twin(s_in, s_up, k_up, c_in, c, t_ps,
                                      t_valid):
     """The tail's level walked tile by tile as the kernel runs it: the
-    de-interleaved input tile from floor(pos0 / s_up) - IN_HALO, one
+    de-interleaved input tile from floor(pos0 / s_up) - in_halo, one
     product per output phase with its first tap, first input row and
     output rows, the upsampler's taps then the MRF's from the packed
-    stages; rates 2, 3 and 4, k_up up to 32, padding lanes."""
+    stages; rates 2, 3 and 4, k_up up to 66 (taps reaching 9 and 17 input
+    rows, past IN_HALO), padding lanes."""
     g = torch.Generator().manual_seed(t_ps)
     x = torch.randn(s_in * c_in, t_ps, generator=g)
     up_w = torch.randn(k_up, c, c_in, generator=g) / (k_up * c_in) ** .5
@@ -385,7 +400,7 @@ def test_ups_stage_walk_matches_twin(s_in, s_up, k_up, c_in, c, t_ps,
         pos0 = tile0 - mrf.HALO
         pos = pos0 + torch.arange(tw)
         valid = (pos >= 0) & (pos < s_out * t_valid)
-        in0 = pos0 // s_up - ups_mrf.IN_HALO
+        in0 = pos0 // s_up - pl['in_halo']
         q = in0 + torch.arange(in_rows)
         lane = torch.div(q, s_in, rounding_mode='floor')
         r_in = q - lane * s_in

@@ -9,6 +9,7 @@ refuses to write an array over the size)."""
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.utils import msgpack as codec
 

@@ -44,6 +44,7 @@ from forwardtacotron_torch.utils.convert import (from_jax_variables,
                                                  to_jax_variables)
 from forwardtacotron_torch.utils.files import read_config
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (MULTI_NARROW, close_at_scale,
                                   family_config, family_models,
                                   full_width_model, jax_forward,

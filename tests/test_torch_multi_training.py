@@ -32,6 +32,7 @@ from forwardtacotron_torch.train.forward_trainer import (ForwardTrainer,
 from forwardtacotron_torch.train.state import create_train_state
 from forwardtacotron_torch.utils.convert import from_jax_variables
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (  # noqa: F401 (jax_kernels, no_tensorboard: fixtures)
     LOSSES, NARROW_OF, SPEAKERS, family_config, family_models, jax_kernels,
     make_multi_batch, no_tensorboard, paths_of, run_jax_step, scaled_close,

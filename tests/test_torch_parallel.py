@@ -32,6 +32,7 @@ from forwardtacotron_torch.ops.hopper import cbhg, highway, lr_bidir, rnn
 from forwardtacotron_torch.parallel import mesh
 from forwardtacotron_torch.utils.convert import from_jax_variables
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import run_jax_step, scaled_close
 
 F32_TOL = 1e-4

@@ -46,6 +46,7 @@ from forwardtacotron_torch.utils.files import read_config
 from torch_parallel_worker import (REPO, launch, make_items,
                                    rank_batches, run_ranks, step_difference,
                                    train_steps)
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (  # noqa: F401 (no_tensorboard: a fixture)
     LOSSES, N_MELS, both_models, family_config, family_models, narrow_config,
     no_tensorboard, run_jax_step, scaled_close, write_dataset)

@@ -34,6 +34,7 @@ from forwardtacotron_torch.train.state import create_train_state
 from forwardtacotron_torch.train.taco_trainer import TacoTrainer
 from forwardtacotron_torch.utils.files import read_config
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (  # noqa: F401 (no_tensorboard: a fixture)
     N_MELS, _random_variables, both_models, family_config, family_models,
     narrow_config, no_tensorboard, paths_of, scaled_close, write_dataset,

@@ -24,6 +24,7 @@ previous kernel took (every B, T and P, KC a multiple of 32) is refused.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops.hopper import cbhg
 

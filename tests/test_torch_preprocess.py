@@ -24,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.data.preprocess import (MelStatsSpeakerEncoder,
                                                    Preprocessor,

@@ -17,6 +17,7 @@ excess precision between fused operations outside the kernels.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models import layers
 from forwardtacotron_torch.ops.hopper import lr_bidir, rnn

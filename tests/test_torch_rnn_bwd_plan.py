@@ -27,6 +27,7 @@ and every (I, H) the previous kernel took still has a plan.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops.hopper import rnn, rnn_train
 

@@ -9,6 +9,7 @@ kernel they replaced took.
 """
 
 import pytest
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.ops.hopper import rnn
 

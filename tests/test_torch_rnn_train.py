@@ -18,6 +18,7 @@ and the sweep carries it on.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models import layers
 from forwardtacotron_torch.ops.hopper import rnn, rnn_train

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_slice import SMALL_DSP, randomize
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models.registry import \
     init_tts_model as torch_init_tts_model

@@ -12,6 +12,7 @@ waveform after 4 Griffin-Lim iterations.
 import numpy as np
 import pytest
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.dsp.dsp import DSP as TorchDSP
 from forwardtacotron_torch.models.registry import \

@@ -56,6 +56,7 @@ from forwardtacotron_torch.utils.convert import (from_jax_variables,
 from forwardtacotron_torch.utils.files import read_config
 from forwardtacotron_torch.utils.paths import Paths
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (  # noqa: F401 (no_tensorboard: a fixture)
     N_MELS, QUICK_COMPILE, _random_variables, no_tensorboard, scaled_close,
     write_dataset)

@@ -2,6 +2,7 @@
 (exact: integer ids)."""
 
 import pytest
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.text import symbols
 from forwardtacotron_torch.text.cleaners import Cleaner

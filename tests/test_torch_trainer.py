@@ -35,6 +35,7 @@ from forwardtacotron_torch.train.state import create_train_state
 from forwardtacotron_torch.utils.convert import from_jax_variables
 from forwardtacotron_torch.utils.files import read_config
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (  # noqa: F401 (jax_kernels, no_tensorboard: fixtures)
     LOSSES, both_models, jax_kernels, make_batch, narrow_config,
     no_tensorboard, paths_of, scaled_close, write_dataset)

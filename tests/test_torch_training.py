@@ -46,6 +46,7 @@ from forwardtacotron_torch.models.layers import conv1d
 from forwardtacotron_torch.train.forward_trainer import ForwardTrainer
 from forwardtacotron_torch.utils.convert import from_jax_variables
 
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 from torch_training_setup import (  # noqa: F401 (jax_kernels: a fixture)
     LOSSES, both_models, jax_kernels, make_batch, narrow_config, paths_of,
     scaled_close)

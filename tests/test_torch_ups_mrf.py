@@ -10,12 +10,11 @@ round at the same points, but a float32 sum taken in another order can land
 on the neighbouring bf16 value and a residual chain carries it on).
 """
 
-import itertools
-
 import numpy as np
 import pytest
 import torch
 from test_torch_vocoder import _close_at_scale, _jax_generator
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models import vocoder as vocoder_mod
 from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
@@ -57,14 +56,17 @@ def _torch_level(inputs, dtype):
 
 
 # (s_in, s_up, k, T_ps, t_valid, t_tile): one tile; several 128-lane tiles
-# with a ragged edge and padding lanes; rate 4
+# with a ragged edge and padding lanes; rate 4; upsamplers of more than 32
+# taps (reaching 13 and 5 input rows), over two tiles
 LEVELS = [(1, 2, 4, 100, 100, 512), (2, 2, 4, 300, 293, 128),
-          (1, 4, 8, 90, 90, 512)]
+          (1, 4, 8, 90, 90, 512), (2, 2, 50, 200, 191, 128),
+          (1, 4, 36, 200, 191, 128)]
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('s_in,s_up,k,t_ps,t_valid,t_tile', LEVELS,
-                         ids=['s1x2', 's2x2_tiles', 's1x4'])
+                         ids=['s1x2', 's2x2_tiles', 's1x4', 's2x2_k50',
+                              's1x4_k36'])
 def test_ups_mrf_twin_matches_pallas(dtype, s_in, s_up, k, t_ps, t_valid,
                                      t_tile):
     _check_ups_mrf_twin(dtype, s_in, s_up, k, t_ps, t_valid, t_tile, KRS,
@@ -155,7 +157,9 @@ def test_pack_up_weight_matches_jax():
 # the narrow v1 shape of tests/test_mrf.py (levels of 64/32/16/8 channels,
 # the tail from level 2, whose input spans several kernel tiles) and its
 # two-level x2/x2 config (the tail from level 0); tails the kernel takes
-# since its widening: a last level at rate 3, and an upsampler of 24 taps.
+# since its widening: a last level at rate 3, upsamplers of 24 and 34 taps
+# (34 reach 9 input rows, past IN_HALO), and a level of 32 channels behind
+# 65 (C_in = 2 C + 1: the channels halve, rounding down, from 130).
 # (config, fuse_ups_tail_max_ch, (batch, frames), n_mels, tail levels)
 TAIL_CFGS = {
     'v1_narrow': (dict(upsample_initial_channel=128), 16, (1, 24), 20,
@@ -166,7 +170,13 @@ TAIL_CFGS = {
     'rate3': (dict(upsample_rates=(4, 4, 3), upsample_kernel_sizes=(8, 8, 9),
                    upsample_initial_channel=64), 8, (2, 21), 20, [2]),
     'k_up24': (dict(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 24, 4),
-                    upsample_initial_channel=64), 16, (2, 20), 20, [1, 2])}
+                    upsample_initial_channel=64), 16, (2, 20), 20, [1, 2]),
+    'k_up34': (dict(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 34, 4),
+                    upsample_initial_channel=64), 16, (2, 20), 20, [1, 2]),
+    'odd_channels': (dict(upsample_rates=(4, 2, 2),
+                          upsample_kernel_sizes=(8, 4, 4),
+                          upsample_initial_channel=130), 32, (2, 20), 20,
+                     [1, 2])}
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -175,9 +185,9 @@ def test_generator_tail_matches_jax(name, dtype, monkeypatch):
     """The port's generator with the tail on (its device clause patched, so
     CPU tensors reach ``ups_mrf``, which runs the twin) against the JAX
     generator with the same option under FTT_PALLAS_INTERPRET=1: the same
-    levels take the tail (on the card the gate does not raise: rate 3 and
-    24 taps included), and the outputs agree; in float32 also with the
-    port's per-convolution path."""
+    levels take the tail (on the card the gate does not raise: rate 3, 24
+    and 34 taps and C_in = 2 C + 1 included), and the outputs agree; in
+    float32 also with the port's per-convolution path."""
     import jax
     import jax.numpy as jnp
 
@@ -234,6 +244,11 @@ def _jax_gate(cfg, max_ch):
 GATE_RATES = {(8, 8, 2, 2): (16, 16, 4, 4), (8, 8, 4): (16, 16, 8),
               (2, 2): (4, 4), (4, 4): (8, 8), (8, 8, 3): (16, 16, 5),
               (4, 2, 2): (8, 34, 4)}
+# (rates, initial channels) of the grid: every rate set at 64, 130 and 256
+# (130 halves to 65, then to 32: a level of C_in = 2 C + 1), and x2/x2 at
+# 1024, whose first level (512 channels) the kernel does not take
+GATE_GRID = [(rates, initial) for rates in GATE_RATES
+             for initial in (64, 130, 256)] + [((2, 2), 1024)]
 GATE_BLOCKS = {'1_uniform': ('1', ((1, 3, 5),) * 3),
                '1_mixed': ('1', ((1, 3, 5), (1, 3, 5), (1, 2, 4))),
                '2_uniform': ('2', ((1, 3),) * 3)}
@@ -243,22 +258,22 @@ GATE_BLOCKS = {'1_uniform': ('1', ((1, 3, 5),) * 3),
 def test_ups_tail_gate_matches_jax(block, monkeypatch):
     """On a card, over rates, channel caps, widths and lengths: the port's
     gate admits a tail exactly where the JAX gate does and the kernel takes
-    every level of it (rates 2, 3 and 4, up to 256 output channels), and
-    raises where the JAX gate admits a tail with a level the kernel does
-    not take (an upsampler of 34 taps); every tail it admits passes the
-    kernel's check."""
+    every level of it (rates 2, 3 and 4, up to 256 output channels, an
+    upsampler of 34 taps, C_in = 2 C + 1), and raises where the JAX gate
+    admits a tail with a level the kernel does not take (512 channels);
+    every tail it admits passes the kernel's check."""
     monkeypatch.setenv('FTT_PALLAS_INTERPRET', '1')
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     resblock, dils = GATE_BLOCKS[block]
     admitted = raised = 0
-    for (rates, sizes), initial in itertools.product(GATE_RATES.items(),
-                                                     (64, 256)):
+    for rates, initial in GATE_GRID:
+        sizes = GATE_RATES[rates]
         cfg = dict(resblock=resblock, upsample_rates=rates,
                    upsample_kernel_sizes=sizes,
                    upsample_initial_channel=initial,
                    resblock_dilation_sizes=dils, num_mels=8)
         port = HiFiGANGenerator(**cfg)
-        for max_ch in (0, 16, 32, 64, 128):
+        for max_ch in (0, 16, 32, 64, 128, 512):
             port.fuse_ups_tail_max_ch = max_ch  # the gate reads nothing else
             jax_gate = _jax_gate(cfg, max_ch)
             for level, up in enumerate(port.ups):

@@ -22,6 +22,8 @@ import pytest
 import torch
 from test_torch_slice import SMALL_DSP, small_config
 from test_vocoder import TorchHiFiGAN
+from torch_cpu import (  # noqa: F401 (torch_one_thread: a fixture)
+    subprocess_env, torch_one_thread)
 from torch_training_setup import _random_variables
 
 from forwardtacotron_torch.models import vocoder as vocoder_mod
@@ -105,14 +107,17 @@ def test_mrf_twin_matches_pallas_even_kr(dtype):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('krs,dils', [(tuple(range(2, 12)), DILS),
-                                      ((3, 5), (1, 2) * 4 + (1,))],
-                         ids=['10_kernel_sizes', '9_dilations'])
+@pytest.mark.parametrize('krs,dils', [
+    (tuple(range(2, 12)), DILS), ((3, 5), (1, 2) * 4 + (1,)),
+    ((1,), tuple(range(1, 41))), ((1, 1), tuple(range(1, 34)))],
+    ids=['10_kernel_sizes', '9_dilations', '40_one_tap_dilations',
+         '33_one_tap_dilations_2_branches'])
 def test_mrf_twin_matches_pallas_long_lists(dtype, krs, dils):
-    """More kernel sizes or dilations than HiFi-GAN's three, within the
-    halo, which the JAX gate admits and the card's kernel now takes: 10
-    kernel sizes (odd and even), 9 dilations; several tiles with a ragged
-    edge."""
+    """More kernel sizes or dilations than HiFi-GAN's three, which the
+    JAX gate admits and the card's kernel takes: 10 kernel sizes (odd and
+    even) and 9 dilations within the halo, and levels of 1-tap
+    convolutions (span 0) with more than 32 dilations; several tiles with
+    a ragged edge."""
     _check_mrf_twin(dtype, 16, 300, 128, krs, dils)
 
 
@@ -439,7 +444,7 @@ def test_gen_forward_cli_hifigan(tmp_path):
          str(text), '--output', str(out), '--batched',
          '--vocoder_checkpoint', str(voc), '--vocoder_config', str(voc_json),
          'hifigan'], cwd=str(REPO), capture_output=True, text=True,
-        timeout=600)
+        timeout=600, env=subprocess_env())
     assert proc.returncode == 0, proc.stderr[-4000:]
     wavs = sorted(out.glob('*.wav'))
     assert [w.name for w in wavs] == ['1_forward_0k_alpha1.0.wav',

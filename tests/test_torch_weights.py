@@ -7,6 +7,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch_cpu import torch_one_thread  # noqa: F401 (an autouse fixture)
 
 from forwardtacotron_torch.models.registry import init_tts_model
 from forwardtacotron_torch.utils.convert import from_jax_variables
