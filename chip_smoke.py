@@ -219,7 +219,11 @@ the LSTM entries' times (``LSTM_TIMES_SHAPES``, with ``--kernel-parts``
 their parts) and ``--lr-mrf-times`` only row 8's phase (with a fill of
 its output's bytes and the kernel's device time at several tiles of
 frames) and the times of HiFi-GAN v1's MRF levels 2-3 (bf16, batch 128 x 256 frames, ``mrf`` and
-``ups_mrf``); ``--host-times`` runs only the build and the
+``ups_mrf``); ``--mrf-gaps`` only builds ``mrf.cu`` and runs rows
+14-15 at the shapes past their first limits (``mrf_gap_shapes_phase``:
+the wide form past 256 channels, 33 kernel sizes, tail levels whose input
+tile loads in chunks of input channels, each against its twin, with its
+plan and bound); ``--host-times`` runs only the build and the
 single-speaker f32 and bf16 requests and bf16 train step on the host
 clock (``host_times_phase``); each stops after it and also runs copied
 into an older checkout, to time two trees in one call.
@@ -567,6 +571,7 @@ def build_phase(build):
             if '--kernel-parts' in sys.argv[1:] else []))
     log(f'build: {time.perf_counter() - t0:.1f} s wall, '
         + ', '.join(f'{k} {v:.1f} s' for k, v in times.items()))
+    log(f'mrf build: {times.get("mrf", 0.0):.1f} s (0 where built before)')
     for name in build.SOURCES:
         logf = build.BUILD_DIR / f'{name}.log'
         if logf.is_file():
@@ -2235,22 +2240,41 @@ def mrf_long_lists_phase(torch, n_frames) -> dict:
 
 
 # shapes the JAX generator sends to its Pallas kernels past the kernels'
-# first limits (Queue 3, settled in tests/test_torch_mrf_gaps.py): a level
-# of 1-tap convolutions with 40 dilations; tail levels whose upsamplers
-# reach past IN_HALO input rows (34 and 66 taps), and one of C_in = 2 C + 1
+# first limits (Queue 3, settled in tests/test_torch_mrf_gaps.py), each
+# with its dtypes: a level of 1-tap convolutions with 40 dilations; levels
+# past 256 channels within the Pallas kernel's VMEM (the wide form: C 512
+# of (3,) x (1, 3, 5) in bf16, a cluster of 8; C 1,024 of 1-tap
+# convolutions, 16; C 1,061 in bf16, 9 CTAs of 128 channels); 33 kernel
+# sizes; tail levels whose upsamplers reach past IN_HALO input rows (34 and
+# 66 taps), one of C_in = 2 C + 1, and those whose input tile loads in
+# chunks of input channels (C 256 behind 513 in f32; C 512 behind 1,024 in
+# the wide form)
+BOTH = ('float32', 'bfloat16')
+KRS_V1, DILS_V1 = (3, 7, 11), (1, 3, 5)
 MRF_GAP_LEVELS = (('one-tap level, 40 dilations', 32, (1,),
-                   tuple(range(1, 41))),)
-UPS_GAP_LEVELS = (('34 taps', 1, 2, 34, 64, 32),
-                  ('66 taps', 2, 2, 66, 64, 32),
-                  ('C_in = 2 C + 1', 1, 2, 4, 65, 32))
+                   tuple(range(1, 41)), BOTH),
+                  ('C 512, (3,) x 3', 512, (3,), DILS_V1, ('bfloat16',)),
+                  ('C 1,024, 1-tap', 1024, (1,), (1,), BOTH),
+                  ('C 1,061, (3,) x 1', 1061, (3,), (1,), ('bfloat16',)),
+                  ('33 kernel sizes', 64,
+                   tuple((3, 5, 1, 7)[i % 4] for i in range(33)), (1, 2),
+                   BOTH))
+UPS_GAP_LEVELS = (('34 taps', 1, 2, 34, 64, 32, KRS_V1, DILS_V1, BOTH),
+                  ('66 taps', 2, 2, 66, 64, 32, KRS_V1, DILS_V1, BOTH),
+                  ('C_in = 2 C + 1', 1, 2, 4, 65, 32, KRS_V1, DILS_V1, BOTH),
+                  ('C 256 behind 513', 1, 2, 4, 513, 256, (3,), DILS_V1,
+                   BOTH),
+                  ('C 512 behind 1,024', 1, 2, 4, 1024, 512, (3,), DILS_V1,
+                   ('bfloat16',)))
 GAP_BATCH, GAP_SAMPLES = 8, 16384
 
 
 def mrf_gap_shapes_phase(torch) -> dict:
     """``mrf`` and ``ups_mrf`` against their twins at MRF_GAP_LEVELS and
-    UPS_GAP_LEVELS (HiFi-GAN's kernel sizes 3/7/11 and dilations 1/3/5 for
-    the tail levels), float32 and bf16, GAP_BATCH items of GAP_SAMPLES
-    output samples, each timed beside its twin. Returns {'mrf': {label:
+    UPS_GAP_LEVELS, GAP_BATCH items of GAP_SAMPLES output samples, one
+    launch each, each timed beside its twin and logged with its plan and
+    bound; then a level past the Pallas kernel's VMEM (v1's branch set at
+    512 channels) must raise before any launch. Returns {'mrf': {label:
     {dtype: result}}, 'ups_mrf': {...}}."""
     from forwardtacotron_torch.ops.hopper import mrf, ups_mrf
     dev = torch.device('cuda')
@@ -2267,46 +2291,89 @@ def mrf_gap_shapes_phase(torch) -> dict:
                                      dtype),
                                randn((n_units, c, 1), 0.1, bias_dtype)))
 
-    def check(kind, label, dtype, run, plain, counter, at):
+    def check(kind, label, dtype, run, plain, counter, at, pl, flops,
+              nbytes):
+        name = str(dtype).replace('torch.', '')
+        log(f'  {kind} {label} ({name}): {at}; plan: {pl["cluster"]} CTA(s) '
+            f'of {pl["cs"]} channels ({"wide" if pl["wide"] else "narrow"}),'
+            f' tile {pl["t_tile"]}, {pl["stages"]} ring stages, input tile '
+            f'in {pl["groups"]} chunk(s), {pl["smem"]} bytes')
         before = counter()
         got = run()
         if counter() != before + 1:
             fail(f'{kind} {label}: no launch')
-        name = str(dtype).replace('torch.', '')
         err = compare(torch, f'{kind} {label} ({name})', got.float(),
                       plain().float(),
                       KERNEL_TOL if dtype == torch.float32 else BF16_TOL)
         k_ms, p_ms = time_ms(torch, run), time_ms(torch, plain, reps=3)
-        log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({at})')
+        b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS
+                           if dtype == torch.float32 else PEAK_BF16_FLOPS)
+        log(f'    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound '
+            f'{b_ms:.4f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s')
         res[kind].setdefault(label, {})[name] = dict(
-            max_abs_err=err, ms=k_ms, plain_ms=p_ms, at=at)
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, at=at, plan=dict(
+                cs=pl['cs'], cluster=pl['cluster'], t_tile=pl['t_tile'],
+                stages=pl['stages'], wide=pl['wide'], groups=pl['groups'],
+                smem=pl['smem']))
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for label, c, krs, dils in MRF_GAP_LEVELS:
+    t0 = time.perf_counter()
+    for label, c, krs, dils, dtypes in MRF_GAP_LEVELS:
+        for dtype in (getattr(torch, d) for d in dtypes):
             x = randn((GAP_BATCH, c, GAP_SAMPLES), 1.0, dtype)
             weights = branch_weights(c, krs, len(dils), dtype, dtype)
             prep = mrf.prepare(weights, krs, dils)
+            flops = (2 * c * c * 2 * len(dils) * sum(krs) * GAP_SAMPLES
+                     * GAP_BATCH)
+            nbytes = x.element_size() * (2 * x.numel() + sum(
+                w.numel() for w in weights))
             check('mrf', label, dtype,
                   lambda: mrf.mrf(x, weights, krs, dils, prepared=prep),
                   lambda: mrf.mrf_plain(x, weights, krs, dils),
                   lambda: mrf.launches,
-                  f'B={GAP_BATCH} C={c} T={GAP_SAMPLES} kernel sizes {krs}, '
-                  f'{len(dils)} dilations')
-        for label, s_in, s_up, k, c_in, c in UPS_GAP_LEVELS:
+                  f'B={GAP_BATCH} C={c} T={GAP_SAMPLES} {len(krs)} kernel '
+                  f'sizes {krs[:4]}, {len(dils)} dilations',
+                  mrf.plan(dtype, c, krs, dils), flops, nbytes)
+            del x, weights, prep
+    for label, s_in, s_up, k, c_in, c, krs, dils, dtypes in UPS_GAP_LEVELS:
+        for dtype in (getattr(torch, d) for d in dtypes):
             t_ps = GAP_SAMPLES // (s_in * s_up)
             x = randn((GAP_BATCH, s_in * c_in, t_ps), 1.0, dtype)
             up_w = randn((k, c, c_in), (k * c_in / s_up) ** -0.5, dtype)
             up_b = randn((c,), 0.1, torch.float32)
-            weights = branch_weights(c, (3, 7, 11), 3, dtype, torch.float32)
-            args = (x, up_w, up_b, weights, s_in, s_up, (3, 7, 11),
-                    (1, 3, 5), t_ps - 5)
+            weights = branch_weights(c, krs, len(dils), dtype,
+                                     torch.float32)
+            args = (x, up_w, up_b, weights, s_in, s_up, krs, dils, t_ps - 5)
             prep = ups_mrf.prepare(*args[1:8])
+            flops = GAP_BATCH * GAP_SAMPLES * (
+                2 * c * c * 2 * len(dils) * sum(krs) + 2 * c_in * c * k
+                // s_up)
+            nbytes = (x.element_size() * (
+                x.numel() + GAP_BATCH * s_in * s_up * c * t_ps
+                + up_w.numel() + sum(w.numel() for w in weights[0::2]))
+                + 4 * (up_b.numel() + sum(w.numel() for w in weights[1::2])))
             check('ups_mrf', label, dtype,
                   lambda: ups_mrf.ups_mrf(*args, prepared=prep),
                   lambda: ups_mrf.ups_mrf_plain(*args),
                   lambda: ups_mrf.launches,
                   f'B={GAP_BATCH} s_in={s_in} s_up={s_up} k_up={k} '
-                  f'C_in={c_in} C={c} T_ps={t_ps}')
+                  f'C_in={c_in} C={c} T_ps={t_ps} kernel sizes {krs}',
+                  ups_mrf.plan(dtype, s_in, s_up, c_in, c, k, krs, dils),
+                  flops, nbytes)
+            del x, weights, prep, args
+    # past the count: raised before any launch, never plain operations
+    x = randn((1, 512, 64), 1.0, torch.bfloat16)
+    weights = branch_weights(512, KRS_V1, 3, torch.bfloat16, torch.bfloat16)
+    before = mrf.launches
+    try:
+        mrf.mrf(x, weights, KRS_V1, DILS_V1)
+        fail('mrf: a v1 level of 512 channels launched past the Pallas count')
+    except ValueError as e:
+        if 'Pallas' not in str(e) or mrf.launches != before:
+            fail(f'mrf: a v1 level of 512 channels: {e}')
+        log(f'  past the count, raised before any launch: {str(e)[:160]}')
+    log(f'  shapes past the first limits: '
+        f'{time.perf_counter() - t0:.1f} s')
     return res
 
 
@@ -6422,6 +6489,16 @@ def main() -> None:
         # the LSTM entries' times alone, e.g. beside a parent checkout's
         with torch.inference_mode():
             log(f'lstm times: {json.dumps(lstm_times_phase(torch))}')
+        log(f'card: {card}')
+        return
+    if '--mrf-gaps' in sys.argv[1:]:
+        # rows 14-15 at the shapes past their first limits alone
+        t0 = time.perf_counter()
+        build.build(['mrf'])
+        log(f'build mrf: {time.perf_counter() - t0:.1f} s')
+        with torch.inference_mode():
+            gaps = mrf_gap_shapes_phase(torch)
+        log(f'mrf gap shapes: {json.dumps(gaps)}')
         log(f'card: {card}')
         return
     if '--lr-mrf-times' in sys.argv[1:]:

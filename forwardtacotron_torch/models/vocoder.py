@@ -185,14 +185,16 @@ class HiFiGANGenerator(nn.Module):
     ``fuse_mrf_max_ch`` (default 0, as in the JAX package): a level with at
     most this many channels, ``resblock '1'``, one dilation tuple for every
     kernel size and a span that fits the halo runs as one ``mrf`` launch
-    when its activation lies on a CUDA device.
+    when its activation lies on a CUDA device. The kernels take every level
+    of 256 channels or fewer, and past that any level the JAX package's
+    Pallas kernel can hold (``mrf.plan``), in the activation's dtype.
     ``fuse_ups_tail_max_ch`` (default 0, as in the JAX package): from the
     first level whose output has at most this many channels, each level runs
     as one ``ups_mrf`` launch on phase-stacked activations, where the JAX
     package's gate admits the tail (``_ups_tail_fusable``) and the
     activation lies on a CUDA device. Where either gate admits a level that
-    its kernel does not take, the forward raises ``NotImplementedError``
-    rather than run it on plain operations.
+    its kernel does not take (past the Pallas kernel's VMEM), the forward
+    raises ``NotImplementedError`` rather than run it on plain operations.
     ``fuse_tail_max_ch`` (default 0, as in the JAX package): from the
     first level whose output has at most this many channels, each level
     runs its upsampler as one polyphase GEMM (``_up_cm``) and its MRF as
@@ -260,7 +262,7 @@ class HiFiGANGenerator(nn.Module):
             return False
         if not _on_cuda(x):
             return False
-        err = mrf_ops.shape_error(ch, krs, dils[0])
+        err = mrf_ops.shape_error(ch, krs, dils[0], x.dtype)
         if err:
             raise kernel_gap(f'HiFi-GAN MRF level of {ch} channels (mrf.cu)',
                              err)
@@ -288,7 +290,8 @@ class HiFiGANGenerator(nn.Module):
         if not _on_cuda(x):
             return False
         for j, up in enumerate(self.ups[level:]):
-            err = mrf_ops.shape_error(up.out_channels, krs, dils[0])
+            err = mrf_ops.shape_error(up.out_channels, krs, dils[0],
+                                      x.dtype)
             if err:
                 raise kernel_gap(f'HiFi-GAN channels-major tail level '
                                  f'{level + j} (mrf.cu)', err)
@@ -321,7 +324,8 @@ class HiFiGANGenerator(nn.Module):
         for j, (up, s) in enumerate(zip(self.ups[level:], rates)):
             err = ups_ops.shape_error(s_in, s, up.in_channels,
                                       up.out_channels, up.kernel_size[0],
-                                      self.resblock_kernel_sizes, dils[0])
+                                      self.resblock_kernel_sizes, dils[0],
+                                      x.dtype)
             if err:
                 raise kernel_gap(f'HiFi-GAN tail level {level + j} '
                                  '(ups_mrf in mrf.cu)', err)

@@ -109,11 +109,44 @@
 //     ubuf (one product per output phase of the stride) and copied into cur
 //     at each branch's start. Any rate with s_in * s_up <= 4, any k_up: the
 //     tile's halo, in_halo, is IN_HALO input rows or the farthest tap's
-//     reach where that is more.
-// The launch plan (CS, t_tile, ring stages, the shared-memory carve) comes
-// from the wrapper (mrf.py ``plan``, which needs no card); the entries
-// recompute the carve and refuse a plan that does not fit.
-
+//     reach where that is more. Where the whole tile does not fit, it loads
+//     in chunks of cw input channels (a multiple of KC) and the upsample's
+//     f32 sum runs over the chunks: bf16 in the accumulators (per output
+//     phase, each chunk's stages in turn, the tile reloaded between them),
+//     f32 in ubuf (per chunk, every phase; the bias joins at the last
+//     chunk), with one rounding after the last, as with the whole tile.
+//   - The branches (weight pointers, kernel sizes and spans) are a table
+//     in device memory (mrf.py ``branch_table``) read through the
+//     read-only path, so a level takes any number of kernel sizes; the
+//     parameter block keeps a copy of the first 32 kernel sizes and the
+//     dilations (branch_krspan), and the biases are one tensor addressed
+//     by arithmetic.
+// The wide form (WIDE, C > 256: up to 16 CTAs of 64 or 128 channels, a
+// non-portable cluster size past 8). A full-width source per CTA no longer
+// fits (tw * C * elt bytes: 147,456 at C 512 in bf16 with the smallest
+// window), so each CTA keeps only its own slices of cur, ybuf and ubuf, and
+// every product streams its source from the cluster's CTAs in KC-channel
+// chunks:
+//   - bf16: wgmma reads only CTA-local shared memory, so each chunk is
+//     copied into a ring of two chunk buffers (abuf) beside the weight
+//     ring, over distributed shared memory (ld.shared::cluster, leaky
+//     applied where the source is cur), then a proxy fence and the
+//     consumers' barrier. The other route, the source through an
+//     L2-resident scratch by TMA, would write every convolution's output
+//     to device memory and fence it before any peer could load it; the
+//     DSMEM copy moves the same bytes as the narrow form's gather, from
+//     the peer's shared memory, with no global round trip. The weight
+//     stages come chunk-major (mrf.py ``product_images``). With two chunk
+//     buffers
+//     one barrier a chunk suffices, and a warpgroup copies the next chunk
+//     while the other may still compute on the last. At 128-channel slices
+//     (wgmma N = 128) a consumer warpgroup holds at most two 64-row tiles
+//     of accumulators, so the window is at most 256 rows.
+//   - f32: the FMA threads read a peer's slice in place (generic loads of
+//     ``mapa`` addresses), one peer after another along K.
+//   - A branch's input is loaded by each CTA for its own slice only, so a
+//     cluster barrier follows each branch's start (the producer warp takes
+//     part in it as in every other).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,18 +184,14 @@ typedef __nv_bfloat16 bf16;
 constexpr int HALO = 64;
 // input rows of halo on each side of the ups_mrf tile, at least
 constexpr int IN_HALO = 8;
-// input channels (padded) the ups_mrf tile takes at most
-constexpr int MAX_C_IN = 1024;
-// The level's branches (kernel sizes) and units (dilations) travel in the
-// launch's parameter block (Params, ~1.7 KB of the 4 KB a launch takes).
 // Every unit of a kernel size of at least 2 adds at least 2 samples to its
-// branch's span, which the halo bounds: HALO / 2 units; branches are held
-// to the same count (mrf.py MAX_BRANCHES, MAX_UNITS). A 1-tap convolution
-// reads no neighbour, so its dilation never matters: a level whose kernel
-// sizes are all 1 may have any number of units, of which p.dils holds the
-// first MAX_UNITS (unit_dil).
-constexpr int MAX_BRANCHES = HALO / 2;
+// branch's span, which the halo bounds: HALO / 2 units (mrf.py MAX_UNITS).
+// A 1-tap convolution reads no neighbour, so its dilation never matters: a
+// level whose kernel sizes are all 1 may have any number of units.
 constexpr int MAX_UNITS = HALO / 2;
+// CTAs per cluster: the narrow form (portable), the wide form
+constexpr int MAX_CLUSTER = 8;
+constexpr int WIDE_CLUSTER = 16;
 constexpr int MIN_STAGES = 2;
 constexpr int MAX_STAGES = 8;
 constexpr int KC = 64;          // K columns of a ring stage
@@ -187,19 +216,22 @@ __host__ __device__ inline size_t al128(size_t n) {
   return (n + 127) & ~(size_t)127;
 }
 
-// Shared memory of one CTA, byte offsets in carve order: the ring (bf16),
-// its mbarriers, a zero guard (bf16: a tile's rows shifted before the
-// window read it), cur, ubuf (ups_mrf), src (bf16, and f32 clusters), ybuf,
-// the f32 branch sum; the ups_mrf input tile starts at src and may reach
-// past the sum. bf16 buffers are planar (no row padding), f32 rows padded
-// by 16 bytes. mrf.py ``carve`` repeats this computation.
+// Shared memory of one CTA, byte offsets in carve order. Narrow: the ring
+// (bf16), its mbarriers, a zero guard (bf16: a tile's rows shifted before
+// the window read it), cur, ubuf (ups_mrf), src (bf16, and f32 clusters),
+// ybuf, the f32 branch sum; the ups_mrf input tile starts at src and may
+// reach past the sum. Wide: the ring, its mbarriers, ubuf, the guard, cur,
+// abuf (bf16: two KC-channel chunks of the source), ybuf, the sum; the
+// input tile starts at cur. The tile holds cw input channels. bf16 buffers
+// are planar (no row padding), f32 rows padded by 16 bytes. mrf.py
+// ``carve`` repeats this computation.
 struct Carve {
-  size_t ring, bars, guard, cur, ubuf, src, ybuf, sum, total;
+  size_t ring, bars, guard, cur, ubuf, src, abuf, ybuf, sum, tile, total;
 };
 
 __host__ __device__ inline Carve carve(int elt, int c, int cs, int t_tile,
-                                       int stages, bool ups, int c_in,
-                                       int in_rows) {
+                                       int stages, bool ups, int cw,
+                                       int in_rows, bool wide) {
   const bool mma = elt == 2;
   const int pad = mma ? 0 : 16 / elt;
   const int tw = t_tile + 2 * HALO;
@@ -207,32 +239,49 @@ __host__ __device__ inline Carve carve(int elt, int c, int cs, int t_tile,
   Carve v;
   v.ring = 0;
   v.bars = mma ? (size_t)stages * cs * KC * 2 : 0;
-  v.guard = v.bars + al128(2 * MAX_STAGES * 8);
-  v.cur = v.guard + (mma ? GUARD : 0);
-  v.ubuf = v.cur + slice;
-  v.src = v.ubuf + (ups ? slice : 0);
-  v.ybuf = v.src + (mma || cs < c ? al128((size_t)tw * (c + pad) * elt) : 0);
+  if (wide) {
+    v.ubuf = v.bars + al128(2 * MAX_STAGES * 8);
+    v.guard = v.ubuf + (ups ? slice : 0);
+    v.cur = v.guard + (mma ? GUARD : 0);
+    v.abuf = v.src = v.cur + slice;
+    v.ybuf = v.abuf + (mma ? 2 * al128((size_t)tw * KC * elt) : 0);
+    v.tile = v.cur;
+  } else {
+    v.guard = v.bars + al128(2 * MAX_STAGES * 8);
+    v.cur = v.guard + (mma ? GUARD : 0);
+    v.ubuf = v.cur + slice;
+    v.src = v.ubuf + (ups ? slice : 0);
+    v.ybuf = v.src + (mma || cs < c ? al128((size_t)tw * (c + pad) * elt) : 0);
+    v.abuf = v.ybuf;
+    v.tile = v.src;
+  }
   v.sum = v.ybuf + slice;
   v.total = v.sum + al128((size_t)t_tile * (cs + 1) * 4);
   if (ups) {
-    const size_t tile_end = v.src + al128((size_t)in_rows * (c_in + pad) * elt);
+    const size_t tile_end = v.tile + al128((size_t)in_rows * (cw + pad) * elt);
     if (tile_end > v.total) v.total = tile_end;
   }
   return v;
 }
 
-struct Branch {
-  const void* w1;
-  const void* b1;
-  const void* w2;
-  const void* b2;
-  int kr;
-};
+// a branch's record in the table: w1, w2 (pointers) and its kernel size
+// and span (the context it reads on each side) as kr | span << 16 (mrf.py
+// ``branch_table``)
+constexpr int REC = 3;
+
+// the branches whose packed kernel size and span, and the dilations,
+// travel in the launch's parameter block too (256 bytes of its 4 KB)
+constexpr int PARAM_BRANCHES = 32;
 
 struct Params {
-  Branch br[MAX_BRANCHES];
-  int n_br;
+  const long long* table;
+  // every bias of the level, [n_br, 2, U, C] (b1 then b2 of each branch)
+  const void* biases;
+  // the table's first PARAM_BRANCHES kr | span << 16 and its dilations
+  // (those of a kernel size of 2 or more: at most MAX_UNITS)
+  int krspan[PARAM_BRANCHES];
   int dils[MAX_UNITS];
+  int n_br;
   int n_units;
   const void* x;
   void* out;
@@ -246,14 +295,25 @@ struct Params {
   // ups_mrf only
   const void* up_w;       // f32: [k_up, C, C_in], taps reversed
   const float* up_b;      // [C]
-  int c_in, s_in, s_up, k_up, t_valid, in_halo, in_rows;
+  int c_in, cw, s_in, s_up, k_up, t_valid, in_halo, in_rows;
   Carve cv;
 };
 
-// unit u's dilation in a branch of kernel size kr (1 for a 1-tap
-// convolution, whose units may outnumber p.dils)
-__device__ __forceinline__ int unit_dil(const Params& p, int kr, int u) {
-  return kr > 1 ? p.dils[u] : 1;
+// The table's values: branch b's kernel size and span (packed) and its
+// weights k (0 w1, 1 w2), read through the read-only path. A load from
+// device memory on the path of each convolution stalls it (measured: 1-3%
+// of v1's levels 2-3 with the kernel sizes and dilations loaded a step
+// ahead, in lanes or registers), so the first PARAM_BRANCHES kernel sizes
+// and the dilations also come in the launch's parameter block (the entry
+// fills them from krs and dils), as before the table; the biases are one
+// tensor, addressed by arithmetic.
+__device__ __forceinline__ int branch_krspan(const Params& p, int b) {
+  return b < PARAM_BRANCHES ? p.krspan[b]
+                            : (int)__ldg(p.table + REC * b + 2);
+}
+__device__ __forceinline__ const void* branch_w(const Params& p, int b,
+                                                int k) {
+  return reinterpret_cast<const void*>(__ldg(p.table + REC * b + k));
 }
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -405,6 +465,22 @@ __device__ __forceinline__ uint4 ld_peer(uint32_t addr, int rank) {
   return v;
 }
 
+// the generic address of the same shared-memory location in cluster CTA
+// `rank` (plain loads through it read the peer's shared memory)
+template <typename T>
+__device__ __forceinline__ const T* peer_ptr(const T* p, int rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(r);
+}
+
+// generic-proxy writes to this CTA's shared memory ordered before the
+// async proxy's reads (wgmma's operands)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------- ring and tensor cores
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -488,6 +564,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b)
       : "l"(a), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // ---------------------------------------------------------- products
 
 // Element (row, ch) of a window buffer: f32 row-major with a row stride of
@@ -543,10 +628,10 @@ struct Ring {
 // KC / K taps side by side (the last group padded with zero taps, which
 // read the last tap's rows). One stage's products stay in flight while the
 // next stage's are issued.
-template <int NT, int CS>
+template <int NT, int CS, int MT>
 __device__ __forceinline__ void mainloop(const Prod<bf16>& pr, Ring& ring,
-                                         const int (&start)[MT_MAX],
-                                         float (&acc)[MT_MAX][CS / 2]) {
+                                         const int (&start)[MT],
+                                         float (&acc)[MT][CS / 2]) {
   const int kc = min(pr.k, KC), ksteps = kc / 16;
   const int kchunks = pr.k / kc, tps = KC / kc;
   const uint32_t lbo_a = pr.ld * 16;
@@ -578,6 +663,35 @@ __device__ __forceinline__ void mainloop(const Prod<bf16>& pr, Ring& ring,
   SPAN_END(CY_PRODUCTS, t0, threadIdx.x == 0);
 }
 
+// 64-row M tiles a consumer warpgroup holds at most at a slice of CS
+// channels: three (CS / 2 accumulators each), two at CS 128
+template <int CS>
+struct Tiles {
+  static constexpr int MT = CS > 64 ? 2 : MT_MAX;
+};
+
+// the main loop at this warpgroup's tile count, a template argument
+template <int CS, int MT>
+__device__ __forceinline__ void mainloop_tiles(int my_n,
+                                               const Prod<bf16>& pr,
+                                               Ring& ring,
+                                               const int (&start)[MT],
+                                               float (&acc)[MT][CS / 2]) {
+  if constexpr (MT >= 3) {
+    if (my_n >= 3) {
+      mainloop<3, CS, MT>(pr, ring, start, acc);
+      return;
+    }
+  }
+  if (my_n == 2) {
+    mainloop<2, CS, MT>(pr, ring, start, acc);
+  } else if (my_n == 1) {
+    mainloop<1, CS, MT>(pr, ring, start, acc);
+  } else {
+    mainloop<0, CS, MT>(pr, ring, start, acc);
+  }
+}
+
 // bf16 product on wgmma, A and B from shared memory. Warpgroup wg takes the
 // 64-row tiles wg, wg + 2, wg + 4 of the product; tile t starts at row
 // min(64 t, rows - 64), so no tile reaches past the rows (the last one
@@ -588,41 +702,45 @@ __device__ __forceinline__ void mainloop(const Prod<bf16>& pr, Ring& ring,
 // reads what the epilogue needs of the old window (a row's reads first: a
 // read after the previous pair's stores would wait for them), then
 // epi(row, channel, y, old), y the product plus the bias (B: the bias's
-// type) rounded to bf16.
-template <int CS, typename B, typename Pre, typename Epi>
+// type) rounded to bf16. GROUPED: K comes in `groups` groups of pr.k
+// channels, each from the source src_of(g) returns (which loads it and
+// meets the consumers' barrier), the accumulators running on across them.
+template <int CS, bool GROUPED, typename B, typename Pre, typename Epi,
+          typename Src>
 __device__ void product_mma(const Prod<bf16>& pr, Ring& ring, const B* bias,
-                            Pre pre, Epi epi) {
+                            Pre pre, Epi epi, int groups, Src src_of) {
+  constexpr int MT = Tiles<CS>::MT;
   const int tid = threadIdx.x, wg = tid >> 7, warp4 = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int n_mt = (pr.rows + 63) >> 6;
-  const int my_n = (n_mt - wg + 1) / 2;     // this warpgroup's tiles, 0..3
-  int start[MT_MAX];
+  const int my_n = (n_mt - wg + 1) / 2;     // this warpgroup's tiles, 0..MT
+  int start[MT];
 #pragma unroll
-  for (int mt = 0; mt < MT_MAX; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
     start[mt] = min(64 * (wg + 2 * mt), max(pr.rows - 64, 0));
   // this thread's bias pairs: channels nb * 8 + 2 * (lane & 3) + {0, 1}
   typename Pair<B>::type bv[CS / 8];
 #pragma unroll
   for (int nb = 0; nb < CS / 8; ++nb)
     bv[nb] = bias_pair(bias + nb * 8 + 2 * (lane & 3));
-  float acc[MT_MAX][CS / 2];
+  float acc[MT][CS / 2];
 #pragma unroll
-  for (int mt = 0; mt < MT_MAX; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int e = 0; e < CS / 2; ++e) acc[mt][e] = 0.f;
   // a warpgroup without a tile still walks the ring
-  if (my_n >= 3) {
-    mainloop<3, CS>(pr, ring, start, acc);
-  } else if (my_n == 2) {
-    mainloop<2, CS>(pr, ring, start, acc);
-  } else if (my_n == 1) {
-    mainloop<1, CS>(pr, ring, start, acc);
+  if constexpr (GROUPED) {
+    for (int g = 0; g < groups; ++g) {
+      Prod<bf16> pg = pr;
+      pg.src = src_of(g);
+      mainloop_tiles<CS, MT>(my_n, pg, ring, start, acc);
+    }
   } else {
-    mainloop<0, CS>(pr, ring, start, acc);
+    mainloop_tiles<CS, MT>(my_n, pr, ring, start, acc);
   }
   SPAN_START(t_epi);
 #pragma unroll
-  for (int mt = 0; mt < MT_MAX; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
     const int tile = wg + 2 * mt;
     if (mt >= my_n) continue;
 #pragma unroll
@@ -645,18 +763,57 @@ __device__ void product_mma(const Prod<bf16>& pr, Ring& ring, const B* bias,
   SPAN_END(CY_EPILOGUES, t_epi, threadIdx.x == 0);
 }
 
+// Rows [r0, r1) of KC source channels into dst (KC / 8 planes of tw rows):
+// the planes from plane0 of cluster CTA `peer`'s slice buffer at `buf` (a
+// shared-memory address, the same in every CTA of the cluster), read
+// through distributed shared memory in 16-byte pieces, leaky applied where
+// asked; then the proxy fence (wgmma reads dst) and the consumers' barrier.
+__device__ void copy_chunk(uint32_t buf, int peer, int plane0, bf16* dst,
+                           int r0, int r1, int tw, bool act) {
+  constexpr int NC = Cfg<bf16>::CONSUMERS;
+  constexpr int BATCH = 4;   // remote loads in flight per thread
+  const int rows = r1 - r0, n = rows * (KC / 8);
+  for (int i0 = threadIdx.x; i0 < n; i0 += BATCH * NC) {
+    uint4 v[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = min(i0 + k * NC, n - 1);
+      const int pl = i / rows, row = r0 + i % rows;
+      v[k] = ld_peer(buf + (uint32_t)(((plane0 + pl) * tw + row) * 16), peer);
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = i0 + k * NC;
+      if (i >= n) break;
+      const int pl = i / rows, row = r0 + i % rows;
+      if (act) {
+        v[k].x = leaky2(v[k].x);
+        v[k].y = leaky2(v[k].y);
+        v[k].z = leaky2(v[k].z);
+        v[k].w = leaky2(v[k].w);
+      }
+      *reinterpret_cast<uint4*>(dst + ((size_t)pl * tw + row) * 8) = v[k];
+    }
+  }
+  fence_proxy_async_shared();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
+}
+
 // f32 product on FMA: a thread owns 4 output channels x 8 rows. Tap j's
 // weights start at w + j * tap_stride, output channel co's row at
 // co * row_stride (co counted from the CTA's first channel). Source rows
 // are clamped to [0, src_rows): only rows outside the output's dependency
-// cone read past the window.
-template <typename Pre, typename Epi>
+// cone read past the window. WIDE: the source's channels lie in the
+// cluster's CTAs, `cs` each, at the same offset as pr.src: read in place,
+// one CTA after another along K. A null bias adds nothing.
+template <bool WIDE, typename Pre, typename Epi>
 __device__ void product_fma(const Prod<float>& pr, const float* __restrict__ w,
                             long tap_stride, long row_stride, int cs,
                             const float* bias, Pre pre, Epi epi) {
   constexpr int NC = Cfg<float>::CONSUMERS;
   const int cgs = cs / 4;
   const int n_units = cgs * ((pr.rows + 7) / 8);
+  const int n_pe = WIDE ? pr.k / cs : 1, kk = WIDE ? cs : pr.k;
   for (int unit = threadIdx.x; unit < n_units; unit += NC) {
     const int co = (unit % cgs) * 4;
     const int i0 = (unit / cgs) * 8;
@@ -666,37 +823,42 @@ __device__ void product_fma(const Prod<float>& pr, const float* __restrict__ w,
 #pragma unroll
       for (int r = 0; r < 8; ++r) acc[i][r] = 0.f;
     for (int j = 0; j < pr.n_taps; ++j) {
-      const float* wj = w + j * tap_stride + co * row_stride;
       const int a = pr.a0 + i0 + pr.off0 + j * pr.dstep;
-      const float* sp[8];
+      for (int pe = 0; pe < n_pe; ++pe) {
+        const float* base = WIDE ? peer_ptr(pr.src, pe) : pr.src;
+        const float* wj = w + j * tap_stride + co * row_stride + pe * kk;
+        const float* sp[8];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
-        sp[r] = pr.src + (size_t)min(max(a + r, 0), pr.src_rows - 1) * pr.ld;
-      for (int ci = 0; ci < pr.k; ci += 4) {
-        float4 wv[4];
+        for (int r = 0; r < 8; ++r)
+          sp[r] = base + (size_t)min(max(a + r, 0), pr.src_rows - 1) * pr.ld;
+        for (int ci = 0; ci < kk; ci += 4) {
+          float4 wv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wv[i] = __ldg(reinterpret_cast<const float4*>(wj + i * row_stride + ci));
+          for (int i = 0; i < 4; ++i)
+            wv[i] = __ldg(reinterpret_cast<const float4*>(wj + i * row_stride + ci));
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          float4 v = *reinterpret_cast<const float4*>(sp[r] + ci);
-          if (pr.leaky) {
-            v.x = leaky<float>(v.x);
-            v.y = leaky<float>(v.y);
-            v.z = leaky<float>(v.z);
-            v.w = leaky<float>(v.w);
-          }
+          for (int r = 0; r < 8; ++r) {
+            float4 v = *reinterpret_cast<const float4*>(sp[r] + ci);
+            if (pr.leaky) {
+              v.x = leaky<float>(v.x);
+              v.y = leaky<float>(v.y);
+              v.z = leaky<float>(v.z);
+              v.w = leaky<float>(v.w);
+            }
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][r] = fmaf(wv[i].x, v.x, acc[i][r]);
-            acc[i][r] = fmaf(wv[i].y, v.y, acc[i][r]);
-            acc[i][r] = fmaf(wv[i].z, v.z, acc[i][r]);
-            acc[i][r] = fmaf(wv[i].w, v.w, acc[i][r]);
+            for (int i = 0; i < 4; ++i) {
+              acc[i][r] = fmaf(wv[i].x, v.x, acc[i][r]);
+              acc[i][r] = fmaf(wv[i].y, v.y, acc[i][r]);
+              acc[i][r] = fmaf(wv[i].z, v.z, acc[i][r]);
+              acc[i][r] = fmaf(wv[i].w, v.w, acc[i][r]);
+            }
           }
         }
       }
     }
-    const float2 bv[2] = {bias_pair(bias + co), bias_pair(bias + co + 2)};
+    const float2 zero = make_float2(0.f, 0.f);
+    const float2 bv[2] = {bias ? bias_pair(bias + co) : zero,
+                          bias ? bias_pair(bias + co + 2) : zero};
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       if (i0 + r >= pr.rows) break;
@@ -761,8 +923,9 @@ __device__ void gather(const Params& p, T* src, const T* slice, int lo,
 // in the consumers' order, `stages` ahead of them; the warp takes part in
 // the cluster barrier that ends each product (it arrives after issuing the
 // product's stages and waits for that barrier only after issuing the next
-// product's, so the ring fills across boundaries).
-template <bool UPS>
+// product's, so the ring fills across boundaries), and in the wide form in
+// the one after each branch's start.
+template <bool UPS, bool WIDE>
 __device__ void producer(const Params& p, uint32_t ring, uint32_t full,
                          uint32_t empty, int rank) {
   const bool lead = (threadIdx.x & 31) == 0;
@@ -802,11 +965,14 @@ __device__ void producer(const Params& p, uint32_t ring, uint32_t full,
     }
     boundary();
   }
-  for (int b = 0; b < p.n_br; ++b)
+  for (int b = 0; b < p.n_br; ++b) {
+    const int kr = branch_krspan(p, b) & 0xffff;
+    if (WIDE) boundary();
     for (int u = 0; u < 2 * p.n_units; ++u) {
-      issue(p.br[b].kr, p.c);
+      issue(kr, p.c);
       boundary();
     }
+  }
   if (pending) cluster_wait();
 }
 
@@ -814,7 +980,11 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
-template <typename T, bool UPS, int CS>
+// CHUNKED (bf16 ups_mrf): the input tile loads in chunks of input channels;
+// without it the tile loads whole and the upsample keeps the products of
+// the forms before the chunks, register for register (the chunks' loop
+// holds the tile's addresses across the products, which spilled).
+template <typename T, bool UPS, int CS, bool WIDE, bool CHUNKED = false>
 __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
     level_kernel(const __grid_constant__ Params p) {
   constexpr bool MMA = sizeof(T) == 2;
@@ -831,7 +1001,8 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
   const int pos0 = tile0 - HALO;   // sequence position of window row 0
   const int s_out = p.s_in * p.s_up;
   const int t_len = UPS ? s_out * p.t_valid : p.t;   // valid positions
-  const bool gathers = p.n > 1;
+  // narrow clusters gather the full-width source; the wide form streams it
+  const bool gathers = !WIDE && p.n > 1;
   // layout strides (at<T>): planes of tw rows in bf16, padded rows in f32
   const int lds = MMA ? tw : cs + PAD, ldc = MMA ? tw : c + PAD;
   T* cur = reinterpret_cast<T*>(smem + cv.cur);
@@ -844,8 +1015,9 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 
   // every buffer starts at 0: rows a product leaves unwritten are read only
   // for rows outside the output's dependency cone
-  for (size_t i = tid; i < (cv.total - cv.guard) / 16; i += blockDim.x)
-    reinterpret_cast<uint4*>(smem + cv.guard)[i] = make_uint4(0, 0, 0, 0);
+  const size_t zero0 = cv.bars + al128(2 * MAX_STAGES * 8);
+  for (size_t i = tid; i < (cv.total - zero0) / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem + zero0)[i] = make_uint4(0, 0, 0, 0);
   if (MMA && tid == 0) {
     for (int i = 0; i < p.stages; ++i) {
       mbar_init(full + 8 * i, 1);    // the producer's arrive + the bytes
@@ -856,7 +1028,7 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
   cluster_sync();
   if constexpr (MMA) {
     if (tid >= NC) {
-      producer<UPS>(p, smem_u32(smem + cv.ring), full, empty, rank);
+      producer<UPS, WIDE>(p, smem_u32(smem + cv.ring), full, empty, rank);
       return;
     }
   }
@@ -867,13 +1039,35 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
     const int pos = pos0 + row;
     return pos >= 0 && pos < t_len;
   };
+  // a convolution's product; in the wide form its source (cur or ybuf, the
+  // same offset in every CTA of the cluster) comes from the cluster's CTAs
   auto run = [&](const Prod<T>& pr, const T* w, long tap_stride,
                  long row_stride, const auto* bias, auto pre, auto epi) {
     if constexpr (MMA) {
-      product_mma<CS>(pr, ring, bias, pre, epi);
+      if constexpr (WIDE) {
+        bf16* abuf = reinterpret_cast<bf16*>(smem + cv.abuf);
+        const size_t chunk = al128((size_t)tw * KC * 2) / 2;
+        const uint32_t sa = smem_u32(pr.src);
+        const int r0 = max(0, pr.a0 + pr.off0);
+        const int r1 = min(tw, pr.a0 + pr.rows + pr.off0 +
+                                   (pr.n_taps - 1) * pr.dstep);
+        Prod<T> pa = pr;
+        pa.ld = tw;
+        pa.k = KC;
+        product_mma<CS, true>(pa, ring, bias, pre, epi, pr.k / KC,
+                              [&](int g) -> const bf16* {
+          bf16* dst = abuf + (g & 1) * chunk;
+          copy_chunk(sa, g * KC / cs, (g * KC % cs) / 8, dst, r0, r1, tw,
+                     pr.leaky);
+          return dst;
+        });
+      } else {
+        product_mma<CS, false>(pr, ring, bias, pre, epi, 1,
+                               [](int) -> const bf16* { return nullptr; });
+      }
     } else {
-      product_fma(pr, reinterpret_cast<const float*>(w), tap_stride,
-                  row_stride, cs, bias, pre, epi);
+      product_fma<WIDE>(pr, reinterpret_cast<const float*>(w), tap_stride,
+                        row_stride, cs, bias, pre, epi);
     }
   };
   typedef typename Pair<T>::type P;
@@ -893,32 +1087,38 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 
   if constexpr (UPS) {
     // the input tile in sample order: row i holds input sample in0 + i,
-    // leaky applied, 0 outside [0, s_in * t_valid)
-    const int s = p.s_up, ci = p.c_in;
-    const int ldi = MMA ? p.in_rows : ci + PAD;
+    // leaky applied, 0 outside [0, s_in * t_valid); input channels in
+    // chunks of cw (all of C_in where the whole tile fits)
+    const int s = p.s_up, ci = p.c_in, cw = p.cw, n_g = ci / cw;
+    const int ldi = MMA ? p.in_rows : cw + PAD;
     const int in0 = floordiv(pos0, s) - p.in_halo;
-    T* tin = src;
+    T* tin = reinterpret_cast<T*>(smem + cv.tile);
     const T* x = static_cast<const T*>(p.x) + (size_t)b * p.s_in * ci * p.t;
-    // a thread takes VEC channels of a row: independent loads, coalesced
-    // across the warp's rows, one 16-byte store
-    const int n_in = ci / VEC * p.in_rows;
-    for (int it = tid; it < n_in; it += NC) {
-      const int ch = it / p.in_rows * VEC, row = it % p.in_rows;
-      const int q = in0 + row;
-      const int lane = floordiv(q, p.s_in), r_in = q - lane * p.s_in;
-      const bool ok = q >= 0 && lane < p.t_valid;
-      const T* xq = x + ((size_t)r_in * ci + ch) * p.t + lane;
-      float v[VEC];
+    // chunk g of the tile; a thread takes VEC channels of a row:
+    // independent loads, coalesced across the warp's rows, one 16-byte store
+    auto load_tile = [&](int g) {
+      const int n_in = cw / VEC * p.in_rows;
+      for (int it = tid; it < n_in; it += NC) {
+        const int ch = it / p.in_rows * VEC, row = it % p.in_rows;
+        const int q = in0 + row;
+        const int lane = floordiv(q, p.s_in), r_in = q - lane * p.s_in;
+        const bool ok = q >= 0 && lane < p.t_valid;
+        const T* xq = x + ((size_t)r_in * ci + g * cw + ch) * p.t + lane;
+        float v[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) v[k] = ok ? ld(xq + (size_t)k * p.t) : 0.f;
-      st_vec(tin + at<T>(row, ch, ldi), v, true);
+        for (int k = 0; k < VEC; ++k) v[k] = ok ? ld(xq + (size_t)k * p.t) : 0.f;
+        st_vec(tin + at<T>(row, ch, ldi), v, true);
+      }
+    };
+    if (n_g == 1) {
+      load_tile(0);
+      consumers_sync<T>();
     }
-    consumers_sync<T>();
     // per output phase r of the stride: window rows o_r + s * i take taps
     // m_first + j * s from input rows (sample order) q_r + i + offset
     const int pad_up = p.k_up - 1 - (p.k_up - s) / 2;
     const float* ub = p.up_b + rank * cs;
-    for (int r = 0; r < s; ++r) {
+    auto phase = [&](int r) {
       const int m_first = ((pad_up - r) % s + s) % s;
       const int o_r = ((r - pos0) % s + s) % s;
       Prod<T> pr;
@@ -926,7 +1126,7 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
       pr.ld = ldi;
       pr.src_rows = p.in_rows;
       pr.leaky = false;
-      pr.k = ci;
+      pr.k = cw;
       pr.n_taps = (p.k_up - m_first + s - 1) / s;
       pr.off0 = (r + m_first - pad_up) / s;    // exact
       pr.dstep = 1;
@@ -934,32 +1134,75 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
       pr.rows = (tw - o_r + s - 1) / s;
       pr.o0 = o_r;
       pr.ostride = s;
-      run(pr, static_cast<const T*>(p.up_w) + ((size_t)m_first * c + rank * cs) * ci,
-          (long)s * c * ci, ci, ub, no_pre, [&](int o, int col, P y, P) {
-            *pair(ubuf, o, col, lds) = valid(o) ? y : zero;
+      return pr;
+    };
+    if constexpr (MMA) {
+      for (int r = 0; r < s; ++r) {
+        const Prod<T> pr = phase(r);
+        auto epi = [&](int o, int col, P y, P) {
+          *pair(ubuf, o, col, lds) = valid(o) ? y : zero;
+        };
+        if constexpr (CHUNKED) {
+          // the tile's chunks in turn, the f32 sum in the accumulators
+          product_mma<CS, true>(pr, ring, ub, no_pre, epi, n_g,
+                                [&](int g) -> const bf16* {
+            if (n_g > 1) {
+              consumers_sync<T>();
+              load_tile(g);
+              fence_proxy_async_shared();
+              consumers_sync<T>();
+            }
+            return tin;
           });
+        } else {
+          product_mma<CS, false>(pr, ring, ub, no_pre, epi, 1,
+                                 [](int) -> const bf16* { return nullptr; });
+        }
+      }
+    } else {
+      // per chunk every phase, the f32 sum in ubuf; the bias and the mask
+      // with the last chunk
+      for (int g = 0; g < n_g; ++g) {
+        if (n_g > 1) {
+          if (g) consumers_sync<T>();
+          load_tile(g);
+          consumers_sync<T>();
+        }
+        const bool last_g = g == n_g - 1;
+        for (int r = 0; r < s; ++r) {
+          const Prod<T> pr = phase(r);
+          const int m_first = ((pad_up - r) % s + s) % s;
+          product_fma<false>(
+              pr, static_cast<const float*>(p.up_w) +
+                      ((size_t)m_first * c + rank * cs) * ci + g * cw,
+              (long)s * c * ci, ci, cs, last_g ? ub : nullptr,
+              [&](int o, int col) { return g ? *pair(ubuf, o, col, lds) : zero; },
+              [&](int o, int col, P y, P old) {
+                const P v = g ? p_add(old, y) : y;
+                *pair(ubuf, o, col, lds) = !last_g || valid(o) ? v : zero;
+              });
+        }
+      }
     }
     cluster_sync();
   }
 
   for (int br = 0; br < p.n_br; ++br) {
-    const Branch& bp = p.br[br];
-    const int kr = bp.kr;
+    const int krspan = branch_krspan(p, br);
+    const int kr = krspan & 0xffff, span = krspan >> 16;
     SPAN_START(t_branch);
-    // cur = the level's input over the window, and (bf16, clusters) src its
-    // activated copy, leaky(input)
+    // cur = the level's input over the window, and (bf16, narrow clusters)
+    // src its activated copy, leaky(input)
     if constexpr (UPS) {
-      for (int i = tid; i < (int)((cv.src - cv.ubuf) / 16); i += NC)
+      for (int i = tid; i < (int)(al128((size_t)tw * (cs + PAD) * sizeof(T)) / 16); i += NC)
         reinterpret_cast<uint4*>(cur)[i] = reinterpret_cast<const uint4*>(ubuf)[i];
-      if (MMA || gathers) gather(p, src, ubuf, 0, tw, lds, ldc, true);
+      if (!WIDE && (MMA || gathers)) gather(p, src, ubuf, 0, tw, lds, ldc, true);
     } else {
       // the rows this branch reads, VEC channels of a row per thread:
       // independent loads, coalesced across the warp's rows, 16-byte stores
-      int span = 0;
-      for (int u = 0; u < p.n_units; ++u)
-        span += (kr / 2) * (unit_dil(p, kr, u) + 1);
       const int r_lo = HALO - span, rows = p.t_tile + 2 * span;
-      const T* x = static_cast<const T*>(p.x) + (size_t)b * c * p.t;
+      const T* x = static_cast<const T*>(p.x) +
+                   ((size_t)b * c + (WIDE ? rank * cs : 0)) * p.t;
       const int n_x = (gathers ? c : cs) / VEC * rows;
       for (int it = tid; it < n_x; it += NC) {
         const int ch = it / rows * VEC, row = r_lo + it % rows;
@@ -969,19 +1212,22 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
         float v[VEC];
 #pragma unroll
         for (int k = 0; k < VEC; ++k) v[k] = ok ? ld(xp + (size_t)k * p.t) : 0.f;
-        if (MMA || gathers) st_vec(src + at<T>(row, ch, ldc), v, true);
+        if (!WIDE && (MMA || gathers)) st_vec(src + at<T>(row, ch, ldc), v, true);
         const int own = gathers ? ch - rank * cs : ch;
         if (own >= 0 && own < cs) st_vec(cur + at<T>(row, own, lds), v, false);
       }
     }
-    consumers_sync<T>();
+    // the wide form's peers read this CTA's cur
+    if constexpr (WIDE) {
+      cluster_sync();
+    } else {
+      consumers_sync<T>();
+    }
     SPAN_END(CY_BRANCH_START, t_branch, tid == 0);
     // span still to come after each convolution of this branch
-    int rest = 0;
-    for (int u = 0; u < p.n_units; ++u)
-      rest += (kr / 2) * (unit_dil(p, kr, u) + 1);
+    int rest = span;
     for (int u = 0; u < p.n_units; ++u) {
-      const int d = unit_dil(p, kr, u);
+      const int d = kr > 1 ? p.dils[u] : 1;
       const size_t wo = (size_t)u * c * kr * c;
       for (int half = 0; half < 2; ++half) {
         const bool first = half == 0;
@@ -991,9 +1237,10 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
         const int lo = max(0, HALO - rest);
         const int hi = min(tw, HALO + p.t_tile + rest);
         // sources: bf16 reads the activated copy in src (the first
-        // convolution's, or with clusters either's); f32 reads cur (leaky on
-        // load) or ybuf, or with clusters src
-        const bool from_src = gathers || (MMA && first);
+        // convolution's, or with narrow clusters either's); f32 reads cur
+        // (leaky on load) or ybuf, or with narrow clusters src; the wide
+        // form reads cur (leaky on the copy or load) or ybuf in every CTA
+        const bool from_src = !WIDE && (gathers || (MMA && first));
         Prod<T> pr;
         pr.src = from_src ? src : first ? cur : ybuf;
         pr.ld = from_src ? ldc : lds;
@@ -1007,9 +1254,14 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
         pr.rows = hi - lo;
         pr.o0 = lo;
         pr.ostride = 1;
-        const B* bias = static_cast<const B*>(first ? bp.b1 : bp.b2) + u * c + rank * cs;
-        const T* wgt = static_cast<const T*>(first ? bp.w1 : bp.w2) + wo +
-                       (size_t)rank * cs * kr * c;
+        const B* bias = static_cast<const B*>(p.biases) +
+                        ((size_t)(2 * br + (first ? 0 : 1)) * p.n_units + u) * c +
+                        rank * cs;
+        // (the f32 products read the weights through the table; bf16
+        // streams them through the ring)
+        const T* wgt = MMA ? nullptr
+                           : static_cast<const T*>(branch_w(p, br, first ? 0 : 1)) +
+                                 wo + (size_t)rank * cs * kr * c;
         if (first) {
           run(pr, wgt, c, (long)kr * c, bias, no_pre,
               [&](int o, int col, P y, P) {
@@ -1018,7 +1270,7 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
         } else {
           // one CTA per tile in bf16: the next unit's activated source is
           // written here, as the residual is
-          const bool act = MMA && !gathers && !last;
+          const bool act = !WIDE && MMA && !gathers && !last;
           run(pr, wgt, c, (long)kr * c, bias, cur_pre,
               [&](int o, int col, P y, P old) {
                 const P nv = valid(o) ? p_add(old, y) : zero;
@@ -1070,21 +1322,26 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 
 // ---------------------------------------------------------------- host
 
-// The branches' weights and spans into p; false on a shape the kernel does
-// not take.
-bool set_branches(Params& p, const void* const* wb, const int* krs, int n_br,
-                  const int* dils, int n_units) {
-  if (n_br < 1 || n_br > MAX_BRANCHES || n_units < 1) return false;
+// The branches into p; false on a shape the kernel does not take (the
+// table in device memory holds the same kernel sizes and spans, mrf.py
+// ``branch_table``).
+bool set_branches(Params& p, const void* table, const void* biases,
+                  const int* krs, int n_br, const int* dils, int n_units) {
+  if (!table || !biases || n_br < 1 || n_units < 1) return false;
   for (int u = 0; u < n_units; ++u)
     if (dils[u] < 1) return false;
-  for (int i = 0; i < n_br; ++i)
-    if (krs[i] > 1 && n_units > MAX_UNITS) return false;
   for (int i = 0; i < n_br; ++i) {
+    if (krs[i] < 1 || (krs[i] > 1 && n_units > MAX_UNITS)) return false;
     int span = 0;
     for (int u = 0; u < n_units; ++u) span += (krs[i] / 2) * (dils[u] + 1);
-    if (krs[i] < 1 || span > HALO) return false;
-    p.br[i] = Branch{wb[4 * i], wb[4 * i + 1], wb[4 * i + 2], wb[4 * i + 3],
-                     krs[i]};
+    if (span > HALO) return false;
+  }
+  p.table = static_cast<const long long*>(table);
+  p.biases = biases;
+  for (int i = 0; i < n_br && i < PARAM_BRANCHES; ++i) {
+    int span = 0;
+    for (int u = 0; u < n_units; ++u) span += (krs[i] / 2) * (dils[u] + 1);
+    p.krspan[i] = krs[i] | span << 16;
   }
   for (int u = 0; u < n_units && u < MAX_UNITS; ++u) p.dils[u] = dils[u];
   p.n_br = n_br;
@@ -1092,22 +1349,35 @@ bool set_branches(Params& p, const void* const* wb, const int* krs, int n_br,
   return true;
 }
 
-// The plan's own checks: a channel slice the kernels take, a window of at
-// most MAX_TW rows, a ring of MIN_STAGES..MAX_STAGES stages (bf16) and a
-// carve within the H100's shared memory per block.
+// The plan's own checks: a channel slice the form takes (narrow: a power
+// of two up to 256 channels in slices of 16-64, at most MAX_CLUSTER CTAs;
+// wide: slices of 64 or 128, at most WIDE_CLUSTER CTAs, bf16 windows of at
+// most two M tiles per warpgroup at 128), a window of at most MAX_TW rows,
+// a ring of MIN_STAGES..MAX_STAGES stages (bf16) and a carve within the
+// H100's shared memory per block.
 template <typename T>
-bool set_plan(Params& p, int c, int cs, int t_tile, int stages, bool ups) {
+bool set_plan(Params& p, int c, int cs, int t_tile, int stages, bool ups,
+              bool wide) {
   constexpr bool MMA = sizeof(T) == 2;
-  if (c < 16 || c > 256 || (c & (c - 1)) || cs < 16 || cs > 64 || c % cs ||
-      c / cs > 8 || t_tile < 16 || t_tile % 8 || t_tile + 2 * HALO > MAX_TW ||
+  const int tw = t_tile + 2 * HALO;
+  if (t_tile < 16 || t_tile % 8 || tw > MAX_TW ||
       (MMA && (stages < MIN_STAGES || stages > MAX_STAGES)))
     return false;
+  if (wide) {
+    if ((cs != 64 && cs != 128) || c % cs || c / cs > WIDE_CLUSTER ||
+        (MMA && cs > 64 && tw > 2 * 64 * 2))
+      return false;
+  } else if (c < 16 || c > 256 || (c & (c - 1)) || cs < 16 || cs > 64 ||
+             c % cs || c / cs > MAX_CLUSTER) {
+    return false;
+  }
   p.c = c;
   p.cs = cs;
   p.n = c / cs;
   p.t_tile = t_tile;
   p.stages = MMA ? stages : 0;
-  p.cv = carve(sizeof(T), c, cs, t_tile, p.stages, ups, p.c_in, p.in_rows);
+  p.cv = carve(sizeof(T), c, cs, t_tile, p.stages, ups, p.cw, p.in_rows,
+               wide);
   return p.cv.total <= (size_t)SMEM_LIMIT;
 }
 
@@ -1121,6 +1391,11 @@ int start(K kernel, const Params& p, int threads, long tiles, int batch,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)p.cv.total);
   if (err != cudaSuccess) return (int)err;
+  if (p.n > MAX_CLUSTER) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(tiles * p.n), (unsigned)batch, 1);
   cfg.blockDim = dim3(threads, 1, 1);
@@ -1139,29 +1414,50 @@ int start(K kernel, const Params& p, int threads, long tiles, int batch,
 }
 
 template <typename T, bool UPS>
-int dispatch(const Params& p, long tiles, int batch, int device,
+int dispatch(const Params& p, bool wide, long tiles, int batch, int device,
              cudaStream_t stream) {
   constexpr int TH = Cfg<T>::THREADS;
   if constexpr (sizeof(T) == 2) {
+    if (wide) {
+      switch (p.cs) {
+        case 64: return start(level_kernel<T, UPS, 64, true, UPS>, p, TH, tiles, batch, device, stream);
+        case 128:
+          // the tail's levels past 1,024 channels lie past the Pallas count
+          if constexpr (!UPS)
+            return start(level_kernel<T, UPS, 128, true>, p, TH, tiles, batch, device, stream);
+          return (int)cudaErrorInvalidValue;
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+    if (UPS && p.c_in > p.cw) {
+      switch (p.cs) {
+        case 16: return start(level_kernel<T, UPS, 16, false, UPS>, p, TH, tiles, batch, device, stream);
+        case 32: return start(level_kernel<T, UPS, 32, false, UPS>, p, TH, tiles, batch, device, stream);
+        case 64: return start(level_kernel<T, UPS, 64, false, UPS>, p, TH, tiles, batch, device, stream);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
     switch (p.cs) {
-      case 16: return start(level_kernel<T, UPS, 16>, p, TH, tiles, batch, device, stream);
-      case 32: return start(level_kernel<T, UPS, 32>, p, TH, tiles, batch, device, stream);
-      case 64: return start(level_kernel<T, UPS, 64>, p, TH, tiles, batch, device, stream);
+      case 16: return start(level_kernel<T, UPS, 16, false>, p, TH, tiles, batch, device, stream);
+      case 32: return start(level_kernel<T, UPS, 32, false>, p, TH, tiles, batch, device, stream);
+      case 64: return start(level_kernel<T, UPS, 64, false>, p, TH, tiles, batch, device, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
-    return start(level_kernel<T, UPS, 0>, p, TH, tiles, batch, device, stream);
+    if (wide)
+      return start(level_kernel<T, UPS, 0, true>, p, TH, tiles, batch, device, stream);
+    return start(level_kernel<T, UPS, 0, false>, p, TH, tiles, batch, device, stream);
   }
 }
 
 template <typename T>
-int launch(const void* x, void* out, const void* const* wb,
-           const void* packed, long long rank_elems, const int* krs,
-           int n_br, const int* dils, int n_units, int batch, int c, int t,
-           int cs, int t_tile, int stages, int device, cudaStream_t stream) {
+int launch(const void* x, void* out, const void* table, const void* biases,
+           const void* packed, long long rank_elems, const int* krs, int n_br, const int* dils,
+           int n_units, int batch, int c, int t, int cs, int t_tile,
+           int stages, int wide, int device, cudaStream_t stream) {
   Params p = {};
-  if (!set_branches(p, wb, krs, n_br, dils, n_units) ||
-      !set_plan<T>(p, c, cs, t_tile, stages, false) || batch < 1 ||
+  if (!set_branches(p, table, biases, krs, n_br, dils, n_units) ||
+      !set_plan<T>(p, c, cs, t_tile, stages, false, wide) || batch < 1 ||
       batch > 65535 || t < 1 || (sizeof(T) == 2 && (!packed || rank_elems < 1)))
     return (int)cudaErrorInvalidValue;
   p.x = x;
@@ -1170,21 +1466,25 @@ int launch(const void* x, void* out, const void* const* wb,
   p.rank_elems = rank_elems;
   p.t = t;
   p.s_in = p.s_up = 1;
-  return dispatch<T, false>(p, (t + t_tile - 1) / t_tile, batch, device, stream);
+  return dispatch<T, false>(p, wide, (t + t_tile - 1) / t_tile, batch, device,
+                            stream);
 }
 
 template <typename T>
 int launch_ups(const void* x, void* out, const void* up_w, const float* up_b,
-               const void* const* wb, const void* packed,
-               long long rank_elems, const int* krs, int n_br,
-               const int* dils, int n_units, int batch, int c_in, int c,
-               int s_in, int s_up, int k_up, int t_ps, int t_valid, int cs,
-               int t_tile, int stages, int device, cudaStream_t stream) {
+               const void* table, const void* biases, const void* packed,
+               long long rank_elems,
+               const int* krs, int n_br, const int* dils, int n_units,
+               int batch, int c_in, int c, int s_in, int s_up, int k_up,
+               int t_ps, int t_valid, int cs, int t_tile, int stages,
+               int wide, int cw, int device, cudaStream_t stream) {
   Params p = {};
   const int s_out = s_in * s_up;
+  // C_in and its tile chunk: a power of two below KC (whole), else
+  // multiples of KC
   if (s_in < 1 || s_up < 2 || s_out > 4 || k_up < s_up || (k_up - s_up) % 2 ||
-      c_in < 16 || c_in > MAX_C_IN ||
-      (c_in < KC ? KC % c_in : c_in % KC) || t_tile % s_out)
+      c_in < 16 || (c_in < KC ? KC % c_in : c_in % KC) || cw < 16 ||
+      c_in % cw || (cw < KC ? cw != c_in : cw % KC) || t_tile % s_out)
     return (int)cudaErrorInvalidValue;
   // the input rows the farthest tap reaches away from its output's own
   // input sample (ups_mrf.py tap_reach), held by the tile's halo
@@ -1192,6 +1492,7 @@ int launch_ups(const void* x, void* out, const void* up_w, const float* up_b,
   const int reach = max((pad_up + s_up - 1) / s_up,
                         (s_up - 1 + k_up - 1 - pad_up) / s_up);
   p.c_in = c_in;
+  p.cw = cw;
   p.s_in = s_in;
   p.s_up = s_up;
   p.k_up = k_up;
@@ -1200,8 +1501,8 @@ int launch_ups(const void* x, void* out, const void* up_w, const float* up_b,
   // more on each side
   p.in_rows =
       max((t_tile + 2 * HALO + s_up - 1) / s_up, 64) + 2 * p.in_halo + 1;
-  if (!set_branches(p, wb, krs, n_br, dils, n_units) ||
-      !set_plan<T>(p, c, cs, t_tile, stages, true) || batch < 1 ||
+  if (!set_branches(p, table, biases, krs, n_br, dils, n_units) ||
+      !set_plan<T>(p, c, cs, t_tile, stages, true, wide) || batch < 1 ||
       batch > 65535 || t_ps < 1 || t_valid < 0 || t_valid > t_ps ||
       (sizeof(T) == 2 && (!packed || rank_elems < 1)))
     return (int)cudaErrorInvalidValue;
@@ -1214,62 +1515,72 @@ int launch_ups(const void* x, void* out, const void* up_w, const float* up_b,
   p.t = t_ps;
   p.t_valid = t_valid;
   const long samples = (long)s_out * t_ps;
-  return dispatch<T, true>(p, (samples + t_tile - 1) / t_tile, batch, device,
-                           stream);
+  return dispatch<T, true>(p, wide, (samples + t_tile - 1) / t_tile, batch,
+                           device, stream);
 }
 
 }  // namespace
 
-// wb: per kernel size (w1, b1, w2, b2); the f32 entries read the weights
-// there ([U, C, kr*C], j-major im2col columns), the bf16 entries read the
-// biases there and the weights from `packed` (mrf.py ``pack_weights``)
-extern "C" int mrf_f32(const void* x, void* out, const void* const* wb,
-                       const void* packed, long long rank_elems,
+// table: per kernel size the pointers of w1, w2 and kr | span << 16
+// (mrf.py ``branch_table``), and biases: every bias of the level (mrf.py
+// ``pack_biases``), both in device memory; krs and dils: the same
+// on the host, checked before the launch. The f32 entries read the weights
+// through the table ([U, C, kr*C], j-major im2col columns), the bf16
+// entries from `packed` (mrf.py ``pack_weights``). wide: the wide form
+// (mrf.py ``plan``).
+extern "C" int mrf_f32(const void* x, void* out, const void* table,
+                       const void* biases, const void* packed,
+                       long long rank_elems,
                        const int* krs, int n_br, const int* dils, int n_units,
                        int batch, int c, int t, int cs, int t_tile,
-                       int stages, int device, cudaStream_t stream) {
-  return launch<float>(x, out, wb, packed, rank_elems, krs, n_br, dils,
-                       n_units, batch, c, t, cs, t_tile, stages, device,
-                       stream);
+                       int stages, int wide, int device,
+                       cudaStream_t stream) {
+  return launch<float>(x, out, table, biases, packed, rank_elems, krs, n_br,
+                       dils, n_units, batch, c, t, cs, t_tile, stages, wide,
+                       device, stream);
 }
 
-extern "C" int mrf_bf16(const void* x, void* out, const void* const* wb,
-                        const void* packed, long long rank_elems,
+extern "C" int mrf_bf16(const void* x, void* out, const void* table,
+                        const void* biases, const void* packed,
+                        long long rank_elems,
                         const int* krs, int n_br, const int* dils,
                         int n_units, int batch, int c, int t, int cs,
-                        int t_tile, int stages, int device,
+                        int t_tile, int stages, int wide, int device,
                         cudaStream_t stream) {
-  return launch<bf16>(x, out, wb, packed, rank_elems, krs, n_br, dils,
-                      n_units, batch, c, t, cs, t_tile, stages, device,
-                      stream);
+  return launch<bf16>(x, out, table, biases, packed, rank_elems, krs, n_br,
+                      dils, n_units, batch, c, t, cs, t_tile, stages, wide,
+                      device, stream);
 }
 
+// cw: the input channels of a tile chunk (c_in where the tile loads whole)
 extern "C" int ups_mrf_f32(const void* x, void* out, const void* up_w,
-                           const float* up_b, const void* const* wb,
-                           const void* packed, long long rank_elems,
+                           const float* up_b, const void* table,
+                           const void* biases, const void* packed,
+                           long long rank_elems,
                            const int* krs, int n_br, const int* dils,
                            int n_units, int batch, int c_in, int c, int s_in,
                            int s_up, int k_up, int t_ps, int t_valid, int cs,
-                           int t_tile, int stages, int device,
-                           cudaStream_t stream) {
-  return launch_ups<float>(x, out, up_w, up_b, wb, packed, rank_elems, krs,
-                           n_br, dils, n_units, batch, c_in, c, s_in, s_up,
-                           k_up, t_ps, t_valid, cs, t_tile, stages, device,
-                           stream);
+                           int t_tile, int stages, int wide, int cw,
+                           int device, cudaStream_t stream) {
+  return launch_ups<float>(x, out, up_w, up_b, table, biases, packed,
+                           rank_elems, krs, n_br, dils, n_units, batch, c_in,
+                           c, s_in, s_up, k_up, t_ps, t_valid, cs, t_tile,
+                           stages, wide, cw, device, stream);
 }
 
 extern "C" int ups_mrf_bf16(const void* x, void* out, const void* up_w,
-                            const float* up_b, const void* const* wb,
-                            const void* packed, long long rank_elems,
+                            const float* up_b, const void* table,
+                            const void* biases, const void* packed,
+                            long long rank_elems,
                             const int* krs, int n_br, const int* dils,
                             int n_units, int batch, int c_in, int c, int s_in,
                             int s_up, int k_up, int t_ps, int t_valid, int cs,
-                            int t_tile, int stages, int device,
-                            cudaStream_t stream) {
-  return launch_ups<bf16>(x, out, up_w, up_b, wb, packed, rank_elems, krs,
-                          n_br, dils, n_units, batch, c_in, c, s_in, s_up,
-                          k_up, t_ps, t_valid, cs, t_tile, stages, device,
-                          stream);
+                            int t_tile, int stages, int wide, int cw,
+                            int device, cudaStream_t stream) {
+  return launch_ups<bf16>(x, out, up_w, up_b, table, biases, packed,
+                          rank_elems, krs, n_br, dils, n_units, batch, c_in,
+                          c, s_in, s_up, k_up, t_ps, t_valid, cs, t_tile,
+                          stages, wide, cw, device, stream);
 }
 
 #ifdef MRF_CYCLES

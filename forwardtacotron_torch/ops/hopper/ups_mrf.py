@@ -19,11 +19,11 @@ import torch.nn.functional as F
 from forwardtacotron_torch.ops.hopper import build
 from forwardtacotron_torch.ops.hopper import mrf as mrf_ops
 
-# the kernel's limits: phases out of one level (the JAX gate's) and input
-# channels, padded (mrf.cu MAX_C_IN); the input tile's halo is IN_HALO rows,
-# or the farthest upsampler tap's reach where that is more (in_halo)
+# the kernel's limits: phases out of one level (the JAX gate's); any number
+# of input channels (the input tile loads in chunks of them where it does
+# not fit whole, ``mrf.plan``); the input tile's halo is IN_HALO rows, or
+# the farthest upsampler tap's reach where that is more (in_halo)
 MAX_PHASES = 4
-MAX_IN_CHANNELS = 1024
 IN_HALO = mrf_ops.IN_HALO
 
 # launches of the CUDA kernel since the count was last set to 0
@@ -77,34 +77,57 @@ def level_error(s_in: int, s_up: int, c_in: int,
     if k_up < s_up or (k_up - s_up) % 2:
         return (f'upsampler kernel size {k_up} at rate {s_up}: the kernel '
                 f'takes k >= s with k - s even')
-    if not 0 < c_in or mrf_ops.padded_in_channels(c_in) > MAX_IN_CHANNELS:
-        return (f'C_in={c_in}: the kernel takes 1 to {MAX_IN_CHANNELS} '
-                'input channels')
+    if c_in < 1:
+        return f'C_in={c_in}: the kernel takes at least 1 input channel'
     return None
+
+
+def pallas_vmem_bytes(s_in: int, s_up: int, c_in: int, c: int, k_up: int,
+                      krs: Sequence[int], n_units: int, elt: int) -> int:
+    """At least the VMEM one ``ups_mrf_pallas`` step holds at its smallest
+    tile (128 lanes), as the JAX generator calls it: its unblocked weights
+    (the upsampler's kernel in the activation's dtype and its float32 bias,
+    the MRF's weights with float32 biases) and the double-buffered input
+    window, input and output masks and output blocks, in an ``elt``-byte
+    dtype (ops/pallas/mrf.py:293-330)."""
+    s_out = s_in * s_up
+    t_tile = 128
+    t_w = t_tile + 2 * (-(-mrf_ops.HALO // s_out) + 8)
+    weights = (k_up * c_in * c * elt + 4 * c
+               + sum(2 * n_units * (c * kr * c * elt + 4 * c) for kr in krs))
+    blocks = 2 * (s_in * c_in * t_w + 2 * t_w + s_out * c * t_tile) * elt
+    return weights + blocks
 
 
 def plan(dtype: torch.dtype, s_in: int, s_up: int, c_in: int, c: int,
          k_up: int, krs: Sequence[int], dils: Sequence[int],
          smem_limit: Optional[int] = None) -> dict:
     """The launch plan of one level of the tail (``mrf.plan`` with the
-    upsample's input tile and kept output); raises ValueError with the
-    reason where none fits. Needs no card."""
+    upsample's input tile and kept output, past the old shapes only where
+    :func:`pallas_vmem_bytes` stays within the Pallas kernel's scoped
+    limit); raises ValueError with the reason where none fits. Needs no
+    card."""
     err = level_error(s_in, s_up, c_in, k_up)
     if err:
         raise ValueError(err)
+    elt = 2 if dtype == torch.bfloat16 else 4
     return mrf_ops.plan(dtype, c, krs, dils, c_in=c_in, s_out=s_in * s_up,
                         s_up=s_up, smem_limit=smem_limit,
-                        in_halo=in_halo(s_up, k_up))
+                        in_halo=in_halo(s_up, k_up),
+                        pallas_need=pallas_vmem_bytes(
+                            s_in, s_up, c_in, c, k_up, krs, len(dils), elt))
 
 
 def shape_error(s_in: int, s_up: int, c_in: int, c: int, k_up: int,
-                krs: Sequence[int], dils: Sequence[int]) -> Optional[str]:
-    """Why the kernel cannot take this level (in float32 or bfloat16), or
-    None when it can. Needs no card: the wrapper raises with it, and the
-    generator's gate consults it for every level of the tail."""
-    for dtype in (torch.float32, torch.bfloat16):
+                krs: Sequence[int], dils: Sequence[int],
+                dtype: Optional[torch.dtype] = None) -> Optional[str]:
+    """Why the kernel cannot take this level in ``dtype`` (default:
+    float32 or bfloat16), or None when it can. Needs no card: the wrapper
+    raises with it, and the generator's gate consults it for every level
+    of the tail with the activation's dtype."""
+    for dt in (dtype,) if dtype else (torch.float32, torch.bfloat16):
         try:
-            plan(dtype, s_in, s_up, c_in, c, k_up, krs, dils)
+            plan(dt, s_in, s_up, c_in, c, k_up, krs, dils)
         except ValueError as e:
             return str(e)
     return None
@@ -121,14 +144,15 @@ def up_taps(s_up: int, k_up: int):
 
 def pack_weights(up_w: torch.Tensor, s_up: int,
                  weights: Tuple[torch.Tensor, ...], krs: Sequence[int],
-                 cs: int) -> torch.Tensor:
+                 cs: int, wide: bool = False, cw: int = 0) -> torch.Tensor:
     """The level's upsampler taps ([k, C, C_in], C and C_in padded to the
-    plan's) in the kernel's phase order (:func:`up_taps`), then its MRF
-    weights (``mrf.pack_weights``), as the bf16 ring streams them: [C / cs,
-    stages * cs * KC]."""
-    return torch.cat([mrf_ops.product_images(up_w[taps], cs)
+    plan's) in the kernel's phase order (:func:`up_taps`; each phase's
+    stages chunk-major where the input tile loads in chunks of ``cw``
+    channels), then its MRF weights (``mrf.pack_weights``), as the bf16
+    ring streams them: [C / cs, stages * cs * KC]."""
+    return torch.cat([mrf_ops.product_images(up_w[taps], cs, cw)
                       for taps in up_taps(s_up, up_w.shape[0])]
-                     + [mrf_ops.pack_weights(weights, krs, cs)],
+                     + [mrf_ops.pack_weights(weights, krs, cs, wide)],
                      1).contiguous()
 
 
@@ -180,6 +204,12 @@ class Prepared(NamedTuple):
     c_pad: int
     c_in_pad: int
     cs: int
+    table: torch.Tensor                 # ``mrf.branch_table``
+    biases: torch.Tensor                # ``mrf.pack_biases``
+    krs: Tuple[int, ...]
+    dils: Tuple[int, ...]
+    wide: bool
+    cw: int                             # input channels a tile chunk
 
 
 def prepare(up_w: torch.Tensor, up_b: torch.Tensor,
@@ -201,9 +231,13 @@ def prepare(up_w: torch.Tensor, up_b: torch.Tensor,
         up_w = F.pad(up_w, (0, ci_pad - c_in, 0, c_pad - c)).contiguous()
         up_b = F.pad(up_b, (0, c_pad - c))
         weights = mrf_ops.pad_weights(weights, krs, c, c_pad)
-    packed = pack_weights(up_w, int(s_up), weights, krs, pl['cs']) \
+    packed = pack_weights(up_w, int(s_up), weights, krs, pl['cs'],
+                          pl['wide'], pl['cw']) \
         if up_w.dtype == torch.bfloat16 else None
-    return Prepared(up_w, up_b, weights, packed, c_pad, ci_pad, pl['cs'])
+    return Prepared(up_w, up_b, weights, packed, c_pad, ci_pad, pl['cs'],
+                    mrf_ops.branch_table(weights, krs, dils),
+                    mrf_ops.pack_biases(weights, krs), krs, dils,
+                    pl['wide'], pl['cw'])
 
 
 def unpad_output(out: torch.Tensor, s_out: int, c: int) -> torch.Tensor:
@@ -218,10 +252,10 @@ def unpad_output(out: torch.Tensor, s_out: int, c: int) -> torch.Tensor:
 
 def _kernel(dtype):
     fn = getattr(build.library('mrf'), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong,
                                             ctypes.c_void_p, ctypes.c_int,
                                             ctypes.c_void_p] \
-        + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -232,9 +266,9 @@ def ups_mrf(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
             prepared: Optional[Prepared] = None) -> torch.Tensor:
     """Same contract as :func:`ups_mrf_plain`, one kernel launch on the GPU.
 
-    The kernel takes C as a power of two from 16 to 256 and C_in as a power
-    of two from 16 to 64 or a multiple of 64; others are padded with zero
-    channels, which is exact. ``prepared``: :func:`prepare` of these
+    The kernel takes C as ``mrf.mrf`` does and C_in as a power of two from
+    16 to 64 or a multiple of 64 (of the tile's chunk, ``mrf.plan``);
+    others are padded with zero channels, which is exact. ``prepared``: :func:`prepare` of these
     weights, made here when not given. What :func:`plan` refuses raises
     ``ValueError``."""
     if x.device.type == 'cpu':
@@ -279,17 +313,19 @@ def ups_mrf(x: torch.Tensor, up_w: torch.Tensor, up_b: torch.Tensor,
     if b and t_ps:
         prepared = prepared or prepare(up_w, up_b, weights, s_in, s_up, krs,
                                        dils)
-        mrf_ops.check_prepared('ups_mrf', prepared, pl)
-        if prepared.c_in_pad != ci_pad:
+        mrf_ops.check_prepared('ups_mrf', prepared, pl, krs, dils)
+        if (prepared.c_in_pad, prepared.cw) != (ci_pad, pl['cw']):
             raise ValueError(f'ups_mrf: the prepared weights are for C_in='
-                             f'{prepared.c_in_pad}, the plan takes {ci_pad}')
+                             f'{prepared.c_in_pad} in chunks of '
+                             f'{prepared.cw}, the plan takes {ci_pad} in '
+                             f'chunks of {pl["cw"]}')
         status = _kernel(dt)(
             build.ptr(x), build.ptr(out), build.ptr(prepared.up_w),
             build.ptr(prepared.up_b),
-            *mrf_ops.launch_args(prepared.weights, prepared.packed, krs,
-                                 dils), b, ci_pad, c_pad, s_in, s_up, k_up,
-            t_ps, t_valid, pl['cs'], pl['t_tile'], pl['stages'],
-            x.get_device(), build.stream_of(x))
+            *mrf_ops.launch_args(prepared, krs, dils), b, ci_pad, c_pad,
+            s_in, s_up, k_up, t_ps, t_valid, pl['cs'], pl['t_tile'],
+            pl['stages'], int(pl['wide']), pl['cw'], x.get_device(),
+            build.stream_of(x))
         build.check(status, 'ups_mrf')
         global launches
         launches += 1

@@ -202,8 +202,9 @@ def test_front_and_highway_raise_on_unsupported_shapes(dev):
 def test_gates_raise_where_kernels_refuse(dev):
     """Where the JAX package's gates send a part to a Pallas kernel and the
     CUDA kernel does not take its shape, the forward raises on the card
-    rather than run plain operations: an MRF level of 512 channels, a tail
-    level of 512 channels. A CBHG front projecting to 320 columns,
+    rather than run plain operations: an MRF level of 512 channels and a
+    tail level of 512 channels, both of v1's branch set (past the Pallas
+    kernel's VMEM). A CBHG front projecting to 320 columns,
     which the front kernel once refused, now launches it and matches the
     CPU."""
     from forwardtacotron_torch.models.layers import CBHG
@@ -220,20 +221,47 @@ def test_gates_raise_where_kernels_refuse(dev):
     _close([got.cpu()], [want], 1e-3)
     before = (cbhg.launches, mrf.launches, ups_mrf.launches)
     for kw, match in ((dict(upsample_initial_channel=1024,
-                            resblock_kernel_sizes=(3,),
-                            resblock_dilation_sizes=((1, 3, 5),),
                             fuse_mrf_max_ch=512), 'C=512'),
                       (dict(upsample_rates=(2, 2),
                             upsample_kernel_sizes=(4, 4),
                             upsample_initial_channel=1024,
-                            resblock_kernel_sizes=(3,),
-                            resblock_dilation_sizes=((1, 3, 5),),
                             fuse_ups_tail_max_ch=512), 'C=512')):
         gen = HiFiGANGenerator(num_mels=8, **kw).eval().to(dev)
         with torch.no_grad(), pytest.raises(NotImplementedError,
                                             match=match):
             gen(torch.randn(1, 4, 8, device=dev))
     assert (cbhg.launches, mrf.launches, ups_mrf.launches) == before
+
+
+@pytest.mark.parametrize('route', ['fuse_mrf_max_ch', 'fuse_ups_tail_max_ch'])
+def test_wide_generator_on_card_matches_cpu(dev, route, monkeypatch):
+    """Beside the refusals above: a bf16 generator whose first level has
+    512 channels with (3,) x (1, 3, 5), within the Pallas kernel's VMEM:
+    on the card its levels of 512 and 256 channels launch ``mrf.cu`` (the
+    wide form, then a narrow cluster; or the tail's level behind 1,024
+    inputs), against the same generator on the CPU, its device clause
+    patched so that the fused levels run the twins there."""
+    import copy
+
+    from forwardtacotron_torch.models import vocoder as vocoder_mod
+    from forwardtacotron_torch.models.vocoder import HiFiGANGenerator
+
+    torch.manual_seed(3)
+    gen = HiFiGANGenerator(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                           upsample_initial_channel=1024,
+                           resblock_kernel_sizes=(3,),
+                           resblock_dilation_sizes=((1, 3, 5),), num_mels=20,
+                           **{route: 512}).eval().to(torch.bfloat16)
+    mel = torch.randn(2, 40, 20, generator=torch.Generator().manual_seed(4))
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    with torch.no_grad():
+        want = gen(mel.to(torch.bfloat16))
+        before = (mrf.launches, ups_mrf.launches)
+        got = copy.deepcopy(gen).to(dev)(mel.to(dev, torch.bfloat16))
+        torch.cuda.synchronize()
+    assert (mrf.launches - before[0], ups_mrf.launches - before[1]) == (
+        (2, 0) if route == 'fuse_mrf_max_ch' else (0, 2))
+    _close([got.float().cpu()], [want.float()], BF16_TOL)
 
 
 @pytest.mark.parametrize('n,c_in,c', [(77, 80, 256), (33, 256, 256),
@@ -1187,18 +1215,18 @@ def test_mrf_kernel_fewest_ring_stages(dev, monkeypatch, c):
 
 
 def test_mrf_kernel_raises_on_unsupported_shapes(dev):
-    """C past the cap (512), more than 32 kernel sizes, a span past the
-    halo, a float16 input: raised before any launch."""
+    """C past the Pallas kernel's VMEM (v1's branch set at 512), more than
+    32 kernel sizes past it (C 256), a span past the halo, a float16 input:
+    raised before any launch."""
     g = torch.Generator().manual_seed(3)
     before = mrf.launches
-    x, weights = _mrf_inputs(g, 1, 512, 50, dev, torch.bfloat16, krs=(3,),
-                             units=1)
+    x, weights = _mrf_inputs(g, 1, 512, 50, dev, torch.bfloat16)
     with pytest.raises(ValueError, match='C=512'):
-        mrf.mrf(x, weights, (3,), (1,))
-    x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16,
-                             krs=(3,) * 33, units=1)
-    with pytest.raises(ValueError, match='at most 32'):
-        mrf.mrf(x, weights, (3,) * 33, (1,))
+        mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
+    x, weights = _mrf_inputs(g, 1, 256, 50, dev, torch.bfloat16,
+                             krs=(3,) * 33)
+    with pytest.raises(ValueError, match='Pallas'):
+        mrf.mrf(x, weights, (3,) * 33, (1, 3, 5))
     x, weights = _mrf_inputs(g, 1, 32, 50, dev, torch.bfloat16, krs=(13,))
     with pytest.raises(ValueError, match='halo'):
         mrf.mrf(x, weights, (13,), (1, 3, 5))
@@ -1206,6 +1234,41 @@ def test_mrf_kernel_raises_on_unsupported_shapes(dev):
     with pytest.raises(ValueError, match='float32 or bfloat16'):
         mrf.mrf(x, weights, (3, 7, 11), (1, 3, 5))
     assert mrf.launches == before
+
+
+# levels the kernel took first in the wide form (C > 256), with more than
+# 32 kernel sizes, or behind an input tile loaded in chunks: (C, kernel
+# sizes, dilations, dtypes)
+CLOSED_LEVELS = [
+    (320, (3,), (1, 3, 5), ('float32', 'bfloat16')),    # cluster of 5
+    (512, (3,), (1, 3, 5), ('bfloat16',)),               # 8
+    (1024, (1,), (1,), ('float32', 'bfloat16')),         # 16
+    (1061, (3,), (1,), ('bfloat16',)),                   # 9 x 128 channels
+    (641, (3,), (1,), ('float32', 'bfloat16')),          # 11
+    (64, tuple((3, 5, 1, 7)[i % 4] for i in range(33)), (1, 2),
+     ('float32', 'bfloat16')),
+    (128, tuple((3, 1)[i % 2] for i in range(40)), (1,),
+     ('float32', 'bfloat16'))]
+
+
+@pytest.mark.parametrize('c,krs,dils,dtypes', CLOSED_LEVELS,
+                         ids=['c320', 'c512', 'c1024', 'c1061', 'c641',
+                              '33_kernel_sizes', '40_kernel_sizes'])
+def test_mrf_kernel_closed_shapes(dev, c, krs, dils, dtypes):
+    """Levels the JAX gate sends to its Pallas kernel, within its VMEM,
+    that the kernel took first in this form: one launch each, against the
+    twin, over several tiles with a ragged edge."""
+    g = torch.Generator().manual_seed(c + len(krs))
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        x, weights = _mrf_inputs(g, 2, c, 450, dev, dtype, krs=krs,
+                                 units=len(dils))
+        before = mrf.launches
+        got = mrf.mrf(x, weights, krs, dils)
+        torch.cuda.synchronize()
+        assert mrf.launches == before + 1
+        _close([got.float()], [mrf.mrf_plain(x, weights, krs, dils).float()],
+               TOL if dtype == torch.float32 else BF16_TOL)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -1324,13 +1387,13 @@ def test_ups_mrf_kernel_wide_upsamplers_and_odd_inputs(
 
 def test_ups_mrf_kernel_raises_on_unsupported_shapes(dev):
     """Levels the kernel cannot take raise on the card: an upsampler with
-    k - s odd, more than 1,024 input channels, a rate of 8, a float16
-    input."""
+    k - s odd, input channels past the Pallas kernel's VMEM (16,384 in
+    bf16), a rate of 8, a float16 input."""
     g = torch.Generator().manual_seed(4)
     before = ups_mrf.launches
     for (s_in, s_up, k, c_in, c), match in (
             ((1, 2, 5, 64, 32), 'kernel size 5'),
-            ((1, 2, 4, 1088, 64), 'C_in'),
+            ((1, 2, 4, 16384, 64), 'C_in'),
             ((1, 8, 16, 64, 32), 'rate')):
         args = _ups_inputs(g, 1, s_in, s_up, k, c_in, c, 40, dev,
                            torch.bfloat16)
@@ -1340,6 +1403,58 @@ def test_ups_mrf_kernel_raises_on_unsupported_shapes(dev):
     with pytest.raises(ValueError, match='float32 or bfloat16'):
         ups_mrf.ups_mrf(*args, 1, 2, (3, 7, 11), (1, 3, 5), 40)
     assert ups_mrf.launches == before
+
+
+# tail levels the kernel took first in this form: (s_in, C_in, C, kernel
+# sizes, dilations, dtypes)
+CLOSED_TAIL_LEVELS = [
+    (1, 513, 256, (3,), (1, 3, 5), ('float32', 'bfloat16')),  # f32 chunks
+    (1, 1025, 64, (3, 7, 11), (1, 3, 5), ('float32', 'bfloat16')),
+    (1, 1024, 512, (3,), (1, 3, 5), ('bfloat16',)),      # wide, chunks
+    (1, 1024, 512, (1,), (1,), ('float32', 'bfloat16')),
+    (2, 640, 320, (3,), (1,), ('float32', 'bfloat16')),
+    (1, 2048, 32, (3, 7, 11), (1, 3, 5), ('float32', 'bfloat16')),
+    (2, 2048, 16, (3, 7, 11), (1, 3, 5), ('float32', 'bfloat16')),
+    (1, 128, 64, tuple((3, 5, 1, 7)[i % 4] for i in range(33)), (1,),
+     ('float32', 'bfloat16'))]
+
+
+def _ups_level(g, b, s_in, c_in, c, krs, dils, t_ps, dev, dtype):
+    x = _rand(g, (b, s_in * c_in, t_ps), 1.0, dev, dtype)
+    up_w = _rand(g, (4, c, c_in), (2 * c_in) ** -0.5, dev, dtype)
+    up_b = _rand(g, (c,), 0.1, dev, torch.float32)
+    weights = []
+    for kr in krs:
+        for _ in range(2):
+            weights += [_rand(g, (len(dils), c, kr * c), (kr * c) ** -0.5,
+                              dev, dtype),
+                        _rand(g, (len(dils), c, 1), 0.1, dev, torch.float32)]
+    return x, up_w, up_b, tuple(weights)
+
+
+@pytest.mark.parametrize('s_in,c_in,c,krs,dils,dtypes', CLOSED_TAIL_LEVELS,
+                         ids=['c256_in513', 'c64_in1025', 'c512_in1024',
+                              'c512_in1024_1tap', 'c320_in640_s2',
+                              'c32_in2048', 'c16_in2048_s2',
+                              '33_kernel_sizes'])
+def test_ups_mrf_kernel_closed_shapes(dev, s_in, c_in, c, krs, dils, dtypes):
+    """Tail levels the JAX gate sends to its Pallas kernel, within its
+    VMEM, that the kernel took first in this form (wide levels, input tiles
+    loaded in chunks of input channels at slices of 64, 32 and 16
+    channels, 33 kernel sizes): one launch each, against the twin, with
+    padding lanes."""
+    g = torch.Generator().manual_seed(c_in + len(krs))
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        args = (*_ups_level(g, 2, s_in, c_in, c, krs, dils, 150, dev, dtype),
+                s_in, 2, krs, dils, 146)
+        before = ups_mrf.launches
+        got = ups_mrf.ups_mrf(*args)
+        torch.cuda.synchronize()
+        assert ups_mrf.launches == before + 1
+        assert not got[..., 146:].any()
+        _close([got.float()], [ups_mrf.ups_mrf_plain(*args).float()],
+               TOL if dtype == torch.float32 else BF16_TOL)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

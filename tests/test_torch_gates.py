@@ -52,9 +52,10 @@ def test_mrf_gate_admits_only_kernel_shapes(monkeypatch):
     """On a card, over widths, caps, kernel sizes and dilations: the gate
     admits a level where the JAX gate does and the kernel takes it, and
     raises where the JAX gate admits a level the kernel does not take
-    (more than 256 channels); it never gives way to the per-convolution
-    path. The levels of 12 and 6 channels that the kernel once refused, of
-    128 and 256 channels and of even kernel sizes are admitted."""
+    (past the Pallas kernel's VMEM, in the activation's dtype); it never
+    gives way to the per-convolution path. The levels of 12 and 6 channels
+    that the kernel once refused, of 128 and 256 channels and of even
+    kernel sizes are admitted, and a bf16 level of 512 channels."""
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     admitted, raised = set(), set()
     for initial, (krs, dils) in itertools.product((96, 256, 40), MRF_BLOCKS):
@@ -80,15 +81,25 @@ def test_mrf_gate_admits_only_kernel_shapes(monkeypatch):
                     admitted.add(c)
     assert {12, 6, 48, 24, 64, 5, 10, 128} <= admitted  # 40 -> 20, 10, 5
     assert not raised
-    # a level past the kernel's 256 channels, which the JAX gate admits
+    # a level past the kernel's reach, which the JAX gate admits: v1's
+    # branch set at 512 channels, past the Pallas kernel's VMEM too
+    gen = HiFiGANGenerator(upsample_initial_channel=1024, num_mels=8)
+    gen.fuse_mrf_max_ch = 512
+    assert _jax_mrf_gate(monkeypatch, gen)(512)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(NotImplementedError, match='C=512'):
+            gen._mrf_fusable(512, torch.zeros(1, 512, 4, dtype=dtype))
+    assert gen._mrf_fusable(256, torch.zeros(1, 256, 4))
+    # (3,) x (1, 3, 5) at 512 channels: within the count in bf16, which the
+    # wide form takes; past it in f32
     gen = HiFiGANGenerator(upsample_initial_channel=1024,
                            resblock_kernel_sizes=(3,),
                            resblock_dilation_sizes=((1, 3, 5),), num_mels=8)
     gen.fuse_mrf_max_ch = 512
-    assert _jax_mrf_gate(monkeypatch, gen)(512)
-    with pytest.raises(NotImplementedError, match='C=512'):
+    assert gen._mrf_fusable(512, torch.zeros(1, 512, 4,
+                                             dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match='Pallas'):
         gen._mrf_fusable(512, torch.zeros(1, 512, 4))
-    assert gen._mrf_fusable(256, torch.zeros(1, 256, 4))
     # the per-convolution path on CPU tensors, whatever the shape
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: False)
     assert not gen._mrf_fusable(128, torch.zeros(1, 128, 4))
@@ -191,28 +202,36 @@ def test_cm_tail_gate_matches_jax(monkeypatch):
 
 
 def test_cm_tail_gate_raises_where_mrf_refuses(monkeypatch):
-    """A tail that the JAX gate admits with a level of 512 channels, which
-    ``mrf.cu`` does not take: the gate raises ``kernel_gap`` on a card,
-    naming the level, before any launch; a cap that starts the tail below
-    it is admitted."""
+    """A tail that the JAX gate admits with a level of 512 channels of v1's
+    branch set, which ``mrf.cu`` does not take (past the Pallas kernel's
+    VMEM): the gate raises ``kernel_gap`` on a card, naming the level,
+    before any launch; a cap that starts the tail below it is admitted. The
+    (3,) x (1, 3, 5) level of 512 channels is admitted in bf16 (the wide
+    form) and raises in f32 (past the count)."""
     import jax
 
     from forwardtacotron_tpu.models.vocoder import \
         HiFiGANGenerator as JaxHiFiGAN
     monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
     monkeypatch.setattr(jax, 'default_backend', lambda: 'tpu')
-    cfg = dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
-               resblock_dilation_sizes=((1, 3, 5),), num_mels=8)
+    cfg = dict(upsample_initial_channel=1024, num_mels=8)
     gen = HiFiGANGenerator(**cfg, fuse_tail_max_ch=512)
     assert JaxHiFiGAN(**cfg, fuse_tail_max_ch=512).bind(
         {})._tail_fusable(512, 0)
-    assert mrf.shape_error(512, (3,), (1, 3, 5))
+    assert mrf.shape_error(512, KRS, DILS)
     with pytest.raises(NotImplementedError,
                        match='tail level 0 .*C=512'):
         gen._tail_fusable(512, 0, torch.zeros(1, 1024, 4))
     gen.fuse_tail_max_ch = 256
     assert not gen._tail_fusable(512, 0, torch.zeros(1, 1024, 4))
     assert gen._tail_fusable(256, 1, torch.zeros(1, 512, 4))
+    gen = HiFiGANGenerator(**cfg, resblock_kernel_sizes=(3,),
+                           resblock_dilation_sizes=((1, 3, 5),),
+                           fuse_tail_max_ch=512)
+    assert gen._tail_fusable(512, 0, torch.zeros(1, 1024, 4,
+                                                 dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match='tail level 0 .*Pallas'):
+        gen._tail_fusable(512, 0, torch.zeros(1, 1024, 4))
 
 
 def test_cbhg_gates_admit_only_kernel_shapes(monkeypatch):
@@ -368,21 +387,17 @@ def test_ups_mrf_padding_is_exact():
 
 
 @pytest.mark.parametrize('kw,match', [
-    (dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
-          resblock_dilation_sizes=((1, 3, 5),), fuse_mrf_max_ch=512),
-     'C=512'),
+    (dict(upsample_initial_channel=1024, fuse_mrf_max_ch=512), 'C=512'),
     (dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
-          upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
-          resblock_dilation_sizes=((1, 3, 5),), fuse_ups_tail_max_ch=512),
+          upsample_initial_channel=1024, fuse_ups_tail_max_ch=512),
      'tail level 0 .*C=512'),
-    (dict(upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
-          resblock_dilation_sizes=((1, 3, 5),), fuse_tail_max_ch=512),
-     'C=512')], ids=['mrf', 'tail', 'cm_tail'])
+    (dict(upsample_initial_channel=1024, fuse_tail_max_ch=512), 'C=512')],
+    ids=['mrf', 'tail', 'cm_tail'])
 def test_generator_raises_where_kernel_refuses(monkeypatch, kw, match):
     """The generator's forward on a card (device clause patched) raises at
-    the first level the JAX gate admits and the kernel does not take,
-    before any launch; on the CPU the same generator runs per
-    convolution."""
+    the first level the JAX gate admits and the kernel does not take (v1's
+    branch set at 512 channels, past the Pallas kernel's VMEM), before any
+    launch; on the CPU the same generator runs per convolution."""
     gen = HiFiGANGenerator(num_mels=8, **kw).eval()
     mel = torch.zeros(1, 4, 8)
     with torch.no_grad():
@@ -392,3 +407,39 @@ def test_generator_raises_where_kernel_refuses(monkeypatch, kw, match):
         with pytest.raises(NotImplementedError, match=match):
             gen(mel)
     assert (mrf.launches, ups_mrf.launches) == before
+
+
+@pytest.mark.parametrize('route', ['fuse_mrf_max_ch', 'fuse_ups_tail_max_ch',
+                                   'fuse_tail_max_ch'])
+def test_gates_admit_wide_bf16_levels(monkeypatch, route):
+    """Beside the refusals above: with (3,) x (1, 3, 5), the level of 512
+    channels (behind 1,024 inputs in the tail) lies within the Pallas
+    kernel's VMEM in bf16, so on a card each route's gate admits it as the
+    JAX gate does, and each level's kernel has a plan; in f32 the same
+    level is past the count and the gate raises."""
+    import jax
+
+    from forwardtacotron_tpu.models.vocoder import \
+        HiFiGANGenerator as JaxHiFiGAN
+    monkeypatch.setattr(vocoder_mod, '_on_cuda', lambda x: True)
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'tpu')
+    cfg = dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+               upsample_initial_channel=1024, resblock_kernel_sizes=(3,),
+               resblock_dilation_sizes=((1, 3, 5),), num_mels=8)
+    gen = HiFiGANGenerator(**cfg, **{route: 512})
+    jgen = JaxHiFiGAN(**cfg, **{route: 512}).bind({})
+    x = torch.zeros(1, 1024, 8, dtype=torch.bfloat16)
+    u = torch.zeros(1, 512, 8, dtype=torch.bfloat16)
+    gate, want = {
+        'fuse_mrf_max_ch': (lambda x, u: gen._mrf_fusable(512, u),
+                            jgen._mrf_fusable(512)),
+        'fuse_ups_tail_max_ch': (lambda x, u: gen._ups_tail_fusable(
+            512, 0, x), jgen._ups_tail_fusable(512, 0, 8)),
+        'fuse_tail_max_ch': (lambda x, u: gen._tail_fusable(512, 0, x),
+                             jgen._tail_fusable(512, 0))}[route]
+    assert want and gate(x, u)
+    assert mrf.shape_error(512, (3,), DILS, torch.bfloat16) is None
+    assert ups_mrf.shape_error(1, 2, 1024, 512, 4, (3,), DILS,
+                               torch.bfloat16) is None
+    with pytest.raises(NotImplementedError, match='Pallas'):
+        gate(x.float(), u.float())

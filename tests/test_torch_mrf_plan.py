@@ -113,19 +113,22 @@ def test_plans_at_hifigan_levels():
 
 
 def test_plans_refuse():
-    """C past the cap, more than 32 kernel sizes, a span past the halo
-    (where more than 32 dilations of a kernel size of 2 or more land, also
-    beside 1-tap convolutions), another dtype, an
-    upsampler with k - s odd, C_in past the kernel's 1,024, more than 4
-    phases, and a shared memory that holds fewer ring stages than the
-    kernel needs: each raises with its reason, and ``shape_error`` reports
-    it. (A level of 1-tap convolutions only takes any number of
-    dilations, an upsampler any reach and C_in any width up to 1,024:
-    tests/test_torch_mrf_gaps.py.)"""
+    """C past the Pallas kernel's VMEM (HiFi-GAN's branch set at 512
+    channels), more than 32 kernel sizes past it (33 at C 64 plan), a span
+    past the halo (where more than 32 dilations of a kernel size of 2 or
+    more land, also beside 1-tap convolutions), another dtype, an
+    upsampler with k - s odd, C_in past the Pallas count (16,384 in bf16;
+    1,025 plans), more than 4 phases, and a shared memory that holds fewer ring
+    stages than the kernel needs: each raises with its reason, and
+    ``shape_error`` reports it. (A level of 1-tap convolutions only takes
+    any number of dilations, an upsampler any reach and C_in any width
+    within the count: tests/test_torch_mrf_gaps.py.)"""
     with pytest.raises(ValueError, match='C=512'):
         mrf.plan(torch.bfloat16, 512, KRS, DILS)
     assert 'C=512' in mrf.shape_error(512, KRS, DILS)
-    assert 'at most 32 kernel sizes' in mrf.shape_error(64, (3,) * 33, DILS)
+    assert mrf.shape_error(64, (3,) * 33, DILS) is None
+    assert 'Pallas kernel would hold' in mrf.shape_error(256, (3,) * 33,
+                                                         DILS)
     assert 'halo' in mrf.shape_error(64, (2,), (1,) * 33)
     assert 'halo' in mrf.shape_error(64, (1, 2), (1,) * 33)
     assert 'halo' in mrf.shape_error(64, KRS, (1,) * 9)
@@ -136,7 +139,9 @@ def test_plans_refuse():
         mrf.plan(torch.float16, 64, KRS, DILS)
     assert 'kernel size 5' in ups_mrf.shape_error(1, 2, 64, 32, 5, KRS,
                                                   DILS)
-    assert 'C_in=1025' in ups_mrf.shape_error(1, 2, 1025, 64, 4, KRS, DILS)
+    assert ups_mrf.shape_error(1, 2, 1025, 64, 4, KRS, DILS) is None
+    assert 'C_in=16384' in ups_mrf.shape_error(1, 2, 16384, 64, 4, KRS,
+                                               DILS, torch.bfloat16)
     assert 'rate 8' in ups_mrf.shape_error(1, 8, 64, 32, 16, KRS, DILS)
     assert 'phases' in ups_mrf.shape_error(2, 3, 64, 32, 5, KRS, DILS)
     # two ring stages of [64, 64] bf16 are 16,384 bytes: a limit that
@@ -435,3 +440,82 @@ def test_ups_stage_walk_matches_twin(s_in, s_up, k_up, c_in, c, t_ps,
     want = ups_mrf.ups_mrf_plain(x[None], up_w, up_b, weights, s_in, s_up,
                                  KRS, DILS, t_valid)[0]
     _close(got, want)
+
+
+def _chunked_taps(stream, n_taps, k, group):
+    """One product's taps read back from the stream where its source comes
+    in chunks of ``group`` input channels: per chunk every tap's stages."""
+    blocks = [[] for _ in range(n_taps)]
+    for _ in range(k // group):
+        for j, tap in enumerate(stream.taps(n_taps, group)):
+            blocks[j].append(tap)
+    return [torch.cat(b, 1) for b in blocks]
+
+
+@pytest.mark.parametrize('c,cs', [(320, 64), (384, 128)])
+def test_wide_packing_is_chunk_major(c, cs):
+    """The wide form streams each convolution's source in KC-channel chunks:
+    its stages come chunk by chunk, each chunk's taps in order, every
+    element once in the rank that owns its output channel."""
+    g = torch.Generator().manual_seed(c)
+    krs = (3, 2)
+    weights = _weights(g, c, krs=krs, units=2)
+    packed = mrf.pack_weights(weights, krs, cs, wide=True)
+    assert packed.shape == (c // cs, sum(krs) * 4 * (c // mrf.KC) * cs
+                            * mrf.KC)
+    s = _Stream(packed, cs)
+    for i, kr in enumerate(krs):
+        for u in range(2):
+            for w in (weights[4 * i][u], weights[4 * i + 2][u]):
+                for j, tap in enumerate(_chunked_taps(s, kr, c, mrf.KC)):
+                    assert torch.equal(tap, w[:, j * c:(j + 1) * c])
+    assert s.done()
+
+
+@pytest.mark.parametrize('c_in,c,cw,wide', [(640, 64, 320, False),
+                                            (1024, 320, 512, True)])
+def test_tile_chunk_packing(c_in, c, cw, wide):
+    """Where the tail's input tile loads in chunks of cw input channels,
+    each upsampler phase's stages come chunk by chunk, then the MRF's (in
+    the wide form chunk-major too); ``prepare`` packs what the plan takes
+    and fills the branch table."""
+    g = torch.Generator().manual_seed(cw)
+    cs = 64
+    weights = _weights(g, c, krs=(3,), units=1)
+    up_w = torch.randn(4, c, c_in, generator=g)
+    packed = ups_mrf.pack_weights(up_w, 2, weights, (3,), cs, wide, cw)
+    s = _Stream(packed, cs)
+    for taps in ups_mrf.up_taps(2, 4):
+        for j, tap in zip(taps, _chunked_taps(s, len(taps), c_in, cw)):
+            assert torch.equal(tap, up_w[j])
+    for w in (weights[0][0], weights[2][0]):
+        read = _chunked_taps(s, 3, c, mrf.KC) if wide else s.taps(3, c)
+        for j, tap in enumerate(read):
+            assert torch.equal(tap, w[:, j * c:(j + 1) * c])
+    assert s.done()
+    bf = tuple(w.to(torch.bfloat16) for w in weights)
+    pl = ups_mrf.plan(torch.bfloat16, 1, 2, c_in, c, 4, (3,), (1,))
+    prep = ups_mrf.prepare(up_w.to(torch.bfloat16), up_w.new_zeros(c), bf, 1,
+                           2, (3,), (1,))
+    assert (prep.wide, prep.cw, prep.c_in_pad) == (pl['wide'], pl['cw'],
+                                                   pl['c_in_pad'])
+    assert torch.equal(prep.packed, ups_mrf.pack_weights(
+        prep.up_w, 2, prep.weights, (3,), pl['cs'], pl['wide'], pl['cw']))
+    assert prep.table.tolist() == [
+        prep.weights[0].data_ptr(), prep.weights[2].data_ptr(),
+        3 | mrf.branch_span(3, (1,)) << 16]
+    assert torch.equal(prep.biases, torch.stack(
+        [prep.weights[1][..., 0], prep.weights[3][..., 0]])[None])
+
+
+def test_plans_of_the_old_shapes_are_unchanged():
+    """The plans of every shape the kernel took before the wide form (the
+    narrow form with the whole input tile) keep their fields, and the
+    tail's input tile loads whole."""
+    for c in WIDTHS:
+        for dtype in DTYPES:
+            pl = mrf.plan(dtype, c, KRS, DILS)
+            assert not pl['wide'] and pl['c_pad'] <= mrf.MAX_CHANNELS
+            upl = ups_mrf.plan(dtype, 1, 2, 2 * c, c, 4, KRS, DILS)
+            assert (upl['wide'], upl['groups']) == (False, 1)
+            assert upl['cw'] == upl['c_in_pad']
